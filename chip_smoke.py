@@ -5,11 +5,12 @@
 
 1. Card: the ``nvidia-smi`` name and power limit, then one ``nvcc`` per
    kernel source under ``veles_tpu_torch/csrc``, all started together.
-2. Kernel phase: every kernel at the shapes the serving path gives it,
-   held against its plain PyTorch version on the card within a stated
-   tolerance, and timed (CUDA events) beside its plain version, one
-   PyTorch library call computing the same function, and its bound
-   (bytes over 3.35 TB/s or operations over the type's peak, H100 SXM).
+2. Kernel phase: every kernel at the shapes the serving and training
+   paths give it, held against its plain PyTorch version on the card
+   within a stated tolerance (the Philox fill bit for bit), and timed
+   (CUDA events) beside its plain version, one PyTorch library call
+   computing the same function, and its bound (bytes over 3.35 TB/s or
+   operations over the type's peak, H100 SXM).
 3. Slice phase: full-width AlexNet-227 (float32, weights from numpy
    seed 42) behind ``ServingFrontend`` on 127.0.0.1 with one replica
    and max batch 64; concurrent single requests and one 64-row batch
@@ -22,12 +23,29 @@
    through the plain versions at batch 1 and 64, and a
    ``torch.profiler`` table of device time by kernel for one 64-row
    forward.
-5. The last line is ``{"ok": true, "device": {...}}``; any failure
-   raises and exits non-zero before it.
+5. Training phase: full-width AlexNet-227 trained by the port's
+   ``FusedTrainer`` at ``bench.py``'s settings (batch 128, SGD momentum
+   0.9, weight decay 5e-4, lr 0.01, softmax loss) over 512 training and
+   128 validation samples of ``SyntheticImageLoader`` (bf16 storage).
+   (a) Under float32, one step's loss and per-layer gradients through
+   the kernels are held against the same step through the plain
+   versions (same weights, batch and Philox bits, cuDNN deterministic);
+   a zeroed fc7 bias gradient and the dropout masks of another seed
+   must both fail that check. (b) 5 epochs of ``run_epoch`` under
+   float32 and then under bfloat16: per-epoch losses (all finite),
+   device step ms by CUDA events, samples/s and model FLOP/s. (c) The
+   launch counts: K1 and K3 twice per forward, K4, K6 and K7 at the
+   model's LRN, bias and dropout counts per step, every launch at a
+   checked form. (d) A ``torch.profiler`` table and split of one
+   training step's device time by kernel.
+6. The line before the last is ``{"kernels": [...], "not_ported":
+   [...]}``; the last is ``{"ok": true, "device": {...}}``. Any failure
+   raises and exits non-zero before them.
 """
 
 import base64
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -45,17 +63,28 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 
 GEMM_SOURCE = "veles_tpu_torch/csrc/gemm_bias_act.cu"
 LRN_SOURCE = "veles_tpu_torch/csrc/lrn_fwd.cu"
+LRN_BWD_SOURCE = "veles_tpu_torch/csrc/lrn_bwd.cu"
+REDUCE_SOURCE = "veles_tpu_torch/csrc/column_reduce.cu"
+UNIFORM_SOURCE = "veles_tpu_torch/csrc/uniform_fill.cu"
 #: the TPU kernels' pallas_call sites
 GEMM_BIAS_TPU = "veles_tpu/ops/gemm.py:414"
 GEMM_TPU = "veles_tpu/ops/gemm.py:410"
 LRN_TPU = "veles_tpu/ops/lrn.py:116"
+LRN_BWD_TPU = "veles_tpu/ops/lrn.py:131"
+KAHAN_TPU = "veles_tpu/ops/gemm.py:347"
+REDUCE_TPU = "veles_tpu/ops/reduce.py:73"
+UNIFORM_TPU = "veles_tpu/ops/random.py:82"
 
 #: tolerances, kernel vs plain version on the same inputs
 #: float32: both sum ~9216 products in float32 in different orders
 #: (~1e-6 on O(1) sums); bf16 outputs: one bf16 ulp (2^-8 relative)
 GEMM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
-#: float32: rsqrt chain (few ulp) vs pow; bf16: one bf16 ulp
+#: float32: rsqrt chain (few ulp) vs pow; bf16: one bf16 ulp. The
+#: backward adds a second window sum: still a few ulp on dx ~ 1
 LRN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
+#: column sums: reordering R float32 additions moves a sum by far less
+#: than 1e-6 of its column's sum of magnitudes
+REDUCE_REL_TOL = 1e-6
 #: served probabilities vs the plain-version forward: float32 sums in
 #: another order and cuDNN algorithms picked per batch size
 PROBS_ATOL = 1e-5
@@ -66,6 +95,34 @@ PROBS_ATOL = 1e-5
 LOGIT_REL_TOL = 1e-2
 #: the batch sizes the serving path runs: every power of two to 64
 BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+#: the training path: bench.py's batch, 4 training batches and one
+#: validation batch per epoch
+TRAIN_BATCH = 128
+TRAIN_SAMPLES = 512
+TRAIN_EPOCHS = 5
+#: every bias gradient of the training step, (rows, C) of the column sum
+REDUCE_SHAPES = (("conv1", TRAIN_BATCH * 56 * 56, 96),
+                 ("conv2", TRAIN_BATCH * 27 * 27, 256),
+                 ("conv3/conv4", TRAIN_BATCH * 13 * 13, 384),
+                 ("conv5", TRAIN_BATCH * 13 * 13, 256),
+                 ("fc6/fc7", TRAIN_BATCH, 4096),
+                 ("head", TRAIN_BATCH, 1000))
+#: Philox4x32-10 per value: 10 rounds of 2 multiplies, 2 high
+#: multiplies and 4 xors per counter, 18 key additions, over 4 values;
+#: then shift, convert, scale and affine map
+UNIFORM_OPS_PER_VALUE = 30
+#: the step check: a layer's gradient through the kernels vs the plain
+#: versions, as a share of its norm (float32, same Philox bits, cuDNN
+#: deterministic). Summation order alone would give ~1e-6, but where
+#: the LRN's kernel and plain outputs differ by an ulp on a near-tie of
+#: a max-pool window the two paths route that window's gradient to
+#: different elements, a full-size change: conv1's weight gradient read
+#: 2.2e-3 on an H100 (the script counts the flipped windows). A zeroed
+#: fc7 bias gradient reads 1, another seed's masks ~1
+GRAD_SHARE_TOL = 1e-2
+#: and the step's loss, relative
+LOSS_REL_TOL = 1e-5
+CHECK_SEED = 0x5EED
 
 
 def card_line():
@@ -127,16 +184,13 @@ def gemm_phase(torch):
         w32 = (torch.rand(k, n, device="cuda", generator=gen) * 2 - 1) \
             / k ** 0.5
         b32 = torch.rand(n, device="cuda", generator=gen) * 0.2 - 0.1
-        for m in BUCKETS:
+        for m in BUCKETS + (TRAIN_BATCH,):
             x32 = torch.rand(m, k, device="cuda", generator=gen) * 2 - 1
             for dtype in ("float32", "bfloat16"):
                 dt = getattr(torch, dtype)
                 x, w = x32.to(dt), w32.to(dt)
                 for bias in (b32, None):
-                    # serving runs float32 with a bias at every bucket;
-                    # the other forms are checked at the end buckets
-                    if m not in (1, 64) and (dtype != "float32" or
-                                             bias is None):
+                    if not gemm_form_checked(m, dtype, bias is not None):
                         continue
                     got = linear_act(x, w, bias, "strict_relu", dt)
                     want = linear_act_plain(x, w, bias, "strict_relu", dt)
@@ -174,6 +228,15 @@ def gemm_phase(torch):
     return rows
 
 
+def gemm_form_checked(m, dtype, has_bias):
+    """Serving runs float32 with a bias at every bucket, and the other
+    forms are checked at the end buckets; training runs float32 and
+    bfloat16 with a bias at its batch."""
+    if m == TRAIN_BATCH:
+        return has_bias
+    return m in (1, 64) or (dtype == "float32" and has_bias)
+
+
 def lrn_phase(torch):
     import torch.nn.functional as F
 
@@ -181,12 +244,13 @@ def lrn_phase(torch):
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(2)
     k, alpha, beta, n = 2.0, 1e-4, 0.75, 5
-    for shape in [(m, 56, 56, 96) for m in BUCKETS] + \
-            [(m, 27, 27, 256) for m in BUCKETS]:
+    for shape in [(m, 56, 56, 96) for m in BUCKETS + (TRAIN_BATCH,)] + \
+            [(m, 27, 27, 256) for m in BUCKETS + (TRAIN_BATCH,)]:
         x32 = torch.rand(*shape, device="cuda", generator=gen) * 40.0
-        # serving runs float32 at every bucket; bf16 at the full batch
-        for dtype in ("float32", "bfloat16") if shape[0] == 64 else \
-                ("float32",):
+        # serving runs float32 at every bucket; bf16 at the full batch;
+        # training both at its batch
+        for dtype in ("float32", "bfloat16") if shape[0] in (
+                64, TRAIN_BATCH) else ("float32",):
             x = x32.to(getattr(torch, dtype))
             got = lrn_forward(x, k, alpha, beta, n)
             want = lrn_forward_plain(x, k, alpha, beta, n)
@@ -215,6 +279,128 @@ def lrn_phase(torch):
     return rows
 
 
+def lrn_bwd_phase(torch):
+    import torch.nn.functional as F
+
+    from veles_tpu_torch.ops.lrn import lrn_backward, lrn_backward_plain
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    k, alpha, beta, n = 2.0, 1e-4, 0.75, 5
+    for shape in ((TRAIN_BATCH, 56, 56, 96), (TRAIN_BATCH, 27, 27, 256)):
+        x32 = torch.rand(*shape, device="cuda", generator=gen) * 40.0
+        g32 = torch.rand(*shape, device="cuda", generator=gen) * 2 - 1
+        for dtype in ("float32", "bfloat16"):
+            x, g = x32.to(getattr(torch, dtype)), g32.to(getattr(torch,
+                                                                 dtype))
+            got = lrn_backward(x, g, k, alpha, beta, n)
+            want = lrn_backward_plain(x, g, k, alpha, beta, n)
+            torch.cuda.synchronize()
+            name = "%s %s" % ("x".join(map(str, shape)), dtype)
+            err = check_close("lrn_bwd " + name, got, want, *LRN_TOL[dtype])
+            # the library yardstick: autograd's backward of torch's LRN
+            # on an NCHW copy (torch divides alpha by the window)
+            x_nchw = x.permute(0, 3, 1, 2).contiguous().requires_grad_()
+            y_nchw = F.local_response_norm(x_nchw, n, alpha * n, beta, k)
+            g_nchw = g.permute(0, 3, 1, 2).contiguous()
+            values = x.numel()
+            # per value: square, two window sums of n, the power, the
+            # quotient and the products of dx
+            bms, by = bound(3 * values * x.element_size(),
+                            values * (2 * n + 20), "float32")
+            rows.append({
+                "name": "lrn_bwd", "shape": name, "route": "cuda",
+                "_form": (shape, x.dtype),
+                "source": LRN_BWD_SOURCE, "replaces": LRN_BWD_TPU,
+                "max_abs_err": err, "tolerance": list(LRN_TOL[dtype]),
+                "ms": device_ms(torch, lambda: lrn_backward(
+                    x, g, k, alpha, beta, n)),
+                "plain_ms": device_ms(torch, lambda: lrn_backward_plain(
+                    x, g, k, alpha, beta, n)),
+                "bound_ms": bms, "bound_by": by,
+                "library_ms": device_ms(torch, lambda: torch.autograd.grad(
+                    y_nchw, x_nchw, g_nchw, retain_graph=True))})
+            del x_nchw, y_nchw, g_nchw
+    return rows
+
+
+def reduce_phase(torch):
+    from veles_tpu_torch.ops.reduce import column_sum, column_sum_plain
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for layer, r, c in REDUCE_SHAPES:
+        x = torch.randn(r, c, device="cuda", generator=gen) * 1e-3
+        got = column_sum(x)
+        again = column_sum(x)
+        want = column_sum_plain(x)
+        torch.cuda.synchronize()
+        name = "%s %dx%d float32" % (layer, r, c)
+        if not torch.equal(got, again):
+            raise AssertionError("column_reduce %s: two runs differ" % name)
+        err = (got - want).abs()
+        if not bool(torch.isfinite(got).all()) or bool(
+                (err > REDUCE_REL_TOL * x.abs().sum(0)).any()):
+            raise AssertionError(
+                "column_reduce %s: max |err| %.3g beyond %g of the column's "
+                "sum of |x|" % (name, float(err.max()), REDUCE_REL_TOL))
+        bms, by = bound(4 * (r * c + c), r * c, "float32")
+        rows.append({
+            "name": "column_reduce", "shape": name, "route": "cuda",
+            "_form": (r, c, torch.float32),
+            "source": REDUCE_SOURCE, "replaces": REDUCE_TPU,
+            "max_abs_err": float(err.max()),
+            "tolerance": "%g of the column's sum of |x|, and bitwise "
+                         "repeatable" % REDUCE_REL_TOL,
+            "ms": device_ms(torch, lambda: column_sum(x)),
+            "plain_ms": device_ms(torch, lambda: column_sum_plain(x)),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": device_ms(torch, lambda: torch.sum(x.float(), 0))})
+    return rows
+
+
+def uniform_phase(torch):
+    from veles_tpu_torch.ops.random import (dropout_offset, uniform_fill,
+                                            uniform_fill_plain)
+    shape = (TRAIN_BATCH, 4096)
+    seed, offset = 0x243F6A8885A308D3, dropout_offset(3, 11)
+    got = uniform_fill(shape, seed, offset, device="cuda")
+    want = uniform_fill_plain(shape, seed, offset, device="cuda")
+    torch.cuda.synchronize()
+    name = "%dx%d float32" % shape
+    if not torch.equal(got, want):
+        raise AssertionError("uniform_fill %s: %d values differ from the "
+                             "plain version's bits" % (
+                                 name, int((got != want).sum())))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    values = shape[0] * shape[1]
+    bms, by = bound(4 * values, values * UNIFORM_OPS_PER_VALUE, "float32")
+    return [{
+        "name": "uniform_fill", "shape": name, "route": "cuda",
+        "_form": shape, "source": UNIFORM_SOURCE, "replaces": UNIFORM_TPU,
+        "max_abs_err": float((got - want).abs().max()),
+        "tolerance": "bit-exact",
+        "ms": device_ms(torch, lambda: uniform_fill(shape, seed, offset,
+                                                    device="cuda")),
+        "plain_ms": device_ms(torch, lambda: uniform_fill_plain(
+            shape, seed, offset, device="cuda")),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": device_ms(torch, lambda: torch.rand(
+            shape, device="cuda", generator=gen))}]
+
+
+def not_ported():
+    """The TPU kernels not ported yet, with their bound at one stated
+    shape: K5, the Kahan-compensated GEMM (``precision_level=1``), at
+    fc6's training shape in float32 with the JAX package's 512-deep K
+    blocks (a product and 4 compensating operations per output and K
+    block)."""
+    m, k, n, bk = TRAIN_BATCH, 9216, 4096, 512
+    bms, by = bound(4 * (m * k + k * n + m * n),
+                    2 * m * n * k + 4 * m * n * (k // bk), "float32")
+    return [{"name": "kahan_gemm", "replaces": KAHAN_TPU,
+             "shape": "%dx%d @ %dx%d float32" % (m, k, k, n),
+             "bound_ms": bms, "bound_by": by, "launches": 0}]
+
+
 def post(port, path, body):
     req = urllib.request.Request(
         "http://127.0.0.1:%d%s" % (port, path), data=body,
@@ -230,8 +416,6 @@ def slice_phase(torch, numpy):
                                                 ALEXNET_SAMPLE_SHAPE)
     from veles_tpu_torch.models.build import plain_forward
     from veles_tpu_torch.nn.all2all import All2AllStrictRELU
-    from veles_tpu_torch.ops.gemm import linear_act
-    from veles_tpu_torch.ops.lrn import lrn_forward
     from veles_tpu_torch.serving.frontend import (ServingFrontend,
                                                   parse_payload)
     from veles_tpu_torch.serving.model_store import ServeableModel
@@ -280,10 +464,7 @@ def slice_phase(torch, numpy):
     try:
         replica = frontend.pool.replicas[0]
         forwards0 = replica.batches_done
-        linear_act.launches = 0
-        lrn_forward.launches = 0
-        linear_act.launches_by_form.clear()
-        lrn_forward.launches_by_form.clear()
+        reset_counts()
         latencies, replies, round_s = [], {}, []
         for r in range(rounds):
             errors = []
@@ -313,16 +494,18 @@ def slice_phase(torch, numpy):
         t = time.perf_counter()
         batch_reply = post(frontend.port, "/api/batch", batch_body)
         batch_s = time.perf_counter() - t
-        k1, k3 = linear_act.launches, lrn_forward.launches
-        by_form = {"gemm_bias_act": dict(linear_act.launches_by_form),
-                   "lrn_fwd": dict(lrn_forward.launches_by_form)}
+        counts, by_form = read_counts()
         forwards = replica.batches_done - forwards0
     finally:
         frontend.stop()
-    if forwards < 1 or k1 != 2 * forwards or k3 != 2 * forwards:
+    k1, k3 = counts["gemm_bias_act"], counts["lrn_fwd"]
+    if forwards < 1 or k1 != 2 * forwards or k3 != 2 * forwards or \
+            counts["lrn_bwd"] or counts["column_reduce"] or \
+            counts["uniform_fill"]:
         raise AssertionError(
-            "launch counts: gemm_bias_act %d, lrn_fwd %d over %d forwards "
-            "(expected 2 each per forward)" % (k1, k3, forwards))
+            "serving launch counts %s over %d forwards (expected "
+            "gemm_bias_act and lrn_fwd 2 each per forward, no training "
+            "kernel)" % (counts, forwards))
     print("slice: %d forwards served, gemm_bias_act launched %d times, "
           "lrn_fwd %d times (2 each per forward)" % (forwards, k1, k3))
 
@@ -455,6 +638,336 @@ def forward_phase(torch, model):
     return out
 
 
+def kernel_counters():
+    """{kernel name: its wrapper}, each wrapper carrying ``launches``
+    and ``launches_by_form``."""
+    from veles_tpu_torch.ops.gemm import linear_act
+    from veles_tpu_torch.ops.lrn import lrn_backward, lrn_forward
+    from veles_tpu_torch.ops.random import uniform_fill
+    from veles_tpu_torch.ops.reduce import column_sum
+    return {"gemm_bias_act": linear_act, "lrn_fwd": lrn_forward,
+            "lrn_bwd": lrn_backward, "column_reduce": column_sum,
+            "uniform_fill": uniform_fill}
+
+
+def reset_counts():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+        fn.launches_by_form.clear()
+
+
+def read_counts():
+    """({name: launches}, {name: {form: launches}})."""
+    counters = kernel_counters()
+    return ({name: fn.launches for name, fn in counters.items()},
+            {name: dict(fn.launches_by_form)
+             for name, fn in counters.items()})
+
+
+def check_forms(phase, kernels, by_form):
+    """Every launch of ``phase`` fell on a form the kernel phase
+    checked."""
+    for name, counts in sorted(by_form.items()):
+        checked = {row["_form"] for row in kernels if row["name"] == name}
+        missing = {form: n for form, n in counts.items()
+                   if form not in checked}
+        if missing:
+            raise AssertionError(
+                "%s: %d of %d %s launches at forms the kernel phase did not "
+                "check: %s" % (phase, sum(missing.values()),
+                               sum(counts.values()), name, missing))
+
+
+def model_train_flops_per_sample(model):
+    """``bench.py``'s accounting: 3x the forward FLOPs of the
+    convolutions and the fully-connected layers (forward, data
+    gradient, weight gradient); LRN, pooling, dropout and activations
+    count nothing."""
+    from veles_tpu_torch.nn.all2all import All2All
+    from veles_tpu_torch.nn.conv import Conv
+    total = 0.0
+    for module in model:
+        if isinstance(module, Conv):
+            cout, cin, ky, kx = module.weights.shape
+            h, w, _ = module.output_shape()
+            total += 2.0 * h * w * ky * kx * cin * cout * 3.0
+        elif isinstance(module, All2All):
+            fin, fout = module.jax_weights_shape()
+            total += 2.0 * fin * fout * 3.0
+    return total
+
+
+def gradient_copies(trainer):
+    return [{k: p.grad.detach().clone() for k, p in layer.items()}
+            for layer in trainer.params]
+
+
+def gradient_shares(got, want):
+    """{(layer, name): ||got - want|| / ||want||} over the layers'
+    weight and bias gradients."""
+    return {(i, k): float((g[k] - w[k]).norm() / w[k].norm())
+            for i, (g, w) in enumerate(zip(got, want)) for k in w}
+
+
+def step_check(torch, trainer):
+    """(a): one step's loss and gradients through the kernels against
+    the same step through the plain versions, and two controls that
+    must fail the same check."""
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.nn.all2all import All2AllStrictRELU
+    idx = torch.from_numpy(trainer._segment_indices(TRAIN)[0]).cuda()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for label, plain, seed in (("kernels", False, CHECK_SEED),
+                                   ("plain", True, CHECK_SEED),
+                                   ("other_seed", False, CHECK_SEED + 1)):
+            trainer.plain = plain
+            loss, _ = trainer.gradients(idx, 0, seed)
+            runs[label] = (float(loss), gradient_copies(trainer))
+    finally:
+        trainer.plain = False
+        torch.backends.cudnn.deterministic = saved
+        for layer in trainer.params:
+            for p in layer.values():
+                p.grad = None
+    loss, got = runs["kernels"]
+    want_loss, want = runs["plain"]
+    shares = gradient_shares(got, want)
+    worst = max(shares.values())
+    loss_err = abs(loss - want_loss) / abs(want_loss)
+    flips = pool_flips(torch, trainer, idx)
+    print("train check: per tensor gradient shares %s; max-pool windows "
+          "whose argmax differs between the two forwards: %s" % (
+              ", ".join("%d.%s %.2g" % (i, k[0], v)
+                        for (i, k), v in sorted(shares.items())), flips))
+    if not all(torch.isfinite(t).all() for layer in got
+               for t in layer.values()) or not math.isfinite(loss):
+        raise AssertionError("training step: non-finite loss or gradient")
+    if worst > GRAD_SHARE_TOL or loss_err > LOSS_REL_TOL:
+        raise AssertionError(
+            "training step through the kernels differs from the plain "
+            "versions: worst gradient share %.3g (limit %g) at %s, loss "
+            "%.3g relative (limit %g)" % (
+                worst, GRAD_SHARE_TOL, max(shares, key=shares.get),
+                loss_err, LOSS_REL_TOL))
+    fc7 = [i for i, m in enumerate(trainer.forwards)
+           if isinstance(m, All2AllStrictRELU)][-1]
+    zeroed = [dict(layer) for layer in got]
+    zeroed[fc7]["bias"] = torch.zeros_like(got[fc7]["bias"])
+    controls = {"fc7_bias_zeroed": max(gradient_shares(zeroed,
+                                                       want).values()),
+                "other_seed": max(gradient_shares(runs["other_seed"][1],
+                                                  want).values())}
+    for label, share in controls.items():
+        if share <= GRAD_SHARE_TOL:
+            raise AssertionError(
+                "control %s passes the step check (worst share %.3g): the "
+                "check cannot see a wrong gradient" % (label, share))
+    print("train check: one float32 step through the kernels vs the plain "
+          "versions: loss %.7f vs %.7f (%.3g relative, limit %g); worst "
+          "layer gradient share %.3g (limit %g); controls %s fail it" % (
+              loss, want_loss, loss_err, LOSS_REL_TOL, worst,
+              GRAD_SHARE_TOL,
+              ", ".join("%s %.3g" % kv for kv in sorted(controls.items()))))
+    return {"check_loss_rel_err": loss_err, "check_worst_grad_share": worst,
+            "check_pool_argmax_flips": flips,
+            "control_fc7_bias_zeroed_share": controls["fc7_bias_zeroed"],
+            "control_other_seed_share": controls["other_seed"]}
+
+
+def pool_flips(torch, trainer, idx):
+    """{pool layer: windows whose argmax differs} between the forward
+    through the kernels and through the plain versions, on the layers
+    before the first dropout."""
+    import torch.nn.functional as F
+
+    from veles_tpu_torch.nn.dropout import DropoutForward
+    from veles_tpu_torch.nn.pooling import MaxPooling
+    x, _, _ = trainer.loader.gather(idx)
+    flips = {}
+    with torch.no_grad():
+        a = b = x
+        for i, module in enumerate(trainer.forwards):
+            if isinstance(module, DropoutForward):
+                break
+            if isinstance(module, MaxPooling):
+                picks = [F.max_pool2d(v.permute(0, 3, 1, 2).float(),
+                                      (module.ky, module.kx), module.stride,
+                                      return_indices=True)[1]
+                         for v in (a, b)]
+                flips[i] = "%d of %d" % (int((picks[0] != picks[1]).sum()),
+                                         picks[0].numel())
+            a, b = module(a), module.plain_forward(b)
+    return flips
+
+
+def device_time_split(torch, prof):
+    """Device time (ms) of the profiled kernels by group: the port's
+    five kernels, cuDNN's convolutions (FFT and layout helpers
+    included), library GEMMs, pooling, elementwise kernels (casts,
+    activations, dropout, the SGD update), the rest."""
+    from torch.autograd import DeviceType
+    groups = (("K1 gemm_bias_act", ("gemm_bias_act",)),
+              ("K3 lrn_fwd", ("lrn_fwd",)), ("K4 lrn_bwd", ("lrn_bwd",)),
+              ("K6 column_reduce", ("column_partials", "column_totals")),
+              ("K7 uniform_fill", ("uniform_fill",)),
+              ("convolutions", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                                "implicit", "fft", "flip_filter", "cf32",
+                                "nchwtonhwc", "nhwctonchw")),
+              ("library GEMMs", ("gemm", "gemv", "nvjet")),
+              ("pooling", ("max_pool",)),
+              ("elementwise", ("elementwise",)))
+    split = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        lower = evt.key.lower()
+        group = next((g for g, marks in groups
+                      if any(mark in lower for mark in marks)), "other")
+        split[group] = split.get(group, 0.0) + us / 1e3
+    return split
+
+
+def training_phase(torch, policy, check):
+    """Full-width AlexNet-227 trained on the card under ``policy``:
+    (a) the step check when ``check``, (b) ``TRAIN_EPOCHS`` epochs,
+    (c) launch counts, (d) one profiled step. Returns (result,
+    launches_by_form)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.loader.base import TRAIN, VALIDATION
+    from veles_tpu_torch.models.alexnet import (ALEXNET_LAYERS,
+                                                ALEXNET_SAMPLE_SHAPE,
+                                                ALEXNET_TRAINING,
+                                                SyntheticImageLoader)
+    from veles_tpu_torch.models.build import build_training
+    from veles_tpu_torch.nn.all2all import All2All, All2AllSoftmax
+    from veles_tpu_torch.nn.dropout import DropoutForward
+    from veles_tpu_torch.nn.normalization import LRNormalizerForward
+
+    prng.get().seed(42)
+    prng.get("loader").seed(43)
+    t0 = time.perf_counter()
+    loader = SyntheticImageLoader(
+        n_train=TRAIN_SAMPLES, n_valid=TRAIN_BATCH,
+        side=ALEXNET_SAMPLE_SHAPE[0], n_classes=1000, minibatch_size=TRAIN_BATCH, dtype="bfloat16")
+    trainer = build_training(ALEXNET_LAYERS, ALEXNET_SAMPLE_SHAPE, loader,
+                             seed=42, policy=policy, device="cuda",
+                             **ALEXNET_TRAINING)
+    torch.cuda.synchronize()
+    result = {"policy": policy, "build_s": time.perf_counter() - t0}
+    if check:
+        result.update(step_check(torch, trainer))
+
+    # (b) the main path, counted from 0
+    steps_timed = []
+    train_batch = trainer.train_batch
+
+    def timed_batch(indices, batch_index, seed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = train_batch(indices, batch_index, seed)
+        end.record()
+        steps_timed.append((start, end))
+        return out
+
+    trainer.train_batch = timed_batch
+    losses, epoch_s = [], []
+    reset_counts()
+    try:
+        for _ in range(TRAIN_EPOCHS):
+            t = time.perf_counter()
+            stats = trainer.run_epoch()
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - t)
+            losses.append((stats["train"]["loss"],
+                           stats["validation"]["loss"]))
+        counts, by_form = read_counts()
+    finally:
+        del trainer.train_batch
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        raise AssertionError("%s training: non-finite loss %s" % (
+            policy, losses))
+    # (c) launches per step and per forward, from the model itself
+    per_epoch_steps = len(trainer._segment_indices(TRAIN))
+    steps = TRAIN_EPOCHS * per_epoch_steps
+    forwards = steps + TRAIN_EPOCHS * len(trainer._segment_indices(
+        VALIDATION))
+    n_fc = sum(isinstance(m, All2All) and not isinstance(m, All2AllSoftmax)
+               for m in trainer.forwards)
+    expected = {
+        "gemm_bias_act": n_fc * forwards,
+        "lrn_fwd": sum(isinstance(m, LRNormalizerForward)
+                       for m in trainer.forwards) * forwards,
+        "lrn_bwd": sum(isinstance(m, LRNormalizerForward)
+                       for m in trainer.forwards) * steps,
+        "column_reduce": sum(bool(p.get("bias") is not None)
+                             for p in trainer.params) * steps,
+        "uniform_fill": sum(isinstance(m, DropoutForward)
+                            for m in trainer.forwards) * steps}
+    if counts != expected:
+        raise AssertionError("%s training launch counts %s, expected %s "
+                             "over %d steps and %d forwards" % (
+                                 policy, counts, expected, steps, forwards))
+    step_ms = [s.elapsed_time(e) for s, e in steps_timed]
+    steady = step_ms[per_epoch_steps:]
+    flops = model_train_flops_per_sample(trainer.model)
+    step_p50 = statistics.median(steady)
+    result.update({
+        "epochs": TRAIN_EPOCHS, "steps": steps, "forwards": forwards,
+        "train_loss_per_epoch": [v[0] for v in losses],
+        "validation_loss_per_epoch": [v[1] for v in losses],
+        "loss_falls": losses[-1][0] < losses[0][0],
+        "epoch_s": epoch_s,
+        "step_ms_p50": step_p50, "step_ms_min": min(steady),
+        "step_ms_max": max(steady), "first_step_ms": step_ms[0],
+        "samples_per_s_device": TRAIN_BATCH / step_p50 * 1e3,
+        "samples_per_s_epoch": (TRAIN_SAMPLES + TRAIN_BATCH) /
+        statistics.median(epoch_s[1:]),
+        "model_gflop_per_sample": flops / 1e9,
+        "model_tflop_per_s": TRAIN_BATCH / step_p50 * 1e3 * flops / 1e12,
+        "launches_per_step": {name: n // steps for name, n in
+                              expected.items()
+                              if name in ("lrn_bwd", "column_reduce",
+                                          "uniform_fill")},
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    print("train %s: loss per epoch (train) %s, (validation) %s; launches "
+          "%s over %d steps and %d forwards" % (
+              policy, " ".join("%.4f" % v[0] for v in losses),
+              " ".join("%.4f" % v[1] for v in losses), counts, steps,
+              forwards))
+
+    # (d) one profiled step, after the counted run
+    from torch.profiler import ProfilerActivity, profile
+    idx = torch.from_numpy(trainer._segment_indices(TRAIN)[0]).cuda()
+    trainer.train_batch(idx, 0, CHECK_SEED)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.train_batch(idx, 0, CHECK_SEED)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    print(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                    row_limit=25))
+    split = device_time_split(torch, prof)
+    busy = sum(split.values())
+    # the profiler slows the host, so the idle share is read against
+    # the unprofiled steps' median as well as the profiled step's wall
+    result.update({"profiled_step_wall_ms": wall_ms,
+                   "profiled_step_device_ms": busy,
+                   "device_idle_share": max(0.0, 1.0 - busy / step_p50),
+                   "device_idle_share_profiled": max(0.0,
+                                                     1.0 - busy / wall_ms),
+                   "device_ms_by_group": split})
+    return result, by_form
+
+
 def main():
     import numpy
     import torch
@@ -477,29 +990,37 @@ def main():
         time.perf_counter() - t0))
     get_policy("float32").configure_backends()
 
-    kernels = gemm_phase(torch) + lrn_phase(torch)
+    kernels = (gemm_phase(torch) + lrn_phase(torch) + lrn_bwd_phase(torch) +
+               reduce_phase(torch) + uniform_phase(torch))
     for row in kernels:
-        print("kernel %-14s %-28s err %.3g  %.4f ms  plain %.4f  "
+        print("kernel %-14s %-32s err %.3g  %.4f ms  plain %.4f  "
               "library %.4f  bound %.4f (%s)" % (
                   row["name"], row["shape"], row["max_abs_err"], row["ms"],
                   row["plain_ms"], row["library_ms"], row["bound_ms"],
                   row["bound_by"]))
 
-    model, served, by_form = slice_phase(torch, numpy)
-    for row in kernels:
-        row["launches"] = by_form[row["name"]].get(row.pop("_form"), 0)
-    for name, counts in sorted(by_form.items()):
-        checked = sum(row["launches"] for row in kernels
-                      if row["name"] == name)
-        if checked != sum(counts.values()):
-            raise AssertionError(
-                "%s: %d of %d serving launches at forms the kernel phase "
-                "did not check: %s" % (name, sum(counts.values()) - checked,
-                                       sum(counts.values()), counts))
+    model, served, serving_forms = slice_phase(torch, numpy)
+    check_forms("serving", kernels, serving_forms)
     served.update(forward_phase(torch, model))
     print("serving (%s): %s" % (card, json.dumps(served)))
+    del model
+
+    phases = [serving_forms]
+    trained = []
+    for policy, check in (("float32", True), ("bfloat16", False)):
+        result, forms = training_phase(torch, policy, check)
+        check_forms("training " + policy, kernels, forms)
+        phases.append(forms)
+        trained.append(result)
+        print("training (%s): %s" % (card, json.dumps(result)))
+    get_policy("float32").configure_backends()
+
+    for row in kernels:
+        form = row.pop("_form")
+        row["launches"] = sum(forms.get(row["name"], {}).get(form, 0)
+                              for forms in phases)
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "not_ported": not_ported()}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

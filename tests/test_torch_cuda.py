@@ -9,8 +9,13 @@ without JAX it runs with the repository's conftest left out:
 
 Tolerances: float32 outputs differ by the order of float32 sums (and
 the LRN's rsqrt chain vs ``pow``), a few ulps on O(1) values, so
-atol = rtol = 1e-4 for the GEMM (K up to 300) and 1e-5 for the LRN;
-bf16 outputs by one bf16 ulp (2^-8 relative), so 1e-2.
+atol = rtol = 1e-4 for the GEMM (K up to 300) and 1e-5 for the LRN,
+forward and backward; bf16 outputs by one bf16 ulp (2^-8 relative), so
+1e-2. A column sum is held to 1e-6 of its column's sum of magnitudes
+(reordering R float32 additions moves a sum by far less). The Philox
+fill is held to its plain version bit for bit. A training step's
+gradients through the kernels are held to 1e-4 of each layer's
+gradient norm against the same step through the plain versions.
 """
 
 import numpy
@@ -18,11 +23,20 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from veles_tpu_torch.models.alexnet import small_alexnet_layers  # noqa
-from veles_tpu_torch.models.build import build_model, plain_forward  # noqa
-from veles_tpu_torch.ops.gemm import (EPILOGUES, linear_act,  # noqa: E402
+from veles_tpu_torch.loader.base import TRAIN  # noqa: E402
+from veles_tpu_torch.models.alexnet import (  # noqa: E402
+    SyntheticImageLoader, small_alexnet_layers)
+from veles_tpu_torch.models.build import (build_model,  # noqa: E402
+                                          build_training, plain_forward)
+from veles_tpu_torch.ops.gemm import (EPILOGUES,  # noqa: E402
+                                      LinearActFunction, linear_act,
                                       linear_act_plain)
-from veles_tpu_torch.ops.lrn import lrn_forward, lrn_forward_plain  # noqa
+from veles_tpu_torch.ops.lrn import (lrn_backward,  # noqa: E402
+                                     lrn_backward_plain, lrn_forward,
+                                     lrn_forward_plain)
+from veles_tpu_torch.ops.random import (dropout_offset,  # noqa: E402
+                                        uniform_fill, uniform_fill_plain)
+from veles_tpu_torch.ops.reduce import column_sum, column_sum_plain  # noqa
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +116,123 @@ def test_model_forward_through_kernels_matches_plain(card):
         assert lrn_forward.launches == k3 + 1
         want = plain_forward(model, x)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+#: AlexNet's constants, a case whose cross term is a large part of dx,
+#: and the exp/log power with a narrower window
+LRN_CONSTANTS = [(2.0, 1e-4, 0.75, 5, 20.0), (1.0, 0.5, 0.75, 5, 1.0),
+                 (2.0, 1e-3, 0.5, 3, 5.0)]
+
+
+@pytest.mark.parametrize("shape", [(4, 7, 7, 96), (2, 5, 5, 256),
+                                   (2, 3, 3, 33), (2, 56, 56, 96)])
+@pytest.mark.parametrize("constants", LRN_CONSTANTS)
+def test_lrn_backward_kernel_matches_plain(card, shape, constants):
+    k, alpha, beta, n, scale = constants
+    x = torch.from_numpy(_rand(shape, 7, scale)).to(card)
+    g = torch.from_numpy(_rand(shape, 8)).to(card)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        xd, gd = x.to(dtype), g.to(dtype)
+        form = (tuple(shape), dtype)
+        before = lrn_backward.launches
+        before_form = lrn_backward.launches_by_form[form]
+        got = lrn_backward(xd, gd, k, alpha, beta, n)
+        torch.cuda.synchronize()
+        assert lrn_backward.launches == before + 1
+        assert lrn_backward.launches_by_form[form] == before_form + 1
+        assert got.dtype == dtype
+        want = lrn_backward_plain(xd, gd, k, alpha, beta, n)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("shape", [(1, 5), (7, 1000), (128, 4096),
+                                   (21632, 384), (100003, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_column_sum_kernel_matches_plain_and_repeats_bitwise(card, shape,
+                                                             dtype):
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(_rand(shape, 9)).to(card, dt)
+    form = (shape[0], shape[1], dt)
+    before_form = column_sum.launches_by_form[form]
+    got = column_sum(x)
+    again = column_sum(x)
+    torch.cuda.synchronize()
+    assert column_sum.launches_by_form[form] == before_form + 2
+    assert got.dtype == torch.float32 and got.shape == (shape[1],)
+    assert torch.equal(got, again)
+    want = column_sum_plain(x)
+    limit = 1e-6 * x.float().abs().sum(0) + 1e-30
+    assert bool(((got - want).abs() <= limit).all())
+
+
+@pytest.mark.parametrize("shape", [(128, 4096), (3, 5), (1, 7), (1000, 37)])
+@pytest.mark.parametrize("stream", [(0, 0), (2 ** 64 - 1, 2 ** 64 - 1),
+                                    (12345, dropout_offset(3, 11))])
+def test_uniform_fill_kernel_matches_plain_bit_for_bit(card, shape,
+                                                       stream):
+    seed, offset = stream
+    for vmin, vmax in ((0.0, 1.0), (-1.0, 1.0)):
+        before = uniform_fill.launches_by_form[shape]
+        got = uniform_fill(shape, seed, offset, vmin, vmax, device=card)
+        torch.cuda.synchronize()
+        assert uniform_fill.launches_by_form[shape] == before + 1
+        want = uniform_fill_plain(shape, seed, offset, vmin, vmax,
+                                  device=card)
+        assert got.dtype == torch.float32 and got.shape == shape
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_linear_act_function_backward_matches_plain(card, dtype):
+    dt = getattr(torch, dtype)
+    grads = []
+    for plain in (False, True):
+        x = torch.from_numpy(_rand((128, 300), 10)).to(card, dt)
+        w = torch.from_numpy(_rand((300, 70), 11, 0.1)).to(card, dt)
+        b = torch.from_numpy(_rand((70,), 12)).to(card)
+        for t in (x, w, b):
+            t.requires_grad_()
+        y = LinearActFunction.apply(x, w, b, "tanh", dt, plain)
+        y.backward(torch.from_numpy(_rand((128, 70), 13)).to(card, dt))
+        grads.append((x.grad, w.grad, b.grad))
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+def test_training_step_through_kernels_matches_plain(card):
+    """One step's gradients of a small AlexNet-like net with an LRN and
+    dropout, through K1, K3, K4, K6 and K7 against the plain versions
+    (the same Philox bits), cuDNN deterministic; the launches of the
+    step are counted."""
+    layers = [dict(d) for d in small_alexnet_layers(10)]
+    layers.insert(1, {"type": "norm", "n": 5, "alpha": 1e-4, "beta": 0.75})
+    loader = SyntheticImageLoader(n_train=64, n_valid=0, side=32,
+                                  n_classes=10, minibatch_size=32)
+    trainer = build_training(layers, (32, 32, 3), loader, seed=5,
+                             device=card, learning_rate=0.01, momentum=0.9)
+    idx = torch.from_numpy(trainer._segment_indices(TRAIN)[0]).to(card)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for plain in (False, True):
+            trainer.plain = plain
+            counts = (lrn_backward.launches, column_sum.launches,
+                      uniform_fill.launches)
+            trainer.gradients(idx, 0, 77)
+            runs.append([{k: p.grad.clone() for k, p in layer.items()}
+                         for layer in trainer.params])
+            launched = (lrn_backward.launches - counts[0],
+                        column_sum.launches - counts[1],
+                        uniform_fill.launches - counts[2])
+            assert launched == ((0, 0, 0) if plain else (1, 4, 1))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        trainer.plain = False
+    for got, want in zip(*runs):
+        for k in want:
+            share = float((got[k] - want[k]).norm() / want[k].norm())
+            assert share < 1e-4, (k, share)

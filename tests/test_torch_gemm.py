@@ -11,8 +11,15 @@ different orders. With K = 64 and unit-scale inputs the sums are O(1)
 and reordering moves them by a few float32 ulps, so atol = rtol = 1e-5
 (~100 ulp at 1.0) holds with margin and still catches any wrong
 epilogue constant (the smallest, 0.6666 vs 2/3, moves results ~1e-4).
+The backward (``LinearActFunction`` against ``jax.vjp`` of
+``fused_linear``) sums over M = 16 or N = 32 products of the same
+scale: the same 1e-5. With bf16 operands both sides round dpre and the
+products' results to bf16 at the same points, but a float32 sum that
+lands on the other side of a rounding tie moves one value by a bf16 ulp
+(2^-8 relative): atol = rtol = 1e-2 there.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy
 import pytest
@@ -20,8 +27,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from veles_tpu.nn.activation import get_activation  # noqa: E402
-from veles_tpu.ops.gemm import pallas_gemm  # noqa: E402
-from veles_tpu_torch.ops.gemm import (EPILOGUES, linear_act,  # noqa: E402
+from veles_tpu.ops.gemm import _DS, fused_linear, pallas_gemm  # noqa: E402
+from veles_tpu_torch.ops.gemm import (EPILOGUES,  # noqa: E402
+                                      LinearActFunction, linear_act,
                                       linear_act_plain)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -119,3 +127,46 @@ def test_rejects_what_the_kernel_does_not_take(bad):
     with pytest.raises((ValueError, TypeError)):
         linear_act(ta, tb, tbias, act)
 
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("activation", EPILOGUES)
+def test_backward_matches_fused_linear_vjp(activation, dtype):
+    """dx, dw and db of ``LinearActFunction`` against ``jax.vjp`` of
+    ``fused_linear`` (Pallas forward in interpret mode, residuals
+    (x, w, y), derivatives from the output)."""
+    a, b, bias = _inputs(16, 64, 32, seed=6)
+    g = numpy.random.RandomState(7).randn(16, 32).astype(numpy.float32)
+    jdt = getattr(jnp, dtype)
+    cfg = (8, 16, 32, _DS, True)
+    y, vjp = jax.vjp(
+        lambda x, w, bb: fused_linear(x, w, bb, activation, jdt, cfg),
+        jnp.asarray(a, jdt), jnp.asarray(b, jdt), jnp.asarray(bias))
+    want = [numpy.asarray(v.astype(jnp.float32))
+            for v in vjp(jnp.asarray(g, jdt))]
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy(a).to(tdt).requires_grad_()
+    w = torch.from_numpy(b).to(tdt).requires_grad_()
+    tb = torch.from_numpy(bias).requires_grad_()
+    out = LinearActFunction.apply(x, w, tb, activation, tdt)
+    tol = TOL if dtype == "float32" else dict(atol=1e-2, rtol=1e-2)
+    numpy.testing.assert_allclose(out.detach().float().numpy(),
+                                  numpy.asarray(y.astype(jnp.float32)), **tol)
+    out.backward(torch.from_numpy(g).to(tdt))
+    assert x.grad.dtype == tdt and w.grad.dtype == tdt
+    assert tb.grad.dtype == torch.float32
+    for got, ref in zip((x.grad, w.grad, tb.grad), want):
+        numpy.testing.assert_allclose(got.float().numpy(), ref, **tol)
+
+
+def test_backward_without_bias_and_through_plain_versions():
+    a, b, _ = _inputs(4, 32, 8, seed=8)
+    grads = []
+    for plain in (False, True):
+        x = torch.from_numpy(a).requires_grad_()
+        w = torch.from_numpy(b).requires_grad_()
+        LinearActFunction.apply(x, w, None, "tanh", torch.float32,
+                                plain).sum().backward()
+        grads.append((x.grad, w.grad))
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])

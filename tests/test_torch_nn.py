@@ -9,6 +9,7 @@ moves O(1) outputs by well under 1e-5; atol = rtol = 1e-5. Pooling and
 the activation table are exact or within 1 ulp (1e-6).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy
 import pytest
@@ -166,3 +167,67 @@ def test_policies_mirror_the_jax_package():
                 jnp.dtype(getattr(ref, attr)).name
     with pytest.raises(ValueError):
         get_policy("float16")
+
+
+@pytest.mark.parametrize("kw", [dict(kx=3, ky=3, sliding=(2, 2)),
+                                dict(kx=2, ky=2)])
+def test_max_pooling_gradient_routes_ties_as_jax(kw):
+    """Strict-ReLU zeros make windows of equal values. XLA's
+    ``select_and_scatter`` and torch's ``max_pool2d`` backward must send
+    each window's gradient to the same element: exact equality on an
+    input that is half zeros, with whole windows tied, and on a window
+    tied at a positive value."""
+    x = numpy.maximum(_rng(7).randn(2, 9, 9, 4), 0.0).astype(numpy.float32)
+    x[0, :4, :4, :] = 0.0
+    x[1, 2:5, 2:5, 1] = 0.5
+    g = _rng(8).randn(*JaxMaxPooling(DummyWorkflow(), **kw).apply(
+        {}, jnp.asarray(x)).shape).astype(numpy.float32)
+    _, vjp = jax.vjp(lambda v: JaxMaxPooling(DummyWorkflow(), **kw).apply(
+        {}, v), jnp.asarray(x))
+    want = numpy.asarray(vjp(jnp.asarray(g))[0])
+    xt = torch.from_numpy(x).requires_grad_()
+    MaxPooling(x.shape[1:], **kw)(xt).backward(torch.from_numpy(g))
+    numpy.testing.assert_array_equal(xt.grad.numpy(), want)
+
+
+def test_bias_add_nhwc_sums_the_gradient_over_the_channel_axis():
+    """The bias gradient is the sum over every axis but the last, also
+    for an upstream gradient that is not NHWC-contiguous (it is made
+    contiguous first, never reduced on the wrong axis)."""
+    from veles_tpu_torch.nn.base import bias_add_nhwc
+    y = torch.from_numpy(_rng(9).randn(2, 3, 4, 5).astype(numpy.float32))
+    g_nchw = torch.from_numpy(_rng(10).randn(2, 5, 3, 4).astype(
+        numpy.float32))
+    g = g_nchw.permute(0, 2, 3, 1)            # NHWC view, NCHW memory
+    assert not g.is_contiguous()
+    for plain in (False, True):
+        bias = torch.zeros(5, requires_grad=True)
+        out = bias_add_nhwc(y, bias, plain)
+        torch.testing.assert_close(out, y)
+        out.backward(g)
+        numpy.testing.assert_allclose(
+            bias.grad.numpy(), g_nchw.numpy().sum(axis=(0, 2, 3)),
+            atol=1e-5, rtol=1e-5)
+    assert bias_add_nhwc(y, None) is y
+
+
+def test_dropout_train_forward_matches_apply_with_key():
+    """Given JAX's own uniforms for a key, the port's mask and scaling
+    are ``apply_with_key``'s exactly; evaluation is the identity and the
+    gradient passes through the same mask."""
+    from veles_tpu.nn.dropout import DropoutForward as JaxDropout
+    from veles_tpu_torch.nn.dropout import DropoutForward
+    x = _rng(11).randn(4, 32).astype(numpy.float32)
+    key = jax.random.PRNGKey(3)
+    want = JaxDropout(DummyWorkflow(), dropout_ratio=0.3).apply_with_key(
+        {}, jnp.asarray(x), key)
+    u = torch.from_numpy(numpy.array(jax.random.uniform(key, x.shape)))
+    module = DropoutForward(x.shape[1:], dropout_ratio=0.3)
+    xt = torch.from_numpy(x).requires_grad_()
+    got = module.train_forward(xt, u)
+    numpy.testing.assert_array_equal(got.detach().numpy(),
+                                     numpy.asarray(want))
+    got.sum().backward()
+    numpy.testing.assert_array_equal(
+        xt.grad.numpy(), ((u < 0.7).float() / 0.7).numpy())
+    assert module(xt) is xt

@@ -1,15 +1,19 @@
-"""The weight carrier: JAX-package parameters into the port's modules.
+"""The weight carrier between the JAX package and the port, both ways.
 
-The JAX package's serveable model holds one ``{"weights", "bias"}``
-numpy dict per forward layer (``ServeableModel.from_workflow``; empty
-for layers without weights). :func:`params_from_jax` copies them into
-the port's modules, converting layouts on the way:
+The JAX package holds one ``{"weights", "bias"}`` numpy dict per
+forward layer (``ServeableModel.from_workflow``, ``FusedTrainer.
+pull_params``; empty for layers without weights). Layouts:
 
-* convolution weights HWIO -> OIHW;
-* All2All weights stay ``(in, out)``;
-* biases stay ``(out,)``.
+* convolution weights HWIO in JAX, OIHW (channels_last memory) here;
+* All2All weights ``(in, out)`` in both;
+* biases ``(out,)`` in both.
 
-The loaded model then computes the same function as the JAX model.
+:func:`params_from_jax` loads JAX parameters into the port's modules and
+:func:`params_to_jax` reads them back out. The SGD state crosses too:
+:func:`sgd_state_to_jax` / :func:`sgd_state_from_jax` map the per-layer
+``{"velocity": {name: tensor}, "step": scalar}`` of
+``veles_tpu_torch.nn.optim.SGD`` onto the JAX ``SGD`` state, whose
+velocities are in the parameters' JAX layout.
 """
 
 import numpy
@@ -40,15 +44,84 @@ def params_from_jax(layers, jax_params):
         if weights.ndim == 4:                       # HWIO -> OIHW
             weights = weights.transpose(3, 2, 0, 1)
         with torch.no_grad():
-            module.weights.copy_(torch.from_numpy(
-                numpy.ascontiguousarray(weights)))
+            module.weights.copy_(torch.from_numpy(numpy.array(weights)))
             if module.include_bias:
                 if "bias" not in params:
                     raise ValueError("layer %d (%s) needs a bias" % (
                         index, type(module).__name__))
-                bias = numpy.asarray(params["bias"], numpy.float32)
+                bias = numpy.array(params["bias"], numpy.float32)
                 if bias.shape != (want[-1],):
                     raise ValueError("layer %d: bias %s, expected %s" % (
                         index, bias.shape, (want[-1],)))
                 module.bias.copy_(torch.from_numpy(bias))
     return layers
+
+
+def to_jax_layout(tensors):
+    """``{name: tensor}`` of a module's parameters (values, gradients
+    or velocities) as float32 numpy arrays in the JAX layout."""
+    out = {}
+    for name, value in tensors.items():
+        array = value.detach().float().cpu().numpy()
+        if array.ndim == 4:                          # OIHW -> HWIO
+            array = array.transpose(2, 3, 1, 0)
+        out[name] = numpy.ascontiguousarray(array)
+    return out
+
+
+def from_jax_layout(module, arrays, like):
+    """Inverse of :func:`to_jax_layout`: numpy arrays in the JAX layout
+    into tensors shaped, typed and placed like ``like`` ({name:
+    tensor})."""
+    out = {}
+    for name, array in arrays.items():
+        array = numpy.asarray(array, numpy.float32)
+        if array.ndim == 4:                          # HWIO -> OIHW
+            array = array.transpose(3, 2, 0, 1)
+        ref = like[name]
+        if tuple(array.shape) != tuple(ref.shape):
+            raise ValueError("%s %s: got %s, expected %s" % (
+                type(module).__name__, name, array.shape, tuple(ref.shape)))
+        out[name] = torch.empty_like(ref).copy_(torch.from_numpy(
+            numpy.array(array)))
+    return out
+
+
+def layer_params(module):
+    """``{"weights", "bias"}`` parameters of a weighted module (bias only
+    where it has one); ``{}`` for a module without weights."""
+    if not module.has_weights:
+        return {}
+    params = {"weights": module.weights}
+    if module.bias is not None:
+        params["bias"] = module.bias
+    return params
+
+
+def params_to_jax(layers):
+    """The modules' parameters as the JAX package's per-layer numpy
+    dicts (HWIO convolutions), ``{}`` for layers without weights."""
+    return [to_jax_layout(layer_params(m)) for m in layers]
+
+
+def sgd_state_to_jax(states):
+    """Per-layer SGD states of the port as the JAX ``SGD`` states
+    (``{"velocity": {...}, "step": float32}``; ``{}`` stays ``{}``)."""
+    return [{"velocity": to_jax_layout(state["velocity"]),
+             "step": numpy.float32(state["step"].item())} if state else {}
+            for state in states]
+
+
+def sgd_state_from_jax(layers, jax_states):
+    """JAX ``SGD`` states as the port's, on each module's device."""
+    out = []
+    for module, state in zip(layers, jax_states):
+        if not state:
+            out.append({})
+            continue
+        params = layer_params(module)
+        velocity = from_jax_layout(module, state["velocity"], params)
+        out.append({"velocity": velocity, "step": torch.tensor(
+            float(numpy.asarray(state.get("step", 0.0))),
+            dtype=torch.float32, device=module.weights.device)})
+    return out

@@ -2,8 +2,15 @@
 
 The layer lists are copied from the JAX package. ``space_to_depth`` on
 conv1 is kept in the descriptor: the port runs the strided conv it
-restates (``nn/conv.py``).
+restates (``nn/conv.py``). :data:`ALEXNET_TRAINING` holds
+``AlexNetWorkflow``'s training defaults and :class:`SyntheticImageLoader`
+its synthetic ImageNet-shaped data, byte for byte.
 """
+
+import numpy
+import torch
+
+from veles_tpu_torch.loader.fullbatch import FullBatchLoader
 
 #: per-sample NHWC input of AlexNet-227
 ALEXNET_SAMPLE_SHAPE = (227, 227, 3)
@@ -32,6 +39,12 @@ ALEXNET_LAYERS = [
 ]
 
 
+#: ``AlexNetWorkflow``'s defaults: softmax loss, SGD with these
+#: (the keyword arguments of ``models.build.build_training``)
+ALEXNET_TRAINING = {"learning_rate": 0.01, "momentum": 0.9,
+                    "weights_decay": 5e-4}
+
+
 def small_alexnet_layers(n_classes=1000):
     """A proportionally shrunk AlexNet for tests/small chips."""
     return [
@@ -45,3 +58,39 @@ def small_alexnet_layers(n_classes=1000):
         {"type": "softmax", "output_sample_shape": n_classes},
     ]
 
+
+class SyntheticImageLoader(FullBatchLoader):
+    """ImageNet-shaped synthetic data, the JAX package's
+    ``SyntheticImageLoader``: ``numpy.random.RandomState(seed)``, samples
+    drawn in chunks of 512 as ``rand() * 2 - 1`` in float32, then labels
+    ``randint(0, n_classes)``; classes ``[0, n_valid, n_train]``.
+
+    ``dtype="bfloat16"`` stores the samples as bf16, rounded to nearest
+    even from the float32 draws (``Tensor.to``), the rounding
+    ``ml_dtypes`` gives the JAX package, so both hold the same bytes."""
+
+    def __init__(self, n_train=512, n_valid=128, side=227, channels=3,
+                 n_classes=1000, seed=1, dtype="float32", **kwargs):
+        super(SyntheticImageLoader, self).__init__(**kwargs)
+        if dtype not in ("float32", "bfloat16"):
+            raise ValueError("dtype must be float32 or bfloat16, got %r"
+                             % (dtype,))
+        self._gen = (n_train, n_valid, side, channels, n_classes, seed,
+                     dtype)
+
+    def load_dataset(self):
+        (n_train, n_valid, side, channels, n_classes, seed,
+         dtype) = self._gen
+        rng = numpy.random.RandomState(seed)
+        total = n_train + n_valid
+        data = torch.empty((total, side, side, channels),
+                           dtype=getattr(torch, dtype))
+        for start in range(0, total, 512):
+            stop = min(start + 512, total)
+            chunk = rng.rand(stop - start, side, side, channels).astype(
+                numpy.float32) * 2 - 1
+            data[start:stop] = torch.from_numpy(chunk).to(data.dtype)
+        labels = rng.randint(0, n_classes, total).astype(numpy.int32)
+        self.original_data = data
+        self.original_labels = torch.from_numpy(labels)
+        self.class_lengths = [0, n_valid, n_train]

@@ -1,12 +1,15 @@
-"""Layer descriptors -> ``nn.Sequential``.
+"""Layer descriptors -> ``nn.Sequential``, and the training set-up.
 
 The port of ``veles_tpu/standard_workflow.py``'s descriptor map
-(``LAYER_TYPES``), restricted to the layer types this slice serves:
-each ``{"type": <name>, ...params}`` becomes one module, with its
-per-sample input shape carried over from the previous layer's output.
-Any other type raises. Training-only keys of a descriptor
-(``learning_rate``, ``weights_decay``, ``momentum``, ``name``) are
-ignored here.
+(``LAYER_TYPES``), restricted to the layer types the port runs: each
+``{"type": <name>, ...params}`` becomes one module, with its per-sample
+input shape carried over from the previous layer's output. Any other
+type raises. :func:`build_model` ignores the training keys of a
+descriptor (``learning_rate``, ``learning_rate_bias``,
+``weights_decay``, ``momentum``, ``name``); :func:`build_training`
+reads them, as ``StandardWorkflow`` and its GD units do
+(``veles_tpu/nn/gd.py``): a layer's own value, else the workflow-level
+default.
 """
 
 import numpy
@@ -42,11 +45,12 @@ LAYER_TYPES = {
     "dropout": DropoutForward,
 }
 
-_TRAINING_KEYS = ("learning_rate", "weights_decay", "momentum", "name")
+_TRAINING_KEYS = ("learning_rate", "learning_rate_bias", "weights_decay",
+                  "momentum", "name")
 
 
 def build_model(layers, sample_shape, params=None, seed=None,
-                policy="float32", device=None):
+                policy="float32", device=None, trainable=False):
     """An ``nn.Sequential`` of the port's modules for ``layers``.
 
     ``sample_shape`` is the per-sample input shape (NHWC without the
@@ -55,7 +59,8 @@ def build_model(layers, sample_shape, params=None, seed=None,
     :func:`veles_tpu_torch.convert.params_from_jax`) or, without them,
     are drawn from ``numpy.random.RandomState(seed)`` with the JAX
     package's filler contract. ``device`` defaults to ``cuda`` and
-    raises when there is none; tests pass ``device="cpu"``."""
+    raises when there is none; tests pass ``device="cpu"``.
+    ``trainable`` makes the parameters require gradients."""
     device = resolve_device(device)
     pol = get_policy(policy)
     pol.configure_backends()
@@ -75,6 +80,7 @@ def build_model(layers, sample_shape, params=None, seed=None,
         kwargs = dict(descr, policy=pol)
         if issubclass(cls, (Conv, All2All)):
             kwargs["device"] = device
+            kwargs["trainable"] = trainable
         module = cls(shape, **kwargs)
         modules.append(module)
         shape = tuple(module.output_shape())
@@ -97,3 +103,43 @@ def plain_forward(model, x):
         x = module.plain_forward(x)
     return x
 
+
+def layer_hypers(layers, learning_rate=0.01, weights_decay=0.0,
+                 momentum=0.0, lr_decay=1.0, learning_rate_bias=None):
+    """Per-layer solver hyper-parameters, the JAX GD units' ``hyper``:
+    ``learning_rate``, ``weight_decay`` and ``momentum`` from the
+    descriptor or the defaults, ``lr_overrides = {"bias": ...}`` where
+    a ``learning_rate_bias`` applies, ``lr_decay`` where it is not 1."""
+    hypers = []
+    for descr in layers:
+        hp = {"learning_rate": descr.get("learning_rate", learning_rate),
+              "weight_decay": descr.get("weights_decay", weights_decay),
+              "momentum": descr.get("momentum", momentum)}
+        bias_lr = descr.get("learning_rate_bias", learning_rate_bias)
+        if bias_lr is not None:
+            hp["lr_overrides"] = {"bias": bias_lr}
+        if lr_decay != 1.0:
+            hp["lr_decay"] = lr_decay
+        hypers.append(hp)
+    return hypers
+
+
+def build_training(layers, sample_shape, loader, learning_rate=0.01,
+                   weights_decay=0.0, momentum=0.0, lr_decay=1.0,
+                   learning_rate_bias=None, solver="sgd", params=None,
+                   seed=None, policy="float32", device=None,
+                   uniform_source=None):
+    """A :class:`veles_tpu_torch.train.step.FusedTrainer` for ``layers``
+    over ``loader`` (initialized here, its dataset staged on the
+    device once): the model built trainable from ``params`` or
+    ``seed`` (see :func:`build_model`), with per-layer hyper-parameters
+    from :func:`layer_hypers`. ``device`` defaults to the card;
+    ``uniform_source`` replaces the dropout masks' Philox fill (see the
+    trainer)."""
+    from veles_tpu_torch.train.step import FusedTrainer
+    model = build_model(layers, sample_shape, params=params, seed=seed,
+                        policy=policy, device=device, trainable=True)
+    hypers = layer_hypers(layers, learning_rate, weights_decay, momentum,
+                          lr_decay, learning_rate_bias)
+    return FusedTrainer(model, loader.initialize(), hypers, solver=solver,
+                        uniform_source=uniform_source)

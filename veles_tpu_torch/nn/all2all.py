@@ -4,17 +4,21 @@
 JAX package. The input is flattened from NHWC, so fc6's 9216 input
 features come in (h, w, c) order, the order the JAX weights expect.
 All2All and its activation variants run
-:func:`veles_tpu_torch.ops.gemm.linear_act` (the hand-written GEMM +
-bias + activation kernel on the card). The softmax head keeps its
-logits product on ``torch.matmul`` in float32, as the JAX package keeps
-it on a plain ``jnp.dot`` outside Pallas.
+:class:`veles_tpu_torch.ops.gemm.LinearActFunction`: forward through the
+hand-written GEMM + bias + activation kernel (K1) on the card, backward
+with the bias gradient through the column-sum kernel (K6). The softmax
+head keeps its logits product on ``torch.matmul`` in float32, as the
+JAX package keeps it on a plain ``jnp.dot`` outside Pallas; its bias
+goes through :func:`veles_tpu_torch.nn.base.bias_add_nhwc` (K6 in the
+backward, rows = batch). :meth:`All2AllSoftmax.logits` is the training
+output, the counterpart of ``apply_for_grad``.
 """
 
 import numpy
 import torch
 
-from veles_tpu_torch.nn.base import WeightedBase
-from veles_tpu_torch.ops.gemm import linear_act, linear_act_plain
+from veles_tpu_torch.nn.base import WeightedBase, bias_add_nhwc
+from veles_tpu_torch.ops.gemm import LinearActFunction
 
 
 class All2All(WeightedBase):
@@ -23,13 +27,14 @@ class All2All(WeightedBase):
     ACTIVATION = "linear"
 
     def __init__(self, input_shape, output_sample_shape, activation=None,
-                 policy="float32", include_bias=True, device=None):
+                 policy="float32", include_bias=True, device=None,
+                 trainable=False):
         if isinstance(output_sample_shape, int):
             output_sample_shape = (output_sample_shape,)
         self.output_sample_shape = tuple(output_sample_shape)
         self.activation_name = activation or self.ACTIVATION
         super(All2All, self).__init__(input_shape, policy, include_bias,
-                                      device)
+                                      device, trainable)
 
     def jax_weights_shape(self):
         return (int(numpy.prod(self.input_shape)),
@@ -38,18 +43,18 @@ class All2All(WeightedBase):
     def output_shape(self):
         return self.output_sample_shape
 
-    def _apply(self, x, linear):
+    def _apply(self, x, plain):
         batch = x.shape[0]
         xc, wc = self.policy.cast_in(x.reshape(batch, -1), self.weights)
-        y = linear(xc, wc, self.bias, self.activation_name,
-                   self.policy.keep_dtype)
+        y = LinearActFunction.apply(xc, wc, self.bias, self.activation_name,
+                                    self.policy.keep_dtype, plain)
         return y.reshape((batch,) + self.output_sample_shape)
 
     def forward(self, x):
-        return self._apply(x, linear_act)
+        return self._apply(x, plain=False)
 
     def plain_forward(self, x):
-        return self._apply(x, linear_act_plain)
+        return self._apply(x, plain=True)
 
 
 class All2AllTanh(All2All):
@@ -72,17 +77,25 @@ class All2AllSoftmax(All2All):
     """Softmax head: float32 logits whatever the policy, then the
     max-subtracted softmax."""
 
-    def forward(self, x):
+    def _logits(self, x, plain):
         batch = x.shape[0]
         xc, wc = self.policy.cast_in(x.reshape(batch, -1), self.weights)
         # bf16 operands widened to float32: exact products, f32 sums
-        logits = torch.matmul(xc.float(), wc.float())
-        if self.bias is not None:
-            logits = logits + self.bias
+        return bias_add_nhwc(torch.matmul(xc.float(), wc.float()),
+                             self.bias, plain)
+
+    def logits(self, x, plain=False):
+        """float32 logits, whatever the policy: the output the loss
+        differentiates (``apply_for_grad`` in the JAX package)."""
+        return self._logits(x, plain).reshape(
+            (x.shape[0],) + self.output_sample_shape)
+
+    def forward(self, x):
+        logits = self._logits(x, plain=False)
         z = logits - logits.max(dim=1, keepdim=True).values
         e = torch.exp(z)
         return (e / e.sum(dim=1, keepdim=True)).reshape(
-            (batch,) + self.output_sample_shape)
+            (x.shape[0],) + self.output_sample_shape)
 
     def plain_forward(self, x):
         return self(x)

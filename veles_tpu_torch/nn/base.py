@@ -1,14 +1,16 @@
 """Base class of the port's forward layers.
 
-The port of ``veles_tpu/nn/base.py`` ``ForwardBase``, cut to what
-serving needs: an ``nn.Module`` that knows its per-sample input and
-output shapes, holds ``weights`` and ``bias`` where it has them, and
-maps the JAX package's parameter layout onto its own. Activations move
-between layers as NHWC tensors (channels last), the JAX package's
-layout, so a flattened activation has the same feature order in both.
+The port of ``veles_tpu/nn/base.py`` ``ForwardBase``: an ``nn.Module``
+that knows its per-sample input and output shapes, holds ``weights``
+and ``bias`` where it has them, and maps the JAX package's parameter
+layout onto its own. Activations move between layers as NHWC tensors
+(channels last), the JAX package's layout, so a flattened activation
+has the same feature order in both.
 
-Parameters are created without gradients: this slice serves, and its
-kernels have no backward yet.
+Parameters require gradients when the layer is built for training
+(``trainable=True``) and not when it is built for serving.
+:func:`bias_add_nhwc` adds a bias over the last axis with a backward
+that sums the bias gradient through the column-sum kernel (K6).
 """
 
 import numpy
@@ -16,6 +18,35 @@ import torch
 from torch import nn
 
 from veles_tpu_torch.nn.precision import get_policy
+from veles_tpu_torch.ops.reduce import column_sum, column_sum_plain
+
+
+class BiasAddNHWC(torch.autograd.Function):
+    """``y + bias`` over the last (channel) axis; the bias gradient is
+    the column sum of the upstream gradient viewed as (rows, C)."""
+
+    @staticmethod
+    def forward(ctx, y, bias, plain=False):
+        ctx.constants = (y.dtype, plain)
+        return y + bias
+
+    @staticmethod
+    def backward(ctx, g):
+        dtype, plain = ctx.constants
+        # reshape to (rows, C) only over NHWC-contiguous memory: any
+        # other layout is made contiguous first, never reduced on the
+        # wrong axis
+        rows = g.contiguous().reshape(-1, g.shape[-1])
+        db = (column_sum_plain if plain else column_sum)(rows)
+        return g.to(dtype), db, None
+
+
+def bias_add_nhwc(y, bias, plain=False):
+    """``y + bias`` with ``bias`` (C,) over y's last axis; ``plain``
+    sums the bias gradient with the plain version of K6."""
+    if bias is None:
+        return y
+    return BiasAddNHWC.apply(y, bias, plain)
 
 
 class ForwardBase(nn.Module):
@@ -44,15 +75,15 @@ class WeightedBase(ForwardBase):
     """A layer with ``weights`` and an optional ``bias``."""
 
     def __init__(self, input_shape, policy="float32", include_bias=True,
-                 device=None):
+                 device=None, trainable=False):
         super(WeightedBase, self).__init__(input_shape, policy)
         self.include_bias = bool(include_bias)
         self.weights = nn.Parameter(
             torch.empty(self.weights_shape(), device=device),
-            requires_grad=False)
+            requires_grad=trainable)
         self.bias = nn.Parameter(
             torch.empty((self.jax_weights_shape()[-1],), device=device),
-            requires_grad=False) if self.include_bias else None
+            requires_grad=trainable) if self.include_bias else None
 
     @property
     def has_weights(self):

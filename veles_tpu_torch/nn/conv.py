@@ -7,7 +7,11 @@ convolution is ``F.conv2d`` (cuDNN on the card: the JAX package left
 convolutions to XLA, not to a Pallas kernel). The input arrives NHWC;
 ``permute(0, 3, 1, 2)`` of it is an NCHW view in channels_last memory,
 so cuDNN convolves without a layout copy and the output, permuted back,
-is NHWC-contiguous as the LRN kernel needs.
+is NHWC-contiguous as the LRN kernel needs. The bias is added to that
+NHWC output through :func:`veles_tpu_torch.nn.base.bias_add_nhwc`, whose
+backward sums the bias gradient with the column-sum kernel (K6); the
+convolution's data and weight gradients stay with cuDNN, as the JAX
+package leaves them to XLA.
 
 * The stride is ``(sliding[1], sliding[0])`` for (H, W), as in the JAX
   package (``sliding`` is given x first).
@@ -21,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from veles_tpu_torch.nn.activation import get_activation
-from veles_tpu_torch.nn.base import WeightedBase
+from veles_tpu_torch.nn.base import WeightedBase, bias_add_nhwc
 
 
 def _pad_hw(padding):
@@ -43,7 +47,8 @@ class Conv(WeightedBase):
 
     def __init__(self, input_shape, n_kernels, kx, ky, sliding=(1, 1),
                  padding="VALID", space_to_depth=False, activation=None,
-                 policy="float32", include_bias=True, device=None):
+                 policy="float32", include_bias=True, device=None,
+                 trainable=False):
         input_shape = tuple(input_shape)
         if len(input_shape) == 2:
             input_shape += (1,)
@@ -63,7 +68,7 @@ class Conv(WeightedBase):
         self.activation_name = activation or self.ACTIVATION
         self._activation = get_activation(self.activation_name)
         super(Conv, self).__init__(input_shape, policy, include_bias,
-                                   device)
+                                   device, trainable)
         self.weights.data = self.weights.data.contiguous(
             memory_format=torch.channels_last)
 
@@ -79,7 +84,7 @@ class Conv(WeightedBase):
         return ((h + 2 * ph - self.ky) // sh + 1,
                 (w + 2 * pw - self.kx) // sw + 1, self.n_kernels)
 
-    def forward(self, x):
+    def _apply(self, x, plain):
         if x.dim() == 3:
             x = x.unsqueeze(-1)
         pol = self.policy
@@ -88,10 +93,15 @@ class Conv(WeightedBase):
         # dtype before the upcast, as the JAX package's conv does
         y = F.conv2d(xc.permute(0, 3, 1, 2), wc, None, self.stride,
                      self.pad).to(pol.accum_dtype)
-        if self.bias is not None:
-            y = y + self.bias.view(1, -1, 1, 1)
-        y = pol.cast_out(self._activation(y))
-        return y.permute(0, 2, 3, 1).contiguous()
+        y = bias_add_nhwc(y.permute(0, 2, 3, 1).contiguous(), self.bias,
+                          plain)
+        return pol.cast_out(self._activation(y))
+
+    def forward(self, x):
+        return self._apply(x, plain=False)
+
+    def plain_forward(self, x):
+        return self._apply(x, plain=True)
 
 
 class ConvTanh(Conv):

@@ -1,10 +1,11 @@
 """Local response normalization layer (``veles_tpu/nn/normalization.py``
 ``LRNormalizerForward``): the AlexNet cross-channel LRN over NHWC
-activations, always through :func:`veles_tpu_torch.ops.lrn.lrn_forward`
-(the hand-written kernel on the card)."""
+activations, always through :class:`veles_tpu_torch.ops.lrn.LRNFunction`
+(the hand-written forward kernel K3 and backward kernel K4 on the
+card)."""
 
 from veles_tpu_torch.nn.base import ForwardBase
-from veles_tpu_torch.ops.lrn import lrn_forward, lrn_forward_plain
+from veles_tpu_torch.ops.lrn import LRNFunction
 
 
 class LRNormalizerForward(ForwardBase):
@@ -14,7 +15,9 @@ class LRNormalizerForward(ForwardBase):
         self.k, self.alpha, self.beta, self.n = k, alpha, beta, n
 
     def forward(self, x):
-        return lrn_forward(x, self.k, self.alpha, self.beta, self.n)
+        return LRNFunction.apply(x, self.k, self.alpha, self.beta, self.n,
+                                 False)
 
     def plain_forward(self, x):
-        return lrn_forward_plain(x, self.k, self.alpha, self.beta, self.n)
+        return LRNFunction.apply(x, self.k, self.alpha, self.beta, self.n,
+                                 True)

@@ -2,7 +2,11 @@
 
 VALID windows of ``(ky, kx)`` with stride ``(sliding[1], sliding[0])``
 for (H, W); ``sliding`` defaults to the window. ``F.max_pool2d`` on an
-NCHW view in channels_last memory, permuted back to NHWC.
+NCHW view in channels_last memory, permuted back to NHWC. The gradient
+is torch's own (``max_pool2d``'s backward), as the JAX package leaves
+it to XLA's ``reduce_window`` VJP; both route a window's gradient to its
+first maximum in row-major order, so windows of equal values (the
+zeros of a strict ReLU) route alike.
 """
 
 import torch.nn.functional as F

@@ -8,6 +8,14 @@ bound and the design); on a CPU tensor it runs
 :func:`linear_act_plain`, the same function in plain PyTorch. There is
 no other route: a CUDA tensor that the kernel does not take raises.
 
+:class:`LinearActFunction` is the differentiable layer, the port of
+``fused_linear``'s ``custom_vjp``: forward :func:`linear_act`, residuals
+(x, w, y), and a backward that takes the activation's derivative from
+the output y (:data:`ACTIVATION_GRADS`), sums the bias gradient with
+:func:`veles_tpu_torch.ops.reduce.column_sum` (K6) and leaves the two
+products to ``torch.matmul``, as the JAX package leaves them to XLA's
+dot.
+
 The five epilogues keep the JAX package's exact constants: LeCun tanh
 ``1.7159 * tanh(0.6666 x)``, sigmoid, softplus "relu" linear above 15,
 strict relu, linear. The product accumulates in float32 from float32
@@ -22,11 +30,24 @@ import torch
 
 from veles_tpu_torch.nn.activation import ACTIVATIONS
 from veles_tpu_torch.ops import build
+from veles_tpu_torch.ops.reduce import column_sum, column_sum_plain
 
 #: the kernel's epilogue codes
 EPILOGUES = ("linear", "tanh", "sigmoid", "relu", "strict_relu")
 _DTYPES = (torch.float32, torch.bfloat16)
 _count_lock = threading.Lock()
+
+#: each epilogue's derivative as a function of its OUTPUT y
+#: (``_EPILOGUE_GRADS``, ``veles_tpu/ops/gemm.py``), so the backward
+#: keeps only (x, w, y) and never the pre-activation
+ACTIVATION_GRADS = {
+    "linear": lambda y: torch.ones_like(y),
+    "tanh": lambda y: 1.7159 * 0.6666 * (1.0 - torch.square(y / 1.7159)),
+    "sigmoid": lambda y: y * (1.0 - y),
+    # y = log1p(e^x) => dy/dx = sigmoid(x) = 1 - e^-y
+    "relu": lambda y: 1.0 - torch.exp(-y),
+    "strict_relu": lambda y: (y > 0.0).to(y.dtype),
+}
 
 
 def linear_act_plain(x, w, bias=None, activation="linear",
@@ -78,9 +99,6 @@ def linear_act(x, w, bias=None, activation="linear", out_dtype=None):
     if x.device.type != "cuda":
         raise ValueError("linear_act runs on cuda or cpu, not %s"
                          % x.device)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise RuntimeError("linear_act's kernel has no backward yet: call "
-                           "it under torch.inference_mode()")
     m, k = x.shape
     n = w.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
@@ -115,3 +133,37 @@ def _library():
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+class LinearActFunction(torch.autograd.Function):
+    """Differentiable ``act(x @ w + bias)``: forward :func:`linear_act`
+    (K1), backward as ``_fused_linear_bwd``:
+
+    * ``dpre = g * act'(y)`` in float32;
+    * ``db = column_sum(dpre)`` (K6);
+    * ``dx = dpre_c @ w^T`` and ``dw = x^T @ dpre_c`` on ``torch.matmul``,
+      with ``dpre_c`` cast to the compute dtype (w's).
+
+    ``plain=True`` runs the plain versions of both kernels."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, activation, out_dtype, plain=False):
+        forward = linear_act_plain if plain else linear_act
+        y = forward(x, w, bias, activation, out_dtype)
+        ctx.save_for_backward(x, w, y)
+        ctx.constants = (activation, bias is not None, plain)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, y = ctx.saved_tensors
+        activation, has_bias, plain = ctx.constants
+        dpre = g.float() * ACTIVATION_GRADS[activation](y.float())
+        db = None
+        if has_bias:
+            db = (column_sum_plain if plain else column_sum)(
+                dpre.contiguous())
+        dpre_c = dpre.to(w.dtype)
+        dx = torch.matmul(dpre_c, w.t()).to(x.dtype)
+        dw = torch.matmul(x.t(), dpre_c).to(w.dtype)
+        return dx, dw, db, None, None, None

@@ -1,15 +1,21 @@
-"""Cross-channel LRN forward over channels-last rows.
+"""Cross-channel LRN over channels-last rows, forward and backward.
 
 :func:`lrn_forward` is the port of ``lrn_fused`` / ``_call_fwd``
 (``veles_tpu/ops/lrn.py``):
 
-    y = x * (k + alpha * W(x^2))^-beta
+    y = x * d^-beta,  d = k + alpha * W(x^2)
 
 with W the n-wide channel window (n odd), zero beyond the first and
-last channel. On a CUDA tensor it launches the hand-written kernel
-``csrc/lrn_fwd.cu`` (see its header for the bound and the design); on
-a CPU tensor it runs :func:`lrn_forward_plain`, the same function in
-plain PyTorch. A CUDA tensor the kernel does not take raises.
+last channel. :func:`lrn_backward` is the port of ``_call_bwd``:
+
+    dx = g * d^-beta - 2 * alpha * beta * x * W(g * x * d^(-beta-1))
+
+with d recomputed from x. :class:`LRNFunction` ties them together as
+``lrn_fused``'s ``custom_vjp`` does: its only residual is x. On a CUDA
+tensor each wrapper launches its hand-written kernel
+(``csrc/lrn_fwd.cu``, ``csrc/lrn_bwd.cu``; see their headers for the
+bounds and the designs); on a CPU tensor it runs its plain PyTorch
+version. A CUDA tensor a kernel does not take raises.
 
 The input must be channels-last and contiguous (NHWC, or any rank with
 channels last): the kernel walks (rows, C). PyTorch convolutions yield
@@ -34,13 +40,29 @@ _count_lock = threading.Lock()
 
 def _check(x, n):
     if n % 2 == 0:
-        raise ValueError("lrn_forward requires an odd window (n=%d)" % n)
+        raise ValueError("the LRN requires an odd window (n=%d)" % n)
     if x.dim() < 2:
-        raise ValueError("lrn_forward needs (..., C), got %s"
+        raise ValueError("the LRN needs (..., C), got %s"
                          % (tuple(x.shape),))
     if x.dtype not in _DTYPES:
-        raise TypeError("lrn_forward takes float32 or bfloat16, got %s"
+        raise TypeError("the LRN takes float32 or bfloat16, got %s"
                         % x.dtype)
+
+
+def _check_layout(x, name):
+    if not x.is_contiguous():
+        raise ValueError(
+            "%s needs channels-last contiguous input (got strides %s for "
+            "shape %s): keep convolutions in channels_last memory or "
+            "permute to NHWC first" % (name, x.stride(), tuple(x.shape)))
+
+
+def _window(v, n):
+    """W(v): the n-wide channel window sum as n shifted slices of the
+    zero-padded last axis."""
+    channels = v.shape[-1]
+    padded = F.pad(v, (n // 2, n // 2))
+    return sum(padded[..., i:i + channels] for i in range(n))
 
 
 def lrn_forward_plain(x_nhwc, k=2.0, alpha=1e-4, beta=0.75, n=5):
@@ -48,10 +70,8 @@ def lrn_forward_plain(x_nhwc, k=2.0, alpha=1e-4, beta=0.75, n=5):
     zero-padded squares, float32 math, cast back to the input dtype."""
     _check(x_nhwc, n)
     xf = x_nhwc.float()
-    channels = xf.shape[-1]
-    padded = F.pad(xf * xf, (n // 2, n // 2))
-    window = sum(padded[..., i:i + channels] for i in range(n))
-    return (xf * torch.pow(k + alpha * window, -beta)).to(x_nhwc.dtype)
+    return (xf * torch.pow(k + alpha * _window(xf * xf, n), -beta)).to(
+        x_nhwc.dtype)
 
 
 def lrn_forward(x_nhwc, k=2.0, alpha=1e-4, beta=0.75, n=5):
@@ -59,20 +79,12 @@ def lrn_forward(x_nhwc, k=2.0, alpha=1e-4, beta=0.75, n=5):
     Counts each kernel launch in ``lrn_forward.launches``, and in
     ``lrn_forward.launches_by_form`` under ``(shape, dtype)``."""
     _check(x_nhwc, n)
-    if not x_nhwc.is_contiguous():
-        raise ValueError(
-            "lrn_forward needs channels-last contiguous input (got strides "
-            "%s for shape %s): keep convolutions in channels_last memory "
-            "or permute to NHWC first" % (x_nhwc.stride(),
-                                          tuple(x_nhwc.shape)))
+    _check_layout(x_nhwc, "lrn_forward")
     if x_nhwc.device.type == "cpu":
         return lrn_forward_plain(x_nhwc, k, alpha, beta, n)
     if x_nhwc.device.type != "cuda":
         raise ValueError("lrn_forward runs on cuda or cpu, not %s"
                          % x_nhwc.device)
-    if torch.is_grad_enabled() and x_nhwc.requires_grad:
-        raise RuntimeError("lrn_forward's kernel has no backward yet: call "
-                           "it under torch.inference_mode()")
     channels = x_nhwc.shape[-1]
     rows = x_nhwc.numel() // channels if channels else 0
     y = torch.empty_like(x_nhwc)
@@ -115,3 +127,99 @@ def _library():
         smem.argtypes = [ctypes.c_int]
         smem.restype = ctypes.c_int
     return lib
+
+
+def lrn_backward_plain(x_nhwc, g, k=2.0, alpha=1e-4, beta=0.75, n=5):
+    """The plain PyTorch version of the backward: the explicit formula
+    with d recomputed from x, float32 math, cast back to x's dtype."""
+    _check(x_nhwc, n)
+    xf, gf = x_nhwc.float(), g.float()
+    d = k + alpha * _window(xf * xf, n)
+    q = torch.pow(d, -beta)
+    u = _window(gf * xf * (q / d), n)
+    return (gf * q - (2.0 * alpha * beta) * xf * u).to(x_nhwc.dtype)
+
+
+def lrn_backward(x_nhwc, g, k=2.0, alpha=1e-4, beta=0.75, n=5):
+    """dx of the LRN over the last axis for upstream gradient ``g``;
+    x and g channels-last contiguous, of one shape and dtype. Counts
+    each kernel launch in ``lrn_backward.launches``, and in
+    ``lrn_backward.launches_by_form`` under ``(shape, dtype)``."""
+    _check(x_nhwc, n)
+    if g.shape != x_nhwc.shape or g.dtype != x_nhwc.dtype or \
+            g.device != x_nhwc.device:
+        raise ValueError("lrn_backward needs g like x: got %s %s on %s for "
+                         "%s %s on %s" % (tuple(g.shape), g.dtype, g.device,
+                                          tuple(x_nhwc.shape), x_nhwc.dtype,
+                                          x_nhwc.device))
+    _check_layout(x_nhwc, "lrn_backward")
+    _check_layout(g, "lrn_backward")
+    if x_nhwc.device.type == "cpu":
+        return lrn_backward_plain(x_nhwc, g, k, alpha, beta, n)
+    if x_nhwc.device.type != "cuda":
+        raise ValueError("lrn_backward runs on cuda or cpu, not %s"
+                         % x_nhwc.device)
+    channels = x_nhwc.shape[-1]
+    rows = x_nhwc.numel() // channels if channels else 0
+    dx = torch.empty_like(x_nhwc)
+    if rows == 0 or channels == 0:
+        return dx
+    lib = _bwd_library()
+    if lib.veles_lrn_bwd_smem_bytes(channels) > _SMEM_LIMIT:
+        raise ValueError("lrn_backward's kernel takes at most %d channels, "
+                         "got %d" % (_SMEM_LIMIT //
+                                     lib.veles_lrn_bwd_smem_bytes(1),
+                                     channels))
+    with torch.cuda.device(x_nhwc.device):
+        stream = torch.cuda.current_stream(x_nhwc.device).cuda_stream
+        status = lib.veles_lrn_bwd(
+            x_nhwc.data_ptr(), g.data_ptr(), dx.data_ptr(), rows, channels,
+            float(k), float(alpha), float(beta), n,
+            int(abs(beta - 0.75) < 1e-12),
+            int(x_nhwc.dtype == torch.bfloat16), stream)
+        with _count_lock:
+            lrn_backward.launches += 1
+            lrn_backward.launches_by_form[
+                (tuple(x_nhwc.shape), x_nhwc.dtype)] += 1
+    build.check(status, "lrn_bwd")
+    return dx
+
+
+lrn_backward.launches = 0
+lrn_backward.launches_by_form = collections.Counter()
+
+
+def _bwd_library():
+    lib = build.library("lrn_bwd")
+    fn = lib.veles_lrn_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        smem = lib.veles_lrn_bwd_smem_bytes
+        smem.argtypes = [ctypes.c_int]
+        smem.restype = ctypes.c_int
+    return lib
+
+
+class LRNFunction(torch.autograd.Function):
+    """The differentiable LRN: forward :func:`lrn_forward` (K3), backward
+    :func:`lrn_backward` (K4), saving only x, as ``lrn_fused``'s
+    ``custom_vjp`` does. ``plain=True`` runs both plain versions."""
+
+    @staticmethod
+    def forward(ctx, x_nhwc, k, alpha, beta, n, plain=False):
+        ctx.save_for_backward(x_nhwc)
+        ctx.constants = (k, alpha, beta, n, plain)
+        forward = lrn_forward_plain if plain else lrn_forward
+        return forward(x_nhwc, k, alpha, beta, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_nhwc, = ctx.saved_tensors
+        k, alpha, beta, n, plain = ctx.constants
+        backward = lrn_backward_plain if plain else lrn_backward
+        return (backward(x_nhwc, g.contiguous(), k, alpha, beta, n),
+                None, None, None, None, None)

@@ -1,0 +1,259 @@
+"""The fused trainer (``veles_tpu/train/step.py`` ``FusedTrainer``).
+
+Drives a model built by ``models.build.build_training`` over a
+full-batch loader whose dataset sits on the device:
+
+* ``_segment_indices``: a class's shuffled indices as an (n_batches,
+  minibatch) matrix padded with -1, as in the JAX package;
+* ``train_batch``: gather, forward (dropout masks by absolute layer
+  index, the head's logits), the softmax loss over the padded batch,
+  ``backward()``, then the SGD update of each layer in order;
+* ``eval_class`` / ``train_class`` / ``run_epoch``: evaluation classes
+  first, then training, then the loader's shuffle;
+* ``train(max_epochs)``; ``pull_params`` / ``push_params`` as state
+  dicts.
+
+PyTorch runs eagerly, so where the JAX trainer compiles a ``lax.scan``
+over a segment this one loops over its rows in Python, and parameters
+and optimizer state stay on the device, updated in place.
+
+Dropout: per epoch, the trainer draws one 64-bit seed from the first
+dropout layer's stream (``prng.get(rand_name).philox_seed()``, as the
+JAX trainer draws ``jax_key()``), and the mask of layer i at batch b
+comes from the uniform source at (seed, b, i), as the JAX trainer folds
+b and then i into its key. The default source is the Philox fill K7
+(``ops/random.py``); any callable ``source(shape, seed, batch_index,
+layer_index, device)`` returning float32 uniforms of ``shape`` may
+replace it (the parity tests hand over JAX's own ``jax.random``
+numbers this way).
+
+Left out for later slices: streaming and offload, the space-to-depth
+staging pack, the cost-book harvest, gradient norms, the decision
+unit's early stop, the confusion matrix, and the MSE loss.
+"""
+
+import logging
+import math
+import time
+
+import numpy
+import torch
+
+from veles_tpu_torch import prng
+from veles_tpu_torch.convert import layer_params
+from veles_tpu_torch.loader.base import CLASS_NAMES, TEST, TRAIN, VALIDATION
+from veles_tpu_torch.nn.dropout import DropoutForward
+from veles_tpu_torch.nn.evaluator import softmax_loss_and_metrics
+from veles_tpu_torch.nn.optim import get_solver
+from veles_tpu_torch.ops.random import (dropout_offset, uniform_fill,
+                                        uniform_fill_plain)
+
+_log = logging.getLogger(__name__)
+
+
+class FusedTrainer(object):
+    """Trains ``model`` (an ``nn.Sequential`` of the port's modules)
+    over ``loader`` with the softmax loss and ``solver``.
+
+    ``hypers`` holds one solver hyper-parameter dict per module.
+    ``plain=True`` runs every kernel's plain version instead (the
+    reference the kernels are held against on the card)."""
+
+    def __init__(self, model, loader, hypers, solver="sgd",
+                 uniform_source=None, plain=False):
+        self.model = model
+        self.forwards = list(model)
+        self.loader = loader
+        self.hypers = list(hypers)
+        if len(self.hypers) != len(self.forwards):
+            raise ValueError("%d hyper-parameter dicts for %d layers" % (
+                len(self.hypers), len(self.forwards)))
+        self.solver = get_solver(solver)
+        self.uniform_source = uniform_source
+        self.plain = plain
+        self.device = next(model.parameters()).device
+        loader.stage(self.device)
+        self.params = [layer_params(m) for m in self.forwards]
+        self.states = [self.solver.init(p) if p else {}
+                       for p in self.params]
+
+    # -- forward and loss --------------------------------------------------
+
+    def _uniforms(self, shape, seed, batch_index, layer_index, device):
+        """A dropout mask's uniforms: the uniform source's, or else K7
+        (its plain version when ``plain``) at stream (seed, offset of
+        batch and layer), filled as (shape[0], rest) and reshaped."""
+        shape = tuple(shape)
+        if self.uniform_source is not None:
+            return self.uniform_source(shape, seed, batch_index,
+                                       layer_index, device)
+        fill = uniform_fill_plain if self.plain else uniform_fill
+        return fill((shape[0], math.prod(shape[1:])), seed,
+                    dropout_offset(batch_index, layer_index),
+                    device=device).reshape(shape)
+
+    def _forward(self, x, train, batch_index=0, seed=0):
+        """The chain; dropout masks only in training; the head yields
+        logits (``apply_for_grad``)."""
+        last = len(self.forwards) - 1
+        for i, module in enumerate(self.forwards):
+            if isinstance(module, DropoutForward):
+                if train:
+                    x = module.train_forward(x, self._uniforms(
+                        x.shape, seed, batch_index, i, x.device))
+            elif i == last and hasattr(module, "logits"):
+                x = module.logits(x, self.plain)
+            elif self.plain:
+                x = module.plain_forward(x)
+            else:
+                x = module(x)
+        return x
+
+    def _dropout_seed(self):
+        """This epoch's dropout seed, from the first dropout layer's
+        stream; 0 without dropout (no stream is touched)."""
+        for module in self.forwards:
+            if isinstance(module, DropoutForward):
+                return prng.get(module.rand_name).philox_seed()
+        return 0
+
+    def gradients(self, indices, batch_index, seed):
+        """Loss and gradients of one minibatch (``indices`` on the
+        device), without an update: (report_loss, n_err), with each
+        parameter's ``.grad`` set."""
+        x, labels, valid = self.loader.gather(indices)
+        for params in self.params:
+            for p in params.values():
+                p.grad = None
+        out = self._forward(x, True, batch_index, seed)
+        grad_loss, report, n_err = softmax_loss_and_metrics(out, labels,
+                                                            valid)
+        grad_loss.backward()
+        return report, n_err
+
+    def train_batch(self, indices, batch_index, seed):
+        """One step: gradients, then the solver over the layers in
+        order. Returns (report_loss, n_err) as device scalars."""
+        report, n_err = self.gradients(indices, batch_index, seed)
+        for params, state, hp in zip(self.params, self.states, self.hypers):
+            if params:
+                self.solver.update(
+                    params, {k: p.grad for k, p in params.items()}, state,
+                    hp)
+        return report, n_err
+
+    # -- class-level driving -----------------------------------------------
+
+    def _segment_indices(self, klass, skip=0):
+        """(n_batches, minibatch) int32 index matrix of a class, padded
+        with -1 (the JAX trainer's, bit for bit)."""
+        loader = self.loader
+        ends = loader.class_end_offsets
+        start = ends[klass] - loader.class_lengths[klass] + skip
+        seg = numpy.asarray(loader.shuffled_indices[start:ends[klass]],
+                            numpy.int32)
+        mb = loader.max_minibatch_size
+        n_batches = (len(seg) + mb - 1) // mb
+        mat = numpy.full((max(n_batches, 1), mb), -1, numpy.int32)
+        mat.reshape(-1)[:len(seg)] = seg
+        return mat
+
+    def eval_class(self, klass, skip=0):
+        """Forward-only sweep of one class: (losses, n_errs) per
+        minibatch, device tensors."""
+        idx = torch.from_numpy(self._segment_indices(klass, skip)).to(
+            self.device)
+        losses, errs = [], []
+        with torch.no_grad():
+            for row in idx:
+                x, labels, valid = self.loader.gather(row)
+                out = self._forward(x, False)
+                _, report, n_err = softmax_loss_and_metrics(out, labels,
+                                                            valid)
+                losses.append(report)
+                errs.append(n_err)
+        return torch.stack(losses), torch.stack(errs)
+
+    def train_class(self, skip=0):
+        """One training sweep of the TRAIN class: (losses, n_errs) per
+        minibatch. Batch indices continue from ``skip``'s position in
+        the epoch, as the JAX trainer's fold indices do."""
+        idx = torch.from_numpy(self._segment_indices(TRAIN, skip)).to(
+            self.device)
+        seed = self._dropout_seed()
+        first = skip // self.loader.max_minibatch_size
+        losses, errs = [], []
+        for j, row in enumerate(idx):
+            report, n_err = self.train_batch(row, first + j, seed)
+            losses.append(report)
+            errs.append(n_err)
+        return torch.stack(losses), torch.stack(errs)
+
+    def run_epoch(self, epoch=None):
+        """One epoch: evaluation classes in reference order, then
+        training, then the loader's shuffle. Returns per-class stats."""
+        loader = self.loader
+        epoch = loader.epoch_number if epoch is None else epoch
+        stats = {}
+        for klass in (TEST, VALIDATION):
+            if loader.class_lengths[klass]:
+                stats[CLASS_NAMES[klass]] = self._summarize(
+                    *self.eval_class(klass), klass=klass)
+        if loader.class_lengths[TRAIN]:
+            stats[CLASS_NAMES[TRAIN]] = self._summarize(
+                *self.train_class(), klass=TRAIN)
+            loader.epoch_number = epoch + 1
+            if loader.epoch_number <= loader.shuffle_limit:
+                loader.shuffle()
+        return stats
+
+    def _summarize(self, losses, metrics, klass):
+        n = self.loader.class_lengths[klass]
+        metric_sum = float(metrics.sum())
+        return {"samples": n, "metric": metric_sum,
+                "normalized": metric_sum / max(n, 1),
+                "loss": float(losses.float().mean()),
+                "losses": losses.float().cpu().numpy()}
+
+    def train(self, max_epochs):
+        """``max_epochs`` epochs from the loader's epoch number on.
+        Returns the per-epoch history."""
+        history = []
+        start = time.perf_counter()
+        for epoch in range(self.loader.epoch_number, max_epochs):
+            stats = self.run_epoch(epoch)
+            stats["epoch"] = epoch
+            history.append(stats)
+            _log.info("epoch %d: %s", epoch, "  ".join(
+                "%s=%.4f" % (k, v["normalized"])
+                for k, v in stats.items() if isinstance(v, dict)))
+        elapsed = time.perf_counter() - start
+        _log.info("fused training: %d epochs in %.2fs", len(history),
+                  elapsed)
+        return history
+
+    # -- parameter plumbing ------------------------------------------------
+
+    def pull_params(self):
+        """(params, states): copies of every layer's parameters and
+        solver state as state dicts (``{}`` for layers without
+        weights)."""
+        params = [{k: p.detach().clone() for k, p in layer.items()}
+                  for layer in self.params]
+        states = [_clone_state(s) for s in self.states]
+        return params, states
+
+    def push_params(self, params, states):
+        """Load ``params`` and ``states`` (as :meth:`pull_params` gives
+        them) into the model and the solver."""
+        with torch.no_grad():
+            for layer, values in zip(self.params, params):
+                for k, p in layer.items():
+                    p.copy_(values[k])
+        self.states = [_clone_state(s) for s in states]
+
+
+def _clone_state(state):
+    if isinstance(state, dict):
+        return {k: _clone_state(v) for k, v in state.items()}
+    return state.detach().clone()
