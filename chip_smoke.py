@@ -5,12 +5,12 @@
 
 1. Card: the ``nvidia-smi`` name and power limit, then one ``nvcc`` per
    kernel source under ``veles_tpu_torch/csrc``, all started together.
-2. Kernel phase: every kernel at the shapes the serving and training
-   paths give it, held against its plain PyTorch version on the card
-   within a stated tolerance (the Philox fill bit for bit), and timed
-   (CUDA events) beside its plain version, one PyTorch library call
-   computing the same function, and its bound (bytes over 3.35 TB/s or
-   operations over the type's peak, H100 SXM).
+2. Kernel phase: every kernel at the shapes the serving, training and
+   GEMM-disciplines paths give it, held against its plain PyTorch
+   version on the card within a stated tolerance (the Philox fill bit
+   for bit), and timed (CUDA events) beside its plain version, one
+   PyTorch library call computing the same function, and its bound
+   (bytes over 3.35 TB/s or operations over the type's peak, H100 SXM).
 3. Slice phase: full-width AlexNet-227 (float32, weights from numpy
    seed 42) behind ``ServingFrontend`` on 127.0.0.1 with one replica
    and max batch 64; concurrent single requests and one 64-row batch
@@ -38,8 +38,22 @@
    model's LRN, bias and dropout counts per step, every launch at a
    checked form. (d) A ``torch.profiler`` table and split of one
    training step's device time by kernel.
-6. The line before the last is ``{"kernels": [...], "not_ported":
-   [...]}``; the last is ``{"ok": true, "device": {...}}``. Any failure
+6. Disciplines phase: the GEMM-disciplines bench
+   (``veles_tpu_torch.ops.gemm_bench``) at its five shapes, counted from
+   0, and its table. (a) Level 1 (K5) is no less accurate against
+   float64 than the plain Kahan loop (max |error| at most 1.05x at every
+   shape). (b) On the hostile input of ``tests/test_ops.py`` (K 4096, 8
+   decades, alternating signs; 256 rows), with the magnitudes falling
+   along K, K5 with 64-deep blocks errs at least 2x less than K5 with
+   one block (rising magnitudes are printed beside). (c) Levels 0 and 2
+   stay within a float32-sized error of float64, also with TF32 switched
+   on for the process, and a control (a plain matmul under TF32) must
+   fail that limit. (d) Every K5 and K2 launch lands at a form the
+   kernel phase checked. Then the device rating, ``gemm_benchmark()`` at
+   bf16 and at float32, with a ``torch.profiler`` table of the bf16
+   chain's kernels and bf16 at 1536^2 (rows 16-byte aligned) beside.
+7. The line before the last is ``{"kernels": [...], "not_ported":
+   []}``; the last is ``{"ok": true, "device": {...}}``. Any failure
    raises and exits non-zero before them.
 """
 
@@ -48,7 +62,6 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import threading
 import time
@@ -66,6 +79,7 @@ LRN_SOURCE = "veles_tpu_torch/csrc/lrn_fwd.cu"
 LRN_BWD_SOURCE = "veles_tpu_torch/csrc/lrn_bwd.cu"
 REDUCE_SOURCE = "veles_tpu_torch/csrc/column_reduce.cu"
 UNIFORM_SOURCE = "veles_tpu_torch/csrc/uniform_fill.cu"
+KAHAN_SOURCE = "veles_tpu_torch/csrc/kahan_gemm.cu"
 #: the TPU kernels' pallas_call sites
 GEMM_BIAS_TPU = "veles_tpu/ops/gemm.py:414"
 GEMM_TPU = "veles_tpu/ops/gemm.py:410"
@@ -123,33 +137,28 @@ GRAD_SHARE_TOL = 1e-2
 #: and the step's loss, relative
 LOSS_REL_TOL = 1e-5
 CHECK_SEED = 0x5EED
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
-    return out.splitlines()[0]
+#: (a): level 1's max |error| against float64 at most this multiple of
+#: the plain Kahan loop's, at every shape of the disciplines bench
+KAHAN_ERR_RATIO = 1.05
+#: (c): a float32 product's max |error| against float64 as a share of
+#: |a| @ |b|, operands uniform in [-0.5, 0.5). Each float32 rounding is
+#: at most 6e-8 of a partial sum no larger than |a| @ |b|, and a few of
+#: them add up: even plain sequential float32 sums over millions of
+#: outputs stay at a few 1e-7. TF32 rounds each operand to 10 mantissa
+#: bits, ~5e-4 relative per product, and reads a few 1e-6 on a typical
+#: output at K = 9216 and more at smaller K
+FP32_SHARE_TOL = 2e-6
+#: (b): on the hostile input with falling magnitudes one K-deep block
+#: must err at least this many times more than 64-deep Kahan blocks (a
+#: compensation that does nothing reads ~1)
+HOSTILE_FALLING_GAIN = 2.0
 
 
 def device_ms(torch, fn, trials=5, per_trial=10, warmup=3):
     """Median over trials of the mean device time of back-to-back
     calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(trials):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per_trial):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_trial)
-    return statistics.median(times)
+    from veles_tpu_torch.ops.gemm_bench import time_ms
+    return time_ms(fn, torch.device("cuda"), trials, per_trial, warmup)
 
 
 def bound(nbytes, ops, dtype):
@@ -225,6 +234,30 @@ def gemm_phase(torch):
                             x, w, bias, "strict_relu", dt)),
                         "bound_ms": bms, "bound_by": by,
                         "library_ms": device_ms(torch, library)})
+    # K2 on the GEMM-disciplines path: float32, no bias, linear
+    from veles_tpu_torch.ops.gemm_bench import SHAPES
+    for _, (m, k, n) in SHAPES:
+        a = torch.rand(m, k, device="cuda", generator=gen) - 0.5
+        b = torch.rand(k, n, device="cuda", generator=gen) - 0.5
+        got = linear_act(a, b, None, "linear", torch.float32)
+        want = linear_act_plain(a, b, None, "linear", torch.float32)
+        torch.cuda.synchronize()
+        name = "%dx%d @ %dx%d float32 no bias" % (m, k, k, n)
+        err = check_close("gemm_bias_act " + name, got, want,
+                          *GEMM_TOL["float32"])
+        bms, by = bound(4 * (m * k + k * n + m * n), 2 * m * n * k,
+                        "float32")
+        rows.append({
+            "name": "gemm_bias_act", "shape": name,
+            "_form": (m, k, n, torch.float32, False),
+            "route": "cuda", "source": GEMM_SOURCE, "replaces": GEMM_TPU,
+            "max_abs_err": err, "tolerance": list(GEMM_TOL["float32"]),
+            "ms": device_ms(torch, lambda: linear_act(
+                a, b, None, "linear", torch.float32)),
+            "plain_ms": device_ms(torch, lambda: linear_act_plain(
+                a, b, None, "linear", torch.float32)),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": device_ms(torch, lambda: torch.mm(a, b))})
     return rows
 
 
@@ -387,18 +420,179 @@ def uniform_phase(torch):
             shape, device="cuda", generator=gen))}]
 
 
+def kahan_phase(torch):
+    """K5 against ``kahan_matmul_plain`` with the same block depth
+    (``min(512, K)``), at the disciplines bench's five shapes in float32
+    and at fc6's forward with bf16 operands. Bound: the product and 4
+    compensating operations per output and K block over the operands'
+    peak (float32 SIMT; bf16 tensor cores, which make the bf16 row
+    bytes-bound), or the operands and the float32 output moved once.
+    Library call: one float32 ``torch.matmul`` with TF32 off, the
+    uncompensated product."""
+    from veles_tpu_torch.ops.gemm import (KAHAN_BK, full_float32,
+                                          kahan_gemm, kahan_matmul_plain)
+    from veles_tpu_torch.ops.gemm_bench import SHAPES
+    cases = [(dims, "float32") for _, dims in SHAPES]
+    cases.insert(2, (SHAPES[1][1], "bfloat16"))
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for (m, k, n), dtype in cases:
+        dt = getattr(torch, dtype)
+        a = (torch.rand(m, k, device="cuda", generator=gen) - 0.5).to(dt)
+        b = (torch.rand(k, n, device="cuda", generator=gen) - 0.5).to(dt)
+        bk = min(KAHAN_BK, k)
+        got = kahan_gemm(a, b, bk)
+        want = kahan_matmul_plain(a, b, bk)
+        torch.cuda.synchronize()
+        name = "%dx%d @ %dx%d %s bk=%d" % (m, k, k, n, dtype, bk)
+        err = check_close("kahan_gemm " + name, got, want,
+                          *GEMM_TOL["float32"])
+        a32, b32 = a.float(), b.float()
+
+        def library():
+            with full_float32():
+                return torch.matmul(a32, b32)
+
+        bms, by = bound((m * k + k * n) * a.element_size() + 4 * m * n,
+                        2 * m * n * k + 4 * m * n * -(-k // bk), dtype)
+        rows.append({
+            "name": "kahan_gemm", "shape": name,
+            "_form": (m, k, n, dt, bk),
+            "route": "cuda", "source": KAHAN_SOURCE, "replaces": KAHAN_TPU,
+            "max_abs_err": err, "tolerance": list(GEMM_TOL["float32"]),
+            "ms": device_ms(torch, lambda: kahan_gemm(a, b, bk)),
+            "plain_ms": device_ms(torch, lambda: kahan_matmul_plain(
+                a, b, bk)),
+            "bound_ms": bms, "bound_by": by,
+            "library": "torch.matmul float32, TF32 off (uncompensated)",
+            "library_ms": device_ms(torch, library)})
+        del a, b, a32, b32, got, want
+    return rows
+
+
 def not_ported():
-    """The TPU kernels not ported yet, with their bound at one stated
-    shape: K5, the Kahan-compensated GEMM (``precision_level=1``), at
-    fc6's training shape in float32 with the JAX package's 512-deep K
-    blocks (a product and 4 compensating operations per output and K
-    block)."""
-    m, k, n, bk = TRAIN_BATCH, 9216, 4096, 512
-    bms, by = bound(4 * (m * k + k * n + m * n),
-                    2 * m * n * k + 4 * m * n * (k // bk), "float32")
-    return [{"name": "kahan_gemm", "replaces": KAHAN_TPU,
-             "shape": "%dx%d @ %dx%d float32" % (m, k, k, n),
-             "bound_ms": bms, "bound_by": by, "launches": 0}]
+    """The TPU kernels without a Hopper counterpart: none is left."""
+    return []
+
+
+def error_share(torch, got, ref, scale):
+    """max |got - ref| / (|a| @ |b|), in float64."""
+    return float(((got.double() - ref).abs() / scale).max())
+
+
+def hostile_check(torch):
+    """(b): K5 with 64-deep Kahan blocks against K5 with one K-deep
+    block on ``tests/test_ops.py``'s hostile input, at 256 rows (at its
+    4 rows every method lands within 2 float32 ulps of the others, and
+    the maximum cannot rank them), with magnitudes rising along K as
+    there, and falling. Falling is the gate: each small block joins a
+    large sum, and 64-deep blocks must be better by
+    ``HOSTILE_FALLING_GAIN``. Rising is printed only: the kernel's
+    16-deep sub-sums already take most of the compensation's gain, and
+    both errors sit within a few float32 ulps of outputs ~4.9e8, so
+    their ratio is rounding noise. The plain loop's errors are printed
+    beside."""
+    from veles_tpu_torch.ops.gemm import kahan_gemm, kahan_matmul_plain
+    from veles_tpu_torch.ops.gemm_bench import hostile_input
+    out = {}
+    for order in ("rising", "falling"):
+        a, b, exact = hostile_input(falling=order == "falling")
+        exact = torch.from_numpy(exact).cuda()
+        ta, tb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        k = a.shape[1]
+
+        def err(x):
+            return float((x.double() - exact).abs().max())
+
+        e = {"kernel_bk64": err(kahan_gemm(ta, tb, 64)),
+             "kernel_one_block": err(kahan_gemm(ta, tb, k)),
+             "plain_bk64": err(kahan_matmul_plain(ta, tb, 64)),
+             "plain_one_block": err(kahan_matmul_plain(ta, tb, k))}
+        e["one_block_over_bk64"] = e["kernel_one_block"] / max(
+            e["kernel_bk64"], 1e-300)
+        out[order] = e
+    print("disciplines (b): hostile input, max |err| vs float64: %s" % out)
+    gain = {order: e["one_block_over_bk64"] for order, e in out.items()}
+    if gain["falling"] < HOSTILE_FALLING_GAIN:
+        raise AssertionError(
+            "hostile input: one K-deep block over 64-deep Kahan blocks %s "
+            "(need >= %g falling)" % (gain, HOSTILE_FALLING_GAIN))
+    return out
+
+
+def tf32_check(torch):
+    """(c) with TF32 on for the process: levels 0 and 2 at fc6's forward
+    shape still within ``FP32_SHARE_TOL``; the control, a plain matmul
+    under the same switch, must exceed it."""
+    from veles_tpu_torch.ops.gemm import gemm
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    m, k, n = TRAIN_BATCH, 9216, 4096
+    a = torch.rand(m, k, device="cuda", generator=gen) - 0.5
+    b = torch.rand(k, n, device="cuda", generator=gen) - 0.5
+    ref = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = True
+    try:
+        got = {"level0": gemm(a, b, precision_level=0),
+               "level2": gemm(a, b, precision_level=2),
+               "control_tf32_matmul": torch.matmul(a, b)}
+        torch.cuda.synchronize()
+    finally:
+        matmul.allow_tf32 = saved
+    shares = {key: error_share(torch, x, ref, scale)
+              for key, x in got.items()}
+    print("disciplines (c): with allow_tf32 on, error share of |a|@|b| "
+          "vs float64: %s (limit %g; the control must exceed it)" % (
+              shares, FP32_SHARE_TOL))
+    if max(shares["level0"], shares["level2"]) > FP32_SHARE_TOL:
+        raise AssertionError("gemm() under allow_tf32 is not full float32: "
+                             "%s" % shares)
+    if shares["control_tf32_matmul"] <= FP32_SHARE_TOL:
+        raise AssertionError("control: a TF32 matmul passes the float32 "
+                             "limit (%s): the check cannot see TF32" % shares)
+    return shares
+
+
+def disciplines_phase(torch, numpy, card):
+    """The GEMM-disciplines path with the counts from 0, then checks
+    (a)-(c). Returns (result, launches_by_form)."""
+    from veles_tpu_torch.ops.gemm_bench import format_table, gemm_bench
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = gemm_bench("cuda")
+    torch.cuda.synchronize()
+    bench_s = time.perf_counter() - t0
+    counts, by_form = read_counts()
+    print(format_table(rows, card + ", times by CUDA events"))
+    if not (counts["kahan_gemm"] and counts["gemm_bias_act"]) or any(
+            n for name, n in counts.items()
+            if name not in ("kahan_gemm", "gemm_bias_act")):
+        raise AssertionError("disciplines launch counts %s (expected K5 and "
+                             "K2 only)" % counts)
+    ratios, shares = {}, {}
+    for row in rows:
+        err = row["err"]
+        ratios[row["name"]] = err["level1"] / max(err["kahan_loop"], 1e-300)
+        shares[row["name"]] = {lv: row["share"][lv]
+                               for lv in ("level0", "level1", "level2")}
+    print("disciplines (a): level 1 / plain loop max |err| vs float64: %s "
+          "(limit %g)" % (ratios, KAHAN_ERR_RATIO))
+    if max(ratios.values()) > KAHAN_ERR_RATIO:
+        raise AssertionError("level 1 (K5) less accurate than the plain "
+                             "Kahan loop: %s" % ratios)
+    print("disciplines (c): error share of |a|@|b| vs float64: %s (limit %g "
+          "for levels 0 and 2)" % (shares, FP32_SHARE_TOL))
+    if max(max(s["level0"], s["level2"]) for s in shares.values()) > \
+            FP32_SHARE_TOL:
+        raise AssertionError("a float32 level errs beyond float32: %s"
+                             % shares)
+    result = {"bench_s": bench_s, "launches": counts, "rows": rows,
+              "level1_over_loop_err": ratios,
+              "hostile": hostile_check(torch),
+              "tf32": tf32_check(torch)}
+    return result, by_form
 
 
 def post(port, path, body):
@@ -501,7 +695,7 @@ def slice_phase(torch, numpy):
     k1, k3 = counts["gemm_bias_act"], counts["lrn_fwd"]
     if forwards < 1 or k1 != 2 * forwards or k3 != 2 * forwards or \
             counts["lrn_bwd"] or counts["column_reduce"] or \
-            counts["uniform_fill"]:
+            counts["uniform_fill"] or counts["kahan_gemm"]:
         raise AssertionError(
             "serving launch counts %s over %d forwards (expected "
             "gemm_bias_act and lrn_fwd 2 each per forward, no training "
@@ -641,13 +835,13 @@ def forward_phase(torch, model):
 def kernel_counters():
     """{kernel name: its wrapper}, each wrapper carrying ``launches``
     and ``launches_by_form``."""
-    from veles_tpu_torch.ops.gemm import linear_act
+    from veles_tpu_torch.ops.gemm import kahan_gemm, linear_act
     from veles_tpu_torch.ops.lrn import lrn_backward, lrn_forward
     from veles_tpu_torch.ops.random import uniform_fill
     from veles_tpu_torch.ops.reduce import column_sum
     return {"gemm_bias_act": linear_act, "lrn_fwd": lrn_forward,
             "lrn_bwd": lrn_backward, "column_reduce": column_sum,
-            "uniform_fill": uniform_fill}
+            "uniform_fill": uniform_fill, "kahan_gemm": kahan_gemm}
 
 
 def reset_counts():
@@ -854,7 +1048,8 @@ def training_phase(torch, policy, check):
     t0 = time.perf_counter()
     loader = SyntheticImageLoader(
         n_train=TRAIN_SAMPLES, n_valid=TRAIN_BATCH,
-        side=ALEXNET_SAMPLE_SHAPE[0], n_classes=1000, minibatch_size=TRAIN_BATCH, dtype="bfloat16")
+        side=ALEXNET_SAMPLE_SHAPE[0], n_classes=1000,
+        minibatch_size=TRAIN_BATCH, dtype="bfloat16")
     trainer = build_training(ALEXNET_LAYERS, ALEXNET_SAMPLE_SHAPE, loader,
                              seed=42, policy=policy, device="cuda",
                              **ALEXNET_TRAINING)
@@ -909,7 +1104,8 @@ def training_phase(torch, policy, check):
         "column_reduce": sum(bool(p.get("bias") is not None)
                              for p in trainer.params) * steps,
         "uniform_fill": sum(isinstance(m, DropoutForward)
-                            for m in trainer.forwards) * steps}
+                            for m in trainer.forwards) * steps,
+        "kahan_gemm": 0}
     if counts != expected:
         raise AssertionError("%s training launch counts %s, expected %s "
                              "over %d steps and %d forwards" % (
@@ -968,6 +1164,42 @@ def training_phase(torch, policy, check):
     return result, by_form
 
 
+def rating_phase(torch):
+    """``gemm_benchmark()`` at bf16 and float32 (1500^2, the rating),
+    bf16 at 1536^2 (3072-byte rows, 16-byte aligned, where 1500's
+    3000-byte rows are not), and a ``torch.profiler`` table of one bf16
+    ``gemm_benchmark()`` call (a warm-up chain and the timed chain):
+    each kernel's name and device time per launch, to hold the events'
+    ms per product against the device's own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from veles_tpu_torch.ops.benchmark import gemm_benchmark
+    rating = {dtype: gemm_benchmark(dtype=getattr(torch, dtype))
+              for dtype in ("bfloat16", "float32")}
+    rating["bfloat16_1536"] = gemm_benchmark(size=1536)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled = gemm_benchmark()
+        torch.cuda.synchronize()
+    print(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                    row_limit=12))
+    kernels = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        kernels[evt.key] = {"launches": evt.count,
+                            "device_us_per_launch": us / max(evt.count, 1)}
+    # gemm_benchmark's default chain: 5 products
+    rating["bfloat16_profile"] = {
+        "kernels": kernels,
+        "events_ms_per_product": 1e3 * profiled["seconds"] / 5}
+    return rating
+
+
 def main():
     import numpy
     import torch
@@ -977,6 +1209,7 @@ def main():
     import veles_tpu_torch  # noqa: F401  (fails outside a checkout)
     from veles_tpu_torch.nn.precision import get_policy
     from veles_tpu_torch.ops import build
+    from veles_tpu_torch.ops.gemm_bench import card_line
 
     card = card_line()
     print(card)
@@ -991,7 +1224,8 @@ def main():
     get_policy("float32").configure_backends()
 
     kernels = (gemm_phase(torch) + lrn_phase(torch) + lrn_bwd_phase(torch) +
-               reduce_phase(torch) + uniform_phase(torch))
+               reduce_phase(torch) + uniform_phase(torch) +
+               kahan_phase(torch))
     for row in kernels:
         print("kernel %-14s %-32s err %.3g  %.4f ms  plain %.4f  "
               "library %.4f  bound %.4f (%s)" % (
@@ -1014,6 +1248,12 @@ def main():
         trained.append(result)
         print("training (%s): %s" % (card, json.dumps(result)))
     get_policy("float32").configure_backends()
+
+    disciplines, forms = disciplines_phase(torch, numpy, card)
+    check_forms("disciplines", kernels, forms)
+    phases.append(forms)
+    print("disciplines (%s): %s" % (card, json.dumps(disciplines)))
+    print("device rating (%s): %s" % (card, json.dumps(rating_phase(torch))))
 
     for row in kernels:
         form = row.pop("_form")

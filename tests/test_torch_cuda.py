@@ -15,7 +15,11 @@ forward and backward; bf16 outputs by one bf16 ulp (2^-8 relative), so
 (reordering R float32 additions moves a sum by far less). The Philox
 fill is held to its plain version bit for bit. A training step's
 gradients through the kernels are held to 1e-4 of each layer's
-gradient norm against the same step through the plain versions.
+gradient norm against the same step through the plain versions. The
+Kahan GEMM is held to its plain loop at atol = rtol = 1e-4 (float32
+sums of K <= 1000 products of values below 1, in other orders), and
+``gemm()``'s float32 products to 2e-6 of ``|a| @ |b|`` against float64:
+float32 sums read a few 1e-7 at most there, TF32 products ~1e-5.
 """
 
 import numpy
@@ -29,8 +33,10 @@ from veles_tpu_torch.models.alexnet import (  # noqa: E402
 from veles_tpu_torch.models.build import (build_model,  # noqa: E402
                                           build_training, plain_forward)
 from veles_tpu_torch.ops.gemm import (EPILOGUES,  # noqa: E402
-                                      LinearActFunction, linear_act,
-                                      linear_act_plain)
+                                      LinearActFunction, gemm, kahan_gemm,
+                                      kahan_matmul, kahan_matmul_plain,
+                                      linear_act, linear_act_plain)
+from veles_tpu_torch.ops.gemm_bench import hostile_input  # noqa: E402
 from veles_tpu_torch.ops.lrn import (lrn_backward,  # noqa: E402
                                      lrn_backward_plain, lrn_forward,
                                      lrn_forward_plain)
@@ -236,3 +242,117 @@ def test_training_step_through_kernels_matches_plain(card):
         for k in want:
             share = float((got[k] - want[k]).norm() / want[k].norm())
             assert share < 1e-4, (k, share)
+
+
+@pytest.mark.parametrize("shape", [(5, 1000, 70), (67, 300, 129),
+                                   (1, 64, 1), (130, 1, 65)])
+@pytest.mark.parametrize("bk", [64, 512])
+@pytest.mark.parametrize("layout", ["nn", "tn", "nt", "tt"])
+def test_kahan_gemm_kernel_matches_plain(card, shape, bk, layout):
+    """Ragged M, N and K (K = 1000 leaves a short last block at both
+    depths), float32 and bf16 operands, float32 and bf16 outputs, and
+    each operand row-major or a transposed view (layout t), which
+    ``kahan_matmul`` copies once before it launches the kernel."""
+    m, k, n = shape
+    a32 = torch.from_numpy(_rand((m, k), 20)).to(card)
+    b32 = torch.from_numpy(_rand((k, n), 21)).to(card)
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = a32.to(dtype), b32.to(dtype)
+        if layout[0] == "t":
+            a = a.t().contiguous().t()
+        if layout[1] == "t":
+            b = b.t().contiguous().t()
+        want = kahan_matmul_plain(a, b, bk)
+        for out_dtype, tol in ((torch.float32, 1e-4),
+                               (torch.bfloat16, 1e-2)):
+            before = kahan_gemm.launches
+            if layout == "nn":
+                got = kahan_gemm(a, b, bk, out_dtype)
+            else:
+                got = kahan_matmul(a, b, chunk=bk).to(out_dtype)
+            torch.cuda.synchronize()
+            assert kahan_gemm.launches == before + 1
+            assert got.dtype == out_dtype and got.shape == (m, n)
+            torch.testing.assert_close(
+                got.float(), want.to(out_dtype).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("falling", [False, True])
+def test_kahan_gemm_kernel_on_hostile_input(card, falling):
+    """K = 4096 over 8 decades with alternating signs, 256 rows: 64-deep
+    Kahan blocks stay within 8 float32 ulps of the largest output
+    (~4.9e8) with the magnitudes rising or falling along K, and with
+    them falling they err at least 2x less than one K-deep block. With
+    them rising both read ~3 ulps, so their ratio is rounding noise and
+    is not held."""
+    a, b, exact = hostile_input(falling=falling)
+    exact = torch.from_numpy(exact)
+    ta, tb = torch.from_numpy(a).to(card), torch.from_numpy(b).to(card)
+    err = {bk: float((kahan_gemm(ta, tb, bk).double().cpu() - exact).abs()
+                     .max()) for bk in (64, a.shape[1])}
+    assert err[64] <= 8 * 2.0 ** -23 * float(exact.abs().max()), err
+    if falling:
+        assert 2.0 * err[64] <= err[a.shape[1]], err
+
+
+def test_kahan_gemm_raises_on_what_the_kernel_does_not_take(card):
+    a = torch.ones(8, 16, device=card)
+    b = torch.ones(16, 4, device=card)
+    with pytest.raises(TypeError):
+        kahan_gemm(a.double(), b.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        kahan_gemm(torch.ones(8, 32, device=card)[:, ::2], b)
+    with pytest.raises(ValueError, match="contiguous"):
+        kahan_gemm(a.t().contiguous().t(), b)
+    # kahan_matmul makes such an operand contiguous once and launches
+    before = kahan_gemm.launches
+    got = kahan_matmul(torch.ones(8, 32, device=card)[:, ::2], b, chunk=4)
+    torch.cuda.synchronize()
+    assert kahan_gemm.launches == before + 1
+    assert torch.equal(got, torch.full((8, 4), 16.0, device=card))
+
+
+@pytest.mark.parametrize("view", ["row", "column"])
+def test_kahan_matmul_on_broadcast_views(card, view):
+    """Broadcast operands (a stride of 0) through ``kahan_matmul`` and
+    ``gemm(precision_level=1)`` equal the plain loop on their contiguous
+    copies; ``kahan_gemm`` refuses them."""
+    m, k, n = 70, 600, 33
+    v = torch.from_numpy(_rand((k,), 24)).to(card)
+    w = torch.from_numpy(_rand((k,), 25)).to(card)
+    if view == "row":  # strides (0, 1): every row the same
+        a, b = v[None].expand(m, k), w[:, None].expand(k, n)
+    else:  # strides (1, 0): every column the same
+        a, b = v[:m, None].expand(m, k), w[None, :n].expand(k, n)
+    want = kahan_matmul_plain(a.contiguous(), b.contiguous(), 64)
+    torch.testing.assert_close(kahan_matmul(a, b, chunk=64), want,
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(
+        gemm(a, b, precision_level=1),
+        kahan_matmul_plain(a.contiguous(), b.contiguous()),
+        atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="contiguous"):
+        kahan_gemm(a, b.contiguous())
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_gemm_is_full_float32_with_tf32_on(card, level):
+    """allow_tf32 on for the process: gemm() at every level still
+    computes float32 products, and the control (a plain matmul under
+    the same switch) is as coarse as TF32."""
+    a = torch.from_numpy(_rand((256, 4096), 22, 0.5)).to(card)
+    b = torch.from_numpy(_rand((4096, 256), 23, 0.5)).to(card)
+    ref = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = True
+    try:
+        got = gemm(a, b, precision_level=level)
+        control = torch.matmul(a, b)
+        assert matmul.allow_tf32
+    finally:
+        matmul.allow_tf32 = saved
+    share = float(((got.double() - ref).abs() / scale).max())
+    control_share = float(((control.double() - ref).abs() / scale).max())
+    assert share <= 2e-6 < control_share, (share, control_share)

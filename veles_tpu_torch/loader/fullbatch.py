@@ -12,19 +12,7 @@ so the host never touches sample data in the training loop.
 import torch
 
 from veles_tpu_torch.loader.base import Loader
-
-
-def gather_minibatch(data, indices, labels):
-    """Rows of ``data`` and ``labels`` at ``indices``, with the padding
-    contract of ``gather_minibatch`` / ``FusedTrainer._gather``: an
-    index below 0 marks a padded slot; it reads row 0, its data row is
-    zeroed and it is invalid. Returns (data, labels, valid)."""
-    valid = indices >= 0
-    safe = indices.clamp(min=0).long()
-    rows = data.index_select(0, safe)
-    rows = rows * valid.reshape((-1,) + (1,) * (rows.dim() - 1)).to(
-        rows.dtype)
-    return rows, labels.index_select(0, safe), valid
+from veles_tpu_torch.ops.gather import gather_minibatch
 
 
 class FullBatchLoader(Loader):
@@ -60,8 +48,10 @@ class FullBatchLoader(Loader):
 
     def gather(self, indices):
         """(data, labels, valid) of one minibatch from the staged copy;
-        ``indices`` an integer tensor on its device."""
+        ``indices`` an integer tensor on its device. A padded slot (index
+        below 0) has a zero row, label -1 and valid False."""
         if self._staged is None:
             raise RuntimeError("stage() the dataset on a device first")
         data, labels = self._staged
-        return gather_minibatch(data, indices, labels)
+        rows, picked = gather_minibatch(data, indices, labels)
+        return rows, picked, indices >= 0

@@ -1,6 +1,11 @@
-"""Column sums: the bias gradients of the training step.
+"""Matrix reductions (``veles_tpu/ops/reduce.py``).
 
-:func:`column_sum` is the port of ``pallas_column_reduce``
+:func:`matrix_reduce` reduces a matrix along an axis with a named op
+(``sum``, ``max``, ``min``, ``mean``, ``argmax``, ``l2``) in float32;
+the JAX package leaves these to XLA, the port to torch's reductions.
+
+:func:`column_sum` computes the bias gradients of the training step. It
+is the port of ``pallas_column_reduce``
 (``veles_tpu/ops/reduce.py``): x (R, C), float32 or bfloat16, summed
 over its rows into a float32 (C,) vector. On a CUDA tensor it launches
 ``csrc/column_reduce.cu`` (two passes, no float atomics, so a repeat
@@ -19,6 +24,25 @@ from veles_tpu_torch.ops import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _count_lock = threading.Lock()
+
+_OPS = {
+    "sum": lambda x, axis: torch.sum(x, axis),
+    "max": lambda x, axis: torch.amax(x, axis),
+    "min": lambda x, axis: torch.amin(x, axis),
+    "mean": lambda x, axis: torch.mean(x, axis),
+    "argmax": lambda x, axis: torch.argmax(x, axis),
+    "l2": lambda x, axis: torch.sqrt(torch.sum(torch.square(x), axis)),
+}
+
+
+def matrix_reduce(x, op="sum", axis=0):
+    """Reduce a matrix along ``axis`` with ``op`` (float32 accumulation;
+    ``argmax`` gives int64 indices of ``x`` as it is)."""
+    try:
+        fn = _OPS[op]
+    except KeyError:
+        raise ValueError("unknown reduction %r (have %s)" % (op, sorted(_OPS)))
+    return fn(x if op == "argmax" else x.float(), axis)
 
 
 def _check(x):
