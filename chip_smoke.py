@@ -11,14 +11,21 @@
    for bit), and timed (CUDA events) beside its plain version, one
    PyTorch library call computing the same function, and its bound
    (bytes over 3.35 TB/s or operations over the type's peak, H100 SXM).
+   K1/K2 rows add the variant of ``csrc/gemm_bias_act.cu`` that ran and
+   its K splits (``gemm_plan``), two calls held bitwise equal,
+   ``ms_cold`` and ``library_ms_cold`` (one call at a time, 128 MB
+   written before each, so its operands come from device memory) and
+   ``host_us``, the wrapper's host time per call.
 3. Slice phase: full-width AlexNet-227 (float32, weights from numpy
    seed 42) behind ``ServingFrontend`` on 127.0.0.1 with one replica
    and max batch 64; concurrent single requests and one 64-row batch
    request over HTTP. Every reply is held against the same model run
    through the plain versions on the card, on its centred logits (see
    ``reply_mismatch``), and two broken controls must fail that check.
-   The launch counts must show both kernels twice per forward, and
-   every launch at a form (shape, dtype, bias) the kernel phase checked.
+   The launch counts must show both kernels twice per forward, every
+   launch at a form (shape, dtype, bias) the kernel phase checked, and
+   every K1 launch on a designed variant (stream, tiles, tensor_core),
+   never the general one; the same holds in phases 5 and 6.
 4. Forward phase: device time of one forward through the kernels and
    through the plain versions at batch 1 and 64, and a
    ``torch.profiler`` table of device time by kernel for one 64-row
@@ -182,12 +189,115 @@ def check_close(name, got, want, atol, rtol):
     return float(err.max())
 
 
+#: the cold timing: bytes written before each call (outside its events)
+#: to push its operands out of the 50 MB L2, and a spin before the start
+#: event long enough for the host to queue the call behind it
+COLD_SCRATCH_BYTES = 128 << 20
+COLD_SPIN_CYCLES = 400000
+COLD_TRIALS = 10
+#: calls timed on the host clock for ``host_us``
+HOST_CALLS = 50
+
+
+def cold_ms(torch, fn, scratch):
+    """Median per-call device time (CUDA events) of ``fn`` with
+    ``scratch`` overwritten before each call, outside the events: the
+    time a call takes when its operands come from device memory, as in a
+    real forward or step, where back-to-back calls may find up to 50 MB
+    of them in L2."""
+    fn()
+    times = []
+    for _ in range(COLD_TRIALS):
+        scratch.fill_(1.0)
+        torch.cuda._sleep(COLD_SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_us(torch, fn):
+    """The host time of one call (us), over back-to-back calls that do not
+    wait for the card."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    us = 1e6 * (time.perf_counter() - t) / HOST_CALLS
+    torch.cuda.synchronize()
+    return us
+
+
+def gemm_row(torch, scratch, name, x, w, bias, activation, dtype, library):
+    """One K1/K2 row: the kernel against its plain version, the variant
+    and split count it launched (read from the counters), two calls
+    bitwise equal, and its times: warm (back-to-back), cold, host, beside
+    the plain version's, the library call's and the bound."""
+    from veles_tpu_torch.ops.gemm import (gemm_plan, linear_act,
+                                          linear_act_plain)
+    dt = getattr(torch, dtype)
+    m, k = x.shape
+    n = w.shape[1]
+    variants = dict(linear_act.launches_by_variant)
+    got = linear_act(x, w, bias, activation, dt)
+    again = linear_act(x, w, bias, activation, dt)
+    want = linear_act_plain(x, w, bias, activation, dt)
+    torch.cuda.synchronize()
+    ran = {v: c - variants.get(v, 0)
+           for v, c in linear_act.launches_by_variant.items()
+           if c != variants.get(v, 0)}
+    if len(ran) != 1 or sum(ran.values()) != 2:
+        raise AssertionError("gemm_bias_act %s: launches by variant %s"
+                             % (name, ran))
+    variant = next(iter(ran))
+    plan = gemm_plan(m, n, k, x.dtype)
+    if plan.form != variant:
+        raise AssertionError("gemm_bias_act %s: ran %s, planned %s"
+                             % (name, variant, plan.form))
+    if not torch.equal(got, again):
+        raise AssertionError("gemm_bias_act %s: two calls differ in %d "
+                             "outputs" % (name, int((got != again).sum())))
+    err = check_close("gemm_bias_act " + name, got, want, *GEMM_TOL[dtype])
+    nbytes = (m * k + k * n + m * n) * x.element_size() + \
+        (0 if bias is None else 4 * n)
+    bms, by = bound(nbytes, 2 * m * n * k, dtype)
+
+    def kernel():
+        return linear_act(x, w, bias, activation, dt)
+
+    return {
+        "name": "gemm_bias_act", "shape": name,
+        "_form": (m, k, n, dt, bias is not None),
+        "route": "cuda", "source": GEMM_SOURCE,
+        "replaces": GEMM_BIAS_TPU if bias is not None else GEMM_TPU,
+        "variant": variant, "splits": plan.splits,
+        "max_abs_err": err, "tolerance": list(GEMM_TOL[dtype]),
+        "bitwise_repeatable": True,
+        "ms": device_ms(torch, kernel),
+        "ms_cold": cold_ms(torch, kernel, scratch),
+        "host_us": host_us(torch, kernel),
+        "plain_ms": device_ms(torch, lambda: linear_act_plain(
+            x, w, bias, activation, dt)),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": device_ms(torch, library),
+        "library_ms_cold": cold_ms(torch, library, scratch)}
+
+
 def gemm_phase(torch):
+    """K1 at the serving and training shapes of fc6/fc7 and K2 at the
+    GEMM-disciplines bench's five shapes (:func:`gemm_row`). Library
+    call: ``torch.addmm`` (bias cast to the operands' dtype) or
+    ``torch.mm``, then the activation."""
     import torch.nn.functional as F
 
-    from veles_tpu_torch.ops.gemm import linear_act, linear_act_plain
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(1)
+    scratch = torch.empty(COLD_SCRATCH_BYTES // 4, device="cuda")
     for layer, k in (("fc6", 9216), ("fc7", 4096)):
         n = 4096
         w32 = (torch.rand(k, n, device="cuda", generator=gen) * 2 - 1) \
@@ -201,63 +311,75 @@ def gemm_phase(torch):
                 for bias in (b32, None):
                     if not gemm_form_checked(m, dtype, bias is not None):
                         continue
-                    got = linear_act(x, w, bias, "strict_relu", dt)
-                    want = linear_act_plain(x, w, bias, "strict_relu", dt)
-                    torch.cuda.synchronize()
-                    name = "%s M=%d %s %s" % (layer, m, dtype,
-                                              "bias" if bias is not None
-                                              else "no bias")
-                    err = check_close("gemm_bias_act " + name, got, want,
-                                      *GEMM_TOL[dtype])
                     lib_bias = None if bias is None else bias.to(dt)
 
-                    def library():
+                    def library(x=x, w=w, lib_bias=lib_bias):
                         y = torch.mm(x, w) if lib_bias is None else \
                             torch.addmm(lib_bias, x, w)
                         return F.relu(y)
 
-                    size = x.element_size()
-                    nbytes = (m * k + k * n + m * n) * size + \
-                        (0 if bias is None else 4 * n)
-                    bms, by = bound(nbytes, 2 * m * n * k, dtype)
-                    rows.append({
-                        "name": "gemm_bias_act", "shape": name,
-                        "_form": (m, k, n, dt, bias is not None),
-                        "route": "cuda", "source": GEMM_SOURCE,
-                        "replaces": GEMM_BIAS_TPU if bias is not None
-                        else GEMM_TPU,
-                        "max_abs_err": err,
-                        "tolerance": list(GEMM_TOL[dtype]),
-                        "ms": device_ms(torch, lambda: linear_act(
-                            x, w, bias, "strict_relu", dt)),
-                        "plain_ms": device_ms(torch, lambda: linear_act_plain(
-                            x, w, bias, "strict_relu", dt)),
-                        "bound_ms": bms, "bound_by": by,
-                        "library_ms": device_ms(torch, library)})
+                    rows.append(gemm_row(
+                        torch, scratch, "%s M=%d %s %s" % (
+                            layer, m, dtype,
+                            "bias" if bias is not None else "no bias"),
+                        x, w, bias, "strict_relu", dtype, library))
     # K2 on the GEMM-disciplines path: float32, no bias, linear
     from veles_tpu_torch.ops.gemm_bench import SHAPES
     for _, (m, k, n) in SHAPES:
         a = torch.rand(m, k, device="cuda", generator=gen) - 0.5
         b = torch.rand(k, n, device="cuda", generator=gen) - 0.5
-        got = linear_act(a, b, None, "linear", torch.float32)
-        want = linear_act_plain(a, b, None, "linear", torch.float32)
-        torch.cuda.synchronize()
-        name = "%dx%d @ %dx%d float32 no bias" % (m, k, k, n)
-        err = check_close("gemm_bias_act " + name, got, want,
-                          *GEMM_TOL["float32"])
-        bms, by = bound(4 * (m * k + k * n + m * n), 2 * m * n * k,
-                        "float32")
-        rows.append({
-            "name": "gemm_bias_act", "shape": name,
-            "_form": (m, k, n, torch.float32, False),
-            "route": "cuda", "source": GEMM_SOURCE, "replaces": GEMM_TPU,
-            "max_abs_err": err, "tolerance": list(GEMM_TOL["float32"]),
-            "ms": device_ms(torch, lambda: linear_act(
-                a, b, None, "linear", torch.float32)),
-            "plain_ms": device_ms(torch, lambda: linear_act_plain(
-                a, b, None, "linear", torch.float32)),
-            "bound_ms": bms, "bound_by": by,
-            "library_ms": device_ms(torch, lambda: torch.mm(a, b))})
+        rows.append(gemm_row(
+            torch, scratch, "%dx%d @ %dx%d float32 no bias" % (m, k, k, n),
+            a, b, None, "linear", "float32",
+            lambda a=a, b=b: torch.mm(a, b)))
+        del a, b
+    del scratch
+    return rows
+
+
+#: the split sweep: K1's shapes timed at each of these split counts and
+#: at the plan's own
+SWEEP_SPLITS = (1, 2, 4, 6, 8, 16)
+SWEEP_SHAPES = (("fc6 M=1 float32", 1, 9216, 4096, "float32"),
+                ("fc6 M=64 float32", 64, 9216, 4096, "float32"),
+                ("fc6 M=128 float32", 128, 9216, 4096, "float32"),
+                ("1500^3 float32", 1500, 1500, 1500, "float32"),
+                ("fc6 M=128 bfloat16", 128, 9216, 4096, "bfloat16"))
+
+
+def split_sweep(torch):
+    """The evidence for ``gemm_plan``'s split counts: K1 (no bias,
+    linear) timed back-to-back at each count of :data:`SWEEP_SPLITS` and
+    at the plan's own, beside the plan's modelled time for the tiles
+    form (``_tile_us``)."""
+    from veles_tpu_torch.ops.gemm import _tile_us, gemm_plan, linear_act
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+    for name, m, k, n, dtype in SWEEP_SHAPES:
+        dt = getattr(torch, dtype)
+        x = (torch.rand(m, k, device="cuda", generator=gen) * 2 - 1).to(dt)
+        w = ((torch.rand(k, n, device="cuda", generator=gen) * 2 - 1) /
+             k ** 0.5).to(dt)
+        chosen = gemm_plan(m, n, k, dt)
+        row = {"shape": name, "form": chosen.form,
+               "plan_splits": chosen.splits, "ms": {}, "model_us": {}}
+        for want in sorted(set(SWEEP_SPLITS) | {chosen.splits}):
+            plan = gemm_plan(m, n, k, dt, splits=want)
+            if plan.splits in row["ms"]:
+                continue
+            row["ms"][plan.splits] = device_ms(torch, lambda: linear_act(
+                x, w, None, "linear", dt, splits=want))
+            if plan.form == "tiles":
+                row["model_us"][plan.splits] = _tile_us(
+                    m, n, k, plan.tile[0], plan.splits, plan.kchunk)
+        print("split sweep %s (%s, plan %d): %s" % (
+            name, chosen.form, chosen.splits, ", ".join(
+                "%d: %.4f ms%s" % (sp, ms, "" if sp not in row["model_us"]
+                                   else " (model %.1f us)" %
+                                   row["model_us"][sp])
+                for sp, ms in sorted(row["ms"].items()))))
+        rows.append(row)
+        del x, w
     return rows
 
 
@@ -565,6 +687,7 @@ def disciplines_phase(torch, numpy, card):
     torch.cuda.synchronize()
     bench_s = time.perf_counter() - t0
     counts, by_form = read_counts()
+    variants = gemm_variants()
     print(format_table(rows, card + ", times by CUDA events"))
     if not (counts["kahan_gemm"] and counts["gemm_bias_act"]) or any(
             n for name, n in counts.items()
@@ -588,7 +711,8 @@ def disciplines_phase(torch, numpy, card):
             FP32_SHARE_TOL:
         raise AssertionError("a float32 level errs beyond float32: %s"
                              % shares)
-    result = {"bench_s": bench_s, "launches": counts, "rows": rows,
+    result = {"bench_s": bench_s, "launches": counts,
+              "gemm_variants": variants, "rows": rows,
               "level1_over_loop_err": ratios,
               "hostile": hostile_check(torch),
               "tf32": tf32_check(torch)}
@@ -689,6 +813,7 @@ def slice_phase(torch, numpy):
         batch_reply = post(frontend.port, "/api/batch", batch_body)
         batch_s = time.perf_counter() - t
         counts, by_form = read_counts()
+        variants = gemm_variants()
         forwards = replica.batches_done - forwards0
     finally:
         frontend.stop()
@@ -761,7 +886,7 @@ def slice_phase(torch, numpy):
         "single_samples_per_s": n_single * rounds / sum(round_s),
         "batch64_ms": 1e3 * batch_s,
         "batch64_samples_per_s": 64 / batch_s,
-        "forwards": forwards,
+        "forwards": forwards, "gemm_variants": variants,
         "centred_logit_err": logit_err, "centred_logit_spread": spread,
         "control_swapped_share": controls["swapped"],
         "control_fc7_zeroed_share": controls["fc7_zeroed"],
@@ -848,6 +973,8 @@ def reset_counts():
     for fn in kernel_counters().values():
         fn.launches = 0
         fn.launches_by_form.clear()
+    from veles_tpu_torch.ops.gemm import linear_act
+    linear_act.launches_by_variant.clear()
 
 
 def read_counts():
@@ -856,6 +983,12 @@ def read_counts():
     return ({name: fn.launches for name, fn in counters.items()},
             {name: dict(fn.launches_by_form)
              for name, fn in counters.items()})
+
+
+def gemm_variants():
+    """K1/K2 launches by variant since the last :func:`reset_counts`."""
+    from veles_tpu_torch.ops.gemm import linear_act
+    return dict(linear_act.launches_by_variant)
 
 
 def check_forms(phase, kernels, by_form):
@@ -870,6 +1003,19 @@ def check_forms(phase, kernels, by_form):
                 "%s: %d of %d %s launches at forms the kernel phase did not "
                 "check: %s" % (phase, sum(missing.values()),
                                sum(counts.values()), name, missing))
+
+
+def check_designed(phase, variants):
+    """Every K1/K2 launch of ``phase`` ran one of the three designed forms
+    of ``csrc/gemm_bias_act.cu``, never its general variant."""
+    from veles_tpu_torch.ops.gemm import FORMS
+    designed = set(FORMS) - {"general"}
+    off = {v: c for v, c in variants.items() if v not in designed and c}
+    if off or not sum(variants.values()):
+        raise AssertionError("%s: gemm_bias_act launches by variant %s (all "
+                             "must be %s)" % (phase, variants,
+                                              sorted(designed)))
+    print("%s: gemm_bias_act launches by variant %s" % (phase, variants))
 
 
 def model_train_flops_per_sample(model):
@@ -1083,6 +1229,7 @@ def training_phase(torch, policy, check):
             losses.append((stats["train"]["loss"],
                            stats["validation"]["loss"]))
         counts, by_form = read_counts()
+        variants = gemm_variants()
     finally:
         del trainer.train_batch
     if not all(math.isfinite(v) for pair in losses for v in pair):
@@ -1116,6 +1263,7 @@ def training_phase(torch, policy, check):
     step_p50 = statistics.median(steady)
     result.update({
         "epochs": TRAIN_EPOCHS, "steps": steps, "forwards": forwards,
+        "gemm_variants": variants,
         "train_loss_per_epoch": [v[0] for v in losses],
         "validation_loss_per_epoch": [v[1] for v in losses],
         "loss_falls": losses[-1][0] < losses[0][0],
@@ -1228,13 +1376,19 @@ def main():
                kahan_phase(torch))
     for row in kernels:
         print("kernel %-14s %-32s err %.3g  %.4f ms  plain %.4f  "
-              "library %.4f  bound %.4f (%s)" % (
+              "library %.4f  bound %.4f (%s)%s" % (
                   row["name"], row["shape"], row["max_abs_err"], row["ms"],
                   row["plain_ms"], row["library_ms"], row["bound_ms"],
-                  row["bound_by"]))
+                  row["bound_by"], "" if "variant" not in row else
+                  "  %s x%d, cold %.4f (library %.4f), host %.1f us" % (
+                      row["variant"], row["splits"], row["ms_cold"],
+                      row["library_ms_cold"], row["host_us"])))
+
+    print("split sweep (%s): %s" % (card, json.dumps(split_sweep(torch))))
 
     model, served, serving_forms = slice_phase(torch, numpy)
     check_forms("serving", kernels, serving_forms)
+    check_designed("serving", served["gemm_variants"])
     served.update(forward_phase(torch, model))
     print("serving (%s): %s" % (card, json.dumps(served)))
     del model
@@ -1244,6 +1398,7 @@ def main():
     for policy, check in (("float32", True), ("bfloat16", False)):
         result, forms = training_phase(torch, policy, check)
         check_forms("training " + policy, kernels, forms)
+        check_designed("training " + policy, result["gemm_variants"])
         phases.append(forms)
         trained.append(result)
         print("training (%s): %s" % (card, json.dumps(result)))
@@ -1251,6 +1406,7 @@ def main():
 
     disciplines, forms = disciplines_phase(torch, numpy, card)
     check_forms("disciplines", kernels, forms)
+    check_designed("disciplines", disciplines["gemm_variants"])
     phases.append(forms)
     print("disciplines (%s): %s" % (card, json.dumps(disciplines)))
     print("device rating (%s): %s" % (card, json.dumps(rating_phase(torch))))

@@ -33,9 +33,10 @@ from veles_tpu_torch.models.alexnet import (  # noqa: E402
 from veles_tpu_torch.models.build import (build_model,  # noqa: E402
                                           build_training, plain_forward)
 from veles_tpu_torch.ops.gemm import (EPILOGUES,  # noqa: E402
-                                      LinearActFunction, gemm, kahan_gemm,
-                                      kahan_matmul, kahan_matmul_plain,
-                                      linear_act, linear_act_plain)
+                                      LinearActFunction, gemm, gemm_plan,
+                                      kahan_gemm, kahan_matmul,
+                                      kahan_matmul_plain, linear_act,
+                                      linear_act_plain)
 from veles_tpu_torch.ops.gemm_bench import hostile_input  # noqa: E402
 from veles_tpu_torch.ops.lrn import (lrn_backward,  # noqa: E402
                                      lrn_backward_plain, lrn_forward,
@@ -62,7 +63,8 @@ def _rand(shape, seed, scale=1.0):
 @pytest.mark.parametrize("m", [1, 5, 17, 64])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gemm_kernel_matches_plain(card, m, dtype):
-    """Ragged M, N = 70 and K = 300: every edge is masked."""
+    """Ragged M, N = 70 and K = 300: rows of w and x not 16-byte
+    aligned, so the general variant takes them and masks every edge."""
     dt = getattr(torch, dtype)
     x = torch.from_numpy(_rand((m, 300), 1)).to(card, dt)
     w = torch.from_numpy(_rand((300, 70), 2, 0.1)).to(card, dt)
@@ -74,14 +76,99 @@ def test_gemm_kernel_matches_plain(card, m, dtype):
                 form = (m, 300, 70, dt, b is not None)
                 before = linear_act.launches
                 before_form = linear_act.launches_by_form[form]
+                before_general = linear_act.launches_by_variant["general"]
                 got = linear_act(x, w, b, activation, out_dtype)
                 torch.cuda.synchronize()
                 assert linear_act.launches == before + 1
                 assert linear_act.launches_by_form[form] == before_form + 1
+                assert linear_act.launches_by_variant["general"] == \
+                    before_general + 1
                 assert got.dtype == out_dtype
                 want = linear_act_plain(x, w, b, activation, out_dtype)
                 torch.testing.assert_close(got.float(), want.float(),
                                            atol=tol[0], rtol=tol[1])
+
+
+def _designed_form(m, dtype):
+    if m <= (32 if dtype == "float32" else 16):
+        return "stream"
+    return "tiles" if dtype == "float32" else "tensor_core"
+
+
+@pytest.mark.parametrize("kn", [(2056, 136), (200, 264)])
+@pytest.mark.parametrize("m", [1, 7, 16, 33, 64, 65, 128, 129])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemm_designed_forms_match_plain_and_repeat(card, dtype, m, kn):
+    """Aligned shapes land on the form :func:`gemm_plan` designs for them
+    (weight streaming, float32 tiles, bf16 tensor cores), with ragged
+    row and column tiles; K = 2056 splits K (a last split of 8 to 136
+    rows), K = 200 runs the tiles in one. Every epilogue, with and
+    without a bias, to either output dtype, within the plain version's
+    tolerance, and two calls bitwise equal (the splits are summed in a
+    fixed order)."""
+    k, n = kn
+    dt = getattr(torch, dtype)
+    form = _designed_form(m, dtype)
+    plan = gemm_plan(m, n, k, dt)
+    assert plan.form == form
+    assert plan.splits > 1 or k == 200
+    x = torch.from_numpy(_rand((m, k), 30)).to(card, dt)
+    w = torch.from_numpy(_rand((k, n), 31, 0.1)).to(card, dt)
+    bias = torch.from_numpy(_rand((n,), 32)).to(card)
+    for activation in EPILOGUES:
+        for b in (bias, None):
+            for out_dtype in (torch.float32, dt):
+                before = linear_act.launches_by_variant[form]
+                got = linear_act(x, w, b, activation, out_dtype)
+                again = linear_act(x, w, b, activation, out_dtype)
+                torch.cuda.synchronize()
+                assert linear_act.launches_by_variant[form] == before + 2
+                assert got.dtype == out_dtype and got.shape == (m, n)
+                assert torch.equal(got, again)
+                want = linear_act_plain(x, w, b, activation, out_dtype)
+                tol = 1e-4 if out_dtype == torch.float32 else 1e-2
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("m", [1, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemm_empty_k_is_the_epilogue_of_the_bias(card, dtype, m):
+    dt = getattr(torch, dtype)
+    x = torch.empty((m, 0), device=card, dtype=dt)
+    w = torch.empty((0, 264), device=card, dtype=dt)
+    bias = torch.from_numpy(_rand((264,), 36)).to(card)
+    before = linear_act.launches_by_variant["general"]
+    got = linear_act(x, w, bias, "sigmoid", torch.float32)
+    torch.cuda.synchronize()
+    assert linear_act.launches_by_variant["general"] == before + 1
+    torch.testing.assert_close(got, torch.sigmoid(bias).expand(m, 264),
+                               atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("which", ["x", "w", "bias"])
+def test_gemm_misaligned_pointer_takes_the_general_variant(card, which):
+    """A base pointer 4 bytes off 16 (a view into a larger buffer) cannot
+    feed 16-byte copies: the general variant takes the call."""
+    m, k, n = 64, 256, 128
+    t = {"x": (m, k), "w": (k, n), "bias": (n,)}
+    seeds = {"x": 33, "w": 34, "bias": 35}
+    ops = {}
+    for name, shape in t.items():
+        v = torch.from_numpy(_rand(shape, seeds[name])).to(card)
+        if name == which:
+            buf = torch.empty(v.numel() + 1, device=card)
+            ops[name] = buf[1:].view(shape)
+            ops[name].copy_(v)
+        else:
+            ops[name] = v
+    assert ops[which].data_ptr() % 16 == 4
+    before = linear_act.launches_by_variant["general"]
+    got = linear_act(ops["x"], ops["w"], ops["bias"], "tanh")
+    torch.cuda.synchronize()
+    assert linear_act.launches_by_variant["general"] == before + 1
+    want = linear_act_plain(ops["x"], ops["w"], ops["bias"], "tanh")
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("shape", [(4, 7, 7, 96), (2, 5, 5, 256),

@@ -28,11 +28,19 @@ torch = pytest.importorskip("torch")
 
 from veles_tpu.nn.activation import get_activation  # noqa: E402
 from veles_tpu.ops.gemm import _DS, fused_linear, pallas_gemm  # noqa: E402
-from veles_tpu_torch.ops.gemm import (EPILOGUES,  # noqa: E402
-                                      LinearActFunction, linear_act,
-                                      linear_act_plain)
+from veles_tpu_torch.nn.activation import ACTIVATIONS  # noqa: E402
+from veles_tpu_torch.ops.gemm import (EPILOGUES, SMS,  # noqa: E402
+                                      SPLIT_K_STEP, STREAM_SMEM,
+                                      TILE_THIN_K,
+                                      LinearActFunction, gemm_plan,
+                                      linear_act, linear_act_plain)
+from veles_tpu_torch.ops.gemm_bench import SHAPES  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+#: AlexNet's fc layers, K by name (N = 4096), and the row counts the
+#: serving buckets and the training batch give them
+FC_K = {"fc6": 9216, "fc7": 4096}
+MAIN_PATH_M = (1, 2, 4, 8, 16, 32, 64, 128)
 
 
 def _inputs(m, k, n, seed=3):
@@ -157,6 +165,191 @@ def test_backward_matches_fused_linear_vjp(activation, dtype):
     assert tb.grad.dtype == torch.float32
     for got, ref in zip((x.grad, w.grad, tb.grad), want):
         numpy.testing.assert_allclose(got.float().numpy(), ref, **tol)
+
+
+def _check_plan(plan, m, n, k):
+    """The K ranges cover K once, in order, none empty, each but the
+    last ``kchunk`` deep; the workspace holds one float32 (m, n) plane
+    per split when K is split."""
+    assert plan.splits == len(plan.k_ranges) >= 1
+    assert plan.k_ranges[0][0] == 0 and plan.k_ranges[-1][1] == k
+    for (_, end), (start, _) in zip(plan.k_ranges, plan.k_ranges[1:]):
+        assert end == start
+    assert all(end > start for start, end in plan.k_ranges)
+    assert all(end - start == plan.kchunk
+               for start, end in plan.k_ranges[:-1])
+    assert plan.workspace_bytes == (4 * plan.splits * m * n
+                                    if plan.splits > 1 else 0)
+
+
+def _grid_blocks(plan, m, n):
+    rows = 1 if plan.form == "stream" else -(-m // plan.tile[0])
+    return rows * -(-n // plan.tile[1]) * plan.splits
+
+
+@pytest.mark.parametrize("m", MAIN_PATH_M)
+@pytest.mark.parametrize("layer", sorted(FC_K))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemm_plan_main_path_lands_on_a_designed_form(dtype, layer, m):
+    """fc6/fc7 at every serving bucket and the training batch: weight
+    streaming up to 32 rows (float32) or 16 (bf16), then float32 tiles
+    or bf16 tensor cores; K split so the grid covers the 132 SMs."""
+    dt = getattr(torch, dtype)
+    k, n = FC_K[layer], 4096
+    plan = gemm_plan(m, n, k, dt)
+    _check_plan(plan, m, n, k)
+    if m <= (32 if dtype == "float32" else 16):
+        assert plan.form == "stream"
+        rows = plan.tile[0]
+        assert rows >= m and rows & (rows - 1) == 0 and rows < 2 * m + 1
+        assert plan.tile[1] == 32 * (4 if dtype == "float32" else 8)
+        assert rows * plan.kchunk * 4 <= STREAM_SMEM
+    else:
+        assert plan.form == ("tiles" if dtype == "float32"
+                             else "tensor_core")
+    assert plan.kchunk % SPLIT_K_STEP == 0
+    assert plan.splits > 1
+    assert _grid_blocks(plan, m, n) >= 0.9 * SMS
+
+
+@pytest.mark.parametrize("dims", [dims for _, dims in SHAPES],
+                         ids=[name.split(" (")[0] for name, _ in SHAPES])
+def test_gemm_plan_disciplines_shapes_take_float32_tiles(dims):
+    """K2's five shapes: register-blocked tiles, 64 rows deep for the
+    weight gradient's K of 128; K split where the tiles alone leave SMs
+    idle (the two thin fc products) or end in a ragged wave (1500^3:
+    144 tiles on 132 SMs)."""
+    m, k, n = dims
+    plan = gemm_plan(m, n, k, torch.float32)
+    _check_plan(plan, m, n, k)
+    assert plan.form == "tiles"
+    assert plan.tile == (64 if k <= TILE_THIN_K else 128, 128)
+    assert (plan.splits > 1) == (m in (128, 1500))
+    assert _grid_blocks(plan, m, n) >= 0.9 * SMS
+
+
+@pytest.mark.parametrize("case", [
+    (64, 70, 300, "float32", True),    # rows of w 280 B: not 16-byte
+    (5, 70, 300, "bfloat16", True),    # 140 B
+    (1, 4096, 9216, "float32", False),  # a base pointer off 16 bytes
+    (128, 4096, 9216, "float32", False),
+    (128, 4096, 9216, "bfloat16", False),
+    (128, 132, 200, "bfloat16", True),  # 264 B rows: TMA wants 16 B
+    (128, 4096, 302, "float32", True),  # rows of x 1208 B
+    (3, 4098, 64, "float32", True),
+    (20, 4096, 0, "float32", True),  # K = 0: act(bias)
+    (20, 4096, 0, "bfloat16", True)])
+def test_gemm_plan_unaligned_shapes_take_the_general_variant(case):
+    m, n, k, dtype, aligned = case
+    plan = gemm_plan(m, n, k, getattr(torch, dtype), aligned)
+    assert plan.form == "general" and plan.splits == 1
+    assert plan.k_ranges == ((0, k),) and plan.workspace_bytes == 0
+
+
+@pytest.mark.parametrize("want", [1, 2, 3, 8, 16])
+@pytest.mark.parametrize("case", [(1, 4096, 9216, "float32"),
+                                  (32, 4096, 9216, "float32"),
+                                  (1500, 1500, 1500, "float32"),
+                                  (128, 4096, 9216, "bfloat16"),
+                                  (64, 70, 300, "float32")])
+def test_gemm_plan_split_override(case, want):
+    """``splits`` (the sweeps' override) keeps the form and cuts K into at
+    most that many ranges; the stream form still keeps its x slab within
+    shared memory, the general variant in one split."""
+    m, n, k, dtype = case
+    dt = getattr(torch, dtype)
+    plan = gemm_plan(m, n, k, dt, splits=want)
+    _check_plan(plan, m, n, k)
+    assert plan.form == gemm_plan(m, n, k, dt).form
+    if plan.form == "general":
+        assert plan.splits == 1
+    elif plan.form == "stream":
+        assert plan.tile[0] * plan.kchunk * 4 <= STREAM_SMEM
+        cap = STREAM_SMEM // (4 * plan.tile[0])
+        assert plan.splits <= max(want, -(-k // cap))
+    else:
+        assert plan.splits <= want
+
+
+def test_gemm_plan_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        gemm_plan(4, 8, 16, torch.float64)
+
+
+def _split_k_plain(x, w, bias, activation, out_dtype, plan):
+    """The plan's arithmetic in plain PyTorch: each split's float32
+    product over its K range, the splits summed in split order, then the
+    bias once and the epilogue on the full sum."""
+    total = None
+    for start, end in plan.k_ranges:
+        part = torch.matmul(x[:, start:end].float(), w[start:end].float())
+        total = part if total is None else total + part
+    if bias is not None:
+        total = total + bias
+    return ACTIVATIONS[activation](total).to(out_dtype)
+
+
+#: (m, n, k, dtype, Pallas bk, form): small shapes whose plan splits K,
+#: one for each designed form, and one whose last split is ragged
+SPLIT_CASES = {"stream_f32": (3, 16, 1024, "float32", 256, "stream"),
+               "stream_bf16": (5, 16, 512, "bfloat16", 256, "stream"),
+               "tiles": (40, 8, 2048, "float32", 512, "tiles"),
+               "tiles_ragged": (40, 8, 1000, "float32", 250, "tiles"),
+               "tensor_core": (24, 16, 1024, "bfloat16", 256,
+                               "tensor_core")}
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_k_sum_matches_pallas_gemm_interpret(case, with_bias):
+    """The splits of :func:`gemm_plan` summed in order, the bias added
+    once after them and the epilogue on the whole sum, as the kernel's
+    second pass does, against ``pallas_gemm`` (interpret mode), which
+    sums all of K in one accumulator. Two controls must read far off:
+    the bias added in every split, and the epilogue applied to every
+    split's partial sum."""
+    m, n, k, dtype, bk, form = SPLIT_CASES[case]
+    a, b, bias = _inputs(m, k, n, seed=9)
+    if not with_bias:
+        bias = None
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    a16, b16 = jnp.asarray(a, jdt), jnp.asarray(b, jdt)
+    plan = gemm_plan(m, n, k, tdt)
+    assert plan.form == form and plan.splits > 1
+    want = numpy.asarray(pallas_gemm(
+        a16, b16, bm=m, bn=n, bk=bk, out_dtype=jnp.float32,
+        bias=None if bias is None else jnp.asarray(bias),
+        activation="tanh", interpret=True))
+    x = torch.from_numpy(numpy.array(a16.astype(jnp.float32))).to(tdt)
+    w = torch.from_numpy(numpy.array(b16.astype(jnp.float32))).to(tdt)
+    tbias = None if bias is None else torch.from_numpy(bias)
+    got = _split_k_plain(x, w, tbias, "tanh", torch.float32, plan)
+    numpy.testing.assert_allclose(got.numpy(), want, **TOL)
+    tanh = ACTIVATIONS["tanh"]
+    per_split_act = sum(tanh(torch.matmul(x[:, s:e].float(), w[s:e].float())
+                             + (0 if tbias is None else tbias / plan.splits))
+                        for s, e in plan.k_ranges)
+    controls = [per_split_act]
+    if tbias is not None:
+        controls.append(_split_k_plain(x, w, tbias * plan.splits, "tanh",
+                                       torch.float32, plan))
+    for wrong in controls:
+        assert numpy.abs(wrong.numpy() - want).max() > 1e-2
+
+
+@pytest.mark.parametrize("activation", EPILOGUES)
+def test_split_k_epilogues_match_pallas_gemm_interpret(activation):
+    """Every epilogue after a split-K sum (the stream form's plan)."""
+    m, n, k, _, bk, _ = SPLIT_CASES["stream_f32"]
+    a, b, bias = _inputs(m, k, n, seed=10)
+    want = pallas_gemm(jnp.asarray(a), jnp.asarray(b), bm=m, bn=n, bk=bk,
+                       bias=jnp.asarray(bias), activation=activation,
+                       interpret=True)
+    plan = gemm_plan(m, n, k, torch.float32)
+    got = _split_k_plain(torch.from_numpy(a), torch.from_numpy(b),
+                         torch.from_numpy(bias), activation, torch.float32,
+                         plan)
+    numpy.testing.assert_allclose(got.numpy(), numpy.asarray(want), **TOL)
 
 
 def test_backward_without_bias_and_through_plain_versions():

@@ -21,8 +21,9 @@ library product and restores the switches after.
 :func:`linear_act` is the port of ``pallas_gemm(..., bias=...)`` /
 ``fused_linear`` (``veles_tpu/ops/gemm.py``). ``w`` is stored
 ``(in, out)`` as in the JAX package. On a CUDA tensor it launches the
-hand-written kernel ``csrc/gemm_bias_act.cu`` (see its header for the
-bound and the design); on a CPU tensor it runs
+hand-written kernel ``csrc/gemm_bias_act.cu`` in the variant
+:func:`gemm_plan` picks by shape (see the source's header for each
+variant's bound and design); on a CPU tensor it runs
 :func:`linear_act_plain`, the same function in plain PyTorch. There is
 no other route: a CUDA tensor that the kernel does not take raises.
 
@@ -43,6 +44,7 @@ or bfloat16 operands; the bias is float32.
 import collections
 import contextlib
 import ctypes
+import functools
 import threading
 
 import torch
@@ -329,13 +331,159 @@ def _check(x, w, bias, activation):
                          (w.shape[1], x.device))
 
 
-def linear_act(x, w, bias=None, activation="linear", out_dtype=None):
+#: the kernel's variants (``csrc/gemm_bias_act.cu``), by their C codes:
+#: the three designed forms and the masked kernel for unaligned shapes
+FORMS = ("general", "stream", "tiles", "tensor_core")
+#: SMs of an H100 SXM
+SMS = 132
+#: the stream form: rows per bucket at most (float32, bf16), blocks it
+#: aims at (about 4 per SM), the K depth its splits are cut in, and the
+#: shared memory that one split's x slab may take
+STREAM_MAX_M = {torch.float32: 32, torch.bfloat16: 16}
+STREAM_BLOCKS = 4 * SMS
+STREAM_SMEM = 96 * 1024
+#: the tiles form: 64 rows (m <= 64, or a K of at most
+#: :data:`TILE_THIN_K`) or 128 by 128 columns. Its splits minimise a
+#: model of the H100's time (``_tile_us``): each SM works through its
+#: share of the blocks one after another, a K row of a tile taking
+#: :data:`TILE_ROW_US` (fitted to the card's runs: ~65% of the float32
+#: peak at 128 rows), a 64-row block alone on its SM
+#: :data:`TILE_ALONE` times longer; the second pass moves the partials
+#: at :data:`PARTIAL_BYTES_PER_US`. No split shallower than
+#: :data:`TILE_MIN_SPLIT_K`, at most :data:`TILE_MAX_SPLITS`.
+TILE_BN = 128
+TILE_THIN_K = 256
+TILE_ROW_US = {64: 0.056, 128: 0.099}
+TILE_ALONE = 1.15
+PARTIAL_BYTES_PER_US = 3e6
+TILE_MIN_SPLIT_K = 128
+TILE_MAX_SPLITS = 16
+#: the tensor-core form: 128 x 128 tiles, 64-deep TMA stages, one block
+#: per SM, at least 4 stages per split
+TC_TILE = 128
+TC_BK = 64
+#: every split but the last covers a multiple of this many K rows
+SPLIT_K_STEP = 64
+
+#: what :func:`gemm_plan` returns. ``tile`` is (rows, columns) of one
+#: block's output (the stream form: the row bucket by the columns a block
+#: streams); split s covers K rows ``k_ranges[s]``; ``workspace_bytes``
+#: is the float32 split partials' buffer (0 with one split)
+GemmPlan = collections.namedtuple(
+    "GemmPlan", "form tile splits kchunk k_ranges workspace_bytes")
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _split_k(k, want):
+    """(splits, kchunk): K cut into at most ``want`` ranges of a multiple
+    of :data:`SPLIT_K_STEP` rows each, the last one ragged."""
+    kchunk = _cdiv(_cdiv(k, max(1, want)), SPLIT_K_STEP) * SPLIT_K_STEP
+    return _cdiv(k, kchunk), kchunk
+
+
+def _tile_us(m, n, k, rows, splits, kchunk):
+    """The tiles form's modelled time (us) with K in ``splits``."""
+    blocks = _cdiv(m, rows) * _cdiv(n, TILE_BN) * splits
+    row_us = TILE_ROW_US[rows] * (
+        TILE_ALONE if rows == 64 and blocks <= SMS else 1.0)
+    us = _cdiv(blocks, SMS) * min(kchunk, k) * row_us
+    if splits > 1:  # partials written, read back, the output written
+        us += (2 * splits + 1) * 4 * m * n / PARTIAL_BYTES_PER_US
+    return us
+
+
+def _tile_split_k(m, n, k, rows):
+    """(splits, kchunk) of least :func:`_tile_us`, fewer splits on a
+    tie."""
+    cuts = {_split_k(k, want) for want in range(
+        1, max(1, min(TILE_MAX_SPLITS, k // TILE_MIN_SPLIT_K)) + 1)}
+    return min(sorted(cuts),
+               key=lambda cut: _tile_us(m, n, k, rows, *cut))
+
+
+@functools.lru_cache(maxsize=1024)
+def gemm_plan(m, n, k, dtype, aligned=True, splits=None):
+    """The variant of ``csrc/gemm_bias_act.cu`` that computes
+    ``act(x @ w + bias)`` for x (m, k) and w (k, n) of ``dtype``, with its
+    tile, K splits and workspace. ``aligned``: the base pointers of x, w
+    and the bias are 16 bytes aligned. ``splits``, for tuning sweeps: cut
+    K into at most that many ranges instead of the form's own choice
+    (the general variant keeps one).
+
+    * ``stream`` for m up to 32 (float32) or 16 (bf16), rows of w 16-byte
+      aligned (n a multiple of 4 or 8): K split so that the column blocks
+      times the splits make about :data:`STREAM_BLOCKS`, each split's x
+      slab within :data:`STREAM_SMEM`;
+    * ``tiles`` for larger float32 m, n and k multiples of 4: 64 rows up
+      to m = 64 or K = :data:`TILE_THIN_K`, else 128, by 128 columns; K
+      split where :func:`_tile_split_k` finds it faster;
+    * ``tensor_core`` for larger bf16 m, n and k multiples of 8 (TMA's
+      16-byte strides): 128 x 128 tiles, K split when the tiles are fewer
+      than the SMs;
+    * ``general`` for everything else, in one split.
+    """
+    if dtype not in _DTYPES:
+        raise TypeError("gemm_plan takes float32 or bfloat16, not %s"
+                        % (dtype,))
+    bf16 = dtype == torch.bfloat16
+    vec = 8 if bf16 else 4  # elements in 16 bytes
+    wanted, splits, kchunk = splits, 1, k
+    if m <= STREAM_MAX_M[dtype]:
+        form = "stream" if aligned and n % vec == 0 and k > 0 else "general"
+        if form == "stream":
+            rows = 1
+            while rows < m:
+                rows *= 2
+            tile = (rows, 32 * vec)
+            splits, kchunk = _split_k(
+                k, wanted or round(STREAM_BLOCKS / _cdiv(n, tile[1])))
+            cap = STREAM_SMEM // (4 * rows) // SPLIT_K_STEP * SPLIT_K_STEP
+            if kchunk > cap:
+                kchunk = cap
+                splits = _cdiv(k, kchunk)
+    elif bf16:
+        form = ("tensor_core" if aligned and n % 8 == 0 and k % 8 == 0
+                and k > 0 else "general")
+        if form == "tensor_core":
+            tile = (TC_TILE, TC_TILE)
+            tiles = _cdiv(m, TC_TILE) * _cdiv(n, TC_TILE)
+            splits, kchunk = _split_k(
+                k, wanted or min(SMS // tiles, _cdiv(k, TC_BK) // 4))
+    else:
+        form = ("tiles" if aligned and n % 4 == 0 and k % 4 == 0 and k > 0
+                else "general")
+        if form == "tiles":
+            tile = (64 if m <= 64 or k <= TILE_THIN_K else 128, TILE_BN)
+            splits, kchunk = (_split_k(k, wanted) if wanted else
+                              _tile_split_k(m, n, k, tile[0]))
+    if form == "general":
+        tile = (16 if m <= 16 else 64, 32)
+    k_ranges = tuple((s * kchunk, min(k, (s + 1) * kchunk))
+                     for s in range(splits))
+    return GemmPlan(form, tile, splits, kchunk, k_ranges,
+                    4 * splits * m * n if splits > 1 else 0)
+
+
+def _aligned(*tensors):
+    """Every tensor given (None skipped) starts on 16 bytes."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def linear_act(x, w, bias=None, activation="linear", out_dtype=None,
+               splits=None):
     """``act(x @ w + bias)`` with x (M, K), w (K, N), bias (N,) or None.
 
-    Any M, N, K: the kernel masks ragged edges itself. ``out_dtype``
-    defaults to ``x.dtype``. Counts each kernel launch in
-    ``linear_act.launches``, and in ``linear_act.launches_by_form`` under
-    ``(M, K, N, x.dtype, has_bias)``."""
+    Any M, N, K: :func:`gemm_plan` picks the kernel's variant by shape,
+    dtype and alignment, and one C call launches it and, with K split,
+    the pass that sums the splits (``splits`` overrides the count, for
+    tuning sweeps). ``out_dtype`` defaults to ``x.dtype``.
+    Counts each call in ``linear_act.launches``, in
+    ``linear_act.launches_by_form`` under ``(M, K, N, x.dtype,
+    has_bias)`` and in ``linear_act.launches_by_variant`` under the
+    plan's form."""
     _check(x, w, bias, activation)
     out_dtype = out_dtype or x.dtype
     if out_dtype not in _DTYPES:
@@ -349,35 +497,47 @@ def linear_act(x, w, bias=None, activation="linear", out_dtype=None):
                          % x.device)
     m, k = x.shape
     n = w.shape[1]
+    if m > 65535 * 64 or max(m, n, k) >= 2 ** 31:
+        raise ValueError("linear_act takes M <= %d and M, N, K < 2^31, got "
+                         "%s" % (65535 * 64, (m, k, n)))
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
+    plan = gemm_plan(m, n, k, x.dtype, _aligned(x, w, bias), splits)
+    ws = None
+    if plan.workspace_bytes:
+        ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
+                         device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         status = lib.veles_gemm_bias_act(
             x.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(),
-            out.data_ptr(), m, n, k, int(x.dtype == torch.bfloat16),
+            out.data_ptr(), None if ws is None else ws.data_ptr(),
+            m, n, k, int(x.dtype == torch.bfloat16),
             int(out_dtype == torch.bfloat16), EPILOGUES.index(activation),
+            FORMS.index(plan.form), plan.tile[0], plan.splits, plan.kchunk,
             stream)
         with _count_lock:
             linear_act.launches += 1
             linear_act.launches_by_form[
                 (m, k, n, x.dtype, bias is not None)] += 1
+            linear_act.launches_by_variant[plan.form] += 1
     build.check(status, "gemm_bias_act")
     return out
 
 
 linear_act.launches = 0
 linear_act.launches_by_form = collections.Counter()
+linear_act.launches_by_variant = collections.Counter()
 
 
 def _library():
     lib = build.library("gemm_bias_act")
     fn = lib.veles_gemm_bias_act
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
