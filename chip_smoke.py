@@ -15,7 +15,13 @@
    its K splits (``gemm_plan``), two calls held bitwise equal,
    ``ms_cold`` and ``library_ms_cold`` (one call at a time, 128 MB
    written before each, so its operands come from device memory) and
-   ``host_us``, the wrapper's host time per call.
+   ``host_us``, the wrapper's host time per call. K5 rows add the same
+   (form and splits from ``kahan_plan``) and ``bound_ms_each``: the
+   bytes, 2MNK on the CUDA cores and 3xTF32 on the tensor cores (or one
+   bf16 product), the bound being the bytes or the lesser operations
+   time, whichever is larger. The K7 row adds ``ms_cold`` and
+   ``host_us`` beside ``torch.rand``'s. Split sweeps time K1 and K5 at
+   several K split counts beside their plans' models.
 3. Slice phase: full-width AlexNet-227 (float32, weights from numpy
    seed 42) behind ``ServingFrontend`` on 127.0.0.1 with one replica
    and max batch 64; concurrent single requests and one 64-row batch
@@ -52,11 +58,12 @@
    shape). (b) On the hostile input of ``tests/test_ops.py`` (K 4096, 8
    decades, alternating signs; 256 rows), with the magnitudes falling
    along K, K5 with 64-deep blocks errs at least 2x less than K5 with
-   one block (rising magnitudes are printed beside). (c) Levels 0 and 2
-   stay within a float32-sized error of float64, also with TF32 switched
-   on for the process, and a control (a plain matmul under TF32) must
-   fail that limit. (d) Every K5 and K2 launch lands at a form the
-   kernel phase checked. Then the device rating, ``gemm_benchmark()`` at
+   one block (rising magnitudes are printed beside). (c) Levels 0, 1
+   and 2 stay within a float32-sized error of float64, also with TF32
+   switched on for the process, and a control (a plain matmul under
+   TF32) must fail that limit. (d) Every K5 and K2 launch lands at a
+   form the kernel phase checked, and every K5 launch of the bench ran
+   the tensor-core (mma) form. Then the device rating, ``gemm_benchmark()`` at
    bf16 and at float32, with a ``torch.profiler`` table of the bf16
    chain's kernels and bf16 at 1536^2 (rows 16-byte aligned) beside.
 7. The line before the last is ``{"kernels": [...], "not_ported":
@@ -77,9 +84,11 @@ import urllib.request
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-#: H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
+#: H100 SXM peaks (NVIDIA data sheet, dense, 700 W); "tf32" is the
+#: tensor cores' dense TF32 rate, half the sheet's 989 TFLOP/s quoted
+#: with sparsity
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 
 GEMM_SOURCE = "veles_tpu_torch/csrc/gemm_bias_act.cu"
 LRN_SOURCE = "veles_tpu_torch/csrc/lrn_fwd.cu"
@@ -512,7 +521,12 @@ def reduce_phase(torch):
     return rows
 
 
-def uniform_phase(torch):
+def uniform_phase(torch, scratch):
+    """K7 bit for bit against its plain version at the dropout masks'
+    shape, timed back-to-back (``ms``, which reads the host when
+    ``host_us`` exceeds the device time), one call at a time
+    (``ms_cold``, the device's time) and on the host, beside
+    ``torch.rand``'s same three."""
     from veles_tpu_torch.ops.random import (dropout_offset, uniform_fill,
                                             uniform_fill_plain)
     shape = (TRAIN_BATCH, 4096)
@@ -528,31 +542,68 @@ def uniform_phase(torch):
     gen = torch.Generator(device="cuda").manual_seed(5)
     values = shape[0] * shape[1]
     bms, by = bound(4 * values, values * UNIFORM_OPS_PER_VALUE, "float32")
+
+    # as the trainer calls it: with a tensor's device, card index and all
+    device = torch.empty(0, device="cuda").device
+
+    def kernel():
+        return uniform_fill(shape, seed, offset, device=device)
+
+    def library():
+        return torch.rand(shape, device="cuda", generator=gen)
+
     return [{
         "name": "uniform_fill", "shape": name, "route": "cuda",
         "_form": shape, "source": UNIFORM_SOURCE, "replaces": UNIFORM_TPU,
         "max_abs_err": float((got - want).abs().max()),
         "tolerance": "bit-exact",
-        "ms": device_ms(torch, lambda: uniform_fill(shape, seed, offset,
-                                                    device="cuda")),
+        "ms": device_ms(torch, kernel),
+        "ms_cold": cold_ms(torch, kernel, scratch),
+        "host_us": host_us(torch, kernel),
         "plain_ms": device_ms(torch, lambda: uniform_fill_plain(
             shape, seed, offset, device="cuda")),
         "bound_ms": bms, "bound_by": by,
-        "library_ms": device_ms(torch, lambda: torch.rand(
-            shape, device="cuda", generator=gen))}]
+        "library_ms": device_ms(torch, library),
+        "library_ms_cold": cold_ms(torch, library, scratch),
+        "library_host_us": host_us(torch, library)}]
 
 
-def kahan_phase(torch):
+def kahan_bound(m, k, n, bk, element_size):
+    """K5's bound: the larger of the bytes time (operands read once, the
+    float32 output written once) and the least operations time of a
+    float32-accurate product. For float32 operands that is the lesser of
+    2MNK plus 4 compensating operations per output and block on the CUDA
+    cores, and 3xTF32's 3 * 2MNK on the tensor cores; for bf16 operands
+    one bf16 product. Returns (ms, by, {the three times})."""
+    ms_bytes = ((m * k + k * n) * element_size + 4 * m * n) / \
+        HBM_BYTES_PER_S * 1e3
+    if element_size == 2:
+        ms_ops = 2 * m * n * k / PEAK_OPS["bfloat16"] * 1e3
+        three = {"bytes": ms_bytes, "bf16_tensor_cores": ms_ops}
+    else:
+        simt = (2 * m * n * k + 4 * m * n * -(-k // bk)) / \
+            PEAK_OPS["float32"] * 1e3
+        tf32x3 = 3 * 2 * m * n * k / PEAK_OPS["tf32"] * 1e3
+        ms_ops = min(simt, tf32x3)
+        three = {"bytes": ms_bytes, "cuda_cores": simt,
+                 "tf32x3_tensor_cores": tf32x3}
+    if ms_bytes >= ms_ops:
+        return ms_bytes, "bytes", three
+    return ms_ops, "operations", three
+
+
+def kahan_phase(torch, scratch):
     """K5 against ``kahan_matmul_plain`` with the same block depth
     (``min(512, K)``), at the disciplines bench's five shapes in float32
-    and at fc6's forward with bf16 operands. Bound: the product and 4
-    compensating operations per output and K block over the operands'
-    peak (float32 SIMT; bf16 tensor cores, which make the bf16 row
-    bytes-bound), or the operands and the float32 output moved once.
+    and at fc6's forward with bf16 operands: the form and split count
+    that ran (read from the counters, held against ``kahan_plan``), two
+    calls bitwise equal, and its times warm, cold and on the host beside
+    the plain loop's, the library call's and :func:`kahan_bound`.
     Library call: one float32 ``torch.matmul`` with TF32 off, the
     uncompensated product."""
     from veles_tpu_torch.ops.gemm import (KAHAN_BK, full_float32,
-                                          kahan_gemm, kahan_matmul_plain)
+                                          kahan_gemm, kahan_matmul_plain,
+                                          kahan_plan)
     from veles_tpu_torch.ops.gemm_bench import SHAPES
     cases = [(dims, "float32") for _, dims in SHAPES]
     cases.insert(2, (SHAPES[1][1], "bfloat16"))
@@ -563,10 +614,23 @@ def kahan_phase(torch):
         a = (torch.rand(m, k, device="cuda", generator=gen) - 0.5).to(dt)
         b = (torch.rand(k, n, device="cuda", generator=gen) - 0.5).to(dt)
         bk = min(KAHAN_BK, k)
+        name = "%dx%d @ %dx%d %s bk=%d" % (m, k, k, n, dtype, bk)
+        variants = dict(kahan_gemm.launches_by_variant)
         got = kahan_gemm(a, b, bk)
+        again = kahan_gemm(a, b, bk)
         want = kahan_matmul_plain(a, b, bk)
         torch.cuda.synchronize()
-        name = "%dx%d @ %dx%d %s bk=%d" % (m, k, k, n, dtype, bk)
+        ran = {v: c - variants.get(v, 0)
+               for v, c in kahan_gemm.launches_by_variant.items()
+               if c != variants.get(v, 0)}
+        plan = kahan_plan(m, n, k, bk, dt)
+        if ran != {plan.form: 2}:
+            raise AssertionError("kahan_gemm %s: launches by variant %s, "
+                                 "planned %s" % (name, ran, plan.form))
+        if not torch.equal(got, again):
+            raise AssertionError("kahan_gemm %s: two calls differ in %d "
+                                 "outputs" % (name,
+                                              int((got != again).sum())))
         err = check_close("kahan_gemm " + name, got, want,
                           *GEMM_TOL["float32"])
         a32, b32 = a.float(), b.float()
@@ -575,20 +639,68 @@ def kahan_phase(torch):
             with full_float32():
                 return torch.matmul(a32, b32)
 
-        bms, by = bound((m * k + k * n) * a.element_size() + 4 * m * n,
-                        2 * m * n * k + 4 * m * n * -(-k // bk), dtype)
+        def kernel():
+            return kahan_gemm(a, b, bk)
+
+        bms, by, three = kahan_bound(m, k, n, bk, a.element_size())
         rows.append({
             "name": "kahan_gemm", "shape": name,
             "_form": (m, k, n, dt, bk),
             "route": "cuda", "source": KAHAN_SOURCE, "replaces": KAHAN_TPU,
+            "variant": plan.form, "splits": plan.splits,
             "max_abs_err": err, "tolerance": list(GEMM_TOL["float32"]),
-            "ms": device_ms(torch, lambda: kahan_gemm(a, b, bk)),
+            "bitwise_repeatable": True,
+            "ms": device_ms(torch, kernel),
+            "ms_cold": cold_ms(torch, kernel, scratch),
+            "host_us": host_us(torch, kernel),
             "plain_ms": device_ms(torch, lambda: kahan_matmul_plain(
                 a, b, bk)),
-            "bound_ms": bms, "bound_by": by,
+            "bound_ms": bms, "bound_by": by, "bound_ms_each": three,
             "library": "torch.matmul float32, TF32 off (uncompensated)",
-            "library_ms": device_ms(torch, library)})
-        del a, b, a32, b32, got, want
+            "library_ms": device_ms(torch, library),
+            "library_ms_cold": cold_ms(torch, library, scratch)})
+        del a, b, a32, b32, got, again, want
+    return rows
+
+
+#: the K5 split sweep: (name, m, k, n, dtype) at each of these counts and
+#: the plan's own
+KAHAN_SWEEP_SPLITS = (1, 2, 3, 4, 6, 9, 18)
+KAHAN_SWEEP_SHAPES = (("fc6 fwd float32", 128, 9216, 4096, "float32"),
+                      ("1500^3 float32", 1500, 1500, 1500, "float32"),
+                      ("fc6 fwd bfloat16", 128, 9216, 4096, "bfloat16"))
+
+
+def kahan_sweep(torch):
+    """The evidence for ``kahan_plan``'s split counts: K5 at
+    ``min(512, K)``-deep blocks timed back-to-back at each count of
+    :data:`KAHAN_SWEEP_SPLITS` (cut to whole blocks) and at the plan's
+    own, beside the plan's modelled time (``_kahan_us``)."""
+    from veles_tpu_torch.ops.gemm import _kahan_us, kahan_gemm, kahan_plan
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for name, m, k, n, dtype in KAHAN_SWEEP_SHAPES:
+        dt = getattr(torch, dtype)
+        a = (torch.rand(m, k, device="cuda", generator=gen) - 0.5).to(dt)
+        b = (torch.rand(k, n, device="cuda", generator=gen) - 0.5).to(dt)
+        bk = min(512, k)
+        chosen = kahan_plan(m, n, k, bk, dt)
+        row = {"shape": name, "form": chosen.form,
+               "plan_splits": chosen.splits, "ms": {}, "model_us": {}}
+        for want in sorted(set(KAHAN_SWEEP_SPLITS) | {chosen.splits}):
+            plan = kahan_plan(m, n, k, bk, dt, True, want)
+            if plan.splits in row["ms"]:
+                continue
+            row["ms"][plan.splits] = device_ms(
+                torch, lambda: kahan_gemm(a, b, bk, splits=want))
+            row["model_us"][plan.splits] = _kahan_us(
+                m, n, k, bk, dt, plan.blocks_per_split)
+        print("kahan split sweep %s (plan %d): %s" % (
+            name, chosen.splits, ", ".join(
+                "%d: %.4f ms (model %.1f us)" % (sp, ms, row["model_us"][sp])
+                for sp, ms in sorted(row["ms"].items()))))
+        rows.append(row)
+        del a, b
     return rows
 
 
@@ -643,9 +755,10 @@ def hostile_check(torch):
 
 
 def tf32_check(torch):
-    """(c) with TF32 on for the process: levels 0 and 2 at fc6's forward
-    shape still within ``FP32_SHARE_TOL``; the control, a plain matmul
-    under the same switch, must exceed it."""
+    """(c) with TF32 on for the process: levels 0, 1 (K5, whose 3xTF32
+    products would read ~5e-4 had they dropped to one TF32 product) and
+    2 at fc6's forward shape still within ``FP32_SHARE_TOL``; the
+    control, a plain matmul under the same switch, must exceed it."""
     from veles_tpu_torch.ops.gemm import gemm
     gen = torch.Generator(device="cuda").manual_seed(7)
     m, k, n = TRAIN_BATCH, 9216, 4096
@@ -658,6 +771,7 @@ def tf32_check(torch):
     matmul.allow_tf32 = True
     try:
         got = {"level0": gemm(a, b, precision_level=0),
+               "level1": gemm(a, b, precision_level=1),
                "level2": gemm(a, b, precision_level=2),
                "control_tf32_matmul": torch.matmul(a, b)}
         torch.cuda.synchronize()
@@ -668,7 +782,8 @@ def tf32_check(torch):
     print("disciplines (c): with allow_tf32 on, error share of |a|@|b| "
           "vs float64: %s (limit %g; the control must exceed it)" % (
               shares, FP32_SHARE_TOL))
-    if max(shares["level0"], shares["level2"]) > FP32_SHARE_TOL:
+    if max(shares["level0"], shares["level1"],
+           shares["level2"]) > FP32_SHARE_TOL:
         raise AssertionError("gemm() under allow_tf32 is not full float32: "
                              "%s" % shares)
     if shares["control_tf32_matmul"] <= FP32_SHARE_TOL:
@@ -688,6 +803,9 @@ def disciplines_phase(torch, numpy, card):
     bench_s = time.perf_counter() - t0
     counts, by_form = read_counts()
     variants = gemm_variants()
+    from veles_tpu_torch.ops.gemm import kahan_gemm
+    kahan_variants = {v: c for v, c in kahan_gemm.launches_by_variant.items()
+                      if c}
     print(format_table(rows, card + ", times by CUDA events"))
     if not (counts["kahan_gemm"] and counts["gemm_bias_act"]) or any(
             n for name, n in counts.items()
@@ -706,13 +824,18 @@ def disciplines_phase(torch, numpy, card):
         raise AssertionError("level 1 (K5) less accurate than the plain "
                              "Kahan loop: %s" % ratios)
     print("disciplines (c): error share of |a|@|b| vs float64: %s (limit %g "
-          "for levels 0 and 2)" % (shares, FP32_SHARE_TOL))
-    if max(max(s["level0"], s["level2"]) for s in shares.values()) > \
-            FP32_SHARE_TOL:
+          "for levels 0, 1 and 2)" % (shares, FP32_SHARE_TOL))
+    if max(max(s.values()) for s in shares.values()) > FP32_SHARE_TOL:
         raise AssertionError("a float32 level errs beyond float32: %s"
                              % shares)
+    print("disciplines (d): kahan_gemm launches by variant %s"
+          % kahan_variants)
+    if set(kahan_variants) != {"mma"}:
+        raise AssertionError("disciplines: kahan_gemm launches by variant %s "
+                             "(all must be mma)" % kahan_variants)
     result = {"bench_s": bench_s, "launches": counts,
-              "gemm_variants": variants, "rows": rows,
+              "gemm_variants": variants, "kahan_variants": kahan_variants,
+              "rows": rows,
               "level1_over_loop_err": ratios,
               "hostile": hostile_check(torch),
               "tf32": tf32_check(torch)}
@@ -973,8 +1096,9 @@ def reset_counts():
     for fn in kernel_counters().values():
         fn.launches = 0
         fn.launches_by_form.clear()
-    from veles_tpu_torch.ops.gemm import linear_act
+    from veles_tpu_torch.ops.gemm import kahan_gemm, linear_act
     linear_act.launches_by_variant.clear()
+    kahan_gemm.launches_by_variant.clear()
 
 
 def read_counts():
@@ -1372,19 +1496,25 @@ def main():
     get_policy("float32").configure_backends()
 
     kernels = (gemm_phase(torch) + lrn_phase(torch) + lrn_bwd_phase(torch) +
-               reduce_phase(torch) + uniform_phase(torch) +
-               kahan_phase(torch))
+               reduce_phase(torch))
+    scratch = torch.empty(COLD_SCRATCH_BYTES // 4, device="cuda")
+    kernels += uniform_phase(torch, scratch) + kahan_phase(torch, scratch)
+    del scratch
     for row in kernels:
         print("kernel %-14s %-32s err %.3g  %.4f ms  plain %.4f  "
-              "library %.4f  bound %.4f (%s)%s" % (
+              "library %.4f  bound %.4f (%s)%s%s" % (
                   row["name"], row["shape"], row["max_abs_err"], row["ms"],
                   row["plain_ms"], row["library_ms"], row["bound_ms"],
                   row["bound_by"], "" if "variant" not in row else
-                  "  %s x%d, cold %.4f (library %.4f), host %.1f us" % (
-                      row["variant"], row["splits"], row["ms_cold"],
-                      row["library_ms_cold"], row["host_us"])))
+                  "  %s x%d" % (row["variant"], row["splits"]),
+                  "" if "ms_cold" not in row else
+                  ", cold %.4f (library %.4f), host %.1f us" % (
+                      row["ms_cold"], row["library_ms_cold"],
+                      row["host_us"])))
 
     print("split sweep (%s): %s" % (card, json.dumps(split_sweep(torch))))
+    print("kahan split sweep (%s): %s" % (card,
+                                          json.dumps(kahan_sweep(torch))))
 
     model, served, serving_forms = slice_phase(torch, numpy)
     check_forms("serving", kernels, serving_forms)

@@ -35,8 +35,8 @@ from veles_tpu_torch.models.build import (build_model,  # noqa: E402
 from veles_tpu_torch.ops.gemm import (EPILOGUES,  # noqa: E402
                                       LinearActFunction, gemm, gemm_plan,
                                       kahan_gemm, kahan_matmul,
-                                      kahan_matmul_plain, linear_act,
-                                      linear_act_plain)
+                                      kahan_matmul_plain, kahan_plan,
+                                      linear_act, linear_act_plain)
 from veles_tpu_torch.ops.gemm_bench import hostile_input  # noqa: E402
 from veles_tpu_torch.ops.lrn import (lrn_backward,  # noqa: E402
                                      lrn_backward_plain, lrn_forward,
@@ -276,6 +276,22 @@ def test_uniform_fill_kernel_matches_plain_bit_for_bit(card, shape,
         assert torch.equal(got, want)
 
 
+def test_uniform_fill_launches_on_the_current_stream_and_card(card):
+    """The launch path hands the kernel the raw handle of the current
+    stream: a fill on a side stream, with the card named by index, is
+    the plain version's bits once that stream is done, and is counted."""
+    shape, seed, offset = (128, 4096), 99, dropout_offset(7, 2)
+    side = torch.cuda.Stream()
+    before = uniform_fill.launches
+    with torch.cuda.stream(side):
+        got = uniform_fill(shape, seed, offset, device="cuda:%d" %
+                           torch.cuda.current_device())
+    side.synchronize()
+    assert uniform_fill.launches == before + 1
+    assert torch.equal(got, uniform_fill_plain(shape, seed, offset,
+                                               device=card))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_linear_act_function_backward_matches_plain(card, dtype):
     dt = getattr(torch, dtype)
@@ -362,6 +378,91 @@ def test_kahan_gemm_kernel_matches_plain(card, shape, bk, layout):
             assert got.dtype == out_dtype and got.shape == (m, n)
             torch.testing.assert_close(
                 got.float(), want.to(out_dtype).float(), atol=tol, rtol=tol)
+
+
+#: shapes whose N and K are whole 16-byte chunks in both dtypes, with
+#: ragged row and column tiles and ragged last Kahan blocks
+KAHAN_MMA_SHAPES = [(67, 1000, 136), (200, 1504, 264), (129, 4104, 136),
+                    (1, 64, 8)]
+
+
+@pytest.mark.parametrize("shape", KAHAN_MMA_SHAPES)
+@pytest.mark.parametrize("bk", [1, 7, 64, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kahan_gemm_forms_match_plain_and_repeat(card, dtype, bk, shape):
+    """Every form and split count :func:`kahan_plan` gives these shapes
+    (its own, and 1, 2, 3 and 8 splits forced): block depths below the
+    wgmma step (1, 7) on the general form, 64 and 512 on the tensor cores;
+    each launch counted under its form, two calls bitwise equal, and the
+    plain loop's result within 1e-4 (float32 sums of K <= 4104 products
+    of values below 1, in other orders)."""
+    m, k, n = shape
+    dt = getattr(torch, dtype)
+    a = torch.from_numpy(_rand((m, k), 26)).to(card, dt)
+    b = torch.from_numpy(_rand((k, n), 27)).to(card, dt)
+    want = kahan_matmul_plain(a, b, bk)
+    assert kahan_plan(m, n, k, bk, dt).form == (
+        "general" if bk < 8 and bk < k else "mma")
+    seen = set()
+    for splits in (None, 1, 2, 3, 8):
+        plan = kahan_plan(m, n, k, bk, dt, True, splits)
+        if plan.splits in seen:
+            continue
+        seen.add(plan.splits)
+        before = kahan_gemm.launches_by_variant[plan.form]
+        got = kahan_gemm(a, b, bk, splits=splits)
+        again = kahan_gemm(a, b, bk, splits=splits)
+        torch.cuda.synchronize()
+        assert kahan_gemm.launches_by_variant[plan.form] == before + 2
+        assert got.dtype == torch.float32 and got.shape == (m, n)
+        assert torch.equal(got, again), (splits, plan)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_kahan_gemm_split_sweep_matches_plain(card):
+    """16 Kahan blocks of 128 cut into every split count from 1 to 16:
+    each within the plain loop's tolerance and bitwise repeatable."""
+    m, k, n = 64, 2048, 256
+    a = torch.from_numpy(_rand((m, k), 28)).to(card)
+    b = torch.from_numpy(_rand((k, n), 29)).to(card)
+    want = kahan_matmul_plain(a, b, 128)
+    counts = set()
+    for splits in range(1, 17):
+        plan = kahan_plan(m, n, k, 128, torch.float32, True, splits)
+        assert plan.form == "mma"
+        counts.add(plan.splits)
+        got = kahan_gemm(a, b, 128, splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kahan_gemm(a, b, 128, splits=splits))
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert counts == {1, 2, 3, 4, 6, 8, 16}
+
+
+@pytest.mark.parametrize("which", ["a", "b"])
+def test_kahan_gemm_misaligned_pointer_takes_the_general_form(card, which):
+    m, k, n = 64, 256, 128
+    ops = {"a": torch.from_numpy(_rand((m, k), 37)).to(card),
+           "b": torch.from_numpy(_rand((k, n), 38)).to(card)}
+    v = ops[which]
+    buf = torch.empty(v.numel() + 1, device=card)
+    ops[which] = buf[1:].view(v.shape)
+    ops[which].copy_(v)
+    before = kahan_gemm.launches_by_variant["general"]
+    got = kahan_gemm(ops["a"], ops["b"], 64)
+    torch.cuda.synchronize()
+    assert kahan_gemm.launches_by_variant["general"] == before + 1
+    torch.testing.assert_close(got, kahan_matmul_plain(ops["a"], ops["b"],
+                                                       64),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_kahan_gemm_empty_k_writes_zeros(card):
+    before = kahan_gemm.launches_by_variant["general"]
+    got = kahan_gemm(torch.empty(8, 0, device=card),
+                     torch.empty(0, 16, device=card))
+    torch.cuda.synchronize()
+    assert kahan_gemm.launches_by_variant["general"] == before + 1
+    assert torch.equal(got, torch.zeros(8, 16, device=card))
 
 
 @pytest.mark.parametrize("falling", [False, True])

@@ -27,14 +27,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from veles_tpu.nn.activation import get_activation  # noqa: E402
-from veles_tpu.ops.gemm import _DS, fused_linear, pallas_gemm  # noqa: E402
+from veles_tpu.ops.gemm import (_DS, _kahan_matmul_loop,  # noqa: E402
+                                fused_linear, pallas_gemm)
 from veles_tpu_torch.nn.activation import ACTIVATIONS  # noqa: E402
-from veles_tpu_torch.ops.gemm import (EPILOGUES, SMS,  # noqa: E402
-                                      SPLIT_K_STEP, STREAM_SMEM,
-                                      TILE_THIN_K,
+from veles_tpu_torch.ops.gemm import (EPILOGUES, KAHAN_STEP,  # noqa: E402
+                                      KAHAN_TILE, SMS, SPLIT_K_STEP,
+                                      STREAM_SMEM, TILE_THIN_K,
                                       LinearActFunction, gemm_plan,
-                                      linear_act, linear_act_plain)
-from veles_tpu_torch.ops.gemm_bench import SHAPES  # noqa: E402
+                                      kahan_plan, linear_act,
+                                      linear_act_plain)
+from veles_tpu_torch.ops.gemm_bench import SHAPES, hostile_input  # noqa
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 #: AlexNet's fc layers, K by name (N = 4096), and the row counts the
@@ -363,3 +365,236 @@ def test_backward_without_bias_and_through_plain_versions():
         grads.append((x.grad, w.grad))
     assert torch.equal(grads[0][0], grads[1][0])
     assert torch.equal(grads[0][1], grads[1][1])
+
+
+# -- K5: kahan_plan and the mma form's arithmetic ----------------------------
+
+#: the card tests' K5 shapes (m, k, n) and where their plans land
+KAHAN_CARD_MMA = ((67, 1000, 132), (200, 1500, 260), (129, 4104, 136),
+                  (1, 64, 4))
+KAHAN_CARD_GENERAL = ((5, 1000, 70), (67, 300, 129), (1, 64, 1), (130, 1, 65))
+
+
+def _check_kahan_plan(plan, m, n, k, bk):
+    """The K ranges cover K once, in order, none empty, each starting on
+    a Kahan block (no block straddles two splits) and each but the last
+    ``blocks_per_split`` blocks deep; the workspace holds an (acc, comp)
+    pair of float32 (m, n) planes per split when K is split."""
+    bk = max(1, min(bk, k))
+    assert plan.splits == len(plan.k_ranges) >= 1
+    assert plan.k_ranges[0][0] == 0 and plan.k_ranges[-1][1] == k
+    for (_, end), (start, _) in zip(plan.k_ranges, plan.k_ranges[1:]):
+        assert end == start
+    assert all(start % bk == 0 for start, _ in plan.k_ranges)
+    assert all(end > start for start, end in plan.k_ranges) or k == 0
+    assert all(end - start == plan.blocks_per_split * bk
+               for start, end in plan.k_ranges[:-1])
+    assert plan.workspace_bytes == (8 * plan.splits * m * n
+                                    if plan.splits > 1 else 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims", [dims for _, dims in SHAPES],
+                         ids=[name.split(" (")[0] for name, _ in SHAPES])
+def test_kahan_plan_bench_shapes_take_the_mma_form(dims, dtype):
+    """The disciplines bench's five shapes at its block depth min(512, K)
+    run on the tensor cores, but 1500-wide bf16 rows (3000 bytes) are not
+    16-byte aligned; K splits over whole blocks where the tiles alone
+    leave SMs idle (the thin fc products) or end in a ragged wave
+    (1500^3: 144 tiles on 132 SMs), never at 4096^3 or the weight
+    gradient."""
+    m, k, n = dims
+    dt = getattr(torch, dtype)
+    bk = min(512, k)
+    plan = kahan_plan(m, n, k, bk, dt)
+    _check_kahan_plan(plan, m, n, k, bk)
+    if dtype == "bfloat16" and n == 1500:
+        assert plan.form == "general" and plan.splits == 1
+        return
+    assert plan.form == "mma" and plan.tile == (KAHAN_TILE, KAHAN_TILE)
+    assert plan.splits == {128: 4, 1500: 2}.get(m, 1)
+    tiles = -(-m // KAHAN_TILE) * -(-n // KAHAN_TILE)
+    if plan.splits > 1:
+        assert tiles * plan.splits >= 0.9 * SMS or m == 1500
+
+
+@pytest.mark.parametrize("dims", KAHAN_CARD_MMA + KAHAN_CARD_GENERAL)
+@pytest.mark.parametrize("bk", [1, 7, 8, 24, 64, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kahan_plan_card_shapes(dims, bk, dtype):
+    """The card tests' shapes: bk below the wgmma step (8 float32, 16 bf16)
+    unless it is all of K, N or K off the 16-byte chunk, go to the
+    general form in one split; the rest to the mma form."""
+    m, k, n = dims
+    dt = getattr(torch, dtype)
+    plan = kahan_plan(m, n, k, bk, dt)
+    _check_kahan_plan(plan, m, n, k, bk)
+    vec = 8 if dtype == "bfloat16" else 4
+    whole = min(bk, k)
+    mma = (n % vec == 0 and k % vec == 0 and
+           (whole % KAHAN_STEP[dt] == 0 or whole == k))
+    assert plan.form == ("mma" if mma else "general")
+    if dims in KAHAN_CARD_GENERAL:
+        assert plan.form == "general"
+    if plan.form == "general":
+        assert plan.splits == 1 and plan.tile == (64, 64)
+
+
+@pytest.mark.parametrize("case", [(128, 4096, 9216, 512, "float32", False),
+                                  (128, 4096, 9216, 512, "bfloat16", False),
+                                  (64, 64, 0, 512, "float32", True),
+                                  (64, 64, 1000, 4, "float32", True),
+                                  (64, 64, 1000, 8, "bfloat16", True)])
+def test_kahan_plan_unaligned_or_shallow_takes_general(case):
+    """A base pointer off 16 bytes, K = 0 (zeros out), and blocks shallower
+    than one wgmma step."""
+    m, n, k, bk, dtype, aligned = case
+    plan = kahan_plan(m, n, k, bk, getattr(torch, dtype), aligned)
+    assert plan.form == "general" and plan.splits == 1
+    assert plan.k_ranges == ((0, k),) and plan.workspace_bytes == 0
+
+
+@pytest.mark.parametrize("want", [1, 2, 3, 4, 7, 18, 100])
+@pytest.mark.parametrize("case", [(128, 4096, 9216), (1500, 1500, 1500),
+                                  (67, 132, 1000)])
+def test_kahan_plan_split_override(case, want):
+    """``splits`` keeps the form and cuts the Kahan blocks into at most
+    that many splits of whole blocks."""
+    m, n, k = case
+    plan = kahan_plan(m, n, k, 64, torch.float32, splits=want)
+    _check_kahan_plan(plan, m, n, k, 64)
+    assert plan.form == "mma"
+    assert plan.splits <= want
+    blocks = -(-k // 64)
+    assert plan.splits == -(-blocks // -(-blocks // min(want, blocks)))
+
+
+def _tf32_rna(x):
+    """float32 rounded to TF32 (10 mantissa bits), ties away from zero,
+    as ``cvt.rna.tf32.f32`` rounds: half of TF32's last place added to
+    the magnitude bits, then the 13 low bits cleared."""
+    bits = numpy.ascontiguousarray(x, numpy.float32).view(numpy.uint32)
+    return ((bits + numpy.uint32(0x1000)) &
+            numpy.uint32(0xFFFFE000)).view(numpy.float32)
+
+
+def test_tf32_rna_by_bits_matches_rounding_in_float64():
+    """The bit recipe against rounding written out in float64: the
+    magnitude scaled to 11 significant bits, floor(s + 1/2) (ties away
+    from zero), scaled back; exact ties both ways and random values."""
+    rng = numpy.random.RandomState(12)
+    x = numpy.concatenate([
+        rng.randn(4096).astype(numpy.float32) * numpy.float32(10.0) **
+        rng.randint(-20, 20, 4096).astype(numpy.float32),
+        numpy.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 3 * 2.0 ** -11,
+                     1 + 2.0 ** -11 - 2.0 ** -23, 0.0, -0.0, 1.0, 3.0],
+                    numpy.float32)])
+    mant, exp = numpy.frexp(x.astype(numpy.float64))
+    want = numpy.sign(mant) * numpy.floor(numpy.abs(mant) * 2.0 ** 11 +
+                                          0.5) * 2.0 ** (exp - 11)
+    got = _tf32_rna(x)
+    numpy.testing.assert_array_equal(got.astype(numpy.float64), want)
+    assert got[-8] == numpy.float32(1 + 2.0 ** -10)
+    assert got[-7] == numpy.float32(-(1 + 2.0 ** -10))
+    assert got[-6] == numpy.float32(1 + 2.0 ** -9)
+    assert got[-5] == numpy.float32(1.0)
+
+
+def _split_tf32(x):
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _emulate_kahan_mma(a, b, bk, plan, passes=3):
+    """The mma form's arithmetic on the CPU (float32 torch ops): each
+    operand split into TF32 hi and lo; each 16-deep stage's product
+    lo_a hi_b + hi_a lo_b + hi_a hi_b (``passes=1``: hi_a hi_b alone, the
+    1xTF32 control) summed in float32 into the block's term; each Kahan
+    block joined by the compensated add; each split of ``plan`` summed
+    from zero and the splits' (acc, comp) pairs joined in split order:
+    comp += comp_s, then acc_s joins by the compensated add."""
+    (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(b)
+    ah, al, bh, bl = map(torch.from_numpy, (ah, al, bh, bl))
+    m, n = a.shape[0], b.shape[1]
+    pairs = []
+    for start, end in plan.k_ranges:
+        acc = torch.zeros(m, n)
+        comp = torch.zeros(m, n)
+        for c0 in range(start, end, bk):
+            cend = min(c0 + bk, end)
+            term = torch.zeros(m, n)
+            for s0 in range(c0, cend, 16):
+                ks = slice(s0, min(s0 + 16, cend))
+                part = ah[:, ks] @ bh[ks]
+                if passes == 3:
+                    part = (al[:, ks] @ bh[ks] + ah[:, ks] @ bl[ks]) + part
+                term = term + part
+            y = term - comp
+            t = acc + y
+            comp = (t - acc) - y
+            acc = t
+        pairs.append((acc, comp))
+    acc, comp = pairs[0]
+    for acc_s, comp_s in pairs[1:]:
+        comp = comp + comp_s
+        y = acc_s - comp
+        t = acc + y
+        comp = (t - acc) - y
+        acc = t
+    return acc.numpy()
+
+
+#: (m, k, n, bk, splits): ragged last blocks, one block, and split
+#: counts that leave a short last split
+EMULATION_CASES = ((24, 1000, 40, 64, 3), (24, 1000, 40, 512, None),
+                   (17, 600, 12, 600, None), (32, 2048, 16, 128, 5),
+                   (8, 1500, 8, 512, 2))
+#: float32-sized errors: against the JAX loop as in ``test_torch_ops.py``
+#: (reordered float32 sums of O(1) outputs, plus 3xTF32's operand split
+#: at ~2^-22 of each product), and against float64 as ``chip_smoke.py``'s
+#: check (c): max |err| at most 2e-6 of |a| @ |b|. TF32 alone reads
+#: ~1e-4 of |a| @ |b| and fails both.
+EMULATION_TOL = dict(atol=1e-5, rtol=1e-5)
+EMULATION_SHARE = 2e-6
+
+
+@pytest.mark.parametrize("case", EMULATION_CASES)
+def test_3xtf32_kahan_emulation_matches_the_jax_loop(case):
+    m, k, n, bk, splits = case
+    a, b, _ = _inputs(m, k, n, seed=13)
+    plan = kahan_plan(m, n, k, bk, torch.float32, splits=splits)
+    assert plan.form == "mma"
+    want = numpy.asarray(_kahan_matmul_loop(jnp.asarray(a), jnp.asarray(b),
+                                            bk))
+    got = _emulate_kahan_mma(a, b, bk, plan)
+    numpy.testing.assert_allclose(got, want, **EMULATION_TOL)
+    ref = a.astype(numpy.float64) @ b.astype(numpy.float64)
+    scale = numpy.abs(a).astype(numpy.float64) @ numpy.abs(b)
+    assert numpy.max(numpy.abs(got - ref) / scale) <= EMULATION_SHARE
+    control = _emulate_kahan_mma(a, b, bk, plan, passes=1)
+    assert numpy.max(numpy.abs(control - ref) / scale) > EMULATION_SHARE
+    with pytest.raises(AssertionError):
+        numpy.testing.assert_allclose(control, want, **EMULATION_TOL)
+
+
+@pytest.mark.parametrize("falling", [False, True])
+def test_3xtf32_kahan_emulation_on_hostile_input(falling):
+    """``tests/test_ops.py``'s hostile input at 256 rows, magnitudes
+    rising or falling along K, 64-deep blocks on the plan's splits: no
+    worse than 1.05x the JAX loop's max |error| against float64 (check
+    (a)'s limit), and with magnitudes falling at least 2x better than one
+    K-deep block (check (b)). The 1xTF32 control errs far beyond the
+    limit."""
+    a, b, exact = hostile_input(falling=falling)
+    k = a.shape[1]
+    jax_err = numpy.abs(numpy.asarray(_kahan_matmul_loop(
+        jnp.asarray(a), jnp.asarray(b), 64)) - exact).max()
+    errs = {}
+    for bk, passes in ((64, 3), (k, 3), (64, 1)):
+        plan = kahan_plan(a.shape[0], b.shape[1], k, bk, torch.float32)
+        errs[bk, passes] = numpy.abs(
+            _emulate_kahan_mma(a, b, bk, plan, passes) - exact).max()
+    assert errs[64, 3] <= 1.05 * jax_err, (errs, jax_err)
+    assert errs[64, 1] > 1.05 * jax_err
+    if falling:
+        assert 2.0 * errs[64, 3] <= errs[k, 3], errs

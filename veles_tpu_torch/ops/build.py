@@ -10,6 +10,11 @@ builds anew, an unchanged one is reused.
 Building happens at first use (:func:`library`), or for every source at
 once, in parallel, through :func:`build_all`. Nothing is built when the
 module is imported.
+
+:func:`function` and :func:`launch` are the short call path of a
+kernel's C function: resolved once with its argument types, then called
+with the raw handle of the current stream, inside a device context only
+when the tensor's card is not the current one.
 """
 
 import ctypes
@@ -20,6 +25,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
@@ -28,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libraries = {}
+_functions = {}
 
 
 def sources():
@@ -109,6 +117,35 @@ def library(name):
             _finish(name, target, *_start(name, target))
         lib = _libraries[name] = ctypes.CDLL(target)
         return lib
+
+
+def function(name, symbol, argtypes):
+    """The C function ``symbol`` of ``csrc/<name>.cu`` with ``argtypes``
+    (the stream's ``c_void_p`` last) and an int status as its result.
+    Resolved once, the library built first if needed; after that a call
+    is one dictionary lookup, without a lock."""
+    fn = _functions.get(symbol)
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[symbol] = fn
+    return fn
+
+
+def launch(fn, device, *args):
+    """``fn(*args, stream)`` with the raw handle of ``device``'s current
+    stream, read without building a ``torch.cuda.Stream``; inside a device
+    context only when ``device`` is not the current card. Returns the C
+    function's status. The caller has allocated on the card already, so
+    CUDA is initialised and the current card is read without
+    ``torch.cuda``'s lazy-init check."""
+    current = torch._C._cuda_getDevice()
+    index = current if device.index is None else device.index
+    if index == current:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def check(status, kernel):

@@ -45,6 +45,7 @@ import collections
 import contextlib
 import ctypes
 import functools
+import heapq
 import threading
 
 import torch
@@ -220,18 +221,113 @@ def kahan_matmul_plain(a, b, chunk=None):
     return acc
 
 
-def kahan_gemm(a, b, bk=KAHAN_BK, out_dtype=torch.float32):
+#: K5's forms (``csrc/kahan_gemm.cu``), by their C codes: the masked SIMT
+#: kernel, and the tensor cores by ``wgmma`` (3xTF32 for float32
+#: operands, bf16 products for bf16)
+KAHAN_FORMS = ("general", "mma")
+#: the mma form's output tile, and the K values one wgmma takes by dtype
+#: (the depth a Kahan block must be a multiple of, unless it is all of K)
+KAHAN_TILE = 128
+KAHAN_STEP = {torch.float32: 8, torch.bfloat16: 16}
+#: the mma form's model of the H100's time (:func:`_kahan_us`): one block
+#: an SM at a time (225 KB of shared memory each), handed out in launch
+#: order to the SM that frees first; a block takes :data:`KAHAN_BLOCK_US`
+#: plus :data:`KAHAN_ROW_US` (by dtype) for each K row of its 128 x 128
+#: tile, fitted to the card's split sweep; the second pass moves the
+#: (acc, comp) planes at :data:`PARTIAL_BYTES_PER_US`. Beyond
+#: :data:`KAHAN_MAX_WAVES` waves of tiles K is not split.
+KAHAN_ROW_US = {torch.float32: 0.071, torch.bfloat16: 0.019}
+KAHAN_BLOCK_US = 3.5
+KAHAN_MAX_WAVES = 4
+
+#: what :func:`kahan_plan` returns. ``tile`` is (rows, columns) of one
+#: block's output; split s covers Kahan blocks ``[s * blocks_per_split,
+#: (s + 1) * blocks_per_split)``, K rows ``k_ranges[s]``;
+#: ``workspace_bytes`` holds the splits' float32 (acc, comp) planes (0
+#: with one split)
+KahanPlan = collections.namedtuple(
+    "KahanPlan", "form tile splits blocks_per_split k_ranges "
+                 "workspace_bytes")
+
+
+def _kahan_us(m, n, k, bk, dtype, per_split):
+    """The mma form's modelled time (us) with ``per_split`` Kahan blocks
+    a split."""
+    tiles = _cdiv(m, KAHAN_TILE) * _cdiv(n, KAHAN_TILE)
+    span = per_split * bk
+    splits = _cdiv(k, span)
+    free = [0.0] * min(SMS, tiles * splits)
+    for s in range(splits):  # blockIdx.z is the slowest launch index
+        us = KAHAN_BLOCK_US + (min(k, (s + 1) * span) - s * span) * \
+            KAHAN_ROW_US[dtype]
+        for _ in range(tiles):
+            heapq.heapreplace(free, free[0] + us)
+    us = max(free)
+    if splits > 1:  # 2 planes a split written and read, the output written
+        us += (4 * splits + 1) * 4 * m * n / PARTIAL_BYTES_PER_US
+    return us
+
+
+@functools.lru_cache(maxsize=1024)
+def kahan_plan(m, n, k, bk, dtype, aligned=True, splits=None):
+    """The form of ``csrc/kahan_gemm.cu`` that computes a (m, k) @ b (k,
+    n) of ``dtype`` in ``bk``-deep Kahan blocks (``bk`` is cut to K), with
+    its tile, K splits and workspace. ``aligned``: a and b start on 16
+    bytes. ``splits``, for tuning sweeps: at most that many splits instead
+    of the model's choice (the general form keeps one).
+
+    * ``mma`` where a and b are aligned, N and K are multiples of the
+      16-byte chunk (4 float32, 8 bf16) and each block but the last ends
+      on a whole wgmma step (:data:`KAHAN_STEP`): 128 x 128 tiles, K split
+      over whole Kahan blocks where :func:`_kahan_us` finds it faster
+      (fewer splits on a tie; none beyond :data:`KAHAN_MAX_WAVES` waves
+      of tiles);
+    * ``general`` for everything else (bk below the wgmma depth,
+      unaligned rows or pointers, K = 0), in one split.
+    """
+    if dtype not in _DTYPES:
+        raise TypeError("kahan_plan takes float32 or bfloat16, not %s"
+                        % (dtype,))
+    bk = max(1, min(int(bk), k))
+    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    blocks = _cdiv(k, bk)
+    if (aligned and k > 0 and n % vec == 0 and k % vec == 0 and
+            (bk % KAHAN_STEP[dtype] == 0 or bk == k)):
+        form, tile = "mma", (KAHAN_TILE, KAHAN_TILE)
+        if splits:
+            per_split = _cdiv(blocks, min(int(splits), blocks))
+        elif (_cdiv(m, KAHAN_TILE) * _cdiv(n, KAHAN_TILE) >
+              KAHAN_MAX_WAVES * SMS):
+            per_split = blocks
+        else:
+            per_split = min(
+                sorted({_cdiv(blocks, s) for s in range(1, blocks + 1)},
+                       reverse=True),
+                key=lambda p: _kahan_us(m, n, k, bk, dtype, p))
+    else:
+        form, tile, per_split = "general", (64, 64), max(1, blocks)
+    count = max(1, _cdiv(blocks, per_split))
+    span = per_split * bk
+    k_ranges = tuple((s * span, min(k, (s + 1) * span))
+                     for s in range(count))
+    return KahanPlan(form, tile, count, per_split, k_ranges,
+                     8 * count * m * n if count > 1 else 0)
+
+
+def kahan_gemm(a, b, bk=KAHAN_BK, out_dtype=torch.float32, splits=None):
     """``a @ b`` with the K products summed in ``bk``-deep blocks joined
     by Kahan compensation: the counterpart of ``pallas_kahan_gemm``.
 
     a (M, K) and b (K, N) are row-major contiguous and share dtype
     float32 or bfloat16. Any M, N, K: the last block is ``K mod bk``
     deep. The kernel writes float32; a bfloat16 ``out_dtype`` is a cast
-    after it. On a CUDA tensor it launches ``csrc/kahan_gemm.cu`` or
-    raises; on a CPU tensor it runs :func:`kahan_matmul_plain`. Counts
-    each launch in ``kahan_gemm.launches``, and in
-    ``kahan_gemm.launches_by_form`` under ``(M, K, N, dtype, block
-    depth)``."""
+    after it. On a CUDA tensor it launches ``csrc/kahan_gemm.cu`` in the
+    form :func:`kahan_plan` picks (``splits`` overrides its split count,
+    for tuning sweeps), or raises; on a CPU tensor it runs
+    :func:`kahan_matmul_plain`. Counts each launch in
+    ``kahan_gemm.launches``, in ``kahan_gemm.launches_by_form`` under
+    ``(M, K, N, dtype, block depth)`` and in
+    ``kahan_gemm.launches_by_variant`` under the plan's form."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError("kahan_gemm needs a (M, K) and b (K, N), got %s "
                          "and %s" % (tuple(a.shape), tuple(b.shape)))
@@ -260,31 +356,32 @@ def kahan_gemm(a, b, bk=KAHAN_BK, out_dtype=torch.float32):
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out.to(out_dtype)
-    lib = _kahan_library()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        status = lib.veles_kahan_gemm(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, bk,
-            int(a.dtype == torch.bfloat16), stream)
-        with _count_lock:
-            kahan_gemm.launches += 1
-            kahan_gemm.launches_by_form[(m, k, n, a.dtype, bk)] += 1
+    plan = kahan_plan(m, n, k, bk, a.dtype, _aligned(a, b), splits)
+    ws = None
+    if plan.workspace_bytes:
+        ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
+                         device=a.device)
+    status = build.launch(
+        build.function("kahan_gemm", "veles_kahan_gemm", _KAHAN_ARGTYPES),
+        a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), m, n, k, bk,
+        int(a.dtype == torch.bfloat16), KAHAN_FORMS.index(plan.form),
+        plan.splits, plan.blocks_per_split)
     build.check(status, "kahan_gemm")
-    return out.to(out_dtype)
+    with _count_lock:
+        kahan_gemm.launches += 1
+        kahan_gemm.launches_by_form[(m, k, n, a.dtype, bk)] += 1
+        kahan_gemm.launches_by_variant[plan.form] += 1
+    return out if out_dtype == torch.float32 else out.to(out_dtype)
 
 
 kahan_gemm.launches = 0
 kahan_gemm.launches_by_form = collections.Counter()
-
-
-def _kahan_library():
-    lib = build.library("kahan_gemm")
-    fn = lib.veles_kahan_gemm
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 +
-                       [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
+kahan_gemm.launches_by_variant = collections.Counter()
+#: ``veles_kahan_gemm``'s C arguments: a, b, out, ws, m, n, k, bk,
+#: in_bf16, form, splits, blocks a split, stream
+_KAHAN_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    ctypes.c_void_p]
 
 
 # -- the fused linear layer --------------------------------------------------

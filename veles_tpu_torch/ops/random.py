@@ -35,6 +35,11 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _U64 = (1 << 64) - 1
 _count_lock = threading.Lock()
+#: ``veles_uniform_fill``'s C arguments: out, n, seed, offset, vmin,
+#: vmax, stream
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint64,
+             ctypes.c_uint64, ctypes.c_float, ctypes.c_float,
+             ctypes.c_void_p)
 
 
 def dropout_offset(batch_index, layer_index):
@@ -86,9 +91,9 @@ def _check(shape, seed, offset):
     if len(shape) != 2:
         raise ValueError("uniform_fill wants a 2-D shape, got %r"
                          % (tuple(shape),))
-    if not (0 <= int(seed) <= _U64 and 0 <= int(offset) <= _U64):
+    if not (0 <= seed <= _U64 and 0 <= offset <= _U64):
         raise ValueError("seed and offset are unsigned 64-bit integers")
-    return tuple(int(d) for d in shape)
+    return int(shape[0]), int(shape[1])
 
 
 def uniform_fill_plain(shape, seed, offset=0, vmin=0.0, vmax=1.0,
@@ -115,38 +120,28 @@ def uniform_fill(shape, seed, offset=0, vmin=0.0, vmax=1.0, device=None):
     kernel launch in ``uniform_fill.launches``, and in
     ``uniform_fill.launches_by_form`` under ``shape``."""
     shape = _check(shape, seed, offset)
-    device = resolve_device(device)
+    if not isinstance(device, torch.device):  # the trainer passes one
+        device = resolve_device(device)
     if device.type == "cpu":
         return uniform_fill_plain(shape, seed, offset, vmin, vmax, device)
     if device.type != "cuda":
         raise ValueError("uniform_fill runs on cuda or cpu, not %s"
                          % device)
-    out = torch.empty(shape, dtype=torch.float32, device=device)
-    if out.numel() == 0:
+    rows, cols = shape
+    # the shape as two ints: torch parses them faster than a tuple
+    out = torch.empty(rows, cols, dtype=torch.float32, device=device)
+    if rows * cols == 0:
         return out
-    lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        status = lib.veles_uniform_fill(
-            out.data_ptr(), out.numel(), int(seed), int(offset),
-            float(vmin), float(vmax), stream)
-        with _count_lock:
-            uniform_fill.launches += 1
-            uniform_fill.launches_by_form[shape] += 1
+    status = build.launch(
+        build.function("uniform_fill", "veles_uniform_fill", _ARGTYPES),
+        device, out.data_ptr(), rows * cols, int(seed), int(offset),
+        float(vmin), float(vmax))
     build.check(status, "uniform_fill")
+    with _count_lock:
+        uniform_fill.launches += 1
+        uniform_fill.launches_by_form[shape] += 1
     return out
 
 
 uniform_fill.launches = 0
 uniform_fill.launches_by_form = collections.Counter()
-
-
-def _library():
-    lib = build.library("uniform_fill")
-    fn = lib.veles_uniform_fill
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint64,
-                       ctypes.c_uint64, ctypes.c_float, ctypes.c_float,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
