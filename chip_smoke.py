@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py
 
-1. Card: the ``nvidia-smi`` name and power limit, then one ``nvcc`` per
-   kernel source under ``veles_tpu_torch/csrc``, all started together.
+1. Card: the ``nvidia-smi`` name and power limit, then one compiler per
+   source under ``veles_tpu_torch/csrc`` (``nvcc`` for each kernel, the
+   host compiler for K6's binding), all started together, with the
+   seconds each took.
 2. Kernel phase: every kernel at the shapes the serving, training and
    GEMM-disciplines paths give it, held against its plain PyTorch
    version on the card within a stated tolerance (the Philox fill bit
@@ -19,9 +21,12 @@
    (form and splits from ``kahan_plan``) and ``bound_ms_each``: the
    bytes, 2MNK on the CUDA cores and 3xTF32 on the tensor cores (or one
    bf16 product), the bound being the bytes or the lesser operations
-   time, whichever is larger. The K7 row adds ``ms_cold`` and
-   ``host_us`` beside ``torch.rand``'s. Split sweeps time K1 and K5 at
-   several K split counts beside their plans' models.
+   time, whichever is larger. K3, K4, K6 and K7 rows add ``ms_cold``
+   and ``host_us`` beside their library call's same three
+   (``library_ms_cold``, ``library_host_us``); K4 and K6 rows the form
+   their plan chose (``lrn_bwd_plan``, ``column_plan``, read from the
+   counters), K6 rows two calls bitwise equal. Split sweeps time K1 and
+   K5 at several K split counts beside their plans' models.
 3. Slice phase: full-width AlexNet-227 (float32, weights from numpy
    seed 42) behind ``ServingFrontend`` on 127.0.0.1 with one replica
    and max batch 64; concurrent single requests and one 64-row batch
@@ -44,12 +49,17 @@
    the kernels are held against the same step through the plain
    versions (same weights, batch and Philox bits, cuDNN deterministic);
    a zeroed fc7 bias gradient and the dropout masks of another seed
-   must both fail that check. (b) 5 epochs of ``run_epoch`` under
+   must both fail that check. The backends check: the same step with
+   TF32 and bf16 reduced-precision reductions switched on by the caller
+   gives the loss and gradients of the step with them off, bit for bit
+   (the trainer holds its policy's switches), and the step with the
+   trainer's guard taken out must differ. (b) 5 epochs of ``run_epoch`` under
    float32 and then under bfloat16: per-epoch losses (all finite),
    device step ms by CUDA events, samples/s and model FLOP/s. (c) The
    launch counts: K1 and K3 twice per forward, K4, K6 and K7 at the
    model's LRN, bias and dropout counts per step, every launch at a
-   checked form. (d) A ``torch.profiler`` table and split of one
+   checked form, every K4 launch on its vector form and every K6 launch
+   on a designed form. (d) A ``torch.profiler`` table and split of one
    training step's device time by kernel.
 6. Disciplines phase: the GEMM-disciplines bench
    (``veles_tpu_torch.ops.gemm_bench``) at its five shapes, counted from
@@ -401,7 +411,10 @@ def gemm_form_checked(m, dtype, has_bias):
     return m in (1, 64) or (dtype == "float32" and has_bias)
 
 
-def lrn_phase(torch):
+def lrn_phase(torch, scratch):
+    """K3 at the serving and training shapes against its plain version,
+    timed back-to-back, cold and on the host beside
+    ``F.local_response_norm``'s same three."""
     import torch.nn.functional as F
 
     from veles_tpu_torch.ops.lrn import lrn_forward, lrn_forward_plain
@@ -427,26 +440,48 @@ def lrn_phase(torch):
             # per value: square, n-1 adds, alpha/k, rsqrt chain, scale
             bms, by = bound(2 * values * x.element_size(),
                             values * (n + 7), "float32")
-            rows.append({
+
+            def kernel(x=x):
+                return lrn_forward(x, k, alpha, beta, n)
+
+            # torch divides alpha by the window: pass alpha * n
+            def library(x_nchw=x_nchw):
+                return F.local_response_norm(x_nchw, n, alpha * n, beta, k)
+
+            row = {
                 "name": "lrn_fwd", "shape": name, "route": "cuda",
                 "_form": (shape, x.dtype),
                 "source": LRN_SOURCE, "replaces": LRN_TPU,
                 "max_abs_err": err, "tolerance": list(LRN_TOL[dtype]),
-                "ms": device_ms(torch, lambda: lrn_forward(
-                    x, k, alpha, beta, n)),
                 "plain_ms": device_ms(torch, lambda: lrn_forward_plain(
                     x, k, alpha, beta, n)),
-                "bound_ms": bms, "bound_by": by,
-                # torch divides alpha by the window: pass alpha * n
-                "library_ms": device_ms(torch, lambda: F.local_response_norm(
-                    x_nchw, n, alpha * n, beta, k))})
+                "bound_ms": bms, "bound_by": by}
+            row.update(timings(torch, scratch, kernel, library))
+            rows.append(row)
     return rows
 
 
-def lrn_bwd_phase(torch):
+def timings(torch, scratch, kernel, library):
+    """A kernel's and its library call's times: back-to-back (``ms``),
+    one call at a time with its operands out of L2 (``ms_cold``) and on
+    the host (``host_us``)."""
+    return {"ms": device_ms(torch, kernel),
+            "ms_cold": cold_ms(torch, kernel, scratch),
+            "host_us": host_us(torch, kernel),
+            "library_ms": device_ms(torch, library),
+            "library_ms_cold": cold_ms(torch, library, scratch),
+            "library_host_us": host_us(torch, library)}
+
+
+def lrn_bwd_phase(torch, scratch):
+    """K4 at the training shapes in float32 and bf16 against its plain
+    version, the form ``lrn_bwd_plan`` picked (read from the counters),
+    timed as :func:`timings` beside autograd's backward of
+    ``F.local_response_norm``."""
     import torch.nn.functional as F
 
-    from veles_tpu_torch.ops.lrn import lrn_backward, lrn_backward_plain
+    from veles_tpu_torch.ops.lrn import (lrn_backward, lrn_backward_plain,
+                                         lrn_bwd_plan)
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(3)
     k, alpha, beta, n = 2.0, 1e-4, 0.75, 5
@@ -456,10 +491,17 @@ def lrn_bwd_phase(torch):
         for dtype in ("float32", "bfloat16"):
             x, g = x32.to(getattr(torch, dtype)), g32.to(getattr(torch,
                                                                  dtype))
+            variants = dict(lrn_backward.launches_by_variant)
             got = lrn_backward(x, g, k, alpha, beta, n)
             want = lrn_backward_plain(x, g, k, alpha, beta, n)
             torch.cuda.synchronize()
             name = "%s %s" % ("x".join(map(str, shape)), dtype)
+            ran = launched_variants(lrn_backward, variants)
+            plan = lrn_bwd_plan(x.numel() // shape[-1], shape[-1], n,
+                                x.dtype)
+            if ran != {plan.form: 1}:
+                raise AssertionError("lrn_bwd %s: launches by variant %s, "
+                                     "planned %s" % (name, ran, plan.form))
             err = check_close("lrn_bwd " + name, got, want, *LRN_TOL[dtype])
             # the library yardstick: autograd's backward of torch's LRN
             # on an NCHW copy (torch divides alpha by the window)
@@ -471,33 +513,51 @@ def lrn_bwd_phase(torch):
             # quotient and the products of dx
             bms, by = bound(3 * values * x.element_size(),
                             values * (2 * n + 20), "float32")
-            rows.append({
+
+            def kernel(x=x, g=g):
+                return lrn_backward(x, g, k, alpha, beta, n)
+
+            def library(x_nchw=x_nchw, y_nchw=y_nchw, g_nchw=g_nchw):
+                return torch.autograd.grad(y_nchw, x_nchw, g_nchw,
+                                           retain_graph=True)
+
+            row = {
                 "name": "lrn_bwd", "shape": name, "route": "cuda",
                 "_form": (shape, x.dtype),
                 "source": LRN_BWD_SOURCE, "replaces": LRN_BWD_TPU,
+                "variant": plan.form,
                 "max_abs_err": err, "tolerance": list(LRN_TOL[dtype]),
-                "ms": device_ms(torch, lambda: lrn_backward(
-                    x, g, k, alpha, beta, n)),
                 "plain_ms": device_ms(torch, lambda: lrn_backward_plain(
                     x, g, k, alpha, beta, n)),
-                "bound_ms": bms, "bound_by": by,
-                "library_ms": device_ms(torch, lambda: torch.autograd.grad(
-                    y_nchw, x_nchw, g_nchw, retain_graph=True))})
-            del x_nchw, y_nchw, g_nchw
+                "bound_ms": bms, "bound_by": by}
+            row.update(timings(torch, scratch, kernel, library))
+            rows.append(row)
+            del x_nchw, y_nchw, g_nchw, kernel, library
     return rows
 
 
-def reduce_phase(torch):
-    from veles_tpu_torch.ops.reduce import column_sum, column_sum_plain
+def reduce_phase(torch, scratch):
+    """K6 at every bias gradient's shape of the training step against its
+    plain version, two calls bitwise equal, the form ``column_plan``
+    picked (read from the counters), timed as :func:`timings` beside
+    ``torch.sum(x.float(), 0)``."""
+    from veles_tpu_torch.ops.reduce import (column_plan, column_sum,
+                                            column_sum_plain)
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(4)
     for layer, r, c in REDUCE_SHAPES:
         x = torch.randn(r, c, device="cuda", generator=gen) * 1e-3
+        variants = dict(column_sum.launches_by_variant)
         got = column_sum(x)
         again = column_sum(x)
         want = column_sum_plain(x)
         torch.cuda.synchronize()
         name = "%s %dx%d float32" % (layer, r, c)
+        plan = column_plan(r, c, x.dtype)
+        ran = launched_variants(column_sum, variants)
+        if ran != {plan.form: 2}:
+            raise AssertionError("column_reduce %s: launches by variant %s, "
+                                 "planned %s" % (name, ran, plan.form))
         if not torch.equal(got, again):
             raise AssertionError("column_reduce %s: two runs differ" % name)
         err = (got - want).abs()
@@ -507,18 +567,35 @@ def reduce_phase(torch):
                 "column_reduce %s: max |err| %.3g beyond %g of the column's "
                 "sum of |x|" % (name, float(err.max()), REDUCE_REL_TOL))
         bms, by = bound(4 * (r * c + c), r * c, "float32")
-        rows.append({
+
+        def kernel(x=x):
+            return column_sum(x)
+
+        def library(x=x):
+            return torch.sum(x.float(), 0)
+
+        row = {
             "name": "column_reduce", "shape": name, "route": "cuda",
             "_form": (r, c, torch.float32),
             "source": REDUCE_SOURCE, "replaces": REDUCE_TPU,
+            "variant": plan.form, "chunks": plan.chunks,
             "max_abs_err": float(err.max()),
             "tolerance": "%g of the column's sum of |x|, and bitwise "
                          "repeatable" % REDUCE_REL_TOL,
-            "ms": device_ms(torch, lambda: column_sum(x)),
+            "bitwise_repeatable": True,
             "plain_ms": device_ms(torch, lambda: column_sum_plain(x)),
-            "bound_ms": bms, "bound_by": by,
-            "library_ms": device_ms(torch, lambda: torch.sum(x.float(), 0))})
+            "bound_ms": bms, "bound_by": by}
+        row.update(timings(torch, scratch, kernel, library))
+        rows.append(row)
+        del x, kernel, library
     return rows
+
+
+def launched_variants(wrapper, before):
+    """{form: launches} of ``wrapper`` since its counts were ``before``."""
+    return {v: c - before.get(v, 0)
+            for v, c in wrapper.launches_by_variant.items()
+            if c != before.get(v, 0)}
 
 
 def uniform_phase(torch, scratch):
@@ -1096,9 +1173,18 @@ def reset_counts():
     for fn in kernel_counters().values():
         fn.launches = 0
         fn.launches_by_form.clear()
+    for fn in variant_counters().values():
+        fn.launches_by_variant.clear()
+
+
+def variant_counters():
+    """{kernel name: its wrapper} for the kernels with more than one form,
+    each wrapper carrying ``launches_by_variant``."""
     from veles_tpu_torch.ops.gemm import kahan_gemm, linear_act
-    linear_act.launches_by_variant.clear()
-    kahan_gemm.launches_by_variant.clear()
+    from veles_tpu_torch.ops.lrn import lrn_backward
+    from veles_tpu_torch.ops.reduce import column_sum
+    return {"gemm_bias_act": linear_act, "kahan_gemm": kahan_gemm,
+            "lrn_bwd": lrn_backward, "column_reduce": column_sum}
 
 
 def read_counts():
@@ -1113,6 +1199,29 @@ def gemm_variants():
     """K1/K2 launches by variant since the last :func:`reset_counts`."""
     from veles_tpu_torch.ops.gemm import linear_act
     return dict(linear_act.launches_by_variant)
+
+
+#: the designed forms of K4 and K6; K4's ``general`` form is the
+#: shared-memory kernel, kept for shapes the vector form does not take
+DESIGNED_FORMS = {"lrn_bwd": {"vector"},
+                  "column_reduce": {"single", "chunked"}}
+
+
+def check_designed_training(phase):
+    """Every K4 and K6 launch of ``phase`` (since the last
+    :func:`reset_counts`) ran a designed form; returns their counts."""
+    counters = variant_counters()
+    ran = {}
+    for name, designed in sorted(DESIGNED_FORMS.items()):
+        ran[name] = {v: c for v, c in
+                     counters[name].launches_by_variant.items() if c}
+        off = {v: c for v, c in ran[name].items() if v not in designed}
+        if off or not ran[name]:
+            raise AssertionError("%s: %s launches by form %s (all must be "
+                                 "%s)" % (phase, name, ran[name],
+                                          sorted(designed)))
+    print("%s: launches by form %s" % (phase, ran))
+    return ran
 
 
 def check_forms(phase, kernels, by_form):
@@ -1241,6 +1350,70 @@ def step_check(torch, trainer):
             "control_other_seed_share": controls["other_seed"]}
 
 
+def backends_check(torch, trainer):
+    """One float32 step taken with TF32 and bf16 reduced-precision
+    reductions switched on by the caller gives the loss and gradients of
+    the step with them off, bit for bit (cuDNN deterministic): the
+    trainer holds its policy's switches around the step. The control, the
+    same step with the trainer's guard taken out, must differ."""
+    import contextlib
+
+    from veles_tpu_torch.loader.base import TRAIN
+    idx = torch.from_numpy(trainer._segment_indices(TRAIN)[0]).cuda()
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    names = ((matmul, "allow_tf32"),
+             (matmul, "allow_bf16_reduced_precision_reduction"),
+             (cudnn, "allow_tf32"))
+    saved = [getattr(o, a) for o, a in names]
+    saved_deterministic = cudnn.deterministic
+    policy = trainer.policy
+
+    class Unguarded(object):
+        def backends(self):
+            return contextlib.nullcontext()
+
+    runs = {}
+    try:
+        cudnn.deterministic = True
+        for label, on, guard in (("off", False, policy), ("on", True, policy),
+                                 ("control_unguarded", True, Unguarded())):
+            for o, a in names:
+                setattr(o, a, on)
+            trainer.policy = guard
+            loss, _ = trainer.gradients(idx, 0, CHECK_SEED)
+            runs[label] = (float(loss), gradient_copies(trainer))
+            if [getattr(o, a) for o, a in names] != [on] * len(names):
+                raise AssertionError("backends check: the caller's switches "
+                                     "were not restored")
+    finally:
+        trainer.policy = policy
+        for (o, a), v in zip(names, saved):
+            setattr(o, a, v)
+        cudnn.deterministic = saved_deterministic
+        for layer in trainer.params:
+            for p in layer.values():
+                p.grad = None
+
+    def differing(label):
+        return sum(int((g[k] != w[k]).sum()) for g, w in
+                   zip(runs[label][1], runs["off"][1]) for k in w) + int(
+            runs[label][0] != runs["off"][0])
+
+    on, control = differing("on"), differing("control_unguarded")
+    print("backends check: a float32 step with TF32 and bf16 reductions "
+          "switched on by the caller differs from the step with them off in "
+          "%d values (loss and gradients; must be 0); without the trainer's "
+          "guard in %d (must be > 0)" % (on, control))
+    if on:
+        raise AssertionError("backends check: %d values of the step differ "
+                             "with the caller's switches on" % on)
+    if not control:
+        raise AssertionError("backends control: the step without the guard "
+                             "matches too: the check cannot see TF32")
+    return {"backends_differing_values": on,
+            "control_unguarded_differing_values": control}
+
+
 def pool_flips(torch, trainer, idx):
     """{pool layer: windows whose argmax differs} between the forward
     through the kernels and through the plain versions, on the layers
@@ -1275,7 +1448,7 @@ def device_time_split(torch, prof):
     from torch.autograd import DeviceType
     groups = (("K1 gemm_bias_act", ("gemm_bias_act",)),
               ("K3 lrn_fwd", ("lrn_fwd",)), ("K4 lrn_bwd", ("lrn_bwd",)),
-              ("K6 column_reduce", ("column_partials", "column_totals")),
+              ("K6 column_reduce", ("column_sum_kernel",)),
               ("K7 uniform_fill", ("uniform_fill",)),
               ("convolutions", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
                                 "implicit", "fft", "flip_filter", "cf32",
@@ -1327,6 +1500,7 @@ def training_phase(torch, policy, check):
     result = {"policy": policy, "build_s": time.perf_counter() - t0}
     if check:
         result.update(step_check(torch, trainer))
+        result.update(backends_check(torch, trainer))
 
     # (b) the main path, counted from 0
     steps_timed = []
@@ -1354,6 +1528,7 @@ def training_phase(torch, policy, check):
                            stats["validation"]["loss"]))
         counts, by_form = read_counts()
         variants = gemm_variants()
+        forms = check_designed_training("training " + policy)
     finally:
         del trainer.train_batch
     if not all(math.isfinite(v) for pair in losses for v in pair):
@@ -1387,7 +1562,8 @@ def training_phase(torch, policy, check):
     step_p50 = statistics.median(steady)
     result.update({
         "epochs": TRAIN_EPOCHS, "steps": steps, "forwards": forwards,
-        "gemm_variants": variants,
+        "gemm_variants": variants, "lrn_bwd_forms": forms["lrn_bwd"],
+        "column_reduce_forms": forms["column_reduce"],
         "train_loss_per_epoch": [v[0] for v in losses],
         "validation_loss_per_epoch": [v[1] for v in losses],
         "loss_falls": losses[-1][0] < losses[0][0],
@@ -1495,10 +1671,11 @@ def main():
         time.perf_counter() - t0))
     get_policy("float32").configure_backends()
 
-    kernels = (gemm_phase(torch) + lrn_phase(torch) + lrn_bwd_phase(torch) +
-               reduce_phase(torch))
+    kernels = gemm_phase(torch)
     scratch = torch.empty(COLD_SCRATCH_BYTES // 4, device="cuda")
-    kernels += uniform_phase(torch, scratch) + kahan_phase(torch, scratch)
+    kernels += (lrn_phase(torch, scratch) + lrn_bwd_phase(torch, scratch) +
+                reduce_phase(torch, scratch) +
+                uniform_phase(torch, scratch) + kahan_phase(torch, scratch))
     del scratch
     for row in kernels:
         print("kernel %-14s %-32s err %.3g  %.4f ms  plain %.4f  "
@@ -1506,7 +1683,8 @@ def main():
                   row["name"], row["shape"], row["max_abs_err"], row["ms"],
                   row["plain_ms"], row["library_ms"], row["bound_ms"],
                   row["bound_by"], "" if "variant" not in row else
-                  "  %s x%d" % (row["variant"], row["splits"]),
+                  "  %s%s" % (row["variant"], " x%d" % row["splits"]
+                              if "splits" in row else ""),
                   "" if "ms_cold" not in row else
                   ", cold %.4f (library %.4f), host %.1f us" % (
                       row["ms_cold"], row["library_ms_cold"],

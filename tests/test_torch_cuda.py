@@ -38,12 +38,15 @@ from veles_tpu_torch.ops.gemm import (EPILOGUES,  # noqa: E402
                                       kahan_matmul_plain, kahan_plan,
                                       linear_act, linear_act_plain)
 from veles_tpu_torch.ops.gemm_bench import hostile_input  # noqa: E402
-from veles_tpu_torch.ops.lrn import (lrn_backward,  # noqa: E402
-                                     lrn_backward_plain, lrn_forward,
+from veles_tpu_torch.nn.precision import get_policy  # noqa: E402
+from veles_tpu_torch.ops.lrn import (GENERAL_MAX_CHANNELS,  # noqa: E402
+                                     lrn_backward, lrn_backward_plain,
+                                     lrn_bwd_plan, lrn_forward,
                                      lrn_forward_plain)
 from veles_tpu_torch.ops.random import (dropout_offset,  # noqa: E402
                                         uniform_fill, uniform_fill_plain)
-from veles_tpu_torch.ops.reduce import column_sum, column_sum_plain  # noqa
+from veles_tpu_torch.ops.reduce import (column_plan,  # noqa: E402
+                                        column_sum, column_sum_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -239,24 +242,114 @@ def test_lrn_backward_kernel_matches_plain(card, shape, constants):
                                    rtol=tol)
 
 
+def _assert_column_sums(x, got):
+    want = column_sum_plain(x)
+    limit = 1e-6 * x.float().abs().sum(0) + 1e-30
+    assert got.dtype == torch.float32 and got.shape == (x.shape[1],)
+    assert bool(((got - want).abs() <= limit).all()), float(
+        ((got - want).abs() / limit).max())
+
+
 @pytest.mark.parametrize("shape", [(1, 5), (7, 1000), (128, 4096),
-                                   (21632, 384), (100003, 96)])
+                                   (21632, 384), (100003, 96),
+                                   (1024, 37), (1025, 3), (100003, 37),
+                                   (5000, 4100), (401408, 96), (93312, 256),
+                                   (21632, 256), (128, 1000), (3000, 1)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_column_sum_kernel_matches_plain_and_repeats_bitwise(card, shape,
                                                              dtype):
+    """Both forms of column_plan (single up to 1024 rows, chunked above),
+    16-byte and scalar loads (C not a multiple of the vector), ragged
+    column tiles and row chunks."""
     dt = getattr(torch, dtype)
     x = torch.from_numpy(_rand(shape, 9)).to(card, dt)
     form = (shape[0], shape[1], dt)
+    plan = column_plan(shape[0], shape[1], dt)
     before_form = column_sum.launches_by_form[form]
+    before_variant = column_sum.launches_by_variant[plan.form]
     got = column_sum(x)
     again = column_sum(x)
     torch.cuda.synchronize()
     assert column_sum.launches_by_form[form] == before_form + 2
-    assert got.dtype == torch.float32 and got.shape == (shape[1],)
+    assert column_sum.launches_by_variant[plan.form] == before_variant + 2
     assert torch.equal(got, again)
-    want = column_sum_plain(x)
-    limit = 1e-6 * x.float().abs().sum(0) + 1e-30
-    assert bool(((got - want).abs() <= limit).all())
+    _assert_column_sums(x, got)
+
+
+@pytest.mark.parametrize("shape", [(128, 4096), (21632, 384)])
+def test_column_sum_on_a_side_stream_and_off_16_bytes(card, shape):
+    """A call on a side stream (its tickets zeroed on that stream), and x
+    4 bytes off 16 (a view into a larger buffer), which takes scalar
+    loads: both the plain version's sums, and the side stream's the
+    default stream's bits."""
+    x = torch.from_numpy(_rand(shape, 10)).to(card)
+    on_default = column_sum(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = [column_sum(x) for _ in range(3)]
+    side.synchronize()
+    for got in on_side:
+        assert torch.equal(got, on_default)
+    buf = torch.empty(x.numel() + 1, device=card)
+    shifted = buf[1:].view(shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 == 4
+    assert column_plan(*shape, torch.float32, False).vec == 1
+    got = column_sum(shifted)
+    again = column_sum(shifted)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_column_sums(x, got)
+
+
+@pytest.mark.parametrize("channels", [1, 3, 96, 255, 256,
+                                      GENERAL_MAX_CHANNELS])
+@pytest.mark.parametrize("n", [1, 5, 9])
+@pytest.mark.parametrize("beta", [0.75, 0.6])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lrn_backward_forms_match_plain(card, channels, n, beta, dtype):
+    """Every channel count the shared-memory kernel takes, up to its
+    widest, on the
+    form lrn_bwd_plan picks (the vector form at C = 96 and 256; the
+    general one where C is not a multiple of the vector or a row is
+    wider than a warp), 105 rows (odd: a bf16 warp holds two rows of
+    96), the rsqrt chain and exp/log powers."""
+    shape = (3, 5, 7, channels)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(_rand(shape, 14, 20.0)).to(card, dt)
+    g = torch.from_numpy(_rand(shape, 15)).to(card, dt)
+    plan = lrn_bwd_plan(105, channels, n, dt)
+    assert plan.form == ("vector" if channels in (96, 256) else "general")
+    before = lrn_backward.launches_by_variant[plan.form]
+    got = lrn_backward(x, g, 2.0, 1e-3, beta, n)
+    torch.cuda.synchronize()
+    assert lrn_backward.launches_by_variant[plan.form] == before + 1
+    want = lrn_backward_plain(x, g, 2.0, 1e-3, beta, n)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_lrn_backward_refuses_more_channels_than_the_general_form(card):
+    x = torch.zeros(2, 3, GENERAL_MAX_CHANNELS + 1, device=card)
+    with pytest.raises(ValueError, match="at most"):
+        lrn_backward(x, x)
+
+
+def test_lrn_backward_off_16_bytes_takes_the_general_form(card):
+    shape = (4, 6, 6, 96)
+    x = torch.from_numpy(_rand(shape, 16, 20.0)).to(card)
+    g = torch.from_numpy(_rand(shape, 17)).to(card)
+    buf = torch.empty(g.numel() + 1, device=card)
+    shifted = buf[1:].view(shape)
+    shifted.copy_(g)
+    before = lrn_backward.launches_by_variant["general"]
+    got = lrn_backward(x, shifted)
+    torch.cuda.synchronize()
+    assert lrn_backward.launches_by_variant["general"] == before + 1
+    torch.testing.assert_close(got, lrn_backward_plain(x, g), atol=1e-5,
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize("shape", [(128, 4096), (3, 5), (1, 7), (1000, 37)])
@@ -544,3 +637,56 @@ def test_gemm_is_full_float32_with_tf32_on(card, level):
     share = float(((got.double() - ref).abs() / scale).max())
     control_share = float(((control.double() - ref).abs() / scale).max())
     assert share <= 2e-6 < control_share, (share, control_share)
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at each value of ``v`` (float64): 2^(e - 8) for
+    |v| = m 2^e, m in [0.5, 1)."""
+    _, e = torch.frexp(v)
+    return torch.ldexp(torch.ones_like(v), e - 8)
+
+
+@pytest.mark.parametrize("k", [9216, 4096])
+def test_bf16_backward_products_round_once_under_the_policy(card, k):
+    """fc6 (K 9216) and fc7 (K 4096) at batch 128 under the bf16 policy,
+    with bf16 reduced-precision reductions switched on by the caller:
+    inside ``Policy.backends()`` LinearActFunction's dx and dw are within
+    one bf16 ulp of the product of the same bf16 operands rounded once
+    (float64 here), and the caller's switch is back after. Beside the ulp
+    the limit allows a float32 sum's own order error, 4 sqrt(depth)
+    2^-24 of |a| @ |b|: it matters only where the terms cancel to far
+    below their size. A sum reduced in bf16 errs by ~2^-9 of its
+    partial sums, some 100 times more."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_bf16_reduced_precision_reduction
+    m, n = 128, 4096
+    x = torch.from_numpy(_rand((m, k), 40)).to(card, torch.bfloat16)
+    w = torch.from_numpy(_rand((k, n), 41, k ** -0.5)).to(card,
+                                                           torch.bfloat16)
+    b = torch.from_numpy(_rand((n,), 42, 0.1)).to(card)
+    g = torch.from_numpy(_rand((m, n), 43)).to(card, torch.bfloat16)
+    for t in (x, w, b):
+        t.requires_grad_()
+    matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        with get_policy("bfloat16").backends():
+            assert not matmul.allow_bf16_reduced_precision_reduction
+            y = LinearActFunction.apply(x, w, b, "strict_relu",
+                                        torch.bfloat16)
+            y.backward(g)
+            torch.cuda.synchronize()
+        assert matmul.allow_bf16_reduced_precision_reduction
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = saved
+    dpre = (g.float() * (y.detach().float() > 0).float()).to(
+        torch.bfloat16).double()
+    xd, wd = x.detach().double(), w.detach().double()
+    refs = {"dx": (dpre @ wd.t(), dpre.abs() @ wd.abs().t(), n),
+            "dw": (xd.t() @ dpre, xd.abs().t() @ dpre.abs(), m)}
+    for name, got in (("dx", x.grad), ("dw", w.grad)):
+        ref, scale, depth = refs[name]
+        assert got.dtype == torch.bfloat16
+        err = (got.double() - ref.to(torch.bfloat16).double()).abs()
+        limit = _bf16_ulp(ref) + 4 * depth ** 0.5 * 2.0 ** -24 * scale
+        assert bool((err <= limit).all()), (
+            name, float((err / limit).max()))

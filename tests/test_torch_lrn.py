@@ -20,9 +20,10 @@ torch = pytest.importorskip("torch")
 
 from veles_tpu.nn.normalization import _lrn_slices  # noqa: E402
 from veles_tpu.ops.lrn import _call_bwd, lrn_fused  # noqa: E402
-from veles_tpu_torch.ops.lrn import (LRNFunction, lrn_backward,  # noqa
-                                     lrn_backward_plain, lrn_forward,
-                                     lrn_forward_plain)
+from veles_tpu_torch.ops.lrn import (GENERAL_MAX_CHANNELS,  # noqa: E402
+                                     LRNFunction, lrn_backward,
+                                     lrn_backward_plain, lrn_bwd_plan,
+                                     lrn_forward, lrn_forward_plain)
 
 BWD_TOL = dict(atol=2e-6, rtol=2e-6)
 #: AlexNet's constants, and a case where the cross term is large
@@ -176,3 +177,143 @@ def test_backward_checks_and_cpu_path_does_not_count():
     with pytest.raises(ValueError, match="channels-last"):
         lrn_backward(xt, gt.permute(0, 3, 1, 2).contiguous().permute(
             0, 2, 3, 1))
+
+
+#: chip_smoke.py's tolerance of the kernel against its plain version
+LRN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
+F32 = numpy.float32
+
+
+def _window_f32(v, half, lane_channels=None):
+    """The vector form's window sum in float32: v[c - half] + ... +
+    v[c + half], low channel first, 0 beyond the row. With
+    ``lane_channels`` a window stops at its lane's edge: the halo that
+    the shuffles bring is missing (the control)."""
+    channels = v.shape[-1]
+    total = None
+    for j in range(-half, half + 1):
+        term = numpy.zeros_like(v)
+        lo, hi = max(0, -j), min(channels, channels - j)
+        term[:, lo:hi] = v[:, lo + j:hi + j]
+        if lane_channels:
+            lane = numpy.arange(channels) // lane_channels
+            src = numpy.clip(numpy.arange(channels) + j, 0, channels - 1)
+            term[:, lane != lane[src]] = 0.0
+        total = term if total is None else (total + term).astype(F32)
+    return total
+
+
+def _emulate_vector_form(x, g, k, alpha, beta, n, lane_channels=None):
+    """The vector form's float32 arithmetic, in its order: one d =
+    fma(alpha, W(x^2), k); q = d^-beta and 1/d once (for 3/4 from s =
+    rsqrt(d): q = s^2 rsqrt(s), 1/d = s^2, each step rounded; otherwise
+    exp/log and a rounded reciprocal); t = (g x) (q (1/d)); u = W(t);
+    dx = fma(-((2 alpha beta) x), u, g q). A fused multiply-add is the
+    float64 result rounded once. x and g float32 (R, C) arrays."""
+    f64 = numpy.float64
+    k, alpha, beta = F32(k), F32(alpha), F32(beta)
+    half = n // 2
+    window = _window_f32(x * x, half, lane_channels)
+    d = (f64(k) + f64(alpha) * window.astype(f64)).astype(F32)
+    if beta == F32(0.75):
+        s = (1.0 / numpy.sqrt(d.astype(f64))).astype(F32)
+        inv = (s * s).astype(F32)
+        q = (inv * (1.0 / numpy.sqrt(s.astype(f64))).astype(F32)).astype(
+            F32)
+    else:
+        q = numpy.exp(-float(beta) * numpy.log(d.astype(f64))).astype(F32)
+        inv = (F32(1) / d).astype(F32)
+    t = ((g * x).astype(F32) * (q * inv).astype(F32)).astype(F32)
+    u = _window_f32(t, half, lane_channels)
+    scale = (F32(2) * alpha * beta).astype(F32)
+    sx = (scale * x).astype(F32)
+    return ((g * q).astype(F32).astype(f64) -
+            sx.astype(f64) * u.astype(f64)).astype(F32)
+
+
+def _exact(x, g, k, alpha, beta, n):
+    x, g = x.astype(numpy.float64), g.astype(numpy.float64)
+    half = n // 2
+    pad = [(0, 0), (half, half)]
+    channels = x.shape[-1]
+
+    def window(v):
+        p = numpy.pad(v, pad)
+        return sum(p[:, i:i + channels] for i in range(n))
+
+    d = k + alpha * window(x * x)
+    q = d ** -beta
+    return g * q - 2 * alpha * beta * x * window(g * x * q / d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels", [96, 256])
+@pytest.mark.parametrize("constants", sorted(CONSTANTS))
+def test_vector_form_arithmetic_matches_pallas_bwd_and_float64(
+        constants, channels, dtype):
+    """The new K4 arithmetic (one d, q times 1/d taken once, window sums
+    unrolled low channel first), emulated in float32, against the JAX
+    kernel ``_call_bwd`` in interpret mode and against float64, within
+    chip_smoke.py's LRN_TOL; bf16 inputs are rounded first on all sides
+    and the emulation's output rounded to bf16 as the kernel stores it.
+    A control that loses the window halo across the kernel's lanes (4
+    channels a lane) must fail the float64 check."""
+    k, alpha, beta, n = CONSTANTS[constants]
+    x, g = _xg((2, 5, 5, channels), seed=31, scale=3.0 if
+               constants == "alexnet" else 1.0)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    xj, gj = jnp.asarray(x, jdt), jnp.asarray(g, jdt)
+    rows = 50
+    x2 = numpy.asarray(xj.astype(jnp.float32)).reshape(rows, channels)
+    g2 = numpy.asarray(gj.astype(jnp.float32)).reshape(rows, channels)
+    got = _emulate_vector_form(x2, g2, k, alpha, beta, n)
+    exact = _exact(x2, g2, k, alpha, beta, n)
+    pallas = numpy.asarray(_call_bwd(xj, gj, k, alpha, beta, n, True,
+                                     block_rows=rows).astype(jnp.float32))
+    if dtype == "bfloat16":
+        got = numpy.asarray(jnp.asarray(got, jnp.bfloat16).astype(
+            jnp.float32))
+    atol, rtol = LRN_TOL[dtype]
+    numpy.testing.assert_allclose(got, pallas.reshape(rows, channels),
+                                  atol=atol, rtol=rtol)
+    numpy.testing.assert_allclose(got, exact, atol=atol, rtol=rtol)
+    if dtype == "float32" and constants == "cross_term":
+        lost = _emulate_vector_form(x2, g2, k, alpha, beta, n, 4)
+        with pytest.raises(AssertionError):
+            numpy.testing.assert_allclose(lost, exact, atol=atol,
+                                          rtol=rtol)
+
+
+@pytest.mark.parametrize("case", [
+    # (rows, C, n, dtype, form, cpt, lanes, rows a warp)
+    (401408, 96, 5, "float32", "vector", 4, 24, 1),
+    (93312, 256, 5, "float32", "vector", 8, 32, 1),
+    (401408, 96, 5, "bfloat16", "vector", 8, 12, 2),
+    (93312, 256, 5, "bfloat16", "vector", 8, 32, 1),
+    (105, 512, 9, "bfloat16", "vector", 16, 32, 1),
+    (105, 96, 1, "float32", "vector", 4, 24, 1),
+    (105, 96, 11, "float32", "general", 1, 0, 0),
+    (105, 255, 5, "float32", "general", 1, 0, 0),
+    (105, 260, 5, "float32", "general", 1, 0, 0),
+    (105, 3, 5, "bfloat16", "general", 1, 0, 0),
+    (105, GENERAL_MAX_CHANNELS, 5, "float32", "general", 1, 0, 0),
+])
+def test_lrn_bwd_plan(case):
+    rows, channels, n, dtype, form, cpt, lanes, per_warp = case
+    plan = lrn_bwd_plan(rows, channels, n, getattr(torch, dtype))
+    assert (plan.form, plan.cpt, plan.lanes, plan.rows_per_warp) == (
+        form, cpt, lanes, per_warp)
+    assert plan.blocks >= 1
+    if form == "vector":
+        assert channels <= plan.cpt * plan.lanes <= 32 * plan.cpt
+        assert plan.lanes * plan.rows_per_warp <= 32
+
+
+def test_lrn_bwd_plan_unaligned_and_refusals():
+    assert lrn_bwd_plan(105, 96, 5, torch.float32, False).form == "general"
+    with pytest.raises(ValueError, match="at most"):
+        lrn_bwd_plan(105, GENERAL_MAX_CHANNELS + 1, 5, torch.float32)
+    with pytest.raises(ValueError, match="odd"):
+        lrn_bwd_plan(105, 96, 4, torch.float32)
+    with pytest.raises(TypeError):
+        lrn_bwd_plan(105, 96, 5, torch.float64)

@@ -74,14 +74,10 @@ lrn_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, long long rows,
 
 }  // namespace
 
-// Shared memory the launch needs for `c` channels (the wrapper checks it
-// against the 48 KB a launch may take without opting in).
-extern "C" int veles_lrn_fwd_smem_bytes(int c) {
-  return kWarps * c * (int)sizeof(float);
-}
-
 // x, y: (rows, c) contiguous, float32 (bf16 = 0) or bfloat16 (bf16 = 1).
-// n must be odd. Returns cudaGetLastError() after the launch.
+// n must be odd; the launch takes 8 * c * 4 bytes of shared memory, which
+// the wrapper holds to the 48 KB a launch may take without opting in.
+// Returns cudaGetLastError() after the launch.
 extern "C" int veles_lrn_fwd(const void* x, void* y, long long rows, int c,
                              float k, float alpha, float beta, int n,
                              int beta_is_three_quarters, int bf16,

@@ -42,7 +42,6 @@ or bfloat16 operands; the bias is float32.
 """
 
 import collections
-import contextlib
 import ctypes
 import functools
 import heapq
@@ -52,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from veles_tpu_torch.nn.activation import ACTIVATIONS
+from veles_tpu_torch.nn.precision import full_float32
 from veles_tpu_torch.ops import build
 from veles_tpu_torch.ops.reduce import column_sum, column_sum_plain
 
@@ -73,42 +73,6 @@ def epilogue_fn(name):
 
 def fusable_activation(name):
     return name in EPILOGUES
-
-
-class _FullFloat32(object):
-    """The process-wide matmul switches held off while any caller is
-    inside :func:`full_float32`, and restored when the last one leaves
-    (so concurrent callers cannot restore TF32 under each other)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._depth = 0
-        self._saved = None
-
-    @contextlib.contextmanager
-    def __call__(self):
-        matmul = torch.backends.cuda.matmul
-        with self._lock:
-            if self._depth == 0:
-                self._saved = (matmul.allow_tf32,
-                               matmul.allow_bf16_reduced_precision_reduction)
-                matmul.allow_tf32 = False
-                matmul.allow_bf16_reduced_precision_reduction = False
-            self._depth += 1
-        try:
-            yield
-        finally:
-            with self._lock:
-                self._depth -= 1
-                if self._depth == 0:
-                    (matmul.allow_tf32,
-                     matmul.allow_bf16_reduced_precision_reduction) = \
-                        self._saved
-
-
-#: ``with full_float32():`` -- library products inside run in full
-#: float32 and accumulate bf16 in float32
-full_float32 = _FullFloat32()
 
 
 # -- public gemm -------------------------------------------------------------
@@ -431,8 +395,7 @@ def _check(x, w, bias, activation):
 #: the kernel's variants (``csrc/gemm_bias_act.cu``), by their C codes:
 #: the three designed forms and the masked kernel for unaligned shapes
 FORMS = ("general", "stream", "tiles", "tensor_core")
-#: SMs of an H100 SXM
-SMS = 132
+SMS = build.SMS
 #: the stream form: rows per bucket at most (float32, bf16), blocks it
 #: aims at (about 4 per SM), the K depth its splits are cut in, and the
 #: shared memory that one split's x slab may take
@@ -605,23 +568,21 @@ def linear_act(x, w, bias=None, activation="linear", out_dtype=None,
     if plan.workspace_bytes:
         ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
                          device=x.device)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        status = lib.veles_gemm_bias_act(
-            x.data_ptr(), w.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            out.data_ptr(), None if ws is None else ws.data_ptr(),
-            m, n, k, int(x.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), EPILOGUES.index(activation),
-            FORMS.index(plan.form), plan.tile[0], plan.splits, plan.kchunk,
-            stream)
-        with _count_lock:
-            linear_act.launches += 1
-            linear_act.launches_by_form[
-                (m, k, n, x.dtype, bias is not None)] += 1
-            linear_act.launches_by_variant[plan.form] += 1
+    status = build.launch(
+        build.function("gemm_bias_act", "veles_gemm_bias_act",
+                       _GEMM_ARGTYPES),
+        x.device, x.data_ptr(), w.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), m, n, k,
+        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        EPILOGUES.index(activation), FORMS.index(plan.form), plan.tile[0],
+        plan.splits, plan.kchunk)
     build.check(status, "gemm_bias_act")
+    with _count_lock:
+        linear_act.launches += 1
+        linear_act.launches_by_form[
+            (m, k, n, x.dtype, bias is not None)] += 1
+        linear_act.launches_by_variant[plan.form] += 1
     return out
 
 
@@ -630,14 +591,8 @@ linear_act.launches_by_form = collections.Counter()
 linear_act.launches_by_variant = collections.Counter()
 
 
-def _library():
-    lib = build.library("gemm_bias_act")
-    fn = lib.veles_gemm_bias_act
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+_GEMM_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
+    ctypes.c_void_p]
 
 
 class LinearActFunction(torch.autograd.Function):
@@ -647,7 +602,9 @@ class LinearActFunction(torch.autograd.Function):
     * ``dpre = g * act'(y)`` in float32;
     * ``db = column_sum(dpre)`` (K6);
     * ``dx = dpre_c @ w^T`` and ``dw = x^T @ dpre_c`` on ``torch.matmul``,
-      with ``dpre_c`` cast to the compute dtype (w's).
+      with ``dpre_c`` cast to the compute dtype (w's). The two products
+      accumulate in float32 and round once under the switches of
+      ``Policy.backends()``, which the trainer holds around each step.
 
     ``plain=True`` runs the plain versions of both kernels."""
 

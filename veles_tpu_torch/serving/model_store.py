@@ -21,6 +21,7 @@ import numpy
 import torch
 
 from veles_tpu_torch.models.build import build_model
+from veles_tpu_torch.nn.precision import policy_of
 
 _log = logging.getLogger(__name__)
 
@@ -36,6 +37,7 @@ class ServeableModel(object):
         self.version = int(version)
         self.source = source
         self.device = next(module.parameters()).device
+        self.policy = policy_of(module)
 
     def __repr__(self):
         return "<ServeableModel %s v%d sample=%s on %s>" % (
@@ -55,8 +57,9 @@ class ServeableModel(object):
 
     def __call__(self, batch):
         """Forward a numpy batch (leading batch axis); float32 numpy
-        out. Waits for the device."""
-        with torch.inference_mode():
+        out. Waits for the device. Runs under the policy's
+        ``backends()``: no TF32, no bf16 reductions in bf16."""
+        with torch.inference_mode(), self.policy.backends():
             x = torch.from_numpy(numpy.ascontiguousarray(
                 batch, numpy.float32)).to(self.device)
             return self.module(x).float().cpu().numpy()

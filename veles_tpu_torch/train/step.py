@@ -7,7 +7,9 @@ full-batch loader whose dataset sits on the device:
   minibatch) matrix padded with -1, as in the JAX package;
 * ``train_batch``: gather, forward (dropout masks by absolute layer
   index, the head's logits), the softmax loss over the padded batch,
-  ``backward()``, then the SGD update of each layer in order;
+  ``backward()``, then the SGD update of each layer in order, all under
+  the model policy's ``backends()`` (no TF32, no bf16 reductions in
+  bf16, whatever the caller switched on);
 * ``eval_class`` / ``train_class`` / ``run_epoch``: evaluation classes
   first, then training, then the loader's shuffle;
 * ``train(max_epochs)``; ``pull_params`` / ``push_params`` as state
@@ -45,6 +47,7 @@ from veles_tpu_torch.loader.base import CLASS_NAMES, TEST, TRAIN, VALIDATION
 from veles_tpu_torch.nn.dropout import DropoutForward
 from veles_tpu_torch.nn.evaluator import softmax_loss_and_metrics
 from veles_tpu_torch.nn.optim import get_solver
+from veles_tpu_torch.nn.precision import policy_of
 from veles_tpu_torch.ops.random import (dropout_offset, uniform_fill,
                                         uniform_fill_plain)
 
@@ -72,6 +75,7 @@ class FusedTrainer(object):
         self.uniform_source = uniform_source
         self.plain = plain
         self.device = next(model.parameters()).device
+        self.policy = policy_of(model)
         loader.stage(self.device)
         self.params = [layer_params(m) for m in self.forwards]
         self.states = [self.solver.init(p) if p else {}
@@ -121,25 +125,28 @@ class FusedTrainer(object):
         """Loss and gradients of one minibatch (``indices`` on the
         device), without an update: (report_loss, n_err), with each
         parameter's ``.grad`` set."""
-        x, labels, valid = self.loader.gather(indices)
-        for params in self.params:
-            for p in params.values():
-                p.grad = None
-        out = self._forward(x, True, batch_index, seed)
-        grad_loss, report, n_err = softmax_loss_and_metrics(out, labels,
-                                                            valid)
-        grad_loss.backward()
+        with self.policy.backends():
+            x, labels, valid = self.loader.gather(indices)
+            for params in self.params:
+                for p in params.values():
+                    p.grad = None
+            out = self._forward(x, True, batch_index, seed)
+            grad_loss, report, n_err = softmax_loss_and_metrics(
+                out, labels, valid)
+            grad_loss.backward()
         return report, n_err
 
     def train_batch(self, indices, batch_index, seed):
         """One step: gradients, then the solver over the layers in
         order. Returns (report_loss, n_err) as device scalars."""
-        report, n_err = self.gradients(indices, batch_index, seed)
-        for params, state, hp in zip(self.params, self.states, self.hypers):
-            if params:
-                self.solver.update(
-                    params, {k: p.grad for k, p in params.items()}, state,
-                    hp)
+        with self.policy.backends():
+            report, n_err = self.gradients(indices, batch_index, seed)
+            for params, state, hp in zip(self.params, self.states,
+                                         self.hypers):
+                if params:
+                    self.solver.update(
+                        params, {k: p.grad for k, p in params.items()},
+                        state, hp)
         return report, n_err
 
     # -- class-level driving -----------------------------------------------
@@ -164,7 +171,7 @@ class FusedTrainer(object):
         idx = torch.from_numpy(self._segment_indices(klass, skip)).to(
             self.device)
         losses, errs = [], []
-        with torch.no_grad():
+        with torch.no_grad(), self.policy.backends():
             for row in idx:
                 x, labels, valid = self.loader.gather(row)
                 out = self._forward(x, False)
