@@ -5,8 +5,9 @@
 
 1. Card: the ``nvidia-smi`` name and power limit, then one compiler per
    source under ``veles_tpu_torch/csrc`` (``nvcc`` for each kernel, the
-   host compiler for K6's binding), all started together, with the
-   seconds each took.
+   host compiler for K3's, K6's and K7's bindings), all started
+   together, with the seconds each took, the bindings' on a line of
+   their own.
 2. Kernel phase: every kernel at the shapes the serving, training and
    GEMM-disciplines paths give it, held against its plain PyTorch
    version on the card within a stated tolerance (the Philox fill bit
@@ -23,10 +24,13 @@
    bf16 product), the bound being the bytes or the lesser operations
    time, whichever is larger. K3, K4, K6 and K7 rows add ``ms_cold``
    and ``host_us`` beside their library call's same three
-   (``library_ms_cold``, ``library_host_us``); K4 and K6 rows the form
-   their plan chose (``lrn_bwd_plan``, ``column_plan``, read from the
-   counters), K6 rows two calls bitwise equal. Split sweeps time K1 and
-   K5 at several K split counts beside their plans' models.
+   (``library_ms_cold``, ``library_host_us``); K3, K4 and K6 rows the
+   form their plan chose (``lrn_fwd_plan``, ``lrn_bwd_plan``,
+   ``column_plan``, read from the counters), K6 rows two calls bitwise
+   equal; the K3 and K7 rows the CPython binding they went through
+   (checked: loaded, and the C function never resolved for ctypes).
+   Split sweeps time K1 and K5 at several K split counts beside their
+   plans' models.
 3. Slice phase: full-width AlexNet-227 (float32, weights from numpy
    seed 42) behind ``ServingFrontend`` on 127.0.0.1 with one replica
    and max batch 64; concurrent single requests and one 64-row batch
@@ -34,9 +38,10 @@
    through the plain versions on the card, on its centred logits (see
    ``reply_mismatch``), and two broken controls must fail that check.
    The launch counts must show both kernels twice per forward, every
-   launch at a form (shape, dtype, bias) the kernel phase checked, and
+   launch at a form (shape, dtype, bias) the kernel phase checked,
    every K1 launch on a designed variant (stream, tiles, tensor_core),
-   never the general one; the same holds in phases 5 and 6.
+   never the general one, and every K3 launch on its vector form; the
+   same holds in phases 5 and 6.
 4. Forward phase: device time of one forward through the kernels and
    through the plain versions at batch 1 and 64, and a
    ``torch.profiler`` table of device time by kernel for one 64-row
@@ -58,8 +63,8 @@
    device step ms by CUDA events, samples/s and model FLOP/s. (c) The
    launch counts: K1 and K3 twice per forward, K4, K6 and K7 at the
    model's LRN, bias and dropout counts per step, every launch at a
-   checked form, every K4 launch on its vector form and every K6 launch
-   on a designed form. (d) A ``torch.profiler`` table and split of one
+   checked form, every K3 and K4 launch on its vector form and every K6
+   launch on a designed form. (d) A ``torch.profiler`` table and split of one
    training step's device time by kernel.
 6. Disciplines phase: the GEMM-disciplines bench
    (``veles_tpu_torch.ops.gemm_bench``) at its five shapes, counted from
@@ -102,9 +107,11 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 
 GEMM_SOURCE = "veles_tpu_torch/csrc/gemm_bias_act.cu"
 LRN_SOURCE = "veles_tpu_torch/csrc/lrn_fwd.cu"
+LRN_BINDING = "veles_tpu_torch/csrc/lrn_fwd_binding.cpp"
 LRN_BWD_SOURCE = "veles_tpu_torch/csrc/lrn_bwd.cu"
 REDUCE_SOURCE = "veles_tpu_torch/csrc/column_reduce.cu"
 UNIFORM_SOURCE = "veles_tpu_torch/csrc/uniform_fill.cu"
+UNIFORM_BINDING = "veles_tpu_torch/csrc/uniform_fill_binding.cpp"
 KAHAN_SOURCE = "veles_tpu_torch/csrc/kahan_gemm.cu"
 #: the TPU kernels' pallas_call sites
 GEMM_BIAS_TPU = "veles_tpu/ops/gemm.py:414"
@@ -413,11 +420,14 @@ def gemm_form_checked(m, dtype, has_bias):
 
 def lrn_phase(torch, scratch):
     """K3 at the serving and training shapes against its plain version,
-    timed back-to-back, cold and on the host beside
-    ``F.local_response_norm``'s same three."""
+    through its CPython binding (:func:`check_binding`), the form
+    ``lrn_fwd_plan`` picked (read from the counters), timed back-to-back,
+    cold and on the host beside ``F.local_response_norm``'s same
+    three."""
     import torch.nn.functional as F
 
-    from veles_tpu_torch.ops.lrn import lrn_forward, lrn_forward_plain
+    from veles_tpu_torch.ops.lrn import (lrn_forward, lrn_forward_plain,
+                                         lrn_fwd_plan)
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(2)
     k, alpha, beta, n = 2.0, 1e-4, 0.75, 5
@@ -429,10 +439,18 @@ def lrn_phase(torch, scratch):
         for dtype in ("float32", "bfloat16") if shape[0] in (
                 64, TRAIN_BATCH) else ("float32",):
             x = x32.to(getattr(torch, dtype))
+            variants = dict(lrn_forward.launches_by_variant)
             got = lrn_forward(x, k, alpha, beta, n)
             want = lrn_forward_plain(x, k, alpha, beta, n)
             torch.cuda.synchronize()
             name = "%s %s" % ("x".join(map(str, shape)), dtype)
+            ran = launched_variants(lrn_forward, variants)
+            plan = lrn_fwd_plan(x.numel() // shape[-1], shape[-1], n,
+                                x.dtype)
+            if ran != {plan.form: 1}:
+                raise AssertionError("lrn_fwd %s: launches by variant %s, "
+                                     "planned %s" % (name, ran, plan.form))
+            check_binding("lrn_fwd", "veles_lrn_fwd")
             err = check_close("lrn_fwd " + name, got, want,
                               *LRN_TOL[dtype])
             x_nchw = x.permute(0, 3, 1, 2).contiguous()
@@ -452,13 +470,24 @@ def lrn_phase(torch, scratch):
                 "name": "lrn_fwd", "shape": name, "route": "cuda",
                 "_form": (shape, x.dtype),
                 "source": LRN_SOURCE, "replaces": LRN_TPU,
-                "max_abs_err": err, "tolerance": list(LRN_TOL[dtype]),
+                "variant": plan.form, "cpt": plan.cpt,
+                "call": "binding " + LRN_BINDING, "max_abs_err": err,
+                "tolerance": list(LRN_TOL[dtype]),
                 "plain_ms": device_ms(torch, lambda: lrn_forward_plain(
                     x, k, alpha, beta, n)),
                 "bound_ms": bms, "bound_by": by}
             row.update(timings(torch, scratch, kernel, library))
             rows.append(row)
     return rows
+
+
+def check_binding(name, symbol):
+    """The wrapper of ``csrc/<name>.cu`` went through its CPython binding:
+    the binding is loaded and the C function ``symbol`` was never
+    resolved for a ctypes call."""
+    from veles_tpu_torch.ops import build
+    if name not in build._bindings or symbol in build._functions:
+        raise AssertionError("%s did not go through its binding" % name)
 
 
 def timings(torch, scratch, kernel, library):
@@ -600,10 +629,10 @@ def launched_variants(wrapper, before):
 
 def uniform_phase(torch, scratch):
     """K7 bit for bit against its plain version at the dropout masks'
-    shape, timed back-to-back (``ms``, which reads the host when
-    ``host_us`` exceeds the device time), one call at a time
-    (``ms_cold``, the device's time) and on the host, beside
-    ``torch.rand``'s same three."""
+    shape, through its CPython binding (:func:`check_binding`), timed
+    back-to-back (``ms``, which reads the host when ``host_us`` exceeds
+    the device time), one call at a time (``ms_cold``, the device's
+    time) and on the host, beside ``torch.rand``'s same three."""
     from veles_tpu_torch.ops.random import (dropout_offset, uniform_fill,
                                             uniform_fill_plain)
     shape = (TRAIN_BATCH, 4096)
@@ -612,6 +641,7 @@ def uniform_phase(torch, scratch):
     want = uniform_fill_plain(shape, seed, offset, device="cuda")
     torch.cuda.synchronize()
     name = "%dx%d float32" % shape
+    check_binding("uniform_fill", "veles_uniform_fill")
     if not torch.equal(got, want):
         raise AssertionError("uniform_fill %s: %d values differ from the "
                              "plain version's bits" % (
@@ -632,6 +662,7 @@ def uniform_phase(torch, scratch):
     return [{
         "name": "uniform_fill", "shape": name, "route": "cuda",
         "_form": shape, "source": UNIFORM_SOURCE, "replaces": UNIFORM_TPU,
+        "call": "binding " + UNIFORM_BINDING, "values_differ": 0,
         "max_abs_err": float((got - want).abs().max()),
         "tolerance": "bit-exact",
         "ms": device_ms(torch, kernel),
@@ -1014,6 +1045,7 @@ def slice_phase(torch, numpy):
         batch_s = time.perf_counter() - t
         counts, by_form = read_counts()
         variants = gemm_variants()
+        lrn_forms = check_designed_forms("serving", ("lrn_fwd",))
         forwards = replica.batches_done - forwards0
     finally:
         frontend.stop()
@@ -1087,6 +1119,7 @@ def slice_phase(torch, numpy):
         "batch64_ms": 1e3 * batch_s,
         "batch64_samples_per_s": 64 / batch_s,
         "forwards": forwards, "gemm_variants": variants,
+        "lrn_fwd_forms": lrn_forms["lrn_fwd"],
         "centred_logit_err": logit_err, "centred_logit_spread": spread,
         "control_swapped_share": controls["swapped"],
         "control_fc7_zeroed_share": controls["fc7_zeroed"],
@@ -1181,10 +1214,11 @@ def variant_counters():
     """{kernel name: its wrapper} for the kernels with more than one form,
     each wrapper carrying ``launches_by_variant``."""
     from veles_tpu_torch.ops.gemm import kahan_gemm, linear_act
-    from veles_tpu_torch.ops.lrn import lrn_backward
+    from veles_tpu_torch.ops.lrn import lrn_backward, lrn_forward
     from veles_tpu_torch.ops.reduce import column_sum
     return {"gemm_bias_act": linear_act, "kahan_gemm": kahan_gemm,
-            "lrn_bwd": lrn_backward, "column_reduce": column_sum}
+            "lrn_fwd": lrn_forward, "lrn_bwd": lrn_backward,
+            "column_reduce": column_sum}
 
 
 def read_counts():
@@ -1201,18 +1235,21 @@ def gemm_variants():
     return dict(linear_act.launches_by_variant)
 
 
-#: the designed forms of K4 and K6; K4's ``general`` form is the
-#: shared-memory kernel, kept for shapes the vector form does not take
-DESIGNED_FORMS = {"lrn_bwd": {"vector"},
+#: the designed forms of K3, K4 and K6; K3's and K4's ``general`` forms
+#: are the shared-memory kernels, kept for shapes the vector forms do not
+#: take
+DESIGNED_FORMS = {"lrn_fwd": {"vector"}, "lrn_bwd": {"vector"},
                   "column_reduce": {"single", "chunked"}}
 
 
-def check_designed_training(phase):
-    """Every K4 and K6 launch of ``phase`` (since the last
-    :func:`reset_counts`) ran a designed form; returns their counts."""
+def check_designed_forms(phase, names=tuple(sorted(DESIGNED_FORMS))):
+    """Every launch of ``phase`` (since the last :func:`reset_counts`)
+    of each kernel of ``names`` (K3, K4 and K6 by default) ran a designed
+    form, and each was launched; returns their counts by form."""
     counters = variant_counters()
     ran = {}
-    for name, designed in sorted(DESIGNED_FORMS.items()):
+    for name in names:
+        designed = DESIGNED_FORMS[name]
         ran[name] = {v: c for v, c in
                      counters[name].launches_by_variant.items() if c}
         off = {v: c for v, c in ran[name].items() if v not in designed}
@@ -1528,7 +1565,7 @@ def training_phase(torch, policy, check):
                            stats["validation"]["loss"]))
         counts, by_form = read_counts()
         variants = gemm_variants()
-        forms = check_designed_training("training " + policy)
+        forms = check_designed_forms("training " + policy)
     finally:
         del trainer.train_batch
     if not all(math.isfinite(v) for pair in losses for v in pair):
@@ -1562,7 +1599,8 @@ def training_phase(torch, policy, check):
     step_p50 = statistics.median(steady)
     result.update({
         "epochs": TRAIN_EPOCHS, "steps": steps, "forwards": forwards,
-        "gemm_variants": variants, "lrn_bwd_forms": forms["lrn_bwd"],
+        "gemm_variants": variants, "lrn_fwd_forms": forms["lrn_fwd"],
+        "lrn_bwd_forms": forms["lrn_bwd"],
         "column_reduce_forms": forms["column_reduce"],
         "train_loss_per_epoch": [v[0] for v in losses],
         "validation_loss_per_epoch": [v[1] for v in losses],
@@ -1669,6 +1707,9 @@ def main():
     print("build: %s (all in parallel, %.1f s wall)" % (
         ", ".join("%s %.1f s" % kv for kv in sorted(seconds.items())),
         time.perf_counter() - t0))
+    print("build: CPython bindings %s" % ", ".join(
+        "%s %.1f s" % kv for kv in sorted(seconds.items())
+        if kv[0].endswith("_binding.cpp")))
     get_policy("float32").configure_backends()
 
     kernels = gemm_phase(torch)

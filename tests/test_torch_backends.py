@@ -21,6 +21,7 @@ Every wrapper goes through ``build.function`` and ``build.launch``.
 import ast
 import contextlib
 import os
+import shutil
 
 import numpy
 import pytest
@@ -32,6 +33,7 @@ from veles_tpu_torch.models.alexnet import (  # noqa: E402
     SyntheticImageLoader, small_alexnet_layers)
 from veles_tpu_torch.models.build import build_training  # noqa: E402
 from veles_tpu_torch.nn.base import BiasAddNHWC  # noqa: E402
+from veles_tpu_torch.ops import build  # noqa: E402
 from veles_tpu_torch.nn.precision import (full_float32,  # noqa: E402
                                           get_policy, policy_of)
 from veles_tpu_torch.serving.model_store import ServeableModel  # noqa: E402
@@ -186,3 +188,53 @@ def test_wrappers_stay_on_the_short_launch_path(module):
               (node.module or "").endswith("build") and
               any(alias.name == "library" for alias in node.names)]
     assert not found, found
+
+
+def _calls(tree, name):
+    return [node for node in ast.walk(tree)
+            if isinstance(node, ast.Call) and _dotted(node.func) == name]
+
+
+@pytest.mark.parametrize("module", ["lrn.py", "random.py", "reduce.py"])
+def test_bindings_launch_through_the_short_path(module):
+    """K3's, K6's and K7's wrappers reach their CPython bindings only as
+    ``build.launch(build.binding(...).<function>, device, ...)``: the
+    raw current stream, no device context on the current card, one C
+    call that allocates and launches. K7 does not resolve its C function
+    for ctypes at all (K4, in lrn.py, does)."""
+    with open(os.path.join(OPS, module)) as f:
+        tree = ast.parse(f.read())
+    bindings = _calls(tree, "build.binding")
+    launched = [call.args[0].value for call in _calls(tree, "build.launch")
+                if isinstance(call.args[0], ast.Attribute)]
+    assert bindings and all(any(b is l for l in launched) for b in bindings)
+    if module == "random.py":
+        assert not _calls(tree, "build.function")
+
+
+@pytest.fixture
+def csrc_copy(tmp_path, monkeypatch):
+    """build.py pointed at a copy of csrc/, with a stand-in compiler
+    name: a target's name is computed, nothing is built."""
+    for name in build.sources() + build.headers():
+        shutil.copy(os.path.join(build.CSRC, name), tmp_path)
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(build, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(build, "cxx", lambda: "g++")
+    return tmp_path
+
+
+@pytest.mark.parametrize("source", ["lrn_fwd.cu", "lrn_bwd.cu",
+                                    "uniform_fill_binding.cpp"])
+def test_an_edited_header_rebuilds_the_kernels(csrc_copy, source):
+    """A library's name hashes its source, every csrc/*.cuh header for a
+    kernel, and its command: the same tree gives the same name, and an
+    edit of the LRN kernels' shared header gives each kernel a new one
+    (a binding, which includes no kernel header, keeps its name)."""
+    assert "lrn_common.cuh" in build.headers()
+    before = build._target(source)
+    assert build._target(source) == before
+    with open(csrc_copy / "lrn_common.cuh", "a") as f:
+        f.write("// edited\n")
+    assert (build._target(source) != before) == source.endswith(".cu")

@@ -39,10 +39,11 @@ from veles_tpu_torch.ops.gemm import (EPILOGUES,  # noqa: E402
                                       linear_act, linear_act_plain)
 from veles_tpu_torch.ops.gemm_bench import hostile_input  # noqa: E402
 from veles_tpu_torch.nn.precision import get_policy  # noqa: E402
+from veles_tpu_torch.ops import build  # noqa: E402
 from veles_tpu_torch.ops.lrn import (GENERAL_MAX_CHANNELS,  # noqa: E402
                                      lrn_backward, lrn_backward_plain,
                                      lrn_bwd_plan, lrn_forward,
-                                     lrn_forward_plain)
+                                     lrn_forward_plain, lrn_fwd_plan)
 from veles_tpu_torch.ops.random import (dropout_offset,  # noqa: E402
                                         uniform_fill, uniform_fill_plain)
 from veles_tpu_torch.ops.reduce import (column_plan,  # noqa: E402
@@ -214,6 +215,74 @@ def test_model_forward_through_kernels_matches_plain(card):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
+#: K3's shapes: the training batch and serving bucket 1 after conv1 and
+#: conv2 (the vector form), rows of 104, 512 and 768 channels (4, 16 and
+#: 24 float32 a lane), and the general form's: 33 channels (not a whole
+#: vector) and 776 (33 lanes of 24)
+LRN_FWD_SHAPES = [(128, 56, 56, 96), (128, 27, 27, 256), (1, 56, 56, 96),
+                  (1, 27, 27, 256), (3, 5, 7, 104), (3, 5, 7, 512),
+                  (3, 5, 7, 768), (3, 5, 7, 33), (3, 5, 7, 776)]
+
+
+@pytest.mark.parametrize("shape", LRN_FWD_SHAPES)
+@pytest.mark.parametrize("n,beta", [(5, 0.75), (5, 0.6), (1, 0.75),
+                                    (9, 0.75), (11, 0.75), (3, 0.6)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lrn_forward_forms_match_plain(card, shape, n, beta, dtype):
+    """Both forms of K3 against the plain version, on the form
+    lrn_fwd_plan picks: the vector form wherever C is a whole number of
+    vectors on at most 32 lanes and n <= 9, the general one elsewhere."""
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(_rand(shape, 18, 20.0)).to(card, dt)
+    rows = x.numel() // shape[-1]
+    plan = lrn_fwd_plan(rows, shape[-1], n, dt)
+    assert plan.form == ("vector" if n <= 9 and shape[-1] not in (33, 776)
+                         else "general")
+    before = lrn_forward.launches_by_variant[plan.form]
+    got = lrn_forward(x, 2.0, 1e-4, beta, n)
+    torch.cuda.synchronize()
+    assert lrn_forward.launches_by_variant[plan.form] == before + 1
+    assert got.dtype == dt
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got.float(), lrn_forward_plain(
+        x, 2.0, 1e-4, beta, n).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lrn_forward_off_16_bytes_takes_the_general_form(card, dtype):
+    shape = (4, 6, 6, 96)
+    x = torch.from_numpy(_rand(shape, 19, 20.0)).to(card, getattr(torch,
+                                                                  dtype))
+    buf = torch.empty(x.numel() + 1, device=card, dtype=x.dtype)
+    shifted = buf[1:].view(shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
+    before = lrn_forward.launches_by_variant["general"]
+    got = lrn_forward(shifted)
+    torch.cuda.synchronize()
+    assert lrn_forward.launches_by_variant["general"] == before + 1
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got.float(), lrn_forward_plain(x).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape", [(64, 56, 56, 96), (64, 27, 27, 256)])
+def test_lrn_forward_on_a_side_stream(card, shape):
+    """K3, launched through its CPython binding (never a ctypes call), on
+    a side stream gives the default stream's bits once that stream is
+    done."""
+    x = torch.from_numpy(_rand(shape, 20, 20.0)).to(card)
+    on_default = lrn_forward(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = lrn_forward(x)
+    side.synchronize()
+    assert torch.equal(on_side, on_default)
+    assert "lrn_fwd" in build._bindings
+    assert "veles_lrn_fwd" not in build._functions
+
+
 #: AlexNet's constants, a case whose cross term is a large part of dx,
 #: and the exp/log power with a narrower window
 LRN_CONSTANTS = [(2.0, 1e-4, 0.75, 5, 20.0), (1.0, 0.5, 0.75, 5, 1.0),
@@ -383,6 +452,24 @@ def test_uniform_fill_launches_on_the_current_stream_and_card(card):
     assert uniform_fill.launches == before + 1
     assert torch.equal(got, uniform_fill_plain(shape, seed, offset,
                                                device=card))
+
+
+@pytest.mark.parametrize("named", [False, True])
+def test_uniform_fill_goes_through_its_binding(card, named):
+    """K7's wrapper allocates and launches through its CPython binding
+    (never a ctypes call): on a side stream, on the card named by index
+    or not, the plain version's bits."""
+    shape, seed, offset = (128, 4096), 2 ** 63 + 5, dropout_offset(9, 4)
+    device = "cuda:%d" % torch.cuda.current_device() if named else "cuda"
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got = uniform_fill(shape, seed, offset, -0.1, 0.3, device=device)
+    side.synchronize()
+    assert "uniform_fill" in build._bindings
+    assert "veles_uniform_fill" not in build._functions
+    assert got.device.index == torch.cuda.current_device()
+    assert torch.equal(got, uniform_fill_plain(shape, seed, offset, -0.1,
+                                               0.3, device=card))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -19,11 +19,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from veles_tpu.nn.normalization import _lrn_slices  # noqa: E402
-from veles_tpu.ops.lrn import _call_bwd, lrn_fused  # noqa: E402
-from veles_tpu_torch.ops.lrn import (GENERAL_MAX_CHANNELS,  # noqa: E402
+from veles_tpu.ops.lrn import _call_bwd, _call_fwd, lrn_fused  # noqa: E402
+from veles_tpu_torch.ops import build  # noqa: E402
+from veles_tpu_torch.ops.lrn import (BLOCKS_PER_SM,  # noqa: E402
+                                     FWD_MAX_CHANNELS, GENERAL_MAX_CHANNELS,
                                      LRNFunction, lrn_backward,
                                      lrn_backward_plain, lrn_bwd_plan,
-                                     lrn_forward, lrn_forward_plain)
+                                     lrn_forward, lrn_forward_plain,
+                                     lrn_fwd_plan)
 
 BWD_TOL = dict(atol=2e-6, rtol=2e-6)
 #: AlexNet's constants, and a case where the cross term is large
@@ -94,9 +97,11 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     x = torch.from_numpy(_x((2, 3, 3, 32)))
     before = lrn_forward.launches
     before_forms = dict(lrn_forward.launches_by_form)
+    before_variants = dict(lrn_forward.launches_by_variant)
     assert torch.equal(lrn_forward(x), lrn_forward_plain(x))
     assert lrn_forward.launches == before
     assert dict(lrn_forward.launches_by_form) == before_forms
+    assert dict(lrn_forward.launches_by_variant) == before_variants
 
 
 
@@ -317,3 +322,120 @@ def test_lrn_bwd_plan_unaligned_and_refusals():
         lrn_bwd_plan(105, 96, 4, torch.float32)
     with pytest.raises(TypeError):
         lrn_bwd_plan(105, 96, 5, torch.float64)
+
+
+def _emulate_vector_fwd(x, k, alpha, beta, n, lane_channels=None):
+    """The forward vector form's float32 arithmetic, in its order: d =
+    fma(alpha, W(x^2), k), the window summed low channel first; for
+    beta = 3/4 s = rsqrt(d), q = (s s) rsqrt(s), each step rounded,
+    otherwise exp/log rounded once; y = x q. A fused multiply-add is
+    the float64 result rounded once. x a float32 (R, C) array; with
+    ``lane_channels`` the windows stop at the lanes' edges (the
+    control)."""
+    f64 = numpy.float64
+    k, alpha, beta = F32(k), F32(alpha), F32(beta)
+    window = _window_f32((x * x).astype(F32), n // 2, lane_channels)
+    d = (f64(k) + f64(alpha) * window.astype(f64)).astype(F32)
+    if beta == F32(0.75):
+        s = (1.0 / numpy.sqrt(d.astype(f64))).astype(F32)
+        s2 = (s * s).astype(F32)
+        q = (s2 * (1.0 / numpy.sqrt(s.astype(f64))).astype(F32)).astype(F32)
+    else:
+        q = numpy.exp(-float(beta) * numpy.log(d.astype(f64))).astype(F32)
+    return (x * q).astype(F32)
+
+
+def _exact_fwd(x, k, alpha, beta, n):
+    x = x.astype(numpy.float64)
+    half, channels = n // 2, x.shape[-1]
+    p = numpy.pad(x * x, [(0, 0), (half, half)])
+    return x * (k + alpha * sum(p[:, i:i + channels] for i in range(n))) \
+        ** -beta
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels", [96, 256])
+@pytest.mark.parametrize("constants", sorted(CONSTANTS) + ["exp_log"])
+def test_vector_form_arithmetic_matches_pallas_fwd_and_float64(
+        constants, channels, dtype):
+    """K3's vector-form arithmetic (one fma for d, the rsqrt chain, the
+    window unrolled low channel first), emulated in float32, against the JAX
+    kernel ``_call_fwd`` in interpret mode and against float64, within
+    chip_smoke.py's LRN_TOL; bf16 inputs are rounded first on all sides
+    and the emulation's output rounded to bf16 as the kernel stores it.
+    A control that loses the window halo across the lanes, at the
+    channels a lane that ``lrn_fwd_plan`` gives the shape, must fail the
+    float64 check."""
+    k, alpha, beta, n = CONSTANTS.get(constants, (2.0, 1e-3, 0.6, 3))
+    x = _x((2, 5, 5, channels), seed=41, scale=3.0 if
+           constants == "alexnet" else 1.0)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    xj = jnp.asarray(x, jdt)
+    rows = 50
+    x2 = numpy.asarray(xj.astype(jnp.float32)).reshape(rows, channels)
+    got = _emulate_vector_fwd(x2, k, alpha, beta, n)
+    exact = _exact_fwd(x2, k, alpha, beta, n)
+    pallas = numpy.asarray(_call_fwd(xj, k, alpha, beta, n, True,
+                                     block_rows=rows).astype(jnp.float32))
+    if dtype == "bfloat16":
+        got = numpy.asarray(jnp.asarray(got, jnp.bfloat16).astype(
+            jnp.float32))
+    atol, rtol = LRN_TOL[dtype]
+    numpy.testing.assert_allclose(got, pallas.reshape(rows, channels),
+                                  atol=atol, rtol=rtol)
+    numpy.testing.assert_allclose(got, exact, atol=atol, rtol=rtol)
+    if dtype == "float32" and constants != "exp_log":
+        plan = lrn_fwd_plan(rows, channels, n, torch.float32)
+        assert plan.form == "vector"
+        lost = _emulate_vector_fwd(x2, k, alpha, beta, n, plan.cpt)
+        with pytest.raises(AssertionError):
+            numpy.testing.assert_allclose(lost, exact, atol=atol,
+                                          rtol=rtol)
+
+
+@pytest.mark.parametrize("case", [
+    # (rows, C, n, dtype, aligned, form, cpt, lanes, rows a warp)
+    (401408, 96, 5, "float32", True, "vector", 8, 12, 2),
+    (93312, 256, 5, "float32", True, "vector", 8, 32, 1),
+    (401408, 96, 5, "bfloat16", True, "vector", 16, 6, 5),
+    (93312, 256, 5, "bfloat16", True, "vector", 16, 16, 2),
+    (3136, 96, 5, "float32", True, "vector", 8, 12, 2),     # bucket 1
+    (729, 256, 5, "float32", True, "vector", 8, 32, 1),     # bucket 1
+    (105, 104, 9, "float32", True, "vector", 8, 13, 2),
+    (105, 352, 5, "float32", True, "vector", 12, 30, 1),
+    (105, 768, 5, "float32", True, "vector", 24, 32, 1),
+    (105, 8, 5, "bfloat16", True, "vector", 8, 1, 32),
+    (105, 512, 1, "bfloat16", True, "vector", 16, 32, 1),
+    (3136, 96, 5, "float32", False, "general", 1, 0, 0),    # off 16 bytes
+    (105, 98, 5, "float32", True, "general", 1, 0, 0),
+    (105, 100, 5, "bfloat16", True, "general", 1, 0, 0),
+    (105, 96, 11, "float32", True, "general", 1, 0, 0),
+    (105, 776, 5, "float32", True, "general", 1, 0, 0),     # 33 lanes
+    (105, FWD_MAX_CHANNELS, 5, "bfloat16", True, "general", 1, 0, 0),
+    (105, FWD_MAX_CHANNELS + 1, 5, "float32", True, ValueError, "at most"),
+    (105, 96, 4, "float32", True, ValueError, "odd"),
+    (105, 96, 5, "float64", True, TypeError, "float32 or bfloat16"),
+])
+def test_lrn_fwd_plan(case):
+    """The forward's form and geometry at the training shapes, the
+    serving buckets' and odd ones, and the refusals: the vector form
+    gives a lane two 16-byte vectors where a row allows (C = 96: 8
+    float32 channels on 12 lanes, 2 rows a warp; 16 bf16 on 6 lanes, 5
+    rows), more only for rows wider than 32 such lanes, and caps its
+    grid at BLOCKS_PER_SM blocks an SM."""
+    rows, channels, n, dtype, aligned, form = case[:6]
+    if isinstance(form, type):
+        with pytest.raises(form, match=case[6]):
+            lrn_fwd_plan(rows, channels, n, getattr(torch, dtype), aligned)
+        return
+    plan = lrn_fwd_plan(rows, channels, n, getattr(torch, dtype), aligned)
+    assert (plan.form, plan.cpt, plan.lanes, plan.rows_per_warp) == (
+        form,) + case[6:]
+    if form == "vector":
+        assert channels <= plan.cpt * plan.lanes <= 32 * plan.cpt
+        assert plan.lanes * plan.rows_per_warp <= 32
+        groups = -(-rows // plan.rows_per_warp)
+        assert plan.blocks == min(-(-groups // 8),
+                                  build.SMS * BLOCKS_PER_SM)
+    else:
+        assert plan.blocks == -(-rows // 8)

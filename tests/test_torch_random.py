@@ -12,6 +12,12 @@ draws (at the fixed seed the statistic is a fixed number; the limit is
 the 1% critical value).
 """
 
+import ctypes
+import os
+import re
+import subprocess
+import sys
+
 import jax.numpy as jnp
 import numpy
 import pytest
@@ -20,6 +26,7 @@ torch = pytest.importorskip("torch")
 
 from veles_tpu import prng as jax_prng  # noqa: E402
 from veles_tpu_torch import prng  # noqa: E402
+from veles_tpu_torch.ops import build  # noqa: E402
 from veles_tpu_torch.ops.random import (bits_to_uniform,  # noqa: E402
                                         dropout_offset, philox4x32,
                                         uniform_fill, uniform_fill_plain)
@@ -132,3 +139,53 @@ def test_host_streams_match_the_jax_package():
     assert [ours.philox_seed() for _ in range(3)] == seeds
     assert prng.get("fresh-name").seed_value == \
         jax_prng.RandomGenerator("x").seed(b"fresh-name").seed_value
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("shape", [(128, 4096), (3, 5), (0, 7)])
+def test_cpu_fill_builds_and_counts_nothing(shape):
+    """In a fresh interpreter a CPU fill runs the plain version: it
+    builds no library and no binding, counts no launch, and loads
+    neither jax nor any veles_tpu module."""
+    code = (
+        "import sys\n"
+        "from veles_tpu_torch.ops import build\n"
+        "from veles_tpu_torch.ops.random import uniform_fill\n"
+        "u = uniform_fill(%r, 7, 3, -1.0, 1.0, device='cpu')\n"
+        "assert tuple(u.shape) == %r\n"
+        "assert not (build._libraries or build._bindings or "
+        "build._functions)\n"
+        "assert uniform_fill.launches == 0\n"
+        "assert not uniform_fill.launches_by_form\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'veles_tpu')]\n"
+        "print('LOADED', bad)\n" % (shape, shape))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+@pytest.mark.parametrize("value", [0.1, 1.0 / 3.0, -0.7, 2.0 ** 24 + 1,
+                                   1e-40, 0.5, -1, 3])
+def test_vmin_vmax_round_to_float32_as_ctypes_does(value):
+    """The binding casts vmin and vmax from double to float, as a ctypes
+    c_float argument did; the plain version rounds them with numpy's
+    float32: the three agree, so the kernel and the plain version map
+    the same bits to the same values."""
+    assert ctypes.c_float(value).value == float(numpy.float32(value))
+
+
+@pytest.mark.parametrize("constant,value", [("kSms", build.SMS),
+                                            ("kThreads", 256)])
+def test_the_fill_sizes_its_wave_from_the_card(constant, value):
+    """uniform_fill.cu caps its grid at one wave of its 256-thread
+    blocks on the card the sources are built for: its SM count is
+    ops/build.py's SMS."""
+    with open(os.path.join(build.CSRC, "uniform_fill.cu")) as f:
+        source = f.read()
+    found = re.search(r"constexpr int %s = (\d+);" % constant, source)
+    assert found and int(found.group(1)) == value

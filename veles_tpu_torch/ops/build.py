@@ -9,8 +9,9 @@ wrapper whose host time is the point: the host compiler builds it
 against PyTorch's headers (the paths of
 ``torch.utils.cpp_extension.include_paths()``) and libraries, without
 ``ninja``. Libraries land in ``csrc/build/`` under a name that carries a
-hash of the source and the command: an edited source builds anew, an
-unchanged one is reused.
+hash of the source, of every ``csrc/*.cuh`` header for a kernel, and of
+the command: an edited source or header builds anew, an unchanged one is
+reused.
 
 Building happens at first use (:func:`library`, :func:`binding`), or for
 every source at once, in parallel, through :func:`build_all`. Nothing is
@@ -90,16 +91,24 @@ def _command(source, out):
             "-I", os.path.join(root, "include", "torch", "csrc", "api",
                                "include"),
             "-I", sysconfig.get_paths()["include"], "-o", out, path,
-            "-L", lib, "-lc10", "-ltorch", "-ltorch_cpu", "-ltorch_python",
-            "-Wl,-rpath," + lib]
+            "-L", lib, "-lc10", "-ltorch", "-ltorch_cpu", "-ltorch_cuda",
+            "-ltorch_python", "-Wl,-rpath," + lib]
+
+
+def headers():
+    """The headers the kernels include: every ``csrc/*.cuh``."""
+    return sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
 
 
 def _target(source):
-    """The library's path: the source's stem and a hash of the source and
-    its command (with the placeholder output name)."""
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(
-            _command(source, "out")).encode())
+    """The library's path: the source's stem and a hash of the source,
+    of every header for a ``.cu`` source, and of its command (with the
+    placeholder output name)."""
+    digest = hashlib.sha256()
+    for name in [source] + (headers() if source.endswith(".cu") else []):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
+    digest.update(" ".join(_command(source, "out")).encode())
     return os.path.join(BUILD_DIR, "%s-%s.so" % (
         source.rsplit(".", 1)[0], digest.hexdigest()[:16]))
 

@@ -13,10 +13,12 @@ last channel. :func:`lrn_backward` is the port of ``_call_bwd``:
 with d recomputed from x. :class:`LRNFunction` ties them together as
 ``lrn_fused``'s ``custom_vjp`` does: its only residual is x. On a CUDA
 tensor each wrapper launches its hand-written kernel
-(``csrc/lrn_fwd.cu``, ``csrc/lrn_bwd.cu`` in the form
-:func:`lrn_bwd_plan` picks; see their headers for the bounds and the
-designs); on a CPU tensor it runs its plain PyTorch version. A CUDA
-tensor a kernel does not take raises.
+(``csrc/lrn_fwd.cu``, ``csrc/lrn_bwd.cu``, in the form
+:func:`lrn_fwd_plan` or :func:`lrn_bwd_plan` picks; see their headers
+for the bounds and the designs), the forward through its CPython
+binding (``csrc/lrn_fwd_binding.cpp``), which allocates y and launches
+in one C call; on a CPU tensor it runs its plain PyTorch version. A
+CUDA tensor a kernel does not take raises.
 
 The input must be channels-last and contiguous (NHWC, or any rank with
 channels last): the kernel walks (rows, C). PyTorch convolutions yield
@@ -38,18 +40,24 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _count_lock = threading.Lock()
 #: shared memory a launch may take without opting in to more
 _SMEM_LIMIT = 48 * 1024
-#: warps of a block in both kernels; each warp of lrn_fwd.cu and of
-#: lrn_bwd.cu's general form stages 1 and 2 C-float rows in shared memory
+#: warps of a block in both kernels; each warp of the general forms of
+#: lrn_fwd.cu and lrn_bwd.cu stages 1 and 2 C-float rows in shared memory
 _WARPS = 8
-#: channels the shared-memory kernels take
+#: channels the shared-memory (general) forms take
 FWD_MAX_CHANNELS = _SMEM_LIMIT // (_WARPS * 4)
 GENERAL_MAX_CHANNELS = _SMEM_LIMIT // (_WARPS * 2 * 4)
-#: lrn_bwd.cu's forms and the vector form's widest window half (n = 9)
-BWD_FORMS = ("vector", "general")
+#: both kernels' forms (the C functions' form argument is the index) and
+#: the vector forms' widest window half (n = 9)
+FORMS = ("vector", "general")
 VECTOR_MAX_HALF = 4
-#: the vector form's grid cap: 16 blocks of 8 warps an SM (the grid
+#: the vector forms' grid cap: 16 blocks of 8 warps an SM (the grid
 #: walks row groups grid-stride)
 BLOCKS_PER_SM = 16
+#: channels a lane of lrn_fwd.cu's vector form may hold, the instances
+#: the kernel has: whole 16-byte vectors
+FWD_CPTS = {torch.float32: (4, 8, 12, 16, 24), torch.bfloat16: (8, 16, 24)}
+#: the bytes a forward lane holds where a row allows: two vectors
+FWD_LANE_BYTES = 32
 #: the general form's grid cap (its rows are walked grid-stride)
 _MAX_BLOCKS = 1 << 30
 
@@ -93,46 +101,120 @@ def lrn_forward_plain(x_nhwc, k=2.0, alpha=1e-4, beta=0.75, n=5):
         x_nhwc.dtype)
 
 
+def _vec(dtype):
+    """Values of ``dtype`` in a 16-byte vector."""
+    return 16 // (4 if dtype == torch.float32 else 2)
+
+
+def _check_plan(dtype, n, name):
+    if dtype not in _DTYPES:
+        raise TypeError("%s takes float32 or bfloat16, got %s"
+                        % (name, dtype))
+    if n % 2 == 0:
+        raise ValueError("the LRN requires an odd window (n=%d)" % n)
+
+
+def vector_plan(rows, channels, n, dtype, aligned, cpt, blocks_per_sm):
+    """The vector form's :class:`LRNPlan` at ``cpt`` channels a lane and
+    a grid of at most ``blocks_per_sm`` blocks an SM, or None where the
+    form does not take the shape: channels not a multiple of the 16-byte
+    vector, a pointer off 16 bytes (``aligned`` false), a row wider than
+    32 lanes of ``cpt`` or n > 9. The geometry of both kernels."""
+    lanes = -(-channels // cpt)
+    if not aligned or channels % _vec(dtype) or lanes > 32 or \
+            n // 2 > VECTOR_MAX_HALF:
+        return None
+    per_warp = 32 // lanes
+    groups = -(-rows // per_warp)
+    blocks = min(-(-groups // _WARPS), build.SMS * blocks_per_sm)
+    return LRNPlan("vector", cpt, lanes, per_warp, max(blocks, 1))
+
+
+def _general_plan(rows, channels, limit, name):
+    if channels > limit:
+        raise ValueError("%s's kernel takes at most %d channels, got %d"
+                         % (name, limit, channels))
+    return LRNPlan("general", 1, 0, 0,
+                   max(1, min(-(-rows // _WARPS), _MAX_BLOCKS)))
+
+
+def _fwd_cpt(channels, dtype):
+    """The forward's channels a lane: of :data:`FWD_CPTS` whose row fits
+    32 lanes, the one holding at most :data:`FWD_LANE_BYTES` (else the
+    fewest bytes), then whose rows fill the most of the warp's lane
+    slots, then the most channels."""
+    size = 16 // _vec(dtype)
+
+    def key(cpt):
+        lanes = -(-channels // cpt)
+        fill = channels * (32 // lanes) / (32.0 * cpt) if lanes <= 32 \
+            else 0.0
+        return (lanes <= 32, -max(cpt * size, FWD_LANE_BYTES), fill, cpt)
+    return max(FWD_CPTS[dtype], key=key)
+
+
+@functools.lru_cache(maxsize=256)
+def lrn_fwd_plan(rows, channels, n, dtype, aligned=True):
+    """How ``csrc/lrn_fwd.cu`` takes (rows, channels) of ``dtype`` with
+    window n (``aligned``: x and y start on 16 bytes): an
+    :class:`LRNPlan` of
+
+    * ``form``: ``vector`` where :func:`vector_plan` takes the shape at
+      some cpt of :data:`FWD_CPTS`; else ``general`` (the shared-memory
+      kernel, at most :data:`FWD_MAX_CHANNELS` channels; more raise);
+    * ``cpt``: channels a lane (:func:`_fwd_cpt`: two 16-byte vectors
+      where a row allows, C = 96: 8 float32 on 12 lanes, 2 rows a warp,
+      16 bf16 on 6 lanes, 5 rows; C = 256: 8 float32 on 32 lanes, 16
+      bf16 on 16), ``lanes`` lanes a row, ``rows_per_warp`` rows a warp
+      (0 in the general form);
+    * ``blocks``: the grid, 8 warps a block, at most
+      :data:`BLOCKS_PER_SM` an SM, each warp walking row groups
+      grid-stride."""
+    _check_plan(dtype, n, "lrn_fwd_plan")
+    plan = vector_plan(rows, channels, n, dtype, aligned,
+                       _fwd_cpt(channels, dtype), BLOCKS_PER_SM)
+    return plan or _general_plan(rows, channels, FWD_MAX_CHANNELS,
+                                 "lrn_forward")
+
+
 def lrn_forward(x_nhwc, k=2.0, alpha=1e-4, beta=0.75, n=5):
     """LRN over the last axis of a channels-last contiguous tensor.
-    Counts each kernel launch in ``lrn_forward.launches``, and in
-    ``lrn_forward.launches_by_form`` under ``(shape, dtype)``."""
+    Counts each kernel launch in ``lrn_forward.launches``, in
+    ``lrn_forward.launches_by_form`` under ``(shape, dtype)`` and in
+    ``lrn_forward.launches_by_variant`` under the plan's form."""
     _check(x_nhwc, n)
     _check_layout(x_nhwc, "lrn_forward")
-    if x_nhwc.device.type == "cpu":
+    # each tensor attribute is read once: a small serving batch's call
+    # is host time
+    device = x_nhwc.device
+    kind = device.type
+    if kind == "cpu":
         return lrn_forward_plain(x_nhwc, k, alpha, beta, n)
-    if x_nhwc.device.type != "cuda":
-        raise ValueError("lrn_forward runs on cuda or cpu, not %s"
-                         % x_nhwc.device)
-    channels = x_nhwc.shape[-1]
+    if kind != "cuda":
+        raise ValueError("lrn_forward runs on cuda or cpu, not %s" % device)
+    shape, dtype = x_nhwc.shape, x_nhwc.dtype
+    channels = shape[-1]
     rows = x_nhwc.numel() // channels if channels else 0
-    y = torch.empty_like(x_nhwc)
     if rows == 0 or channels == 0:
-        return y
-    if channels > FWD_MAX_CHANNELS:
-        raise ValueError("lrn_forward's kernel takes at most %d channels, "
-                         "got %d" % (FWD_MAX_CHANNELS, channels))
-    status = build.launch(
-        build.function("lrn_fwd", "veles_lrn_fwd", _FWD_ARGTYPES),
-        x_nhwc.device, x_nhwc.data_ptr(), y.data_ptr(), rows, channels,
-        float(k), float(alpha), float(beta), n,
-        int(abs(beta - 0.75) < 1e-12), int(x_nhwc.dtype == torch.bfloat16))
-    build.check(status, "lrn_fwd")
+        return torch.empty_like(x_nhwc)
+    # the binding allocates y (on 512 bytes, the caching allocator's
+    # alignment: only x's pointer can be off 16) and launches: one C call
+    plan = lrn_fwd_plan(rows, channels, n, dtype,
+                        x_nhwc.data_ptr() % 16 == 0)
+    y = build.launch(
+        build.binding("lrn_fwd", "veles_lrn_fwd").forward, device, x_nhwc,
+        k, alpha, beta, n, abs(beta - 0.75) < 1e-12, FORMS.index(plan.form),
+        plan.cpt, plan.lanes, plan.rows_per_warp, plan.blocks)
     with _count_lock:
         lrn_forward.launches += 1
-        lrn_forward.launches_by_form[
-            (tuple(x_nhwc.shape), x_nhwc.dtype)] += 1
+        lrn_forward.launches_by_form[(tuple(shape), dtype)] += 1
+        lrn_forward.launches_by_variant[plan.form] += 1
     return y
 
 
 lrn_forward.launches = 0
 lrn_forward.launches_by_form = collections.Counter()
-
-
-_FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                 ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                 ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_void_p]
+lrn_forward.launches_by_variant = collections.Counter()
 
 
 def lrn_backward_plain(x_nhwc, g, k=2.0, alpha=1e-4, beta=0.75, n=5):
@@ -152,37 +234,22 @@ def lrn_bwd_plan(rows, channels, n, dtype, aligned=True):
     window n (``aligned``: x, g and dx start on 16 bytes): an
     :class:`LRNPlan` of
 
-    * ``form``: ``vector`` where channels are a multiple of the 16-byte
-      vector (4 float32, 8 bf16), the pointers aligned, a row fits 32
-      lanes of ``cpt`` channels and n <= 9; else ``general`` (the
-      shared-memory kernel, at most :data:`GENERAL_MAX_CHANNELS`
-      channels; more raise);
+    * ``form``: ``vector`` where :func:`vector_plan` takes the shape;
+      else ``general`` (the shared-memory kernel, at most
+      :data:`GENERAL_MAX_CHANNELS` channels; more raise);
     * ``cpt``: channels a lane holds (one vector, or two when a row of
       one-vector lanes would be wider than a warp), ``lanes`` lanes a
       row, ``rows_per_warp`` rows a warp (0 in the general form);
-    * ``blocks``: the grid, 8 warps a block, each warp walking row groups
+    * ``blocks``: the grid, 8 warps a block, at most
+      :data:`BLOCKS_PER_SM` an SM, each warp walking row groups
       grid-stride."""
-    if dtype not in _DTYPES:
-        raise TypeError("lrn_bwd_plan takes float32 or bfloat16, got %s"
-                        % dtype)
-    if n % 2 == 0:
-        raise ValueError("the LRN requires an odd window (n=%d)" % n)
-    vec = 16 // (4 if dtype == torch.float32 else 2)
-    for cpt in (vec, 2 * vec):
-        lanes = -(-channels // cpt)
-        if lanes <= 32:
-            break
-    if aligned and channels % vec == 0 and lanes <= 32 and \
-            n // 2 <= VECTOR_MAX_HALF:
-        per_warp = 32 // lanes
-        groups = -(-rows // per_warp)
-        blocks = min(-(-groups // _WARPS), build.SMS * BLOCKS_PER_SM)
-        return LRNPlan("vector", cpt, lanes, per_warp, max(blocks, 1))
-    if channels > GENERAL_MAX_CHANNELS:
-        raise ValueError("lrn_backward's kernel takes at most %d channels, "
-                         "got %d" % (GENERAL_MAX_CHANNELS, channels))
-    return LRNPlan("general", 1, 0, 0,
-                   max(1, min(-(-rows // _WARPS), _MAX_BLOCKS)))
+    _check_plan(dtype, n, "lrn_bwd_plan")
+    vec = _vec(dtype)
+    cpt = vec if channels <= 32 * vec else 2 * vec
+    plan = vector_plan(rows, channels, n, dtype, aligned, cpt,
+                       BLOCKS_PER_SM)
+    return plan or _general_plan(rows, channels, GENERAL_MAX_CHANNELS,
+                                 "lrn_backward")
 
 
 def lrn_backward(x_nhwc, g, k=2.0, alpha=1e-4, beta=0.75, n=5):
@@ -217,7 +284,7 @@ def lrn_backward(x_nhwc, g, k=2.0, alpha=1e-4, beta=0.75, n=5):
         build.function("lrn_bwd", "veles_lrn_bwd", _BWD_ARGTYPES), device,
         *ptrs, rows, channels, float(k), float(alpha), float(beta), n,
         int(abs(beta - 0.75) < 1e-12), int(x_nhwc.dtype == torch.bfloat16),
-        BWD_FORMS.index(plan.form), plan.cpt, plan.lanes,
+        FORMS.index(plan.form), plan.cpt, plan.lanes,
         plan.rows_per_warp, plan.blocks)
     build.check(status, "lrn_bwd")
     with _count_lock:

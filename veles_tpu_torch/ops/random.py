@@ -15,13 +15,14 @@ A (seed, offset) pair names one stream; the trainer passes its dropout
 seed and an offset made of the batch index and the layer index
 (:func:`dropout_offset`), as the JAX trainer folds those into its key.
 
-On a CUDA tensor :func:`uniform_fill` launches ``csrc/uniform_fill.cu``;
-on the CPU it runs :func:`uniform_fill_plain`, the same Philox in
-integer torch ops, which gives the same bits.
+On a CUDA device :func:`uniform_fill` launches ``csrc/uniform_fill.cu``
+through its CPython binding (``csrc/uniform_fill_binding.cpp``), which
+allocates the output and launches in one C call; on the CPU it runs
+:func:`uniform_fill_plain`, the same Philox in integer torch ops, which
+gives the same bits.
 """
 
 import collections
-import ctypes
 import threading
 
 import numpy
@@ -35,11 +36,6 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _U64 = (1 << 64) - 1
 _count_lock = threading.Lock()
-#: ``veles_uniform_fill``'s C arguments: out, n, seed, offset, vmin,
-#: vmax, stream
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint64,
-             ctypes.c_uint64, ctypes.c_float, ctypes.c_float,
-             ctypes.c_void_p)
 
 
 def dropout_offset(batch_index, layer_index):
@@ -122,21 +118,22 @@ def uniform_fill(shape, seed, offset=0, vmin=0.0, vmax=1.0, device=None):
     shape = _check(shape, seed, offset)
     if not isinstance(device, torch.device):  # the trainer passes one
         device = resolve_device(device)
-    if device.type == "cpu":
+    kind = device.type  # a new string at each read: read once
+    if kind == "cpu":
         return uniform_fill_plain(shape, seed, offset, vmin, vmax, device)
-    if device.type != "cuda":
+    if kind != "cuda":
         raise ValueError("uniform_fill runs on cuda or cpu, not %s"
                          % device)
     rows, cols = shape
-    # the shape as two ints: torch parses them faster than a tuple
-    out = torch.empty(rows, cols, dtype=torch.float32, device=device)
     if rows * cols == 0:
-        return out
-    status = build.launch(
-        build.function("uniform_fill", "veles_uniform_fill", _ARGTYPES),
-        device, out.data_ptr(), rows * cols, int(seed), int(offset),
-        float(vmin), float(vmax))
-    build.check(status, "uniform_fill")
+        return torch.empty(rows, cols, dtype=torch.float32, device=device)
+    # the binding allocates out on the card (-1: the current one) and
+    # launches: one C call, vmin and vmax rounded to float32 as ctypes'
+    # c_float rounds them
+    out = build.launch(
+        build.binding("uniform_fill", "veles_uniform_fill").fill, device,
+        rows, cols, int(seed), int(offset), vmin, vmax,
+        -1 if device.index is None else device.index)
     with _count_lock:
         uniform_fill.launches += 1
         uniform_fill.launches_by_form[shape] += 1
