@@ -81,12 +81,36 @@
    the tensor-core (mma) form. Then the device rating, ``gemm_benchmark()`` at
    bf16 and at float32, with a ``torch.profiler`` table of the bf16
    chain's kernels and bf16 at 1536^2 (rows 16-byte aligned) beside.
-7. The line before the last is ``{"kernels": [...], "not_ported":
+7. Baseline phase: the BASELINE model family trained by the port at
+   ``scripts/bench_all.py``'s sizes (golden digits 12000 + 2000, golden
+   objects 10000 + 2000, generated from their seeds): mnist-fc
+   (784-100-10, batch 500), mnist-conv (``CONV_LAYERS``, 250),
+   cifar-quick (``CIFAR_LAYERS``, ``mean_disp``, 250) and mnist-ae
+   (784-100-784 under MSE, 500), each under float32 and bfloat16_mixed.
+   (1) Under float32, one step's loss and gradients through the kernels
+   against the plain versions (cuDNN deterministic), with the first fc
+   layer's bias gradient zeroed, and for the autoencoder the targets
+   shifted by a row, as controls that must fail. (2) Three epochs counted
+   from 0: per-epoch training loss, validation error (RMSE for the
+   autoencoder) and confusion trace, all finite, the float32 loss
+   falling; step ms by CUDA events (median of epochs 2-3), samples/s,
+   the idle share against a profiled step, peak memory. (3) K1 and K6
+   launches against the model's counts and by form, every launch at a
+   form the kernel phase checked (K1 rows at the four BASELINE shapes in
+   both dtypes, K6 rows at their eleven bias shapes); the bf16 launches
+   at N or K = 100 run K1's general form and are recorded so. (4) On
+   mnist-fc, an epoch each of AdaGrad, AdaDelta and Adam after the step
+   check and a check of one update through the kernels against the plain
+   versions. (5) The 8x8 SOM over the digits, three epochs at minibatch
+   1024: its quantization error falls below the untrained codebook's,
+   ms an update by CUDA events, no kernel of the port launched.
+8. The line before the last is ``{"kernels": [...], "not_ported":
    []}``; the last is ``{"ok": true, "device": {...}}``. Any failure
    raises and exits non-zero before them.
 """
 
 import base64
+import contextlib
 import json
 import math
 import os
@@ -154,6 +178,39 @@ REDUCE_SHAPES = (("conv1", TRAIN_BATCH * 56 * 56, 96),
                  ("conv5", TRAIN_BATCH * 13 * 13, 256),
                  ("fc6/fc7", TRAIN_BATCH, 4096),
                  ("head", TRAIN_BATCH, 1000))
+#: the BASELINE paths (``scripts/bench_all.py``'s data sizes and
+#: minibatches): golden digits 12000 + 2000 and golden objects 10000 +
+#: 2000, three epochs under each policy
+BASELINE_DIGITS = (12000, 2000)
+BASELINE_OBJECTS = (10000, 2000)
+BASELINE_EPOCHS = 3
+BASELINE_POLICIES = ("float32", "bfloat16_mixed")
+BASELINE_SEED = 1234
+#: the adaptive solvers' epoch on mnist-fc, at rates they train at
+SOLVER_TRAINING = {"adagrad": {"learning_rate": 0.01},
+                   "adadelta": {},
+                   "adam": {"learning_rate": 0.001}}
+#: the 8x8 SOM over the digits' 784 features, minibatch 1024
+SOM_SIDE = 8
+SOM_MINIBATCH = 1024
+#: K1 on the BASELINE paths: (layer, M, K, N, epilogue), every one with
+#: its bias, in float32 and bf16
+BASELINE_GEMMS = (("mnist-fc/ae fc1", 500, 784, 100, "tanh"),
+                  ("mnist-conv fc", 250, 512, 100, "relu"),
+                  ("cifar-quick fc", 250, 576, 64, "linear"),
+                  ("mnist-ae decoder", 500, 100, 784, "linear"))
+#: every bias gradient of the BASELINE paths, (rows, C) of the column sum
+BASELINE_REDUCE_SHAPES = (("mnist-fc/ae fc1", 500, 100),
+                          ("mnist-fc head", 500, 10),
+                          ("mnist-ae decoder", 500, 784),
+                          ("mnist-conv conv1", 250 * 24 * 24, 16),
+                          ("mnist-conv conv2", 250 * 8 * 8, 32),
+                          ("mnist-conv fc", 250, 100),
+                          ("mnist-conv/cifar head", 250, 10),
+                          ("cifar-quick conv1", 250 * 32 * 32, 32),
+                          ("cifar-quick conv2", 250 * 15 * 15, 32),
+                          ("cifar-quick conv3", 250 * 7 * 7, 64),
+                          ("cifar-quick fc", 250, 64))
 #: Philox4x32-10 per value: 10 rounds of 2 multiplies, 2 high
 #: multiplies and 4 xors per counter, 18 key additions, over 4 values;
 #: then shift, convert, scale and affine map
@@ -349,6 +406,24 @@ def gemm_phase(torch):
                             layer, m, dtype,
                             "bias" if bias is not None else "no bias"),
                         x, w, bias, "strict_relu", dtype, library))
+    # K1 on the BASELINE paths, with its bias and epilogue
+    from veles_tpu_torch.nn.activation import ACTIVATIONS
+    for layer, m, k, n, activation in BASELINE_GEMMS:
+        w32 = (torch.rand(k, n, device="cuda", generator=gen) * 2 - 1) \
+            / k ** 0.5
+        b32 = torch.rand(n, device="cuda", generator=gen) * 0.2 - 0.1
+        x32 = torch.rand(m, k, device="cuda", generator=gen) * 2 - 1
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            x, w, lib_bias = x32.to(dt), w32.to(dt), b32.to(dt)
+
+            def library(x=x, w=w, lib_bias=lib_bias, act=activation):
+                return ACTIVATIONS[act](torch.addmm(lib_bias, x, w))
+
+            rows.append(gemm_row(
+                torch, scratch, "%s M=%d K=%d N=%d %s %s bias" % (
+                    layer, m, k, n, activation, dtype),
+                x, w, b32, activation, dtype, library))
     # K2 on the GEMM-disciplines path: float32, no bias, linear
     from veles_tpu_torch.ops.gemm_bench import SHAPES
     for _, (m, k, n) in SHAPES:
@@ -574,7 +649,7 @@ def reduce_phase(torch, scratch):
                                             column_sum_plain)
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(4)
-    for layer, r, c in REDUCE_SHAPES:
+    for layer, r, c in REDUCE_SHAPES + BASELINE_REDUCE_SHAPES:
         x = torch.randn(r, c, device="cuda", generator=gen) * 1e-3
         variants = dict(column_sum.launches_by_variant)
         got = column_sum(x)
@@ -1319,72 +1394,68 @@ def gradient_shares(got, want):
             for i, (g, w) in enumerate(zip(got, want)) for k in w}
 
 
-def step_check(torch, trainer):
-    """(a): one step's loss and gradients through the kernels against
-    the same step through the plain versions, and two controls that
-    must fail the same check."""
+def step_check(torch, trainer, name, zeroed, reruns=()):
+    """One float32 step's loss and per-layer gradients through the kernels
+    against the same step through the plain versions (cuDNN
+    deterministic), and the controls that must fail the same check: layer
+    ``zeroed``'s bias gradient zeroed, and each ``(label, fn)`` of
+    ``reruns``, where ``fn(run)`` takes the kernels' step again under a
+    change (``run(plain=False, seed=CHECK_SEED)`` takes one step and
+    returns its loss and gradients)."""
     from veles_tpu_torch.loader.base import TRAIN
-    from veles_tpu_torch.nn.all2all import All2AllStrictRELU
     idx = torch.from_numpy(trainer._segment_indices(TRAIN)[0]).cuda()
+
+    def run(plain=False, seed=CHECK_SEED):
+        trainer.plain = plain
+        loss, _ = trainer.gradients(idx, 0, seed)
+        return float(loss), gradient_copies(trainer)
+
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
-    runs = {}
     try:
-        for label, plain, seed in (("kernels", False, CHECK_SEED),
-                                   ("plain", True, CHECK_SEED),
-                                   ("other_seed", False, CHECK_SEED + 1)):
-            trainer.plain = plain
-            loss, _ = trainer.gradients(idx, 0, seed)
-            runs[label] = (float(loss), gradient_copies(trainer))
+        loss, got = run()
+        want_loss, want = run(plain=True)
+        reran = {label: fn(run)[1] for label, fn in reruns}
     finally:
         trainer.plain = False
         torch.backends.cudnn.deterministic = saved
         for layer in trainer.params:
             for p in layer.values():
                 p.grad = None
-    loss, got = runs["kernels"]
-    want_loss, want = runs["plain"]
     shares = gradient_shares(got, want)
     worst = max(shares.values())
     loss_err = abs(loss - want_loss) / abs(want_loss)
-    flips = pool_flips(torch, trainer, idx)
-    print("train check: per tensor gradient shares %s; max-pool windows "
-          "whose argmax differs between the two forwards: %s" % (
-              ", ".join("%d.%s %.2g" % (i, k[0], v)
-                        for (i, k), v in sorted(shares.items())), flips))
     if not all(torch.isfinite(t).all() for layer in got
                for t in layer.values()) or not math.isfinite(loss):
-        raise AssertionError("training step: non-finite loss or gradient")
+        raise AssertionError("%s step: non-finite loss or gradient" % name)
     if worst > GRAD_SHARE_TOL or loss_err > LOSS_REL_TOL:
         raise AssertionError(
-            "training step through the kernels differs from the plain "
-            "versions: worst gradient share %.3g (limit %g) at %s, loss "
-            "%.3g relative (limit %g)" % (
-                worst, GRAD_SHARE_TOL, max(shares, key=shares.get),
-                loss_err, LOSS_REL_TOL))
-    fc7 = [i for i, m in enumerate(trainer.forwards)
-           if isinstance(m, All2AllStrictRELU)][-1]
-    zeroed = [dict(layer) for layer in got]
-    zeroed[fc7]["bias"] = torch.zeros_like(got[fc7]["bias"])
-    controls = {"fc7_bias_zeroed": max(gradient_shares(zeroed,
-                                                       want).values()),
-                "other_seed": max(gradient_shares(runs["other_seed"][1],
-                                                  want).values())}
+            "%s step through the kernels differs from the plain versions: "
+            "worst gradient share %.3g (limit %g) at %s, loss %.3g relative "
+            "(limit %g)" % (name, worst, GRAD_SHARE_TOL,
+                            max(shares, key=shares.get), loss_err,
+                            LOSS_REL_TOL))
+    broken = [dict(layer) for layer in got]
+    broken[zeroed]["bias"] = torch.zeros_like(got[zeroed]["bias"])
+    controls = {"layer_%d_bias_zeroed" % zeroed: max(gradient_shares(
+        broken, want).values())}
+    controls.update({label: max(gradient_shares(grads, want).values())
+                     for label, grads in reran.items()})
     for label, share in controls.items():
         if share <= GRAD_SHARE_TOL:
             raise AssertionError(
-                "control %s passes the step check (worst share %.3g): the "
-                "check cannot see a wrong gradient" % (label, share))
-    print("train check: one float32 step through the kernels vs the plain "
-          "versions: loss %.7f vs %.7f (%.3g relative, limit %g); worst "
-          "layer gradient share %.3g (limit %g); controls %s fail it" % (
-              loss, want_loss, loss_err, LOSS_REL_TOL, worst,
+                "%s control %s passes the step check (worst share %.3g): the "
+                "check cannot see a wrong gradient" % (name, label, share))
+    print("%s check: one float32 step through the kernels vs the plain "
+          "versions: loss %.7f vs %.7f (%.3g relative, limit %g); gradient "
+          "shares %s (limit %g); controls %s fail it" % (
+              name, loss, want_loss, loss_err, LOSS_REL_TOL,
+              ", ".join("%d.%s %.2g" % (i, k[0], v)
+                        for (i, k), v in sorted(shares.items())),
               GRAD_SHARE_TOL,
               ", ".join("%s %.3g" % kv for kv in sorted(controls.items()))))
     return {"check_loss_rel_err": loss_err, "check_worst_grad_share": worst,
-            "check_pool_argmax_flips": flips,
-            "control_fc7_bias_zeroed_share": controls["fc7_bias_zeroed"],
-            "control_other_seed_share": controls["other_seed"]}
+            "controls": controls}
 
 
 def backends_check(torch, trainer):
@@ -1507,6 +1578,46 @@ def device_time_split(torch, prof):
     return split
 
 
+@contextlib.contextmanager
+def timed_calls(torch, owner, attr):
+    """Times each call of ``owner.attr`` by CUDA events while inside;
+    yields the list of (start, end) events."""
+    fn = getattr(owner, attr)
+    timed = []
+
+    def timed_fn(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        timed.append((start, end))
+        return out
+
+    setattr(owner, attr, timed_fn)
+    try:
+        yield timed
+    finally:
+        delattr(owner, attr)
+
+
+def profiled_step(torch, trainer):
+    """(profile, wall ms) of one training step after a warm one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from veles_tpu_torch.loader.base import TRAIN
+    idx = torch.from_numpy(trainer._segment_indices(TRAIN)[0]).cuda()
+    trainer.train_batch(idx, 0, CHECK_SEED)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.train_batch(idx, 0, CHECK_SEED)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    return prof, wall_ms
+
+
 def training_phase(torch, policy, check):
     """Full-width AlexNet-227 trained on the card under ``policy``:
     (a) the step check when ``check``, (b) ``TRAIN_EPOCHS`` epochs,
@@ -1519,7 +1630,8 @@ def training_phase(torch, policy, check):
                                                 ALEXNET_TRAINING,
                                                 SyntheticImageLoader)
     from veles_tpu_torch.models.build import build_training
-    from veles_tpu_torch.nn.all2all import All2All, All2AllSoftmax
+    from veles_tpu_torch.nn.all2all import (All2All, All2AllSoftmax,
+                                            All2AllStrictRELU)
     from veles_tpu_torch.nn.dropout import DropoutForward
     from veles_tpu_torch.nn.normalization import LRNormalizerForward
 
@@ -1536,26 +1648,20 @@ def training_phase(torch, policy, check):
     torch.cuda.synchronize()
     result = {"policy": policy, "build_s": time.perf_counter() - t0}
     if check:
-        result.update(step_check(torch, trainer))
+        fc7 = [i for i, m in enumerate(trainer.forwards)
+               if isinstance(m, All2AllStrictRELU)][-1]
+        result.update(step_check(torch, trainer, "train", fc7, (
+            ("other_seed", lambda run: run(seed=CHECK_SEED + 1)),)))
+        idx = torch.from_numpy(trainer._segment_indices(TRAIN)[0]).cuda()
+        result["check_pool_argmax_flips"] = pool_flips(torch, trainer, idx)
+        print("train check: max-pool windows whose argmax differs between "
+              "the two forwards: %s" % result["check_pool_argmax_flips"])
         result.update(backends_check(torch, trainer))
 
     # (b) the main path, counted from 0
-    steps_timed = []
-    train_batch = trainer.train_batch
-
-    def timed_batch(indices, batch_index, seed):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = train_batch(indices, batch_index, seed)
-        end.record()
-        steps_timed.append((start, end))
-        return out
-
-    trainer.train_batch = timed_batch
     losses, epoch_s = [], []
     reset_counts()
-    try:
+    with timed_calls(torch, trainer, "train_batch") as steps_timed:
         for _ in range(TRAIN_EPOCHS):
             t = time.perf_counter()
             stats = trainer.run_epoch()
@@ -1566,8 +1672,6 @@ def training_phase(torch, policy, check):
         counts, by_form = read_counts()
         variants = gemm_variants()
         forms = check_designed_forms("training " + policy)
-    finally:
-        del trainer.train_batch
     if not all(math.isfinite(v) for pair in losses for v in pair):
         raise AssertionError("%s training: non-finite loss %s" % (
             policy, losses))
@@ -1625,16 +1729,7 @@ def training_phase(torch, policy, check):
               forwards))
 
     # (d) one profiled step, after the counted run
-    from torch.profiler import ProfilerActivity, profile
-    idx = torch.from_numpy(trainer._segment_indices(TRAIN)[0]).cuda()
-    trainer.train_batch(idx, 0, CHECK_SEED)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        trainer.train_batch(idx, 0, CHECK_SEED)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t)
+    prof, wall_ms = profiled_step(torch, trainer)
     print(prof.key_averages().table(sort_by="self_cuda_time_total",
                                     row_limit=25))
     split = device_time_split(torch, prof)
@@ -1648,6 +1743,282 @@ def training_phase(torch, policy, check):
                                                      1.0 - busy / wall_ms),
                    "device_ms_by_group": split})
     return result, by_form
+
+
+def baseline_paths():
+    """[(name, layers, sample shape, loader factory, build_training
+    keywords)] of the BASELINE training paths at ``bench_all.py``'s
+    sizes, and the digits provider (the SOM's data)."""
+    from veles_tpu_torch.datasets import golden_digits, golden_objects
+    from veles_tpu_torch.models.cifar import (CIFAR_LAYERS,
+                                              CIFAR_SAMPLE_SHAPE,
+                                              CIFAR_TRAINING, CifarLoader)
+    from veles_tpu_torch.models.mnist import (MNIST_LAYERS,
+                                              MNIST_SAMPLE_SHAPE,
+                                              MNIST_TRAINING, MnistLoader)
+    from veles_tpu_torch.models.mnist_ae import (AutoencoderLoader,
+                                                 autoencoder_layers)
+    from veles_tpu_torch.models.parity import CONV_LAYERS
+    digits = golden_digits(*BASELINE_DIGITS)
+    objects = golden_objects(*BASELINE_OBJECTS)
+    return [
+        ("mnist-fc", MNIST_LAYERS, MNIST_SAMPLE_SHAPE,
+         lambda: MnistLoader(provider=digits, minibatch_size=500),
+         dict(MNIST_TRAINING)),
+        # StandardWorkflow's defaults: lr 0.01, no momentum
+        ("mnist-conv", CONV_LAYERS, (28, 28, 1),
+         lambda: MnistLoader(provider=digits, flatten=False,
+                             minibatch_size=250), {}),
+        ("cifar-quick", CIFAR_LAYERS, CIFAR_SAMPLE_SHAPE,
+         lambda: CifarLoader(provider=objects, minibatch_size=250),
+         dict(CIFAR_TRAINING)),
+        ("mnist-ae", autoencoder_layers(784, 100), MNIST_SAMPLE_SHAPE,
+         lambda: AutoencoderLoader(provider=digits, minibatch_size=500),
+         {"learning_rate": 0.001, "loss": "mse"}),
+    ], digits
+
+
+def baseline_trainer(spec, policy, solver="sgd", **hyper):
+    """The port's trainer of one BASELINE path on the card, weights and
+    shuffles from :data:`BASELINE_SEED`."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models.build import build_training
+    _, layers, sample, loader, keywords = spec
+    prng.get().seed(BASELINE_SEED)
+    prng.get("loader").seed(BASELINE_SEED + 1)
+    keywords = dict(keywords, **hyper)
+    return build_training(layers, sample, loader(), seed=BASELINE_SEED,
+                          policy=policy, device="cuda", solver=solver,
+                          **keywords)
+
+
+def first_fc(trainer):
+    """Index of the first fully-connected layer that is not the head."""
+    from veles_tpu_torch.nn.all2all import All2All, All2AllSoftmax
+    return next(i for i, m in enumerate(trainer.forwards)
+                if isinstance(m, All2All) and
+                not isinstance(m, All2AllSoftmax))
+
+
+def shifted_targets(trainer):
+    """A rerun for :func:`step_check`: the step with the staged targets
+    shifted by one row."""
+    def rerun(run):
+        staged = trainer.loader._staged
+        trainer.loader._staged = (staged[0], staged[1].roll(1, 0))
+        try:
+            return run()
+        finally:
+            trainer.loader._staged = staged
+    return rerun
+
+
+def update_check(torch, trainer, name):
+    """A solver's step through the kernels against the plain versions
+    from the same weights and state: each parameter's update within
+    :data:`GRAD_SHARE_TOL` of its norm. The trainer is left as it was."""
+    from veles_tpu_torch.loader.base import TRAIN
+    idx = torch.from_numpy(trainer._segment_indices(TRAIN)[0]).cuda()
+    params, states = trainer.pull_params()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    moved = {}
+    try:
+        for plain in (False, True):
+            trainer.push_params(params, states)
+            trainer.plain = plain
+            trainer.train_batch(idx, 0, CHECK_SEED)
+            moved[plain] = [{k: p.detach() - params[i][k]
+                             for k, p in layer.items()}
+                            for i, layer in enumerate(trainer.params)]
+    finally:
+        trainer.plain = False
+        torch.backends.cudnn.deterministic = saved
+        trainer.push_params(params, states)
+    shares = gradient_shares(moved[False], moved[True])
+    worst = max(shares.values())
+    print("%s update check: step through the kernels vs the plain versions, "
+          "update shares %s (limit %g)" % (
+              name, ", ".join("%d.%s %.2g" % (i, k[0], v)
+                              for (i, k), v in sorted(shares.items())),
+              GRAD_SHARE_TOL))
+    if not math.isfinite(worst) or worst > GRAD_SHARE_TOL:
+        raise AssertionError("%s update through the kernels differs from the "
+                             "plain versions: worst share %.3g" % (
+                                 name, worst))
+    return {"check_worst_update_share": worst}
+
+
+def baseline_run(torch, trainer, name, policy, epochs):
+    """(2) and (3): ``epochs`` epochs of the path counted from 0, each
+    train step timed by CUDA events; the per-epoch numbers, the launch
+    counts against the model's, launches by form; then one profiled step
+    for the idle share. Returns (result, launches_by_form)."""
+    from veles_tpu_torch.loader.base import TRAIN, VALIDATION
+    from veles_tpu_torch.nn.all2all import All2All, All2AllSoftmax
+    torch.cuda.reset_peak_memory_stats()
+    per_epoch = []
+    reset_counts()
+    with timed_calls(torch, trainer, "train_batch") as steps_timed:
+        for _ in range(epochs):
+            t = time.perf_counter()
+            stats = trainer.run_epoch()
+            torch.cuda.synchronize()
+            valid = stats["validation"]
+            per_epoch.append({
+                "seconds": time.perf_counter() - t,
+                "train_loss": stats["train"]["loss"],
+                "validation": valid.get("rmse", valid["normalized"]),
+                "confusion_trace": int(valid["confusion"].trace())
+                if "confusion" in valid else None,
+                "grad_norm_last": float(trainer.last_grad_norms[-1])})
+        counts, by_form = read_counts()
+        forms = {name: {v: c for v, c in
+                        variant_counters()[name].launches_by_variant.items()
+                        if c} for name in ("gemm_bias_act", "column_reduce")}
+    metric = "rmse" if trainer.loss_kind == "mse" else "error"
+    values = [v for e in per_epoch for v in (e["train_loss"],
+                                             e["validation"],
+                                             e["grad_norm_last"])]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError("%s %s: non-finite epoch values %s" % (
+            name, policy, per_epoch))
+    falls = per_epoch[-1]["train_loss"] < per_epoch[0]["train_loss"]
+    if policy == "float32" and epochs > 1 and not falls:
+        raise AssertionError("%s float32: the training loss did not fall: "
+                             "%s" % (name, [e["train_loss"]
+                                            for e in per_epoch]))
+    steps_a_epoch = len(trainer._segment_indices(TRAIN))
+    steps = epochs * steps_a_epoch
+    forwards = steps + epochs * len(trainer._segment_indices(VALIDATION))
+    expected = dict.fromkeys(kernel_counters(), 0)
+    expected["gemm_bias_act"] = forwards * sum(
+        isinstance(m, All2All) and not isinstance(m, All2AllSoftmax)
+        for m in trainer.forwards)
+    expected["column_reduce"] = steps * sum(
+        p.get("bias") is not None for p in trainer.params)
+    if counts != expected:
+        raise AssertionError("%s %s launch counts %s, expected %s over %d "
+                             "steps and %d forwards" % (
+                                 name, policy, counts, expected, steps,
+                                 forwards))
+    step_ms = [s.elapsed_time(e) for s, e in steps_timed]
+    steady = step_ms[steps_a_epoch:] if epochs > 1 else step_ms
+    step_p50 = statistics.median(steady)
+    batch = trainer.loader.max_minibatch_size
+    prof, wall_ms = profiled_step(torch, trainer)
+    split = device_time_split(torch, prof)
+    busy = sum(split.values())
+    result = {
+        "path": name, "policy": policy, "epochs": epochs, "steps": steps,
+        "forwards": forwards, "launches": counts,
+        "launches_by_form": forms, "per_epoch": per_epoch,
+        "validation_metric": metric, "loss_falls": falls,
+        "step_ms_p50": step_p50, "step_ms_min": min(steady),
+        "step_ms_max": max(steady), "first_step_ms": step_ms[0],
+        "samples_per_s_device": batch / step_p50 * 1e3,
+        "samples_per_s_epoch": trainer.loader.class_lengths[TRAIN] /
+        statistics.median(e["seconds"] for e in per_epoch[1:] or per_epoch),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "profiled_step_device_ms": busy, "profiled_step_wall_ms": wall_ms,
+        "device_idle_share": max(0.0, 1.0 - busy / step_p50),
+        "device_ms_by_group": split}
+    print("baseline %s %s: train loss %s, validation %s %s, confusion trace "
+          "%s; step %.3f ms (p50), %.0f samples/s, idle share %.2f, peak "
+          "%.3f GB; launches by form %s" % (
+              name, policy, " ".join("%.4f" % e["train_loss"]
+                                     for e in per_epoch), metric,
+              " ".join("%.4f" % e["validation"] for e in per_epoch),
+              [e["confusion_trace"] for e in per_epoch], step_p50,
+              result["samples_per_s_device"], result["device_idle_share"],
+              result["peak_memory_gb"], forms))
+    return result, by_form
+
+
+def som_run(torch, digits):
+    """(5): the 8x8 SOM over the digits, three epochs on the card; its
+    quantization error must fall below the untrained codebook's, and no
+    kernel of the port is launched (its two products are plain)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models.mnist import MnistLoader
+    from veles_tpu_torch.nn.kohonen import KohonenTrainer, som_quality
+    from veles_tpu_torch.train.som import SOMRunner
+    prng.get().seed(BASELINE_SEED)
+    prng.get("loader").seed(BASELINE_SEED + 1)
+    loader = MnistLoader(provider=digits, minibatch_size=SOM_MINIBATCH)
+    trainer = KohonenTrainer(784, SOM_SIDE, SOM_SIDE, device="cuda")
+    runner = SOMRunner(trainer, loader)
+    train = loader._staged[0][loader.class_lengths[1]:]
+    before = som_quality(trainer.weights, SOM_SIDE, SOM_SIDE, train)
+    reset_counts()
+    with timed_calls(torch, trainer, "step") as timed:
+        seconds = [runner.run_epoch() for _ in range(BASELINE_EPOCHS)]
+        counts, _ = read_counts()
+    after = som_quality(trainer.weights, SOM_SIDE, SOM_SIDE, train)
+    update_ms = [s.elapsed_time(e) for s, e in timed]
+    result = {"epochs": BASELINE_EPOCHS, "updates": trainer.time,
+              "minibatch": SOM_MINIBATCH, "epoch_s": seconds,
+              "update_ms_p50": statistics.median(update_ms),
+              "update_ms_min": min(update_ms),
+              "untrained": before, "trained": after, "launches": counts}
+    print("baseline som: quantization error %.4f -> %.4f, topographic error "
+          "%.4f -> %.4f, %.4f ms per update (p50) over %d updates" % (
+              before["quantization_error"], after["quantization_error"],
+              before["topographic_error"], after["topographic_error"],
+              result["update_ms_p50"], trainer.time))
+    if any(counts.values()):
+        raise AssertionError("som: port kernels launched %s" % counts)
+    if not (math.isfinite(after["quantization_error"]) and
+            after["quantization_error"] < before["quantization_error"]):
+        raise AssertionError("som: quantization error %s did not fall below "
+                             "the untrained codebook's %s" % (after, before))
+    return result
+
+
+def baseline_phase(torch, kernels):
+    """The BASELINE model family on the card: each training path under
+    each policy (float32 first, with the step check), its launches at
+    checked forms, an epoch of each adaptive solver on mnist-fc with its
+    step and update checks, and the SOM. Returns (results,
+    [launches_by_form of each counted run])."""
+    t0 = time.perf_counter()
+    paths, digits = baseline_paths()
+    results, phases = {"data_s": None}, []
+    for spec in paths:
+        name = spec[0]
+        for policy in BASELINE_POLICIES:
+            trainer = baseline_trainer(spec, policy)
+            if results["data_s"] is None:
+                results["data_s"] = time.perf_counter() - t0
+            result = {}
+            if policy == "float32":
+                reruns = ((("targets_shifted", shifted_targets(trainer)),)
+                          if trainer.loss_kind == "mse" else ())
+                result.update(step_check(torch, trainer, name,
+                                         first_fc(trainer), reruns))
+            run, by_form = baseline_run(torch, trainer, name, policy,
+                                        BASELINE_EPOCHS)
+            result.update(run)
+            check_forms("baseline %s %s" % (name, policy), kernels, by_form)
+            phases.append(by_form)
+            results["%s %s" % (name, policy)] = result
+            del trainer
+            torch.cuda.empty_cache()
+    fc = paths[0]
+    for solver, hyper in sorted(SOLVER_TRAINING.items()):
+        trainer = baseline_trainer(fc, "float32", solver, **hyper)
+        label = "mnist-fc %s" % solver
+        result = step_check(torch, trainer, label, first_fc(trainer))
+        result.update(update_check(torch, trainer, label))
+        run, by_form = baseline_run(torch, trainer, label, "float32", 1)
+        result.update(run)
+        check_forms("baseline " + label, kernels, by_form)
+        phases.append(by_form)
+        results[label] = result
+        del trainer
+    results["som"] = som_run(torch, digits)
+    results["phase_s"] = time.perf_counter() - t0
+    return results, phases
 
 
 def rating_phase(torch):
@@ -1759,6 +2130,10 @@ def main():
     phases.append(forms)
     print("disciplines (%s): %s" % (card, json.dumps(disciplines)))
     print("device rating (%s): %s" % (card, json.dumps(rating_phase(torch))))
+
+    baseline, forms = baseline_phase(torch, kernels)
+    phases.extend(forms)
+    print("baseline (%s): %s" % (card, json.dumps(baseline, default=str)))
 
     for row in kernels:
         form = row.pop("_form")

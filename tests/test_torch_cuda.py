@@ -777,3 +777,80 @@ def test_bf16_backward_products_round_once_under_the_policy(card, k):
         limit = _bf16_ulp(ref) + 4 * depth ** 0.5 * 2.0 ** -24 * scale
         assert bool((err <= limit).all()), (
             name, float((err / limit).max()))
+
+
+#: K1 at the shapes the BASELINE paths give it: (M, K, N, epilogue)
+BASELINE_GEMMS = [(500, 784, 100, "tanh"), (250, 512, 100, "relu"),
+                  (250, 576, 64, "linear"), (500, 100, 784, "linear")]
+
+
+@pytest.mark.parametrize("shape", BASELINE_GEMMS,
+                         ids=["%dx%dx%d-%s" % s for s in BASELINE_GEMMS])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemm_baseline_shapes_match_plain(card, dtype, shape):
+    """The MNIST, CIFAR and autoencoder layers' products with their
+    bias and epilogue, on the form :func:`gemm_plan` picks (float32
+    tiles; bf16 tensor cores where N and K are multiples of 8, the
+    general kernel at N or K = 100), within the plain version's
+    tolerance (K up to 784: float32 1e-4, bf16 one ulp)."""
+    m, k, n, activation = shape
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(_rand((m, k), 50)).to(card, dt)
+    w = torch.from_numpy(_rand((k, n), 51, k ** -0.5)).to(card, dt)
+    bias = torch.from_numpy(_rand((n,), 52, 0.1)).to(card)
+    plan = gemm_plan(m, n, k, dt)
+    if dtype == "float32":
+        assert plan.form == "tiles"
+    else:
+        assert plan.form == ("tensor_core" if n % 8 == 0 and k % 8 == 0
+                             else "general")
+    before = linear_act.launches_by_variant[plan.form]
+    got = linear_act(x, w, bias, activation, torch.float32)
+    torch.cuda.synchronize()
+    assert linear_act.launches_by_variant[plan.form] == before + 1
+    want = linear_act_plain(x, w, bias, activation, torch.float32)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+def _layer_on(device, layer):
+    from veles_tpu_torch.nn.conv import Deconv
+    from veles_tpu_torch.nn.pooling import AvgPooling, MaxAbsPooling
+    if layer == "deconv":
+        module = Deconv((7, 6, 5), n_kernels=4, kx=3, ky=3,
+                        sliding=(2, 2), padding="SAME", include_bias=True,
+                        device=device, trainable=True)
+        params = module.init_jax_params(numpy.random.RandomState(60))
+        from veles_tpu_torch.convert import params_from_jax
+        params_from_jax([module], [params])
+        return module
+    cls = AvgPooling if layer == "avg_pooling" else MaxAbsPooling
+    return cls((7, 6, 5), kx=3, ky=3, sliding=(2, 2))
+
+
+@pytest.mark.parametrize("layer", ["deconv", "avg_pooling",
+                                   "maxabs_pooling"])
+def test_baseline_layers_on_the_card_match_the_cpu(card, layer):
+    """``Deconv`` (cuDNN's transposed convolution, its bias gradient
+    through K6), ``AvgPooling`` and ``MaxAbsPooling`` on the card against
+    the same modules on the CPU: output and input gradient within 1e-5
+    (float32 sums of a few dozen terms in another order; the max-abs
+    selections exactly)."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = []
+        for device in (card, torch.device("cpu")):
+            module = _layer_on(device, layer)
+            x = torch.from_numpy(_rand((3, 7, 6, 5), 61)).to(device)
+            x.requires_grad_()
+            y = module(x)
+            y.backward(torch.from_numpy(_rand(tuple(y.shape), 62)).to(
+                device))
+            grads = [x.grad] + [p.grad for p in module.parameters()]
+            runs.append([y.detach()] + grads)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    tol = 0 if layer == "maxabs_pooling" else 1e-5
+    for got, want in zip(*runs):
+        torch.testing.assert_close(got.cpu(), want, atol=tol, rtol=tol)

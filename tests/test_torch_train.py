@@ -302,10 +302,7 @@ def test_state_dicts_cross_both_ways():
             numpy.testing.assert_array_equal(a[k], b[k])
 
 
-def test_solvers_not_ported_yet_raise():
-    for name in ("adagrad", "adadelta", "adam"):
-        with pytest.raises(NotImplementedError):
-            get_solver(name)
+def test_an_unknown_solver_raises():
     with pytest.raises(ValueError):
         get_solver("rmsprop")
 

@@ -9,11 +9,16 @@ pull_params``; empty for layers without weights). Layouts:
 * biases ``(out,)`` in both.
 
 :func:`params_from_jax` loads JAX parameters into the port's modules and
-:func:`params_to_jax` reads them back out. The SGD state crosses too:
-:func:`sgd_state_to_jax` / :func:`sgd_state_from_jax` map the per-layer
-``{"velocity": {name: tensor}, "step": scalar}`` of
-``veles_tpu_torch.nn.optim.SGD`` onto the JAX ``SGD`` state, whose
-velocities are in the parameters' JAX layout.
+:func:`params_to_jax` reads them back out. A transposed convolution's
+HWOI weights (``nn.conv.Deconv``) take the same permutation, to
+(in, out, kH, kW). The solvers' state crosses too:
+:func:`solver_state_to_jax` / :func:`solver_state_from_jax` map each
+layer's state of a rule of ``veles_tpu_torch.nn.optim`` onto the JAX
+rule's: the per-parameter tensors (SGD's ``velocity``, AdaGrad's
+``accum``, AdaDelta's ``accum_g``/``accum_dx``, Adam's ``m``/``v``) in
+the parameters' JAX layout, the scalars (SGD's ``step``, Adam's ``t``)
+as float32. ``sgd_state_to_jax`` / ``sgd_state_from_jax`` are the same
+functions under their first names.
 """
 
 import numpy
@@ -50,9 +55,9 @@ def params_from_jax(layers, jax_params):
                     raise ValueError("layer %d (%s) needs a bias" % (
                         index, type(module).__name__))
                 bias = numpy.array(params["bias"], numpy.float32)
-                if bias.shape != (want[-1],):
+                if bias.shape != tuple(module.bias_shape()):
                     raise ValueError("layer %d: bias %s, expected %s" % (
-                        index, bias.shape, (want[-1],)))
+                        index, bias.shape, tuple(module.bias_shape())))
                 module.bias.copy_(torch.from_numpy(bias))
     return layers
 
@@ -104,24 +109,30 @@ def params_to_jax(layers):
     return [to_jax_layout(layer_params(m)) for m in layers]
 
 
-def sgd_state_to_jax(states):
-    """Per-layer SGD states of the port as the JAX ``SGD`` states
-    (``{"velocity": {...}, "step": float32}``; ``{}`` stays ``{}``)."""
-    return [{"velocity": to_jax_layout(state["velocity"]),
-             "step": numpy.float32(state["step"].item())} if state else {}
-            for state in states]
+def solver_state_to_jax(states):
+    """Per-layer solver states of the port as the JAX rule's states:
+    ``{name: tensor}`` dicts in the JAX layout, scalars as
+    ``numpy.float32``; ``{}`` stays ``{}``."""
+    return [{key: to_jax_layout(value) if isinstance(value, dict)
+             else numpy.float32(value.item())
+             for key, value in state.items()} for state in states]
 
 
-def sgd_state_from_jax(layers, jax_states):
-    """JAX ``SGD`` states as the port's, on each module's device."""
+def solver_state_from_jax(layers, jax_states):
+    """JAX solver states as the port's, on each module's device."""
     out = []
     for module, state in zip(layers, jax_states):
         if not state:
             out.append({})
             continue
         params = layer_params(module)
-        velocity = from_jax_layout(module, state["velocity"], params)
-        out.append({"velocity": velocity, "step": torch.tensor(
-            float(numpy.asarray(state.get("step", 0.0))),
-            dtype=torch.float32, device=module.weights.device)})
+        out.append({key: from_jax_layout(module, value, params)
+                    if isinstance(value, dict) else torch.tensor(
+                        float(numpy.asarray(value)), dtype=torch.float32,
+                        device=module.weights.device)
+                    for key, value in state.items()})
     return out
+
+
+sgd_state_to_jax = solver_state_to_jax
+sgd_state_from_jax = solver_state_from_jax

@@ -4,22 +4,44 @@
 
 A subclass fills ``original_data`` (a CPU tensor, samples first) and
 ``original_labels`` (int32) in :meth:`FullBatchLoader.load_dataset`.
-:meth:`FullBatchLoader.stage` copies both to the device once; every
-minibatch is then gathered there by index (:func:`gather_minibatch`),
-so the host never touches sample data in the training loop.
+Before staging, the data pass through the loader's normalizer
+(``normalization_type`` and ``normalization_parameters``, the registry of
+:mod:`veles_tpu_torch.normalization`), analyzed on the TRAIN segment
+only -- the layout is [test, validation, train] -- and applied in numpy,
+so the normalized bytes are the JAX package's. :meth:`FullBatchLoader.
+stage` copies the dataset to the device once; every minibatch is then
+gathered there by index (:func:`gather_minibatch`), so the host never
+touches sample data in the training loop.
+
+* :class:`ProviderLoader` reads ``(train_x, train_y, valid_x, valid_y)``
+  from a provider callable, validation before training, flat
+  ``(n, features)`` with ``flatten`` or else NHWC (a 3-D dataset gains a
+  singleton channel);
+* :class:`FullBatchLoaderMSE` adds per-sample regression targets
+  (``original_targets``), staged beside the data and gathered with it:
+  the truth of the MSE loss.
 """
 
+import numpy
 import torch
 
-from veles_tpu_torch.loader.base import Loader
+from veles_tpu_torch.loader.base import VALIDATION, Loader
+from veles_tpu_torch.normalization import NormalizerRegistry
 from veles_tpu_torch.ops.gather import gather_minibatch
 
 
 class FullBatchLoader(Loader):
     """Whole dataset on the device; minibatches gathered there."""
 
-    def __init__(self, **kwargs):
+    #: what :meth:`gather` returns beside the data
+    TRUTH = "labels"
+
+    def __init__(self, normalization_type="none",
+                 normalization_parameters=None, **kwargs):
         super(FullBatchLoader, self).__init__(**kwargs)
+        self.normalization_type = normalization_type
+        self.normalization_parameters = dict(normalization_parameters or {})
+        self.normalizer = None
         self.original_data = None
         self.original_labels = None
         self._staged = None
@@ -32,18 +54,36 @@ class FullBatchLoader(Loader):
     def load_data(self):
         if self.original_data is None:
             self.load_dataset()
-        if self.original_data is None or self.original_labels is None:
-            raise ValueError("%s.load_dataset left the data or the labels "
-                             "empty" % type(self).__name__)
+            self._normalize_data()
+        if self.original_data is None or self.truth() is None:
+            raise ValueError("%s.load_dataset left the data or the %s empty"
+                             % (type(self).__name__, self.TRUTH))
+
+    def _normalize_data(self):
+        """The normalizer analyzed on the TRAIN segment and applied to
+        every sample, in numpy float32."""
+        self.normalizer = NormalizerRegistry.make(
+            self.normalization_type, **self.normalization_parameters)
+        if self.normalizer.is_identity:
+            return
+        data = self.original_data.numpy().astype(numpy.float32)
+        self.normalizer.analyze(data[self.class_end_offsets[VALIDATION]:])
+        self.original_data = torch.from_numpy(numpy.ascontiguousarray(
+            self.normalizer.normalize(data), numpy.float32))
+
+    def truth(self):
+        """The per-sample truth of the loss: the labels."""
+        return self.original_labels
 
     def stage(self, device):
-        """Copy the dataset to ``device`` once (a repeat is free)."""
+        """Copy the dataset and its truth to ``device`` once (a repeat is
+        free)."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         if self._staged is None or self._staged[0].device != device:
             self._staged = (self.original_data.to(device),
-                            self.original_labels.to(device))
+                            self.truth().to(device))
         return self._staged
 
     def gather(self, indices):
@@ -54,4 +94,53 @@ class FullBatchLoader(Loader):
             raise RuntimeError("stage() the dataset on a device first")
         data, labels = self._staged
         rows, picked = gather_minibatch(data, indices, labels)
+        return rows, picked, indices >= 0
+
+
+class ProviderLoader(FullBatchLoader):
+    """Full batch over a provider callable returning ``(train_x, train_y,
+    valid_x, valid_y)``: classes ``[0, valid, train]``, float32 samples,
+    int32 labels."""
+
+    def __init__(self, provider=None, flatten=False, **kwargs):
+        super(ProviderLoader, self).__init__(**kwargs)
+        self.provider = provider
+        self.flatten = flatten
+
+    def load_dataset(self):
+        train_x, train_y, valid_x, valid_y = self.provider()
+        data = numpy.concatenate([valid_x, train_x], axis=0).astype(
+            numpy.float32)
+        labels = numpy.concatenate([valid_y, train_y], axis=0).astype(
+            numpy.int32)
+        if self.flatten:
+            data = data.reshape(len(data), -1)
+        elif data.ndim == 3:
+            data = data[..., None]  # NHWC single channel
+        self.original_data = torch.from_numpy(numpy.ascontiguousarray(data))
+        self.original_labels = torch.from_numpy(labels)
+        self.class_lengths = [0, len(valid_x), len(train_x)]
+
+
+class FullBatchLoaderMSE(FullBatchLoader):
+    """Adds per-sample regression targets: ``original_targets``, a float32
+    CPU tensor, samples first, staged and gathered beside the data (a
+    padded slot gets a zero row)."""
+
+    TRUTH = "targets"
+
+    def __init__(self, **kwargs):
+        super(FullBatchLoaderMSE, self).__init__(**kwargs)
+        self.original_targets = None
+
+    def truth(self):
+        return self.original_targets
+
+    def gather(self, indices):
+        """(data, targets, valid) of one minibatch."""
+        if self._staged is None:
+            raise RuntimeError("stage() the dataset on a device first")
+        data, targets = self._staged
+        rows, _ = gather_minibatch(data, indices)
+        picked, _ = gather_minibatch(targets, indices)
         return rows, picked, indices >= 0

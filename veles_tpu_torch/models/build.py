@@ -1,15 +1,15 @@
 """Layer descriptors -> ``nn.Sequential``, and the training set-up.
 
 The port of ``veles_tpu/standard_workflow.py``'s descriptor map
-(``LAYER_TYPES``), restricted to the layer types the port runs: each
-``{"type": <name>, ...params}`` becomes one module, with its per-sample
-input shape carried over from the previous layer's output. Any other
-type raises. :func:`build_model` ignores the training keys of a
-descriptor (``learning_rate``, ``learning_rate_bias``,
-``weights_decay``, ``momentum``, ``name``); :func:`build_training`
-reads them, as ``StandardWorkflow`` and its GD units do
-(``veles_tpu/nn/gd.py``): a layer's own value, else the workflow-level
-default.
+(``LAYER_TYPES``): each ``{"type": <name>, ...params}`` becomes one
+module, with its per-sample input shape carried over from the previous
+layer's output. Every layer type of the JAX package is here but
+``attention`` and ``moe``, which raise: the sequence-model slice of the
+port brings them. :func:`build_model` ignores the training keys of a
+descriptor (``learning_rate``, ``learning_rate_bias``, ``weights_decay``,
+``momentum``, ``name``); :func:`build_training` reads them, as
+``StandardWorkflow`` and its GD units do (``veles_tpu/nn/gd.py``): a
+layer's own value, else the workflow-level default.
 """
 
 import numpy
@@ -17,14 +17,17 @@ from torch import nn
 
 from veles_tpu_torch.convert import params_from_jax
 from veles_tpu_torch.device import resolve_device
+from veles_tpu_torch.nn.activation import ActivationUnit
 from veles_tpu_torch.nn.all2all import (All2All, All2AllRELU,
                                         All2AllSigmoid, All2AllSoftmax,
                                         All2AllStrictRELU, All2AllTanh)
+from veles_tpu_torch.nn.base import WeightedBase
 from veles_tpu_torch.nn.conv import (Conv, ConvRELU, ConvSigmoid,
-                                     ConvStrictRELU, ConvTanh)
+                                     ConvStrictRELU, ConvTanh, Deconv)
 from veles_tpu_torch.nn.dropout import DropoutForward
 from veles_tpu_torch.nn.normalization import LRNormalizerForward
-from veles_tpu_torch.nn.pooling import MaxPooling
+from veles_tpu_torch.nn.pooling import (AvgPooling, Depooling,
+                                        MaxAbsPooling, MaxPooling)
 from veles_tpu_torch.nn.precision import get_policy
 
 #: descriptor type -> module class (the JAX package's names)
@@ -40,10 +43,17 @@ LAYER_TYPES = {
     "conv_relu": ConvRELU,
     "conv_str": ConvStrictRELU,
     "conv_sigmoid": ConvSigmoid,
+    "deconv": Deconv,
     "max_pooling": MaxPooling,
+    "maxabs_pooling": MaxAbsPooling,
+    "avg_pooling": AvgPooling,
+    "depooling": Depooling,
     "norm": LRNormalizerForward,
     "dropout": DropoutForward,
+    "activation": ActivationUnit,
 }
+#: the JAX package's layer types that a later slice of the port brings
+LATER = ("attention", "moe")
 
 _TRAINING_KEYS = ("learning_rate", "learning_rate_bias", "weights_decay",
                   "momentum", "name")
@@ -70,15 +80,18 @@ def build_model(layers, sample_shape, params=None, seed=None,
         descr = dict(descr)
         ltype = descr.pop("type")
         cls = LAYER_TYPES.get(ltype)
+        if ltype in LATER:
+            raise ValueError("layer type %r is not ported yet: the port's "
+                             "sequence-model slice brings it" % ltype)
         if cls is None:
-            raise ValueError("layer type %r is not served by the port "
-                             "(have %s)" % (ltype, sorted(LAYER_TYPES)))
+            raise ValueError("unknown layer type %r (have %s)"
+                             % (ltype, sorted(LAYER_TYPES)))
         for key in _TRAINING_KEYS:
             descr.pop(key, None)
         if "output_shape" in descr:
             descr["output_sample_shape"] = descr.pop("output_shape")
         kwargs = dict(descr, policy=pol)
-        if issubclass(cls, (Conv, All2All)):
+        if issubclass(cls, WeightedBase):
             kwargs["device"] = device
             kwargs["trainable"] = trainable
         module = cls(shape, **kwargs)
@@ -126,20 +139,22 @@ def layer_hypers(layers, learning_rate=0.01, weights_decay=0.0,
 
 def build_training(layers, sample_shape, loader, learning_rate=0.01,
                    weights_decay=0.0, momentum=0.0, lr_decay=1.0,
-                   learning_rate_bias=None, solver="sgd", params=None,
-                   seed=None, policy="float32", device=None,
+                   learning_rate_bias=None, solver="sgd", loss="softmax",
+                   params=None, seed=None, policy="float32", device=None,
                    uniform_source=None):
     """A :class:`veles_tpu_torch.train.step.FusedTrainer` for ``layers``
     over ``loader`` (initialized here, its dataset staged on the
     device once): the model built trainable from ``params`` or
     ``seed`` (see :func:`build_model`), with per-layer hyper-parameters
-    from :func:`layer_hypers`. ``device`` defaults to the card;
-    ``uniform_source`` replaces the dropout masks' Philox fill (see the
-    trainer)."""
+    from :func:`layer_hypers`. ``solver`` is a rule of ``nn/optim.py``
+    by name or class; ``loss`` is ``softmax`` (the loader's labels) or
+    ``mse`` (the targets of a ``FullBatchLoaderMSE``). ``device``
+    defaults to the card; ``uniform_source`` replaces the dropout masks'
+    Philox fill (see the trainer)."""
     from veles_tpu_torch.train.step import FusedTrainer
     model = build_model(layers, sample_shape, params=params, seed=seed,
                         policy=policy, device=device, trainable=True)
     hypers = layer_hypers(layers, learning_rate, weights_decay, momentum,
                           lr_decay, learning_rate_bias)
     return FusedTrainer(model, loader.initialize(), hypers, solver=solver,
-                        uniform_source=uniform_source)
+                        loss=loss, uniform_source=uniform_source)

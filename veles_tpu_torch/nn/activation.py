@@ -1,10 +1,13 @@
-"""Activation functions: the table of ``veles_tpu/nn/activation.py``.
+"""Activation functions: the table of ``veles_tpu/nn/activation.py``,
+and :class:`ActivationUnit`, the weightless layer that applies one.
 
 Constants are kept exactly: LeCun-scaled tanh ``1.7159 * tanh(0.6666
 x)``, and the softplus "relu" that turns linear above 15.
 """
 
 import torch
+
+from veles_tpu_torch.nn.base import ForwardBase
 
 
 def linear(x):
@@ -62,3 +65,17 @@ def get_activation(name):
     except KeyError:
         raise ValueError("unknown activation %r (have: %s)" %
                          (name, sorted(ACTIVATIONS)))
+
+
+class ActivationUnit(ForwardBase):
+    """A standalone elementwise activation (``activation``, a name of
+    :data:`ACTIVATIONS`): no weights, the output shape of the input,
+    applied in the input's dtype as the JAX unit's ``apply`` is."""
+
+    def __init__(self, input_shape, activation="linear", policy="float32"):
+        super(ActivationUnit, self).__init__(input_shape, policy)
+        self.activation_name = activation
+        self._activation = get_activation(activation)
+
+    def forward(self, x):
+        return self._activation(x)

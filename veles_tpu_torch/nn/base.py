@@ -18,7 +18,6 @@ import torch
 from torch import nn
 
 from veles_tpu_torch.nn.precision import get_policy
-from veles_tpu_torch.ops.reduce import column_sum, column_sum_plain
 
 
 class BiasAddNHWC(torch.autograd.Function):
@@ -32,6 +31,9 @@ class BiasAddNHWC(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # imported here: ops imports nn.activation, which subclasses
+        # ForwardBase
+        from veles_tpu_torch.ops.reduce import column_sum, column_sum_plain
         dtype, plain = ctx.constants
         # reshape to (rows, C) only over NHWC-contiguous memory: any
         # other layout is made contiguous first, never reduced on the
@@ -82,7 +84,7 @@ class WeightedBase(ForwardBase):
             torch.empty(self.weights_shape(), device=device),
             requires_grad=trainable)
         self.bias = nn.Parameter(
-            torch.empty((self.jax_weights_shape()[-1],), device=device),
+            torch.empty(self.bias_shape(), device=device),
             requires_grad=trainable) if self.include_bias else None
 
     @property
@@ -97,6 +99,10 @@ class WeightedBase(ForwardBase):
         """The weights' shape in this module's layout."""
         return self.jax_weights_shape()
 
+    def bias_shape(self):
+        """The bias's shape: the weights' last axis."""
+        return (self.jax_weights_shape()[-1],)
+
     def init_jax_params(self, rng):
         """Weights drawn as the JAX package's uniform filler draws them
         (``nn/base.py`` ``fill_weights``): U(-s, s) with s =
@@ -110,6 +116,6 @@ class WeightedBase(ForwardBase):
         params = {"weights": rng.uniform(-s, s, shape).astype(
             numpy.float32)}
         if self.include_bias:
-            params["bias"] = rng.uniform(-s, s, (shape[-1],)).astype(
+            params["bias"] = rng.uniform(-s, s, self.bias_shape()).astype(
                 numpy.float32)
         return params

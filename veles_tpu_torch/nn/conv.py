@@ -19,6 +19,20 @@ package leaves them to XLA.
 * ``space_to_depth`` is accepted and validated as in the JAX package,
   whose s2d conv is an exact restatement of the strided conv; the port
   runs the strided conv itself.
+
+:class:`Deconv` is the JAX package's transposed convolution,
+``lax.conv_transpose`` with HWOI weights and ``transpose_kernel=False``:
+a correlation of the stride-dilated input, padded by ``(lo, hi)`` per
+spatial axis, with the kernel as stored (not flipped). ``VALID`` pads
+``(k-1, k+s-2+max(k-s, 0)-(k-1))`` and gives ``(in-1)*s + k``; ``SAME``
+pads ``k+s-2`` in all, ``k-1`` before when ``s > k-1`` and else half
+rounded up, and gives ``in*s``; an int ``p`` or explicit pairs pad the
+dilated input itself. ``F.conv_transpose2d`` with the kernel flipped
+spatially computes that correlation at ``lo = hi = k-1``, the full
+output; any other ``(lo, hi)`` is that output cropped, or padded with
+zeros, by ``k-1-lo`` before and ``k-1-hi`` after. The weights are kept
+(in, out, kH, kW), the HWOI array permuted as a convolution's HWIO is
+(``convert``'s 4-D rule), and flipped at each forward.
 """
 
 import torch
@@ -118,3 +132,80 @@ class ConvStrictRELU(Conv):
 
 class ConvSigmoid(Conv):
     ACTIVATION = "sigmoid"
+
+
+def _transpose_pads(k, s, padding):
+    """(lo, hi) zeros around the stride-dilated input of one spatial axis
+    (``lax._conv_transpose_padding`` for the strings)."""
+    if padding == "VALID":
+        total = k + s - 2 + max(k - s, 0)
+        return k - 1, total - (k - 1)
+    if padding == "SAME":
+        total = k + s - 2
+        lo = k - 1 if s > k - 1 else -(-total // 2)
+        return lo, total - lo
+    lo, hi = padding
+    return int(lo), int(hi)
+
+
+class Deconv(WeightedBase):
+    """Transposed convolution over NHWC input, ``n_kernels`` output
+    channels; weights HWOI in the JAX layout, no bias unless asked."""
+
+    def __init__(self, input_shape, n_kernels, kx, ky, sliding=(1, 1),
+                 padding="VALID", policy="float32", include_bias=False,
+                 device=None, trainable=False):
+        input_shape = tuple(input_shape)
+        if len(input_shape) == 2:
+            input_shape += (1,)
+        self.n_kernels, self.kx, self.ky = int(n_kernels), int(kx), int(ky)
+        self.sliding = tuple(sliding)
+        self.stride = (int(self.sliding[1]), int(self.sliding[0]))
+        if isinstance(padding, str):
+            if padding not in ("VALID", "SAME"):
+                raise ValueError("padding must be VALID, SAME, an int or "
+                                 "two (lo, hi) pairs (got %r)" % (padding,))
+            spec = (padding, padding)
+        elif isinstance(padding, int):
+            spec = ((padding, padding), (padding, padding))
+        else:
+            spec = tuple(tuple(p) for p in padding)
+        self.pads = tuple(_transpose_pads(k, st, p) for k, st, p in zip(
+            (self.ky, self.kx), self.stride, spec))
+        super(Deconv, self).__init__(input_shape, policy, include_bias,
+                                     device, trainable)
+
+    def jax_weights_shape(self):
+        return (self.ky, self.kx, self.n_kernels, self.input_shape[2])
+
+    def weights_shape(self):
+        return (self.input_shape[2], self.n_kernels, self.ky, self.kx)
+
+    def bias_shape(self):
+        return (self.n_kernels,)
+
+    def output_shape(self):
+        h, w, _ = self.input_shape
+        (sh, sw), ((ph0, ph1), (pw0, pw1)) = self.stride, self.pads
+        return ((h - 1) * sh + ph0 + ph1 - self.ky + 2,
+                (w - 1) * sw + pw0 + pw1 - self.kx + 2, self.n_kernels)
+
+    def _apply(self, x, plain):
+        if x.dim() == 3:
+            x = x.unsqueeze(-1)
+        pol = self.policy
+        xc, wc = pol.cast_in(x, self.weights)
+        y = F.conv_transpose2d(xc.permute(0, 3, 1, 2),
+                               torch.flip(wc, (2, 3)), None, self.stride)
+        (ph0, ph1), (pw0, pw1) = self.pads
+        y = F.pad(y, (pw0 - self.kx + 1, pw1 - self.kx + 1,
+                      ph0 - self.ky + 1, ph1 - self.ky + 1))
+        y = bias_add_nhwc(y.to(pol.accum_dtype).permute(0, 2, 3, 1)
+                          .contiguous(), self.bias, plain)
+        return pol.cast_out(y)
+
+    def forward(self, x):
+        return self._apply(x, plain=False)
+
+    def plain_forward(self, x):
+        return self._apply(x, plain=True)

@@ -6,14 +6,24 @@ full-batch loader whose dataset sits on the device:
 * ``_segment_indices``: a class's shuffled indices as an (n_batches,
   minibatch) matrix padded with -1, as in the JAX package;
 * ``train_batch``: gather, forward (dropout masks by absolute layer
-  index, the head's logits), the softmax loss over the padded batch,
-  ``backward()``, then the SGD update of each layer in order, all under
-  the model policy's ``backends()`` (no TF32, no bf16 reductions in
-  bf16, whatever the caller switched on);
+  index, the head's logits), the loss -- softmax over the padded batch
+  with the loader's labels, or MSE over the valid rows with the loader's
+  targets (``nn/evaluator.py``) -- ``backward()``, the global gradient
+  norm, then the solver's update of each layer in order, all under the
+  model policy's ``backends()`` (no TF32, no bf16 reductions in bf16,
+  whatever the caller switched on);
 * ``eval_class`` / ``train_class`` / ``run_epoch``: evaluation classes
-  first, then training, then the loader's shuffle;
-* ``train(max_epochs)``; ``pull_params`` / ``push_params`` as state
-  dicts.
+  first (with the softmax confusion matrix summed over the sweep), then
+  training, then the loader's shuffle;
+* ``train(max_epochs, fail_iterations)``: epochs until ``max_epochs`` or
+  until the decision's stop, with ``best_metric`` / ``best_epoch`` kept
+  as the JAX trainer keeps them on its decision unit;
+  ``pull_params`` / ``push_params`` as state dicts.
+
+Gradient norms, as the JAX trainer tracks them by default: the float32
+global norm of each training batch's gradients, over every parameter of
+every layer, gathered in ``last_grad_norms`` (one per batch of the last
+sweep). An observation only: the update never reads it.
 
 PyTorch runs eagerly, so where the JAX trainer compiles a ``lax.scan``
 over a segment this one loops over its rows in Python, and parameters
@@ -30,8 +40,7 @@ replace it (the parity tests hand over JAX's own ``jax.random``
 numbers this way).
 
 Left out for later slices: streaming and offload, the space-to-depth
-staging pack, the cost-book harvest, gradient norms, the decision
-unit's early stop, the confusion matrix, and the MSE loss.
+staging pack and the cost-book harvest.
 """
 
 import logging
@@ -45,7 +54,9 @@ from veles_tpu_torch import prng
 from veles_tpu_torch.convert import layer_params
 from veles_tpu_torch.loader.base import CLASS_NAMES, TEST, TRAIN, VALIDATION
 from veles_tpu_torch.nn.dropout import DropoutForward
-from veles_tpu_torch.nn.evaluator import softmax_loss_and_metrics
+from veles_tpu_torch.nn.evaluator import (batch_confusion,
+                                          mse_loss_and_metrics,
+                                          softmax_loss_and_metrics)
 from veles_tpu_torch.nn.optim import get_solver
 from veles_tpu_torch.nn.precision import policy_of
 from veles_tpu_torch.ops.random import (dropout_offset, uniform_fill,
@@ -54,16 +65,31 @@ from veles_tpu_torch.ops.random import (dropout_offset, uniform_fill,
 _log = logging.getLogger(__name__)
 
 
+#: loss name -> (its function, the loader's truth it reads)
+LOSSES = {"softmax": (softmax_loss_and_metrics, "labels"),
+          "mse": (mse_loss_and_metrics, "targets")}
+
+
 class FusedTrainer(object):
     """Trains ``model`` (an ``nn.Sequential`` of the port's modules)
-    over ``loader`` with the softmax loss and ``solver``.
+    over ``loader`` with ``loss`` (``softmax`` or ``mse``) and
+    ``solver`` (a name or a rule of ``nn/optim.py``).
 
     ``hypers`` holds one solver hyper-parameter dict per module.
     ``plain=True`` runs every kernel's plain version instead (the
     reference the kernels are held against on the card)."""
 
-    def __init__(self, model, loader, hypers, solver="sgd",
+    def __init__(self, model, loader, hypers, solver="sgd", loss="softmax",
                  uniform_source=None, plain=False):
+        if loss not in LOSSES:
+            raise ValueError("loss must be one of %s, got %r"
+                             % (sorted(LOSSES), loss))
+        self.loss_kind = loss
+        self._loss, truth = LOSSES[loss]
+        if loader.TRUTH != truth:
+            raise ValueError("the %s loss reads the loader's %s; %s gives "
+                             "%s" % (loss, truth, type(loader).__name__,
+                                     loader.TRUTH))
         self.model = model
         self.forwards = list(model)
         self.loader = loader
@@ -74,6 +100,15 @@ class FusedTrainer(object):
         self.solver = get_solver(solver)
         self.uniform_source = uniform_source
         self.plain = plain
+        #: the last training batch's norm, and the (n_batches,) float32
+        #: norms of the last training sweep
+        self.batch_norm = None
+        self.last_grad_norms = None
+        #: the decision's record: per-epoch stats, the best validation
+        #: (or, without validation, training) metric and its epoch
+        self.epoch_history = []
+        self.best_metric = math.inf
+        self.best_epoch = -1
         self.device = next(model.parameters()).device
         self.policy = policy_of(model)
         loader.stage(self.device)
@@ -123,31 +158,41 @@ class FusedTrainer(object):
 
     def gradients(self, indices, batch_index, seed):
         """Loss and gradients of one minibatch (``indices`` on the
-        device), without an update: (report_loss, n_err), with each
+        device), without an update: (report_loss, metric) -- the metric
+        the error count (softmax) or the summed per-row MSE -- with each
         parameter's ``.grad`` set."""
         with self.policy.backends():
-            x, labels, valid = self.loader.gather(indices)
+            x, truth, valid = self.loader.gather(indices)
             for params in self.params:
                 for p in params.values():
                     p.grad = None
             out = self._forward(x, True, batch_index, seed)
-            grad_loss, report, n_err = softmax_loss_and_metrics(
-                out, labels, valid)
+            grad_loss, report, metric = self._loss(out, truth, valid)
             grad_loss.backward()
-        return report, n_err
+        return report, metric
+
+    def grad_norm(self):
+        """The float32 global norm of the gradients set by
+        :meth:`gradients`: the norm of the per-tensor norms (one
+        multi-tensor launch for those)."""
+        grads = [p.grad for params in self.params for p in params.values()]
+        return torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads)))
 
     def train_batch(self, indices, batch_index, seed):
-        """One step: gradients, then the solver over the layers in
-        order. Returns (report_loss, n_err) as device scalars."""
+        """One step: gradients, their norm (``batch_norm``), then the
+        solver over the layers in order. Returns (report_loss, metric)
+        as device scalars."""
         with self.policy.backends():
-            report, n_err = self.gradients(indices, batch_index, seed)
+            report, metric = self.gradients(indices, batch_index, seed)
+            self.batch_norm = self.grad_norm()
             for params, state, hp in zip(self.params, self.states,
                                          self.hypers):
                 if params:
                     self.solver.update(
                         params, {k: p.grad for k, p in params.items()},
                         state, hp)
-        return report, n_err
+        return report, metric
 
     # -- class-level driving -----------------------------------------------
 
@@ -166,46 +211,60 @@ class FusedTrainer(object):
         return mat
 
     def eval_class(self, klass, skip=0):
-        """Forward-only sweep of one class: (losses, n_errs) per
-        minibatch, device tensors."""
+        """Forward-only sweep of one class: (losses, metrics, confusion)
+        per minibatch as device tensors, the confusion matrix summed over
+        the sweep (softmax only, else None)."""
         idx = torch.from_numpy(self._segment_indices(klass, skip)).to(
             self.device)
-        losses, errs = [], []
+        losses, metrics = [], []
+        confusion = None
         with torch.no_grad(), self.policy.backends():
             for row in idx:
-                x, labels, valid = self.loader.gather(row)
+                x, truth, valid = self.loader.gather(row)
                 out = self._forward(x, False)
-                _, report, n_err = softmax_loss_and_metrics(out, labels,
-                                                            valid)
+                _, report, metric = self._loss(out, truth, valid)
                 losses.append(report)
-                errs.append(n_err)
-        return torch.stack(losses), torch.stack(errs)
+                metrics.append(metric)
+                if self.loss_kind == "softmax":
+                    counts = batch_confusion(out, truth, valid)
+                    confusion = counts if confusion is None \
+                        else confusion + counts
+        return torch.stack(losses), torch.stack(metrics), confusion
 
     def train_class(self, skip=0):
-        """One training sweep of the TRAIN class: (losses, n_errs) per
-        minibatch. Batch indices continue from ``skip``'s position in
-        the epoch, as the JAX trainer's fold indices do."""
+        """One training sweep of the TRAIN class: (losses, metrics) per
+        minibatch; the batches' gradient norms go to
+        ``last_grad_norms``. Batch indices continue from ``skip``'s
+        position in the epoch, as the JAX trainer's fold indices do."""
         idx = torch.from_numpy(self._segment_indices(TRAIN, skip)).to(
             self.device)
         seed = self._dropout_seed()
         first = skip // self.loader.max_minibatch_size
-        losses, errs = [], []
+        losses, metrics, norms = [], [], []
         for j, row in enumerate(idx):
-            report, n_err = self.train_batch(row, first + j, seed)
+            report, metric = self.train_batch(row, first + j, seed)
             losses.append(report)
-            errs.append(n_err)
-        return torch.stack(losses), torch.stack(errs)
+            metrics.append(metric)
+            norms.append(self.batch_norm)
+        self.last_grad_norms = torch.stack(norms)
+        return torch.stack(losses), torch.stack(metrics)
 
     def run_epoch(self, epoch=None):
         """One epoch: evaluation classes in reference order, then
-        training, then the loader's shuffle. Returns per-class stats."""
+        training, then the loader's shuffle. Returns per-class stats
+        (``confusion``, a numpy matrix, on softmax evaluation classes;
+        ``rmse`` under MSE)."""
         loader = self.loader
         epoch = loader.epoch_number if epoch is None else epoch
         stats = {}
         for klass in (TEST, VALIDATION):
             if loader.class_lengths[klass]:
+                losses, metrics, confusion = self.eval_class(klass)
                 stats[CLASS_NAMES[klass]] = self._summarize(
-                    *self.eval_class(klass), klass=klass)
+                    losses, metrics, klass)
+                if confusion is not None:
+                    stats[CLASS_NAMES[klass]]["confusion"] = \
+                        confusion.cpu().numpy()
         if loader.class_lengths[TRAIN]:
             stats[CLASS_NAMES[TRAIN]] = self._summarize(
                 *self.train_class(), klass=TRAIN)
@@ -217,27 +276,46 @@ class FusedTrainer(object):
     def _summarize(self, losses, metrics, klass):
         n = self.loader.class_lengths[klass]
         metric_sum = float(metrics.sum())
-        return {"samples": n, "metric": metric_sum,
-                "normalized": metric_sum / max(n, 1),
-                "loss": float(losses.float().mean()),
-                "losses": losses.float().cpu().numpy()}
+        stats = {"samples": n, "metric": metric_sum,
+                 "normalized": metric_sum / max(n, 1),
+                 "loss": float(losses.float().mean()),
+                 "losses": losses.float().cpu().numpy()}
+        if self.loss_kind == "mse":
+            stats["rmse"] = math.sqrt(stats["normalized"])
+        return stats
 
-    def train(self, max_epochs):
-        """``max_epochs`` epochs from the loader's epoch number on.
-        Returns the per-epoch history."""
-        history = []
+    def train(self, max_epochs=None, fail_iterations=100):
+        """Epochs from the loader's epoch number on, as the JAX trainer's
+        ``train()`` runs them: after each, the validation metric (the
+        training one without validation) updates ``best_metric`` and
+        ``best_epoch`` when it falls; the loop stops once ``max_epochs``
+        epochs are done, or when the epoch just finished is more than
+        ``fail_iterations`` past the best. Returns the history."""
+        epoch = self.loader.epoch_number
         start = time.perf_counter()
-        for epoch in range(self.loader.epoch_number, max_epochs):
+        done = 0
+        while True:
             stats = self.run_epoch(epoch)
             stats["epoch"] = epoch
-            history.append(stats)
+            self.epoch_history.append(stats)
+            done += 1
+            key = ("validation" if self.loader.class_lengths[VALIDATION]
+                   else "train")
+            metric = stats[key]["normalized"]
+            if metric < self.best_metric:
+                self.best_metric = metric
+                self.best_epoch = epoch
             _log.info("epoch %d: %s", epoch, "  ".join(
                 "%s=%.4f" % (k, v["normalized"])
                 for k, v in stats.items() if isinstance(v, dict)))
-        elapsed = time.perf_counter() - start
-        _log.info("fused training: %d epochs in %.2fs", len(history),
-                  elapsed)
-        return history
+            epoch += 1
+            if max_epochs is not None and epoch >= max_epochs:
+                break
+            if (epoch - 1) - self.best_epoch > fail_iterations:
+                break
+        _log.info("fused training: %d epochs in %.2fs", done,
+                  time.perf_counter() - start)
+        return self.epoch_history
 
     # -- parameter plumbing ------------------------------------------------
 
