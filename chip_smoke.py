@@ -103,8 +103,36 @@
    check and a check of one update through the kernels against the plain
    versions. (5) The 8x8 SOM over the digits, three epochs at minibatch
    1024: its quantization error falls below the untrained codebook's,
-   ms an update by CUDA events, no kernel of the port launched.
-8. The line before the last is ``{"kernels": [...], "not_ported":
+   ms an update by CUDA events, no kernel of the port launched. (6) The
+   samples of ``models/samples.py`` at their workflows' defaults, wine
+   (13-10-3, batch 50), lines (a small conv net, 50) and kanji (100
+   classes of glyph pairs, 20000 + 2000 samples, 100), run as (1)-(3).
+8. Sequence phase: ``scripts/bench_all.py``'s attention (2 attention
+   layers of 8 heads over (256, 256) samples, softmax over 8 classes)
+   and moe (attention, 8-expert MoE, attention over (128, 256))
+   configurations, ``SequenceProvider`` 4096 + 256, batch 64, weights
+   from numpy seed 2468. (1) The attention model behind
+   ``ServingFrontend`` (one replica, max batch 64): 3 rounds of 16
+   concurrent single requests and one 64-row batch request, base64
+   bodies; every reply held to the plain forward on the card by the
+   centred-logit check, a reply swap and a zeroed head as controls that
+   must fail it; p50/p95, the batch's samples/s, the device forward at
+   batch 1 and 64. (2) The moe model served: each row of a 64-row batch
+   request held to the same sample forwarded alone (batch-composition
+   independence), the capacity pooled over the batch as the control that
+   must fail, and a single request equal to its batch row. (3) Each
+   configuration trained 3 epochs under float32 and bfloat16_mixed at lr
+   0.01 (the workflow's 0.1 makes the loss climb at these widths, in the
+   JAX package too) as (1)-(3) of the baseline phase: the float32 step
+   check's controls are the first attention layer's bias gradient zeroed
+   and, for moe, the busiest expert's up gradient zeroed; the MoE's
+   routing flips between the kernel and plain forwards counted. K1 four
+   times an attention layer a forward, K6 four times an attention layer
+   and once for the head a step, every launch at a checked form (K1 rows
+   at the projections' (batch * seq, 256, 256) for every served bucket,
+   K6 rows at (16384, 256), (8192, 256) and (64, 8)) and every K1 launch
+   of the phase on a designed variant.
+9. The line before the last is ``{"kernels": [...], "not_ported":
    []}``; the last is ``{"ok": true, "device": {...}}``. Any failure
    raises and exits non-zero before them.
 """
@@ -198,7 +226,10 @@ SOM_MINIBATCH = 1024
 BASELINE_GEMMS = (("mnist-fc/ae fc1", 500, 784, 100, "tanh"),
                   ("mnist-conv fc", 250, 512, 100, "relu"),
                   ("cifar-quick fc", 250, 576, 64, "linear"),
-                  ("mnist-ae decoder", 500, 100, 784, "linear"))
+                  ("mnist-ae decoder", 500, 100, 784, "linear"),
+                  ("wine fc1", 50, 13, 10, "tanh"),
+                  ("lines fc", 50, 392, 32, "relu"),
+                  ("kanji fc", 100, 1280, 128, "relu"))
 #: every bias gradient of the BASELINE paths, (rows, C) of the column sum
 BASELINE_REDUCE_SHAPES = (("mnist-fc/ae fc1", 500, 100),
                           ("mnist-fc head", 500, 10),
@@ -210,7 +241,40 @@ BASELINE_REDUCE_SHAPES = (("mnist-fc/ae fc1", 500, 100),
                           ("cifar-quick conv1", 250 * 32 * 32, 32),
                           ("cifar-quick conv2", 250 * 15 * 15, 32),
                           ("cifar-quick conv3", 250 * 7 * 7, 64),
-                          ("cifar-quick fc", 250, 64))
+                          ("cifar-quick fc", 250, 64),
+                          ("wine fc1", 50, 10), ("wine head", 50, 3),
+                          ("lines conv", 50 * 14 * 14, 8),
+                          ("lines fc", 50, 32), ("lines head", 50, 4),
+                          ("kanji conv1", 100 * 20 * 44, 16),
+                          ("kanji conv2", 100 * 8 * 20, 32),
+                          ("kanji fc", 100, 128), ("kanji head", 100, 100))
+#: the sequence phase: ``scripts/bench_all.py``'s attention (2 attention
+#: layers of 8 heads over (256, 256) samples) and moe (attention, 8
+#: experts, attention over (128, 256)) configurations, 4096 + 256
+#: samples, batch 64: the attention model served (one replica, max
+#: batch 64), the moe model served for its batch-composition check, then
+#: each trained 3 epochs under each policy
+SEQUENCE_SEED = 2468
+SEQUENCE_EPOCHS = 3
+#: the phase trains at this rate: at these widths ``SequenceWorkflow``'s
+#: default of 0.1, which ``bench_all.py`` keeps, makes the training loss
+#: climb within an epoch, in the JAX package as in the port
+#: (``tests/test_torch_sequence.py::test_bench_width_steps_match_jax``)
+SEQUENCE_LEARNING_RATE = 0.01
+SEQUENCE_POLICIES = ("float32", "bfloat16_mixed")
+SEQUENCE_DIM = 256
+SEQUENCE_LENGTHS = {"attention": 256, "moe": 128}
+#: K1 on the sequence paths: each attention projection, (batch * seq)
+#: rows by (256, 256), float32 (the layer never casts) with its bias and
+#: the linear epilogue, at every served bucket of both models (which
+#: includes their batches of 64)
+SEQUENCE_GEMM_ROWS = tuple(sorted({b * seq for b in BUCKETS
+                                   for seq in SEQUENCE_LENGTHS.values()}))
+#: K6 on the sequence paths: the projections' bias gradients (four a
+#: layer) and the head's
+SEQUENCE_REDUCE_SHAPES = (("attention projections", 64 * 256, 256),
+                          ("moe-model projections", 64 * 128, 256),
+                          ("sequence head", 64, 8))
 #: Philox4x32-10 per value: 10 rounds of 2 multiplies, 2 high
 #: multiplies and 4 xors per counter, 18 key additions, over 4 values;
 #: then shift, convert, scale and affine map
@@ -424,6 +488,17 @@ def gemm_phase(torch):
                 torch, scratch, "%s M=%d K=%d N=%d %s %s bias" % (
                     layer, m, k, n, activation, dtype),
                 x, w, b32, activation, dtype, library))
+    # K1 on the sequence paths: the attention projections
+    k = n = SEQUENCE_DIM
+    w = (torch.rand(k, n, device="cuda", generator=gen) * 2 - 1) / k ** 0.5
+    b32 = torch.rand(n, device="cuda", generator=gen) * 0.2 - 0.1
+    for m in SEQUENCE_GEMM_ROWS:
+        x = torch.randn(m, k, device="cuda", generator=gen)
+        rows.append(gemm_row(
+            torch, scratch, "attention projection M=%d K=%d N=%d float32 "
+            "bias" % (m, k, n), x, w, b32, "linear", "float32",
+            lambda x=x: torch.addmm(b32, x, w)))
+    del x, w
     # K2 on the GEMM-disciplines path: float32, no bias, linear
     from veles_tpu_torch.ops.gemm_bench import SHAPES
     for _, (m, k, n) in SHAPES:
@@ -649,7 +724,8 @@ def reduce_phase(torch, scratch):
                                             column_sum_plain)
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(4)
-    for layer, r, c in REDUCE_SHAPES + BASELINE_REDUCE_SHAPES:
+    for layer, r, c in (REDUCE_SHAPES + BASELINE_REDUCE_SHAPES +
+                        SEQUENCE_REDUCE_SHAPES):
         x = torch.randn(r, c, device="cuda", generator=gen) * 1e-3
         variants = dict(column_sum.launches_by_variant)
         got = column_sum(x)
@@ -1068,10 +1144,7 @@ def slice_phase(torch, numpy):
     single_bodies = [[json.dumps({"input": s.tolist(), "codec": "list",
                                   "id": i}).encode()
                       for i, s in enumerate(r)] for r in singles]
-    batch_body = json.dumps({
-        "input": base64.b64encode(batch.tobytes()).decode(),
-        "codec": "base64", "shape": list(batch.shape),
-        "type": "float32"}).encode()
+    batch_body = b64_body(batch)
     # host cost of decoding one request body, the frontend's first step
     decode_ms = {}
     for key, body in (("decode_single_ms", single_bodies[0][0]),
@@ -1091,30 +1164,11 @@ def slice_phase(torch, numpy):
         reset_counts()
         latencies, replies, round_s = [], {}, []
         for r in range(rounds):
-            errors = []
-
-            def ask(i, r=r):
-                try:
-                    t = time.perf_counter()
-                    reply = post(frontend.port, "/api", single_bodies[r][i])
-                    latencies.append(time.perf_counter() - t)
-                    replies[(r, i)] = reply
-                except Exception as e:  # re-raised below, in the caller
-                    errors.append(e)
-
-            threads = [threading.Thread(target=ask, args=(i,))
-                       for i in range(n_single)]
-            t = time.perf_counter()
-            for th in threads:
-                th.start()
-            for th in threads:
-                th.join(timeout=600)
-            round_s.append(time.perf_counter() - t)
-            if errors:
-                raise errors[0]
-            if len(replies) != (r + 1) * n_single:
-                raise AssertionError("round %d: %d replies of %d" % (
-                    r, len(replies) - r * n_single, n_single))
+            got, lat, wall = concurrent_posts(frontend.port,
+                                              single_bodies[r])
+            replies.update({(r, i): reply for i, reply in enumerate(got)})
+            latencies += lat
+            round_s.append(wall)
         t = time.perf_counter()
         batch_reply = post(frontend.port, "/api/batch", batch_body)
         batch_s = time.perf_counter() - t
@@ -1758,9 +1812,22 @@ def baseline_paths():
                                               MNIST_TRAINING, MnistLoader)
     from veles_tpu_torch.models.mnist_ae import (AutoencoderLoader,
                                                  autoencoder_layers)
+    from veles_tpu_torch.models import samples
     from veles_tpu_torch.models.parity import CONV_LAYERS
     digits = golden_digits(*BASELINE_DIGITS)
     objects = golden_objects(*BASELINE_OBJECTS)
+    # the samples at their workflows' defaults, each drawn once
+    sample_paths = []
+    for sample, provider in (
+            (samples.kanji, samples.KanjiProvider(n_train=20000,
+                                                  n_valid=2000)),
+            (samples.lines, samples.LinesProvider()),
+            (samples.wine, samples.WineProvider())):
+        provider = Frozen(provider)
+        spec = sample(provider)
+        sample_paths.append((sample.__name__, spec.layers, spec.sample_shape,
+                             lambda sample=sample, provider=provider:
+                             sample(provider).loader, spec.training))
     return [
         ("mnist-fc", MNIST_LAYERS, MNIST_SAMPLE_SHAPE,
          lambda: MnistLoader(provider=digits, minibatch_size=500),
@@ -1775,7 +1842,22 @@ def baseline_paths():
         ("mnist-ae", autoencoder_layers(784, 100), MNIST_SAMPLE_SHAPE,
          lambda: AutoencoderLoader(provider=digits, minibatch_size=500),
          {"learning_rate": 0.001, "loss": "mse"}),
-    ], digits
+    ] + sample_paths, digits
+
+
+class Frozen(object):
+    """A provider's arrays drawn once and handed out on every call; its
+    other attributes (``sample_shape``, ``side``) read through."""
+
+    def __init__(self, provider):
+        self.provider = provider
+        self.data = provider()
+
+    def __getattr__(self, name):
+        return getattr(self.provider, name)
+
+    def __call__(self):
+        return self.data
 
 
 def baseline_trainer(spec, policy, solver="sgd", **hyper):
@@ -1855,7 +1937,6 @@ def baseline_run(torch, trainer, name, policy, epochs):
     counts against the model's, launches by form; then one profiled step
     for the idle share. Returns (result, launches_by_form)."""
     from veles_tpu_torch.loader.base import TRAIN, VALIDATION
-    from veles_tpu_torch.nn.all2all import All2All, All2AllSoftmax
     torch.cuda.reset_peak_memory_stats()
     per_epoch = []
     reset_counts()
@@ -1892,11 +1973,11 @@ def baseline_run(torch, trainer, name, policy, epochs):
     steps = epochs * steps_a_epoch
     forwards = steps + epochs * len(trainer._segment_indices(VALIDATION))
     expected = dict.fromkeys(kernel_counters(), 0)
-    expected["gemm_bias_act"] = forwards * sum(
-        isinstance(m, All2All) and not isinstance(m, All2AllSoftmax)
-        for m in trainer.forwards)
+    expected["gemm_bias_act"] = forwards * gemm_launches_a_forward(
+        trainer.forwards)
     expected["column_reduce"] = steps * sum(
-        p.get("bias") is not None for p in trainer.params)
+        len(p["bias"]) if p["bias"].dim() == 2 else 1
+        for p in trainer.params if p.get("bias") is not None)
     if counts != expected:
         raise AssertionError("%s %s launch counts %s, expected %s over %d "
                              "steps and %d forwards" % (
@@ -1933,6 +2014,17 @@ def baseline_run(torch, trainer, name, policy, epochs):
               result["samples_per_s_device"], result["device_idle_share"],
               result["peak_memory_gb"], forms))
     return result, by_form
+
+
+def gemm_launches_a_forward(modules):
+    """K1 launches of one forward: one for each fully-connected layer but
+    the softmax head (whose logits are a plain product), four for each
+    attention layer (its projections)."""
+    from veles_tpu_torch.nn.all2all import All2All, All2AllSoftmax
+    from veles_tpu_torch.nn.attention import MultiHeadAttentionForward
+    return sum(4 if isinstance(m, MultiHeadAttentionForward) else
+               int(isinstance(m, All2All) and
+                   not isinstance(m, All2AllSoftmax)) for m in modules)
 
 
 def som_run(torch, digits):
@@ -2017,6 +2109,357 @@ def baseline_phase(torch, kernels):
         results[label] = result
         del trainer
     results["som"] = som_run(torch, digits)
+    results["phase_s"] = time.perf_counter() - t0
+    return results, phases
+
+
+def b64_body(array, **extra):
+    """A base64 request body for ``array``, a float32 numpy array."""
+    return json.dumps(dict(extra, input=base64.b64encode(
+        array.tobytes()).decode(), codec="base64", shape=list(array.shape),
+        type="float32")).encode()
+
+
+def concurrent_posts(port, bodies):
+    """POST ``bodies`` to ``/api`` from one thread each, all at once:
+    (replies in order, latencies in s, wall s)."""
+    replies, latencies, errors = {}, [], []
+
+    def ask(i):
+        try:
+            t = time.perf_counter()
+            replies[i] = post(port, "/api", bodies[i])
+            latencies.append(time.perf_counter() - t)
+        except Exception as e:  # re-raised below, in the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=ask, args=(i,))
+               for i in range(len(bodies))]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t
+    if errors:
+        raise errors[0]
+    if len(replies) != len(bodies):
+        raise AssertionError("%d replies of %d" % (len(replies),
+                                                   len(bodies)))
+    return [replies[i] for i in range(len(bodies))], latencies, wall
+
+
+def check_replies(numpy, label, served, want, controls):
+    """The centred-logit check of ``served`` against ``want`` (see
+    :func:`reply_mismatch`), and every ``(name, rows)`` of ``controls``
+    must fail it. Returns (error, spread, {control: share})."""
+    if served.shape != want.shape or not numpy.isfinite(served).all():
+        raise AssertionError("%s: replies of shape %s, finite %s, expected "
+                             "%s" % (label, served.shape,
+                                     numpy.isfinite(served).all(),
+                                     want.shape))
+    err, spread = reply_mismatch(numpy, served, want)
+    if err > LOGIT_REL_TOL * spread:
+        raise AssertionError(
+            "%s: centred logits differ by %.3g, %.3g of their "
+            "input-dependent spread %.3g (limit %g)" % (
+                label, err, err / spread, spread, LOGIT_REL_TOL))
+    shares = {}
+    for name, bad in controls:
+        shares[name] = reply_mismatch(numpy, bad, want)[0] / spread
+        if shares[name] <= LOGIT_REL_TOL:
+            raise AssertionError(
+                "%s control %s passes the reply check (%.3g of the spread): "
+                "the check cannot see a wrong reply" % (label, name,
+                                                        shares[name]))
+    print("%s: %d replies match, centred logits max |err| %.3g = %.3g of "
+          "their spread %.3g (limit %g); controls %s fail it" % (
+              label, len(served), err, err / spread, spread, LOGIT_REL_TOL,
+              ", ".join("%s %.3g" % kv for kv in sorted(shares.items()))))
+    return err, spread, shares
+
+
+def serving_counts(label, forwards, per_forward):
+    """The launch counts of a served sequence model since the last
+    :func:`reset_counts`: K1 ``per_forward`` times a forward, nothing
+    else. Returns ({name: launches}, launches_by_form)."""
+    counts, by_form = read_counts()
+    expected = dict.fromkeys(kernel_counters(), 0)
+    expected["gemm_bias_act"] = per_forward * forwards
+    if forwards < 1 or counts != expected:
+        raise AssertionError("%s launch counts %s over %d forwards, "
+                             "expected %s" % (label, counts, forwards,
+                                              expected))
+    return counts, by_form
+
+
+@contextlib.contextmanager
+def serving(model):
+    from veles_tpu_torch.serving.frontend import ServingFrontend
+    frontend = ServingFrontend(model, host="127.0.0.1", port=0, replicas=1,
+                               max_batch_size=64, batch_timeout_ms=5.0,
+                               max_queue=256, response_timeout=300.0)
+    frontend.start()
+    try:
+        yield frontend
+    finally:
+        frontend.stop()
+
+
+def sequence_serving(torch, numpy, provider):
+    """The attention model behind ``ServingFrontend``: 3 rounds of 16
+    concurrent single requests and one 64-row batch request, base64
+    bodies of the provider's validation samples; every reply held to the
+    plain-version forward on the card (:func:`check_replies`) with a
+    reply swap and a zeroed head as controls; K1 eight times a forward,
+    every launch on a designed variant. Returns (result,
+    launches_by_form)."""
+    from veles_tpu_torch.models.build import plain_forward
+    from veles_tpu_torch.models.samples import sequence_bench
+    from veles_tpu_torch.serving.model_store import ServeableModel
+    spec = sequence_bench(False, provider)
+    t0 = time.perf_counter()
+    model = ServeableModel.from_layers(
+        spec.layers, spec.sample_shape, seed=SEQUENCE_SEED, policy="float32",
+        device="cuda", name="attention")
+    valid = provider()[2]
+    n_single, rounds = 16, 3
+    singles = valid[:n_single * rounds]
+    batch = valid[n_single * rounds:n_single * rounds + 64]
+    bodies = [b64_body(x, id=i) for i, x in enumerate(singles)]
+    batch_body = b64_body(batch)
+    with serving(model) as frontend:
+        warm_s = time.perf_counter() - t0
+        replica = frontend.pool.replicas[0]
+        forwards0 = replica.batches_done
+        reset_counts()
+        replies, latencies, round_s = [], [], []
+        for r in range(rounds):
+            got, lat, wall = concurrent_posts(
+                frontend.port, bodies[r * n_single:(r + 1) * n_single])
+            replies += got
+            latencies += lat
+            round_s.append(wall)
+        t = time.perf_counter()
+        batch_reply = post(frontend.port, "/api/batch", batch_body)
+        batch_s = time.perf_counter() - t
+        forwards = replica.batches_done - forwards0
+        counts, by_form = serving_counts(
+            "sequence serving", forwards,
+            gemm_launches_a_forward(model.module))
+        variants = gemm_variants()
+    check_designed("sequence serving", variants)
+    if [r["id"] for r in replies] != list(range(len(singles))):
+        raise AssertionError("sequence serving: replies out of order")
+    served = numpy.array([r["result"] for r in replies] +
+                         batch_reply["results"])
+    inputs = numpy.concatenate([singles, batch])
+    want = forward_rows(torch, numpy, lambda x: plain_forward(
+        model.module, x), inputs)
+    swapped = served.copy()
+    swapped[[0, 1]] = served[[1, 0]]
+    head = model.module[-1]
+    saved = head.weights.detach().clone()
+    with torch.no_grad():
+        head.weights.zero_()
+    try:
+        zeroed = forward_rows(torch, numpy, model.module, inputs)
+    finally:
+        with torch.no_grad():
+            head.weights.copy_(saved)
+    err, spread, controls = check_replies(
+        numpy, "sequence serving", served, want,
+        (("swapped", swapped), ("head_zeroed", zeroed)))
+    lat = sorted(latencies)
+    result = {
+        "model": "attention 2L seq=256 d=256 h=8, 8 classes",
+        "build_and_warm_s": warm_s, "requests": len(lat) + 1,
+        "concurrent": n_single,
+        "single_p50_ms": 1e3 * statistics.median(lat),
+        "single_p95_ms": 1e3 * lat[min(len(lat) - 1,
+                                       int(0.95 * len(lat)))],
+        "single_samples_per_s": len(lat) / sum(round_s),
+        "batch64_ms": 1e3 * batch_s, "batch64_samples_per_s": 64 / batch_s,
+        "forwards": forwards, "launches": counts, "gemm_variants": variants,
+        "centred_logit_err": err, "centred_logit_spread": spread,
+        "control_shares": controls}
+    with torch.inference_mode():
+        for b in (1, 64):
+            x = torch.from_numpy(valid[:b]).cuda()
+            result["forward_b%d_ms" % b] = device_ms(
+                torch, lambda: model.module(x), trials=3, per_trial=5)
+            result["plain_forward_b%d_ms" % b] = device_ms(
+                torch, lambda: plain_forward(model.module, x), trials=3,
+                per_trial=5)
+    print("sequence serving: %d forwards, K1 %d launches by variant %s; "
+          "single p50 %.1f ms, p95 %.1f ms; batch of 64 in %.1f ms (%.0f "
+          "samples/s); device forward %.4f ms at 1, %.4f at 64" % (
+              forwards, counts["gemm_bias_act"], variants,
+              result["single_p50_ms"], result["single_p95_ms"],
+              result["batch64_ms"], result["batch64_samples_per_s"],
+              result["forward_b1_ms"], result["forward_b64_ms"]))
+    del model
+    return result, by_form
+
+
+def pooled_forward(torch, model, x):
+    """The kernel forward with the MoE layer's capacity pooled over the
+    whole batch instead of each sample: what a batch-dependent router
+    would serve."""
+    from veles_tpu_torch.nn.moe import MoEForward
+    from veles_tpu_torch.parallel.ep import moe_ffn_dense
+    for module in model:
+        if isinstance(module, MoEForward):
+            y = moe_ffn_dense(x.reshape(1, -1, x.shape[-1]), module.weights,
+                              module.up, module.down,
+                              module.capacity_factor).reshape(x.shape)
+            x = (y + x).to(x.dtype)
+        else:
+            x = module(x)
+    return x
+
+
+def moe_serving(torch, numpy, provider):
+    """The moe model behind ``ServingFrontend``: one 64-row batch request
+    and one single request of its first row. Each served row is held to
+    the same sample forwarded alone on the card (batch-composition
+    independence), with the capacity pooled over the batch as the
+    control that must fail; the batch also to the plain forward.
+    Returns (result, launches_by_form)."""
+    from veles_tpu_torch.models.build import plain_forward
+    from veles_tpu_torch.models.samples import sequence_bench
+    from veles_tpu_torch.serving.model_store import ServeableModel
+    spec = sequence_bench(True, provider)
+    model = ServeableModel.from_layers(
+        spec.layers, spec.sample_shape, seed=SEQUENCE_SEED, policy="float32",
+        device="cuda", name="moe")
+    batch = provider()[2][:64]
+    with serving(model) as frontend:
+        replica = frontend.pool.replicas[0]
+        forwards0 = replica.batches_done
+        reset_counts()
+        batch_reply = post(frontend.port, "/api/batch", b64_body(batch))
+        single = post(frontend.port, "/api", b64_body(batch[0], id=0))
+        forwards = replica.batches_done - forwards0
+        counts, by_form = serving_counts(
+            "moe serving", forwards, gemm_launches_a_forward(model.module))
+        variants = gemm_variants()
+    check_designed("moe serving", variants)
+    served = numpy.array(batch_reply["results"])
+    alone = numpy.concatenate([forward_rows(
+        torch, numpy, model.module, batch[i:i + 1]) for i in range(64)])
+    want = forward_rows(torch, numpy, lambda x: plain_forward(
+        model.module, x), batch)
+    pooled = forward_rows(torch, numpy, lambda x: pooled_forward(
+        torch, model.module, x), batch)
+    err, spread, controls = check_replies(
+        numpy, "moe serving, rows vs each sample alone", served, alone,
+        (("capacity_pooled_over_the_batch", pooled),))
+    plain_err, _, _ = check_replies(numpy, "moe serving, vs the plain "
+                                    "forward", served, want, ())
+    single_err = float(numpy.abs(numpy.array(single["result"]) -
+                                 served[0]).max())
+    if single_err > PROBS_ATOL:
+        raise AssertionError("moe serving: the single reply differs from "
+                             "its batch row by %.3g" % single_err)
+    del model
+    return {"model": "attention + 8-expert MoE + attention, seq=128 d=256",
+            "forwards": forwards, "launches": counts,
+            "gemm_variants": variants, "alone_centred_logit_err": err,
+            "centred_logit_spread": spread, "control_shares": controls,
+            "plain_centred_logit_err": plain_err,
+            "single_vs_batch_row_err": single_err}, by_form
+
+
+def expert_zeroed(trainer):
+    """A rerun for :func:`step_check`: the kernels' step with the up
+    gradient of the MoE layer's busiest expert (the largest gradient)
+    zeroed."""
+    from veles_tpu_torch.nn.moe import MoEForward
+    index = next(i for i, m in enumerate(trainer.forwards)
+                 if isinstance(m, MoEForward))
+
+    def rerun(run):
+        loss, grads = run()
+        up = grads[index]["up"]
+        up[int(up.flatten(1).norm(dim=1).argmax())] = 0.0
+        return loss, grads
+    return rerun
+
+
+def routing_flips(torch, trainer):
+    """Tokens of the first training batch whose expert differs between
+    the forward through the kernels and through the plain versions."""
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.nn.moe import MoEForward
+    from veles_tpu_torch.parallel.ep import router_probs
+    idx = torch.from_numpy(trainer._segment_indices(TRAIN)[0]).cuda()
+    x, _, _ = trainer.loader.gather(idx)
+    with torch.no_grad():
+        a = b = x
+        for module in trainer.forwards:
+            if isinstance(module, MoEForward):
+                picks = [router_probs(v, module.weights).argmax(-1)
+                         for v in (a, b)]
+                return "%d of %d" % (int((picks[0] != picks[1]).sum()),
+                                     picks[0].numel())
+            a, b = module(a), module.plain_forward(b)
+    return None
+
+
+def sequence_phase(torch, numpy, kernels):
+    """The sequence models on the card: the attention model served, the
+    moe model's served rows against each sample alone, then each
+    configuration trained under each policy (float32 first, with the step
+    check and its controls: the first attention layer's bias gradient
+    zeroed, and for moe the busiest expert's up gradient zeroed), its
+    launches counted and at checked forms, every K1 launch on a designed
+    variant. Returns (results, [launches_by_form of each counted
+    run])."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models.build import build_training
+    from veles_tpu_torch.models.samples import (sequence_bench,
+                                                sequence_bench_provider)
+    t0 = time.perf_counter()
+    providers = {name: Frozen(sequence_bench_provider(name == "moe"))
+                 for name in SEQUENCE_LENGTHS}
+    results, phases = {"data_s": time.perf_counter() - t0}, []
+    for label, serve, provider in (
+            ("serving attention float32", sequence_serving,
+             providers["attention"]),
+            ("serving moe float32", moe_serving, providers["moe"])):
+        results[label], by_form = serve(torch, numpy, provider)
+        check_forms("sequence " + label, kernels, by_form)
+        phases.append(by_form)
+        torch.cuda.empty_cache()
+    for name in sorted(SEQUENCE_LENGTHS):
+        for policy in SEQUENCE_POLICIES:
+            spec = sequence_bench(name == "moe", providers[name])
+            prng.get().seed(SEQUENCE_SEED)
+            prng.get("loader").seed(SEQUENCE_SEED + 1)
+            trainer = build_training(
+                spec.layers, spec.sample_shape, spec.loader,
+                seed=SEQUENCE_SEED, policy=policy, device="cuda",
+                **dict(spec.training, learning_rate=SEQUENCE_LEARNING_RATE))
+            result = {}
+            if policy == "float32":
+                reruns = ()
+                if name == "moe":
+                    result["routing_flips_kernels_vs_plain"] = \
+                        routing_flips(torch, trainer)
+                    reruns = (("busiest_expert_up_zeroed",
+                               expert_zeroed(trainer)),)
+                result.update(step_check(torch, trainer, name, 0, reruns))
+            run, by_form = baseline_run(torch, trainer, name, policy,
+                                        SEQUENCE_EPOCHS)
+            result.update(run)
+            label = "sequence %s %s" % (name, policy)
+            check_forms(label, kernels, by_form)
+            check_designed(label, run["launches_by_form"]["gemm_bias_act"])
+            phases.append(by_form)
+            results["%s %s" % (name, policy)] = result
+            del trainer
+            torch.cuda.empty_cache()
     results["phase_s"] = time.perf_counter() - t0
     return results, phases
 
@@ -2134,6 +2577,10 @@ def main():
     baseline, forms = baseline_phase(torch, kernels)
     phases.extend(forms)
     print("baseline (%s): %s" % (card, json.dumps(baseline, default=str)))
+
+    sequence, forms = sequence_phase(torch, numpy, kernels)
+    phases.extend(forms)
+    print("sequence (%s): %s" % (card, json.dumps(sequence, default=str)))
 
     for row in kernels:
         form = row.pop("_form")

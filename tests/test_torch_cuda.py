@@ -854,3 +854,74 @@ def test_baseline_layers_on_the_card_match_the_cpu(card, layer):
     tol = 0 if layer == "maxabs_pooling" else 1e-5
     for got, want in zip(*runs):
         torch.testing.assert_close(got.cpu(), want, atol=tol, rtol=tol)
+
+
+#: K1 on the sequence paths: the attention projections, (batch * seq,
+#: dim) rows by (dim, dim) with the bias and the linear epilogue,
+#: float32 under every policy (the layer never casts): the trained
+#: batches of ``bench_all.py``'s attention (64 x 256) and moe (64 x 128)
+#: configurations and served buckets of one and 16 samples
+SEQUENCE_GEMMS = [(64 * 256, 256, 256), (64 * 128, 256, 256),
+                  (256, 256, 256), (16 * 256, 256, 256), (128, 256, 256)]
+#: K6 on the sequence paths: the projections' bias gradients and the
+#: head's
+SEQUENCE_REDUCES = [(64 * 256, 256), (64 * 128, 256), (64, 8)]
+
+
+@pytest.mark.parametrize("shape", SEQUENCE_GEMMS,
+                         ids=["%dx%dx%d" % s for s in SEQUENCE_GEMMS])
+def test_gemm_sequence_shapes_match_plain(card, shape):
+    """The projections' products on the ``tiles`` form, within the
+    float32 tolerance of the plain version, two calls bitwise equal."""
+    m, k, n = shape
+    x = torch.from_numpy(_rand((m, k), 70)).to(card)
+    w = torch.from_numpy(_rand((k, n), 71, k ** -0.5)).to(card)
+    bias = torch.from_numpy(_rand((n,), 72, 0.1)).to(card)
+    assert gemm_plan(m, n, k, torch.float32).form == "tiles"
+    before = linear_act.launches_by_form[(m, k, n, torch.float32, True)]
+    got = linear_act(x, w, bias, "linear")
+    again = linear_act(x, w, bias, "linear")
+    torch.cuda.synchronize()
+    assert linear_act.launches_by_form[
+        (m, k, n, torch.float32, True)] == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, linear_act_plain(x, w, bias, "linear"),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape", SEQUENCE_REDUCES)
+def test_column_sum_sequence_shapes_match_plain(card, shape):
+    x = torch.from_numpy(_rand(shape, 73)).to(card)
+    got = column_sum(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, column_sum(x))
+    _assert_column_sums(x, got)
+
+
+@pytest.mark.parametrize("kind", ["attention", "moe"])
+def test_sequence_layers_on_the_card_match_the_cpu(card, kind):
+    """An attention layer (4 heads, causal) and a MoE layer (4 experts)
+    over (3, 64, 64) inputs on the card, through K1 and K6, against the
+    same modules on the CPU with their plain versions: output, input
+    gradient and every parameter gradient within 1e-4 of its norm
+    (float32 sums of up to 256 terms in other orders), the MoE's routing
+    exactly (its router probabilities are float32 softmaxes of the same
+    products: the check fails loudly on a near tie)."""
+    layers = [{"type": "attention", "heads": 4, "causal": True}
+              if kind == "attention" else
+              {"type": "moe", "n_experts": 4, "capacity_factor": 1.0}]
+    policy = get_policy("float32")
+    runs = []
+    for device in (card, torch.device("cpu")):
+        model = build_model(layers, (64, 64), seed=74, device=device,
+                            trainable=True)
+        x = torch.from_numpy(_rand((3, 64, 64), 75)).to(device)
+        x.requires_grad_()
+        with policy.backends():
+            y = model(x)
+            y.backward(torch.from_numpy(_rand((3, 64, 64), 76)).to(device))
+        runs.append([y.detach(), x.grad] +
+                    [p.grad for p in model.parameters()])
+    for got, want in zip(*runs):
+        got = got.cpu()
+        assert float((got - want).norm()) <= 1e-4 * float(want.norm())

@@ -354,12 +354,24 @@ ALL_TYPES = [
 ]
 
 
+#: the sequence layers, on (seq, dim) samples
+SEQUENCE_TYPES = [
+    {"type": "attention", "heads": 2, "causal": True},
+    {"type": "moe", "n_experts": 4, "hidden": 16},
+    {"type": "softmax", "output_sample_shape": 3},
+]
+
+
 def test_every_layer_type_builds_and_trains():
-    """Every type of ``veles_tpu/standard_workflow.py`` but attention and
-    moe, in one chain that trains an epoch under each solver."""
+    """Every type of ``veles_tpu/standard_workflow.py``: the image chain
+    and the sequence chain each train an epoch under each solver."""
     from veles_tpu.standard_workflow import LAYER_TYPES as JAX_TYPES
-    assert sorted({d["type"] for d in ALL_TYPES}) == sorted(LAYER_TYPES)
-    assert sorted(set(JAX_TYPES) - set(LAYER_TYPES)) == ["attention", "moe"]
+    from veles_tpu_torch.models.samples import (SequenceProvider,
+                                                sequence)
+    chains = ({d["type"] for d in ALL_TYPES}, {d["type"] for d in
+                                                SEQUENCE_TYPES})
+    assert sorted(chains[0] | chains[1]) == sorted(LAYER_TYPES)
+    assert sorted(JAX_TYPES) == sorted(LAYER_TYPES)
     for solver in ("sgd", "adagrad", "adadelta", "adam"):
         prng.get("loader").seed(1)
         loader = CifarLoader(synthetic_samples=20, minibatch_size=8)
@@ -369,12 +381,26 @@ def test_every_layer_type_builds_and_trains():
             learning_rate=0.01)
         stats = trainer.run_epoch(0)
         assert numpy.isfinite(stats["train"]["loss"])
+        sample = sequence(SequenceProvider(n_train=20, n_valid=4, seq=4,
+                                           dim=8, n_classes=3),
+                          minibatch_size=8)
+        trainer = build_training(
+            [dict(d) for d in SEQUENCE_TYPES], sample.sample_shape,
+            sample.loader, seed=3, device="cpu", solver=solver,
+            learning_rate=0.01)
+        stats = trainer.run_epoch(0)
+        assert numpy.isfinite(stats["train"]["loss"])
 
 
 @pytest.mark.parametrize("kind", ["attention", "moe"])
 def test_attention_and_moe_name_the_later_slice(kind):
-    with pytest.raises(ValueError, match="sequence-model slice"):
-        build_model([{"type": kind}], (4, 8), seed=0, device="cpu")
+    """Both layers build; their sharded plans (ring attention, expert
+    parallelism) raise, naming the slice that brings them."""
+    model = build_model([{"type": kind}], (4, 8), seed=0, device="cpu")
+    assert tuple(model[0].output_shape()) == (4, 8)
+    method = "use_ring" if kind == "attention" else "use_experts"
+    with pytest.raises(NotImplementedError, match="parallel tier"):
+        getattr(model[0], method)(None)
 
 
 def test_losses_and_truths_must_agree():

@@ -143,8 +143,8 @@ def test_entry_points_without_device_raise_off_the_card(monkeypatch,
 
 
 def test_unknown_layer_type_raises():
-    with pytest.raises(ValueError, match="attention"):
-        ServeableModel.from_layers([{"type": "attention"}], (4, 8),
+    with pytest.raises(ValueError, match="lstm"):
+        ServeableModel.from_layers([{"type": "lstm"}], (4, 8),
                                    device="cpu")
 
 
@@ -281,6 +281,46 @@ def test_http_single_and_batch_match_jax(jax_model, port_model):
         numpy.testing.assert_allclose(reply["result"], want[0], **TOL)
         with pytest.raises(ValueError, match="sample shape"):
             fe.swap_model(ServeableModel(port_model.module, (16, 16, 3)))
+    finally:
+        fe.stop()
+
+
+def test_http_serves_a_sequence_model():
+    """A tiny attention + MoE model on (8, 16) samples behind the
+    frontend: base64 single and batch requests, each row equal to the
+    model's direct forward of the same rows (the buckets batch them
+    differently, so the float32 sums may differ in order: TOL), and a
+    sample of the wrong shape answered 400."""
+    import base64
+    from veles_tpu_torch.models.samples import sequence_layers
+    model = ServeableModel.from_layers(
+        sequence_layers(heads=4, n_classes=5, moe=True), (8, 16), seed=9,
+        device="cpu", name="sequence")
+    fe = ServingFrontend(model, host="127.0.0.1", port=0, replicas=1,
+                         max_batch_size=4, batch_timeout_ms=5).start()
+    try:
+        x = numpy.random.RandomState(5).randn(5, 8, 16).astype(
+            numpy.float32)
+        want = model(x)
+        assert want.shape == (5, 5)
+        for i in (0, 3):
+            status, reply, _ = _post(fe.port, {
+                "input": base64.b64encode(x[i].tobytes()).decode(),
+                "codec": "base64", "shape": [8, 16], "type": "float32",
+                "id": i})
+            assert status == 200 and reply["id"] == i
+            numpy.testing.assert_allclose(reply["result"], want[i], **TOL)
+        status, reply, _ = _post(fe.port, {
+            "input": base64.b64encode(x.tobytes()).decode(),
+            "codec": "base64", "shape": [5, 8, 16], "type": "float32"},
+            "/api/batch")
+        assert status == 200
+        numpy.testing.assert_allclose(reply["results"], want, **TOL)
+        status, reply, _ = _post(fe.port, {
+            "input": base64.b64encode(x[0, :4].tobytes()).decode(),
+            "codec": "base64", "shape": [4, 16], "type": "float32"})
+        assert status == 400 and "shape" in reply["error"]
+        assert _health(fe.port)["sample_shape"] == [8, 16]
     finally:
         fe.stop()
 

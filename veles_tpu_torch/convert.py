@@ -6,7 +6,11 @@ pull_params``; empty for layers without weights). Layouts:
 
 * convolution weights HWIO in JAX, OIHW (channels_last memory) here;
 * All2All weights ``(in, out)`` in both;
-* biases ``(out,)`` in both.
+* biases ``(out,)`` in both;
+* attention weights (4, dim, dim) and biases (4, dim), and the mixture
+  of experts' router (dim, E) and its ``up`` (E, dim, hidden) and
+  ``down`` (E, hidden, dim), in both (a module's ``EXTRA_PARAMS``
+  cross beside its weights and bias).
 
 :func:`params_from_jax` loads JAX parameters into the port's modules and
 :func:`params_to_jax` reads them back out. A transposed convolution's
@@ -59,6 +63,16 @@ def params_from_jax(layers, jax_params):
                     raise ValueError("layer %d: bias %s, expected %s" % (
                         index, bias.shape, tuple(module.bias_shape())))
                 module.bias.copy_(torch.from_numpy(bias))
+            for name in module.EXTRA_PARAMS:
+                target = getattr(module, name)
+                if name not in params:
+                    raise ValueError("layer %d (%s) needs %r" % (
+                        index, type(module).__name__, name))
+                value = numpy.array(params[name], numpy.float32)
+                if value.shape != tuple(target.shape):
+                    raise ValueError("layer %d: %s %s, expected %s" % (
+                        index, name, value.shape, tuple(target.shape)))
+                target.copy_(torch.from_numpy(value))
     return layers
 
 
@@ -94,12 +108,15 @@ def from_jax_layout(module, arrays, like):
 
 def layer_params(module):
     """``{"weights", "bias"}`` parameters of a weighted module (bias only
-    where it has one); ``{}`` for a module without weights."""
+    where it has one) and its ``EXTRA_PARAMS``; ``{}`` for a module
+    without weights."""
     if not module.has_weights:
         return {}
     params = {"weights": module.weights}
     if module.bias is not None:
         params["bias"] = module.bias
+    for name in module.EXTRA_PARAMS:
+        params[name] = getattr(module, name)
     return params
 
 

@@ -16,7 +16,10 @@ touches sample data in the training loop.
 * :class:`ProviderLoader` reads ``(train_x, train_y, valid_x, valid_y)``
   from a provider callable, validation before training, flat
   ``(n, features)`` with ``flatten`` or else NHWC (a 3-D dataset gains a
-  singleton channel);
+  singleton channel), or, with ``sequence``, (n, seq, dim) token
+  sequences kept 3-D;
+* :class:`TabularLoader` is a ProviderLoader normalized by
+  ``mean_disp`` unless told otherwise (``veles_tpu/models/samples.py``);
 * :class:`FullBatchLoaderMSE` adds per-sample regression targets
   (``original_targets``), staged beside the data and gathered with it:
   the truth of the MSE loss.
@@ -102,10 +105,13 @@ class ProviderLoader(FullBatchLoader):
     valid_x, valid_y)``: classes ``[0, valid, train]``, float32 samples,
     int32 labels."""
 
-    def __init__(self, provider=None, flatten=False, **kwargs):
+    def __init__(self, provider=None, flatten=False, sequence=False,
+                 **kwargs):
         super(ProviderLoader, self).__init__(**kwargs)
         self.provider = provider
         self.flatten = flatten
+        #: 3-D samples are (seq, dim) token sequences: no NHWC channel
+        self.sequence = sequence
 
     def load_dataset(self):
         train_x, train_y, valid_x, valid_y = self.provider()
@@ -115,11 +121,20 @@ class ProviderLoader(FullBatchLoader):
             numpy.int32)
         if self.flatten:
             data = data.reshape(len(data), -1)
-        elif data.ndim == 3:
+        elif data.ndim == 3 and not self.sequence:
             data = data[..., None]  # NHWC single channel
         self.original_data = torch.from_numpy(numpy.ascontiguousarray(data))
         self.original_labels = torch.from_numpy(labels)
         self.class_lengths = [0, len(valid_x), len(train_x)]
+
+
+class TabularLoader(ProviderLoader):
+    """A :class:`ProviderLoader` over any (tx, ty, vx, vy) provider,
+    ``mean_disp``-normalized by default (the wine sample's recipe)."""
+
+    def __init__(self, provider=None, **kwargs):
+        kwargs.setdefault("normalization_type", "mean_disp")
+        super(TabularLoader, self).__init__(provider=provider, **kwargs)
 
 
 class FullBatchLoaderMSE(FullBatchLoader):

@@ -3,9 +3,9 @@
 The port of ``veles_tpu/standard_workflow.py``'s descriptor map
 (``LAYER_TYPES``): each ``{"type": <name>, ...params}`` becomes one
 module, with its per-sample input shape carried over from the previous
-layer's output. Every layer type of the JAX package is here but
-``attention`` and ``moe``, which raise: the sequence-model slice of the
-port brings them. :func:`build_model` ignores the training keys of a
+layer's output. Every layer type of the JAX package is here, the
+sequence models' ``attention`` and ``moe`` (on (seq, dim) samples)
+included. :func:`build_model` ignores the training keys of a
 descriptor (``learning_rate``, ``learning_rate_bias``, ``weights_decay``,
 ``momentum``, ``name``); :func:`build_training` reads them, as
 ``StandardWorkflow`` and its GD units do (``veles_tpu/nn/gd.py``): a
@@ -18,6 +18,7 @@ from torch import nn
 from veles_tpu_torch.convert import params_from_jax
 from veles_tpu_torch.device import resolve_device
 from veles_tpu_torch.nn.activation import ActivationUnit
+from veles_tpu_torch.nn.attention import MultiHeadAttentionForward
 from veles_tpu_torch.nn.all2all import (All2All, All2AllRELU,
                                         All2AllSigmoid, All2AllSoftmax,
                                         All2AllStrictRELU, All2AllTanh)
@@ -25,6 +26,7 @@ from veles_tpu_torch.nn.base import WeightedBase
 from veles_tpu_torch.nn.conv import (Conv, ConvRELU, ConvSigmoid,
                                      ConvStrictRELU, ConvTanh, Deconv)
 from veles_tpu_torch.nn.dropout import DropoutForward
+from veles_tpu_torch.nn.moe import MoEForward
 from veles_tpu_torch.nn.normalization import LRNormalizerForward
 from veles_tpu_torch.nn.pooling import (AvgPooling, Depooling,
                                         MaxAbsPooling, MaxPooling)
@@ -51,9 +53,9 @@ LAYER_TYPES = {
     "norm": LRNormalizerForward,
     "dropout": DropoutForward,
     "activation": ActivationUnit,
+    "attention": MultiHeadAttentionForward,
+    "moe": MoEForward,
 }
-#: the JAX package's layer types that a later slice of the port brings
-LATER = ("attention", "moe")
 
 _TRAINING_KEYS = ("learning_rate", "learning_rate_bias", "weights_decay",
                   "momentum", "name")
@@ -64,8 +66,9 @@ def build_model(layers, sample_shape, params=None, seed=None,
     """An ``nn.Sequential`` of the port's modules for ``layers``.
 
     ``sample_shape`` is the per-sample input shape (NHWC without the
-    batch axis). Weights come from ``params`` (the JAX package's
-    per-layer ``{"weights", "bias"}`` numpy dicts, see
+    batch axis, (seq, dim) for a sequence model). Weights come from
+    ``params`` (the JAX package's per-layer ``{"weights", "bias"}``
+    numpy dicts, with ``up`` and ``down`` for a ``moe`` layer, see
     :func:`veles_tpu_torch.convert.params_from_jax`) or, without them,
     are drawn from ``numpy.random.RandomState(seed)`` with the JAX
     package's filler contract. ``device`` defaults to ``cuda`` and
@@ -80,9 +83,6 @@ def build_model(layers, sample_shape, params=None, seed=None,
         descr = dict(descr)
         ltype = descr.pop("type")
         cls = LAYER_TYPES.get(ltype)
-        if ltype in LATER:
-            raise ValueError("layer type %r is not ported yet: the port's "
-                             "sequence-model slice brings it" % ltype)
         if cls is None:
             raise ValueError("unknown layer type %r (have %s)"
                              % (ltype, sorted(LAYER_TYPES)))
@@ -121,8 +121,10 @@ def layer_hypers(layers, learning_rate=0.01, weights_decay=0.0,
                  momentum=0.0, lr_decay=1.0, learning_rate_bias=None):
     """Per-layer solver hyper-parameters, the JAX GD units' ``hyper``:
     ``learning_rate``, ``weight_decay`` and ``momentum`` from the
-    descriptor or the defaults, ``lr_overrides = {"bias": ...}`` where
-    a ``learning_rate_bias`` applies, ``lr_decay`` where it is not 1."""
+    descriptor or the defaults, for every parameter of the layer (a
+    ``moe`` layer's ``up`` and ``down`` too), ``lr_overrides = {"bias":
+    ...}`` where a ``learning_rate_bias`` applies, ``lr_decay`` where it
+    is not 1."""
     hypers = []
     for descr in layers:
         hp = {"learning_rate": descr.get("learning_rate", learning_rate),

@@ -74,7 +74,12 @@ class ForwardBase(nn.Module):
 
 
 class WeightedBase(ForwardBase):
-    """A layer with ``weights`` and an optional ``bias``."""
+    """A layer with ``weights`` and an optional ``bias``, and the
+    parameters named in :attr:`EXTRA_PARAMS` (the mixture of experts'
+    ``up`` and ``down``), each in the JAX package's layout."""
+
+    #: names of the parameters beside ``weights`` and ``bias``
+    EXTRA_PARAMS = ()
 
     def __init__(self, input_shape, policy="float32", include_bias=True,
                  device=None, trainable=False):

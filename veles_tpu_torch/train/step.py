@@ -8,7 +8,10 @@ full-batch loader whose dataset sits on the device:
 * ``train_batch``: gather, forward (dropout masks by absolute layer
   index, the head's logits), the loss -- softmax over the padded batch
   with the loader's labels, or MSE over the valid rows with the loader's
-  targets (``nn/evaluator.py``) -- ``backward()``, the global gradient
+  targets (``nn/evaluator.py``), plus the auxiliary loss of each layer
+  that has one with a non-zero weight (the mixture of experts' load
+  balance, over the batch's valid rows; it shapes the gradients, the
+  reported loss stays the task's) -- ``backward()``, the global gradient
   norm, then the solver's update of each layer in order, all under the
   model policy's ``backends()`` (no TF32, no bf16 reductions in bf16,
   whatever the caller switched on);
@@ -131,11 +134,16 @@ class FusedTrainer(object):
                     dropout_offset(batch_index, layer_index),
                     device=device).reshape(shape)
 
-    def _forward(self, x, train, batch_index=0, seed=0):
+    def _forward(self, x, train, batch_index=0, seed=0, aux=None,
+                 valid=None):
         """The chain; dropout masks only in training; the head yields
-        logits (``apply_for_grad``)."""
+        logits (``apply_for_grad``). ``aux``, a list, collects the
+        auxiliary loss of every layer whose ``aux_loss_weight`` is not 0,
+        taken on its input with the batch's ``valid`` mask."""
         last = len(self.forwards) - 1
         for i, module in enumerate(self.forwards):
+            if aux is not None and getattr(module, "aux_loss_weight", 0.0):
+                aux.append(module.aux_loss(x, valid))
             if isinstance(module, DropoutForward):
                 if train:
                     x = module.train_forward(x, self._uniforms(
@@ -166,8 +174,11 @@ class FusedTrainer(object):
             for params in self.params:
                 for p in params.values():
                     p.grad = None
-            out = self._forward(x, True, batch_index, seed)
+            aux = []
+            out = self._forward(x, True, batch_index, seed, aux, valid)
             grad_loss, report, metric = self._loss(out, truth, valid)
+            for term in aux:
+                grad_loss = grad_loss + term
             grad_loss.backward()
         return report, metric
 
