@@ -132,7 +132,29 @@
    at the projections' (batch * seq, 256, 256) for every served bucket,
    K6 rows at (16384, 256), (8192, 256) and (64, 8)) and every K1 launch
    of the phase on a designed variant.
-9. The line before the last is ``{"kernels": [...], "not_ported":
+9. Workflow phase: full-width AlexNet-227 through the port's CLI
+   (``veles_tpu_torch.__main__.Main().run``) on a workflow file the
+   phase writes: ``AlexNetWorkflow`` over ``SyntheticImageLoader`` (512 +
+   128 samples, batch 128, SGD lr 0.01, momentum 0.9, wd 5e-4, float32,
+   ``-s 7``), 4 epochs, a raw ``SnapshotterToFile`` every epoch into a
+   temporary directory removed at the end. (1) The uninterrupted run:
+   per-epoch losses (finite), validation n_err, the sweeps', decision's
+   and snapshot's seconds against the steps' CUDA-event sum, each
+   snapshot's size, step ms, samples/s, the result file's metrics, K1,
+   K3, K4, K6 and K7 launches exactly the model's counts. (2) ``-w`` on
+   the snapshot after 2 epochs in a cleared registry: the last two
+   epochs' losses within 1e-5 relative and fc7's final weights within
+   5e-2 of their change over those epochs; the same restore with its
+   random streams dropped must fail that. (3) ``--test -w`` on the final
+   snapshot: one forward-only epoch, no weight changed. (4)
+   ``ModelStore.load`` of the snapshot directory behind
+   ``ServingFrontend``, 16 concurrent requests and a 64-row batch
+   checked as in phase 3. (5) Every launch of (1)-(4) at a checked form,
+   every K1 launch on a designed variant, every K3, K4 and K6 launch on
+   a designed form; the idle share from one profiled step. (6) A CLI run
+   of the small AlexNet in a process of its own loads neither ``jax``
+   nor any ``veles_tpu`` module.
+10. The line before the last is ``{"kernels": [...], "not_ported":
    []}``; the last is ``{"ok": true, "device": {...}}``. Any failure
    raises and exits non-zero before them.
 """
@@ -1114,10 +1136,6 @@ def post(port, path, body):
 def slice_phase(torch, numpy):
     from veles_tpu_torch.models.alexnet import (ALEXNET_LAYERS,
                                                 ALEXNET_SAMPLE_SHAPE)
-    from veles_tpu_torch.models.build import plain_forward
-    from veles_tpu_torch.nn.all2all import All2AllStrictRELU
-    from veles_tpu_torch.serving.frontend import (ServingFrontend,
-                                                  parse_payload)
     from veles_tpu_torch.serving.model_store import ServeableModel
 
     t0 = time.perf_counter()
@@ -1125,18 +1143,34 @@ def slice_phase(torch, numpy):
         ALEXNET_LAYERS, ALEXNET_SAMPLE_SHAPE, seed=42, policy="float32",
         device="cuda", name="alexnet227")
     build_s = time.perf_counter() - t0
+    print("slice: AlexNet-227 float32 built in %.2f s" % build_s)
+    result, by_form = serve_alexnet(torch, numpy, model, "slice", rounds=3)
+    return model, result, by_form
+
+
+def serve_alexnet(torch, numpy, model, label, rounds):
+    """AlexNet-227 ``model`` behind ``ServingFrontend`` (one replica, max
+    batch 64): ``rounds`` of 16 concurrent single requests and one 64-row
+    batch request over HTTP, every reply held to the plain forward on the
+    card by the centred-logit check, with a reply swap and fc7's output
+    zeroed as the controls that must fail it; K1 and K3 twice per
+    forward, no training kernel. Returns (result, launches_by_form)."""
+    from veles_tpu_torch.models.alexnet import ALEXNET_SAMPLE_SHAPE
+    from veles_tpu_torch.models.build import plain_forward
+    from veles_tpu_torch.nn.all2all import All2AllStrictRELU
+    from veles_tpu_torch.serving.frontend import (ServingFrontend,
+                                                  parse_payload)
+
     t0 = time.perf_counter()
     frontend = ServingFrontend(model, host="127.0.0.1", port=0,
                                replicas=1, max_batch_size=64,
                                batch_timeout_ms=5.0, max_queue=256,
                                response_timeout=300.0)
     warm_s = time.perf_counter() - t0
-    print("slice: AlexNet-227 float32 built in %.2f s, replica warmed "
-          "(buckets %s) in %.2f s" % (build_s,
-                                      frontend.pool.replicas[0].
-                                      warmed_buckets, warm_s))
+    print("%s: replica warmed (buckets %s) in %.2f s" % (
+        label, frontend.pool.replicas[0].warmed_buckets, warm_s))
     rng = numpy.random.RandomState(0)
-    n_single, rounds = 16, 3
+    n_single = 16
     singles = rng.uniform(-1, 1, (rounds, n_single) + ALEXNET_SAMPLE_SHAPE
                           ).astype(numpy.float32)
     batch = rng.uniform(-1, 1, (64,) + ALEXNET_SAMPLE_SHAPE).astype(
@@ -1174,7 +1208,7 @@ def slice_phase(torch, numpy):
         batch_s = time.perf_counter() - t
         counts, by_form = read_counts()
         variants = gemm_variants()
-        lrn_forms = check_designed_forms("serving", ("lrn_fwd",))
+        lrn_forms = check_designed_forms(label, ("lrn_fwd",))
         forwards = replica.batches_done - forwards0
     finally:
         frontend.stop()
@@ -1186,8 +1220,9 @@ def slice_phase(torch, numpy):
             "serving launch counts %s over %d forwards (expected "
             "gemm_bias_act and lrn_fwd 2 each per forward, no training "
             "kernel)" % (counts, forwards))
-    print("slice: %d forwards served, gemm_bias_act launched %d times, "
-          "lrn_fwd %d times (2 each per forward)" % (forwards, k1, k3))
+    print("%s: %d forwards served, gemm_bias_act launched %d times, "
+          "lrn_fwd %d times (2 each per forward)" % (label, forwards, k1,
+                                                     k3))
 
     # hold every reply against the plain-version forward on the card
     served = numpy.concatenate(
@@ -1223,19 +1258,19 @@ def slice_phase(torch, numpy):
     zeroed = forward_rows(torch, numpy, lambda x: forward_zeroing(
         model.module, x, fc7), inputs)
     controls = {}
-    for label, bad in (("swapped", swapped), ("fc7_zeroed", zeroed)):
+    for control, bad in (("swapped", swapped), ("fc7_zeroed", zeroed)):
         bad_err, _ = reply_mismatch(numpy, bad, want)
-        controls[label] = bad_err / spread
+        controls[control] = bad_err / spread
         if bad_err <= LOGIT_REL_TOL * spread:
             raise AssertionError(
                 "control %s passes the reply check (%.3g of the spread): "
                 "the check cannot see a wrong reply" % (
-                    label, bad_err / spread))
-    print("slice: %d replies match the plain-version forward: probabilities "
+                    control, bad_err / spread))
+    print("%s: %d replies match the plain-version forward: probabilities "
           "max |err| %.3g <= %g, rows sum to 1 within %.3g; centred logits "
           "max |err| %.3g = %.3g of their input-dependent spread %.3g "
           "(limit %g); controls read %s of the spread and fail" % (
-              len(served), err, PROBS_ATOL, row_err, logit_err,
+              label, len(served), err, PROBS_ATOL, row_err, logit_err,
               logit_err / spread, spread, LOGIT_REL_TOL,
               ", ".join("%s %.3g" % kv for kv in sorted(controls.items()))))
     lat = sorted(latencies)
@@ -1254,7 +1289,7 @@ def slice_phase(torch, numpy):
         "control_fc7_zeroed_share": controls["fc7_zeroed"],
     }
     result.update(decode_ms)
-    return model, result, by_form
+    return result, by_form
 
 
 def forward_rows(torch, numpy, forward, inputs):
@@ -1886,12 +1921,12 @@ def shifted_targets(trainer):
     """A rerun for :func:`step_check`: the step with the staged targets
     shifted by one row."""
     def rerun(run):
-        staged = trainer.loader._staged
-        trainer.loader._staged = (staged[0], staged[1].roll(1, 0))
+        staged = trainer.loader._staged_
+        trainer.loader._staged_ = (staged[0], staged[1].roll(1, 0))
         try:
             return run()
         finally:
-            trainer.loader._staged = staged
+            trainer.loader._staged_ = staged
     return rerun
 
 
@@ -2040,7 +2075,7 @@ def som_run(torch, digits):
     loader = MnistLoader(provider=digits, minibatch_size=SOM_MINIBATCH)
     trainer = KohonenTrainer(784, SOM_SIDE, SOM_SIDE, device="cuda")
     runner = SOMRunner(trainer, loader)
-    train = loader._staged[0][loader.class_lengths[1]:]
+    train = loader._staged_[0][loader.class_lengths[1]:]
     before = som_quality(trainer.weights, SOM_SIDE, SOM_SIDE, train)
     reset_counts()
     with timed_calls(torch, trainer, "step") as timed:
@@ -2464,6 +2499,377 @@ def sequence_phase(torch, numpy, kernels):
     return results, phases
 
 
+#: the workflow phase: AlexNetWorkflow at full width through the CLI
+WORKFLOW_EPOCHS = 4
+#: the snapshot the resumed run starts from: the one after 2 epochs
+WORKFLOW_RESUME_SNAPSHOT = "wf.1.pickle"
+#: the resumed run against the uninterrupted one: each epoch loss within
+#: this relative distance, and fc7's final weights within this share of
+#: their change over the resumed epochs. cuDNN's convolution backward
+#: (and maybe the pooling's) adds in an order that varies between runs
+#: (K1, K4, K6 and K7 are bitwise repeatable): a resume read 0.0068 of
+#: the change on the H100, the control without the registry 0.63
+WORKFLOW_LOSS_REL_TOL = 1e-5
+WORKFLOW_UPDATE_SHARE_TOL = 5e-2
+
+WORKFLOW_FILE = """
+from veles_tpu_torch.config import root
+from veles_tpu_torch.models.alexnet import (ALEXNET_LAYERS,
+                                            AlexNetWorkflow,
+                                            SyntheticImageLoader)
+from veles_tpu_torch.snapshotter import SnapshotterToFile
+
+
+def run(load, main):
+    wf, restored = load(
+        AlexNetWorkflow,
+        loader_factory=lambda wf: SyntheticImageLoader(
+            workflow=wf, n_train=%d, n_valid=%d, minibatch_size=%d),
+        layers=ALEXNET_LAYERS, max_epochs=%d, learning_rate=0.01,
+        momentum=0.9, weights_decay=5e-4)
+    if not restored:
+        snap = SnapshotterToFile(wf, compression="", time_interval=0,
+                                 name="snapshotter")
+        snap.link_from(wf.decision)
+        snap.gate_skip = ~wf.loader.epoch_ended
+    for unit in wf:
+        if isinstance(unit, SnapshotterToFile):
+            unit.directory = root.smoke.snapshots
+    main()
+""" % (TRAIN_SAMPLES, TRAIN_BATCH, TRAIN_BATCH, WORKFLOW_EPOCHS)
+
+#: the import check's workflow: one epoch of the small AlexNet
+SMALL_WORKFLOW_FILE = """
+from veles_tpu_torch.models.alexnet import (AlexNetWorkflow,
+                                            SyntheticImageLoader,
+                                            small_alexnet_layers)
+
+
+def run(load, main):
+    load(AlexNetWorkflow, layers=small_alexnet_layers(10), max_epochs=1,
+         loader_factory=lambda wf: SyntheticImageLoader(
+             workflow=wf, n_train=256, n_valid=64, side=64, n_classes=10,
+             minibatch_size=64))
+    main()
+"""
+
+#: the import check, in a process of its own: the CLI on that file
+IMPORT_CHECK = """
+import sys
+from veles_tpu_torch.__main__ import main
+assert main([sys.argv[1], "-s", "7"]) == 0
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "veles_tpu" or m.startswith("veles_tpu."))
+print("LOADED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+@contextlib.contextmanager
+def timed_method(torch, cls, attr):
+    """Times each call of ``cls.attr`` (on every instance) by CUDA events
+    while inside; yields the list of (start, end) events."""
+    fn = getattr(cls, attr)
+    timed = []
+
+    def timed_fn(self, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(self, *args)
+        end.record()
+        timed.append((start, end))
+        return out
+
+    setattr(cls, attr, timed_fn)
+    try:
+        yield timed
+    finally:
+        setattr(cls, attr, fn)
+
+
+def merge_forms(*all_forms):
+    """{kernel: {form: launches}} summed over several reads."""
+    out = {}
+    for forms in all_forms:
+        for name, counts in forms.items():
+            mine = out.setdefault(name, {})
+            for form, n in counts.items():
+                mine[form] = mine.get(form, 0) + n
+    return out
+
+
+def workflow_cli(*args):
+    """``veles_tpu_torch.__main__.Main().run(args)``, which must exit 0;
+    returns the ``Main``."""
+    from veles_tpu_torch.__main__ import Main
+    main = Main()
+    code = main.run(list(args))
+    if code != 0:
+        raise AssertionError("python -m veles_tpu_torch %s exited %d"
+                             % (" ".join(args), code))
+    return main
+
+
+def resume_gap(numpy, got, want, before):
+    """(largest relative loss difference over the resumed epochs, fc7's
+    largest weight difference as a share of its largest change over those
+    epochs) between a resumed run ``got`` and the uninterrupted ``want``,
+    each (per-epoch {class: loss}, fc7 weights); ``before`` is fc7 at the
+    snapshot."""
+    loss_rel = max(abs(g[k] - w[k]) / abs(w[k])
+                   for g, w in zip(got[0], want[0]) for k in w)
+    share = float(numpy.abs(got[1] - want[1]).max() /
+                  numpy.abs(want[1] - before).max())
+    return loss_rel, share
+
+
+def workflow_phase(torch, numpy, kernels):
+    """AlexNet-227 at full width through ``python -m veles_tpu_torch``
+    (``AlexNetWorkflow`` over ``SyntheticImageLoader``, float32, seed 7):
+    (1) an uninterrupted run of 4 epochs, snapshotted raw every epoch;
+    (2) a run resumed with ``-w`` from the snapshot after 2 epochs in a
+    cleared registry, held to (1) on the last two epochs' losses and
+    fc7's final weights, and the same restore with its random streams
+    dropped as the control that must fail that; (3) ``--test -w`` on the
+    final snapshot: one forward-only epoch, no weight changed; (4) the
+    snapshot directory served (``ModelStore.load``) and its replies
+    checked as the slice phase checks them; (5) every K1/K3/K4/K6/K7
+    launch of (1)-(4) at a checked, designed form, (1)'s counts exact;
+    (6) a CLI run of the small AlexNet in a process of its own loads no
+    JAX. The snapshots live in a temporary directory removed at the end.
+    Returns (result, [launches_by_form])."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="veles_workflow_")
+    try:
+        return _workflow_phase(torch, numpy, kernels, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _workflow_phase(torch, numpy, kernels, tmp):
+    import subprocess
+
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.convert import layer_params
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.loader.base import TRAIN, VALIDATION
+    from veles_tpu_torch.nn.units import All2AllStrictRELU
+    from veles_tpu_torch.serving.model_store import ModelStore
+    from veles_tpu_torch.snapshotter import SnapshotterToFile, load_workflow
+    from veles_tpu_torch.train.step import FusedTrainer
+
+    path = os.path.join(tmp, "alexnet_workflow.py")
+    with open(path, "w") as f:
+        f.write(WORKFLOW_FILE)
+    dirs = {k: os.path.join(tmp, k) for k in ("snapshots", "resumed",
+                                              "control")}
+    result = {}
+
+    def where(key):
+        return "root.smoke.snapshots=%r" % dirs[key]
+
+    def params_of(wf):
+        return [{k: p.detach().cpu().clone() for k, p in
+                 layer_params(f.module).items()} for f in wf.forwards]
+
+    # (1) uninterrupted
+    results_file = os.path.join(tmp, "results.json")
+    prng._generators.clear()
+    reset_counts()
+    with timed_method(torch, FusedTrainer, "train_batch") as steps_timed:
+        t = time.perf_counter()
+        main1 = workflow_cli(path, "-s", "7", "--precision", "float32",
+                             "--result-file", results_file,
+                             where("snapshots"))
+        torch.cuda.synchronize()
+        result["run_s"] = time.perf_counter() - t
+    counts = read_counts()[0]
+    wf1 = main1.workflow
+    runner1 = main1.launcher.runner
+    trainer1 = runner1.trainer
+    times = runner1.epoch_times
+    per_epoch = len(trainer1._segment_indices(TRAIN))
+    steps = WORKFLOW_EPOCHS * per_epoch
+    forwards = steps + WORKFLOW_EPOCHS * len(
+        trainer1._segment_indices(VALIDATION))
+    kinds = [type(m).__name__ for m in trainer1.forwards]
+    n_lrn = kinds.count("LRNormalizerForward")
+    expected = {"gemm_bias_act": kinds.count("All2AllStrictRELU") *
+                forwards, "lrn_fwd": n_lrn * forwards,
+                "lrn_bwd": n_lrn * steps,
+                "column_reduce": sum("bias" in p for p in trainer1.params)
+                * steps,
+                "uniform_fill": kinds.count("DropoutForward") * steps,
+                "kahan_gemm": 0}
+    if counts != expected:
+        raise AssertionError("workflow run launch counts %s, expected %s "
+                             "over %d steps and %d forwards" % (
+                                 counts, expected, steps, forwards))
+    losses = [t["loss"] for t in times]
+    if len(times) != WORKFLOW_EPOCHS or not all(
+            math.isfinite(v) for loss in losses for v in loss.values()):
+        raise AssertionError("workflow run: epochs %d, losses %s"
+                             % (len(times), losses))
+    with open(results_file) as f:
+        gathered = json.load(f)
+    if gathered.get("epochs") != WORKFLOW_EPOCHS or \
+            "best_n_err_pt" not in gathered or "best_epoch" not in gathered:
+        raise AssertionError("result file %s" % gathered)
+    snapshotter = [u for u in wf1 if isinstance(u, SnapshotterToFile)][0]
+    step_ms = [a.elapsed_time(b) for a, b in steps_timed]
+    history = wf1.decision.epoch_history
+    table = []
+    for i, t in enumerate(times):
+        export_s, nbytes = snapshotter.exports[i]
+        row = dict(t, steps_ms_sum=sum(step_ms[i * per_epoch:
+                                               (i + 1) * per_epoch]),
+                   validation_n_err=history[i]["validation"]["metric"],
+                   snapshot_mib=nbytes / 1048576.0,
+                   snapshot_export_s=export_s)
+        table.append(row)
+        print("workflow epoch %d: loss train %.6f validation %.6f, "
+              "validation n_err %d; eval %.4f s, train %.4f s (steps' sum "
+              "%.3f ms), decision %.6f s, snapshot %.1f MiB in %.3f s of "
+              "services %.3f s, wall %.4f s" % (
+                  t["epoch"], t["loss"]["train"], t["loss"]["validation"],
+                  row["validation_n_err"], t["eval_s"], t["train_s"],
+                  row["steps_ms_sum"], t["decision_s"], row["snapshot_mib"],
+                  export_s, t["services_s"], t["wall_s"]))
+    steady = step_ms[per_epoch:]
+    step_p50 = statistics.median(steady)
+    fc7 = [i for i, f in enumerate(wf1.forwards)
+           if isinstance(f, All2AllStrictRELU)][-1]
+    final = params_of(wf1)
+    result.update({
+        "epochs": table, "result_file": gathered,
+        "step_ms_p50": step_p50, "step_ms_min": min(steady),
+        "step_ms_max": max(steady), "first_step_ms": step_ms[0],
+        "samples_per_s_device": TRAIN_BATCH / step_p50 * 1e3,
+        "samples_per_s_epoch": (TRAIN_SAMPLES + TRAIN_BATCH) /
+        statistics.median(t["wall_s"] for t in times[1:]),
+        "launches": counts})
+
+    # (2) resumed, and the control without the registry
+    resume_from = os.path.join(dirs["snapshots"], WORKFLOW_RESUME_SNAPSHOT)
+    t = time.perf_counter()
+    before = load_workflow(resume_from)
+    result["snapshot_load_s"] = time.perf_counter() - t
+    fc7_before = before.forwards[fc7]._params["weights"]
+    del before
+    want = ([t["loss"] for t in times[2:]], final[fc7]["weights"].numpy())
+    prng._generators.clear()
+    main2 = workflow_cli(path, "-w", resume_from, where("resumed"))
+    got = ([t["loss"] for t in main2.launcher.runner.epoch_times],
+           main2.workflow.forwards[fc7].weights.detach().cpu().numpy())
+    if len(got[0]) != WORKFLOW_EPOCHS - 2:
+        raise AssertionError("resumed run trained %d epochs" % len(got[0]))
+    loss_rel, share = resume_gap(numpy, got, want, fc7_before)
+    print("workflow resume: losses within %.3g relative (limit %g), fc7 "
+          "within %.3g of its change (limit %g)" % (
+              loss_rel, WORKFLOW_LOSS_REL_TOL, share,
+              WORKFLOW_UPDATE_SHARE_TOL))
+    if loss_rel > WORKFLOW_LOSS_REL_TOL or share > WORKFLOW_UPDATE_SHARE_TOL:
+        raise AssertionError("the resumed run differs from the "
+                             "uninterrupted one")
+    del main2
+    prng._generators.clear()
+    control = load_workflow(resume_from)
+    prng._generators.clear()
+    launcher = Launcher()
+    control.workflow = launcher
+    for unit in control:
+        if isinstance(unit, SnapshotterToFile):
+            unit.directory = dirs["control"]
+    launcher.initialize()
+    launcher.run()
+    bad = ([t["loss"] for t in launcher.runner.epoch_times],
+           control.forwards[fc7].weights.detach().cpu().numpy())
+    control_loss_rel, control_share = resume_gap(numpy, bad, want,
+                                                 fc7_before)
+    print("workflow resume control (random registry dropped): losses "
+          "%.3g relative, fc7 %.3g of its change" % (control_loss_rel,
+                                                     control_share))
+    if control_loss_rel <= WORKFLOW_LOSS_REL_TOL and \
+            control_share <= WORKFLOW_UPDATE_SHARE_TOL:
+        raise AssertionError("the control passes the resume check")
+    del control, launcher
+    torch.cuda.empty_cache()
+    result.update({"resume_loss_rel": loss_rel, "resume_fc7_share": share,
+                   "control_loss_rel": control_loss_rel,
+                   "control_fc7_share": control_share})
+
+    # (3) --test on the final snapshot
+    root.common.disable.snapshotting = True
+    try:
+        main3 = workflow_cli(path, "--test", "-w", os.path.join(
+            dirs["snapshots"], "wf.%d.pickle" % (WORKFLOW_EPOCHS - 1)),
+            where("control"))
+    finally:
+        root.common.disable.snapshotting = False
+    tested = main3.workflow.decision.epoch_history
+    changed = sum(not torch.equal(a[k], b[k]) for a, b in zip(
+        params_of(main3.workflow), final) for k in b)
+    if len(tested) != WORKFLOW_EPOCHS + 1 or changed or \
+            tested[-1]["train"]["samples"] != TRAIN_SAMPLES:
+        raise AssertionError("--test: %d epochs, %d tensors changed"
+                             % (len(tested), changed))
+    result["test_n_err"] = {k: tested[-1][k]["metric"]
+                            for k in ("validation", "train")}
+    print("workflow --test: one forward-only epoch, n_err %s, no weight "
+          "changed" % result["test_n_err"])
+    del main3
+    torch.cuda.empty_cache()
+    forms_train = read_counts()[1]
+    variants_train = gemm_variants()
+    designed = check_designed_forms("workflow runs")
+
+    # (4) the snapshot directory served
+    t = time.perf_counter()
+    model = ModelStore().load(dirs["snapshots"])
+    result["serve_load_s"] = time.perf_counter() - t
+    result["serving"], forms_serving = serve_alexnet(
+        torch, numpy, model, "workflow serving", rounds=1)
+    variants = merge_forms({"v": variants_train},
+                           {"v": gemm_variants()})["v"]
+    del model
+
+    # (5) every launch at a checked, designed form
+    forms = merge_forms(forms_train, forms_serving)
+    check_forms("workflow", kernels, forms)
+    check_designed("workflow", variants)
+    result.update({"gemm_variants": variants, "designed_forms": designed})
+
+    # the idle share, from one profiled step of the trained workflow
+    prof, wall_ms = profiled_step(torch, trainer1)
+    split = device_time_split(torch, prof)
+    busy = sum(split.values())
+    result.update({"profiled_step_wall_ms": wall_ms,
+                   "profiled_step_device_ms": busy,
+                   "device_idle_share": max(0.0, 1.0 - busy / step_p50),
+                   "device_ms_by_group": split})
+    del main1, wf1, runner1, trainer1
+    torch.cuda.empty_cache()
+
+    # (6) no JAX on the CLI's path
+    small = os.path.join(tmp, "small_alexnet.py")
+    with open(small, "w") as f:
+        f.write(SMALL_WORKFLOW_FILE)
+    check = subprocess.run(
+        [sys.executable, "-c", IMPORT_CHECK, small],
+        env=dict(os.environ, PYTHONPATH=REPO), cwd=tmp,
+        capture_output=True, text=True, timeout=600)
+    if check.returncode != 0 or "LOADED []" not in check.stdout:
+        raise AssertionError("import check: %s%s" % (
+            check.stdout, check.stderr[-4000:]))
+    result["import_check"] = "LOADED []"
+    print("workflow import check: a CLI run of the small AlexNet on the "
+          "card loaded neither jax nor veles_tpu")
+    return result, [forms]
+
+
 def rating_phase(torch):
     """``gemm_benchmark()`` at bf16 and float32 (1500^2, the rating),
     bf16 at 1536^2 (3072-byte rows, 16-byte aligned, where 1500's
@@ -2581,6 +2987,10 @@ def main():
     sequence, forms = sequence_phase(torch, numpy, kernels)
     phases.extend(forms)
     print("sequence (%s): %s" % (card, json.dumps(sequence, default=str)))
+
+    workflow, forms = workflow_phase(torch, numpy, kernels)
+    phases.extend(forms)
+    print("workflow (%s): %s" % (card, json.dumps(workflow, default=str)))
 
     for row in kernels:
         form = row.pop("_form")

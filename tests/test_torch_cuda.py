@@ -925,3 +925,80 @@ def test_sequence_layers_on_the_card_match_the_cpu(card, kind):
     for got, want in zip(*runs):
         got = got.cpu()
         assert float((got - want).norm()) <= 1e-4 * float(want.norm())
+
+
+SMALL_ALEXNET_FILE = '''
+from veles_tpu_torch.models.alexnet import (AlexNetWorkflow,
+                                            SyntheticImageLoader,
+                                            small_alexnet_layers)
+from veles_tpu_torch.snapshotter import SnapshotterToFile
+
+
+def run(load, main):
+    wf, restored = load(
+        AlexNetWorkflow,
+        loader_factory=lambda wf: SyntheticImageLoader(
+            workflow=wf, n_train=256, n_valid=64, side=64, n_classes=10,
+            minibatch_size=64),
+        layers=small_alexnet_layers(10), max_epochs=1)
+    if not restored:
+        snap = SnapshotterToFile(wf, directory=SNAPS, time_interval=0,
+                                 compression="", name="snapshotter")
+        snap.link_from(wf.decision)
+        snap.gate_skip = ~wf.loader.epoch_ended
+    main()
+'''
+
+
+def _workflow_weights(wf):
+    from veles_tpu_torch.convert import layer_params, to_jax_layout
+    return [to_jax_layout(layer_params(f.module)) for f in wf.forwards]
+
+
+def test_cli_epoch_of_small_alexnet_on_the_card(card, tmp_path):
+    """One epoch of the small AlexNet through ``python -m
+    veles_tpu_torch`` on the card: finite metrics, the kernels launched,
+    a snapshot written."""
+    from veles_tpu_torch.__main__ import Main
+    path = tmp_path / "small_alexnet.py"
+    path.write_text("SNAPS = %r\n" % str(tmp_path / "snaps") +
+                    SMALL_ALEXNET_FILE)
+    linear_act.launches = uniform_fill.launches = 0
+    main = Main()
+    assert main.run([str(path), "-s", "7"]) == 0
+    wf = main.workflow
+    assert wf.forwards[0].weights.device.type == "cuda"
+    (hist,) = wf.decision.epoch_history
+    assert numpy.isfinite(hist["train"]["normalized"])
+    assert numpy.isfinite(wf.evaluator.loss)
+    assert linear_act.launches > 0 and uniform_fill.launches > 0
+    assert (tmp_path / "snaps" / "wf.0.pickle").exists()
+
+
+@pytest.mark.parametrize("direction", ["card_to_cpu", "cpu_to_card"])
+def test_snapshot_crosses_between_card_and_cpu(card, tmp_path, direction):
+    """A snapshot written on one side loads on the other with equal
+    parameters and solver state."""
+    from veles_tpu_torch.__main__ import Main
+    from veles_tpu_torch.convert import solver_state_to_jax
+    from veles_tpu_torch.snapshotter import load_workflow
+    path = tmp_path / "small_alexnet.py"
+    path.write_text("SNAPS = %r\n" % str(tmp_path / "snaps") +
+                    SMALL_ALEXNET_FILE)
+    write, read = (("auto", "cpu") if direction == "card_to_cpu"
+                   else ("cpu", "cuda"))
+    main = Main()
+    assert main.run([str(path), "-s", "7", "-a", write]) == 0
+    wf = load_workflow(str(tmp_path / "snaps" / "wf.0.pickle"))
+    wf.initialize(device=read)
+    assert wf.forwards[0].weights.device.type == read
+    for got, want in zip(_workflow_weights(wf),
+                         _workflow_weights(main.workflow)):
+        for k in want:
+            numpy.testing.assert_array_equal(got[k], want[k])
+    for gd, ref in zip(wf.gds, main.workflow.gds):
+        if gd.opt_state:
+            got = solver_state_to_jax([gd.opt_state])[0]["velocity"]
+            want = solver_state_to_jax([ref.opt_state])[0]["velocity"]
+            for k in want:
+                numpy.testing.assert_array_equal(got[k], want[k])

@@ -9,9 +9,11 @@ Before staging, the data pass through the loader's normalizer
 :mod:`veles_tpu_torch.normalization`), analyzed on the TRAIN segment
 only -- the layout is [test, validation, train] -- and applied in numpy,
 so the normalized bytes are the JAX package's. :meth:`FullBatchLoader.
-stage` copies the dataset to the device once; every minibatch is then
-gathered there by index (:func:`gather_minibatch`), so the host never
-touches sample data in the training loop.
+stage` copies the dataset to the device once (a transient copy: a
+snapshot holds the host dataset, already normalized, and a restored
+loader stages it again); every minibatch is then gathered there by
+index (:func:`gather_minibatch`), so the host never touches sample data
+in the training loop.
 
 * :class:`ProviderLoader` reads ``(train_x, train_y, valid_x, valid_y)``
   from a provider callable, validation before training, flat
@@ -47,7 +49,10 @@ class FullBatchLoader(Loader):
         self.normalizer = None
         self.original_data = None
         self.original_labels = None
-        self._staged = None
+
+    def init_unpickled(self):
+        super(FullBatchLoader, self).init_unpickled()
+        self._staged_ = None
 
     def load_dataset(self):
         """Fill ``original_data``, ``original_labels`` and
@@ -78,24 +83,27 @@ class FullBatchLoader(Loader):
         """The per-sample truth of the loss: the labels."""
         return self.original_labels
 
+    def sample_shape(self):
+        return tuple(self.original_data.shape[1:])
+
     def stage(self, device):
         """Copy the dataset and its truth to ``device`` once (a repeat is
         free)."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        if self._staged is None or self._staged[0].device != device:
-            self._staged = (self.original_data.to(device),
-                            self.truth().to(device))
-        return self._staged
+        if self._staged_ is None or self._staged_[0].device != device:
+            self._staged_ = (self.original_data.to(device),
+                             self.truth().to(device))
+        return self._staged_
 
     def gather(self, indices):
         """(data, labels, valid) of one minibatch from the staged copy;
         ``indices`` an integer tensor on its device. A padded slot (index
         below 0) has a zero row, label -1 and valid False."""
-        if self._staged is None:
+        if self._staged_ is None:
             raise RuntimeError("stage() the dataset on a device first")
-        data, labels = self._staged
+        data, labels = self._staged_
         rows, picked = gather_minibatch(data, indices, labels)
         return rows, picked, indices >= 0
 
@@ -112,6 +120,14 @@ class ProviderLoader(FullBatchLoader):
         self.flatten = flatten
         #: 3-D samples are (seq, dim) token sequences: no NHWC channel
         self.sequence = sequence
+
+    def __getstate__(self):
+        # the data travel with the snapshot: the provider (often a class
+        # of the user's workflow file) stays behind
+        state = super(ProviderLoader, self).__getstate__()
+        if self.original_data is not None:
+            state["provider"] = None
+        return state
 
     def load_dataset(self):
         train_x, train_y, valid_x, valid_y = self.provider()
@@ -153,9 +169,9 @@ class FullBatchLoaderMSE(FullBatchLoader):
 
     def gather(self, indices):
         """(data, targets, valid) of one minibatch."""
-        if self._staged is None:
+        if self._staged_ is None:
             raise RuntimeError("stage() the dataset on a device first")
-        data, targets = self._staged
+        data, targets = self._staged_
         rows, _ = gather_minibatch(data, indices)
         picked, _ = gather_minibatch(targets, indices)
         return rows, picked, indices >= 0

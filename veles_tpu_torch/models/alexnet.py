@@ -5,12 +5,16 @@ conv1 is kept in the descriptor: the port runs the strided conv it
 restates (``nn/conv.py``). :data:`ALEXNET_TRAINING` holds
 ``AlexNetWorkflow``'s training defaults and :class:`SyntheticImageLoader`
 its synthetic ImageNet-shaped data, byte for byte.
+:class:`AlexNetWorkflow` is the JAX package's workflow class: a
+``StandardWorkflow`` over those layers and defaults, run by
+``python -m veles_tpu_torch``.
 """
 
 import numpy
 import torch
 
 from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+from veles_tpu_torch.standard_workflow import StandardWorkflow
 
 #: per-sample NHWC input of AlexNet-227
 ALEXNET_SAMPLE_SHAPE = (227, 227, 3)
@@ -94,3 +98,23 @@ class SyntheticImageLoader(FullBatchLoader):
         self.original_data = data
         self.original_labels = torch.from_numpy(labels)
         self.class_lengths = [0, n_valid, n_train]
+
+
+class AlexNetWorkflow(StandardWorkflow):
+    """AlexNet over any full-batch image loader: ``loader_factory(wf)``
+    (default a :class:`SyntheticImageLoader` of its defaults), softmax
+    loss and :data:`ALEXNET_TRAINING` unless given."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow=None, loader_factory=None, layers=None,
+                 **kwargs):
+        kwargs.setdefault("loss", "softmax")
+        for key, value in ALEXNET_TRAINING.items():
+            kwargs.setdefault(key, value)
+        super(AlexNetWorkflow, self).__init__(
+            workflow,
+            loader=loader_factory or (
+                lambda wf: SyntheticImageLoader(workflow=wf)),
+            layers=layers if layers is not None else ALEXNET_LAYERS,
+            **kwargs)

@@ -8,7 +8,9 @@ epochs). :class:`MnistLoader` is the
 JAX package's loader over a provider -- ``datasets.golden_digits`` or
 :func:`mnist_idx_provider` over the IDX files -- flat (n, 784) by
 default, linearly normalized to [-1, 1] per feature on the training
-samples.
+samples. :class:`MnistWorkflow` is the JAX package's workflow class,
+with its own graph (not a ``StandardWorkflow``): tanh layers of the
+given widths and a softmax head over an :class:`MnistLoader`.
 """
 
 import gzip
@@ -18,6 +20,11 @@ import struct
 import numpy
 
 from veles_tpu_torch.loader.fullbatch import ProviderLoader
+from veles_tpu_torch.nn.decision import DecisionGD
+from veles_tpu_torch.nn.units import (All2AllSoftmax, All2AllTanh,
+                                      EvaluatorSoftmax, GDSoftmax, GDTanh)
+from veles_tpu_torch.plumbing import Repeater
+from veles_tpu_torch.standard_workflow import TrainableWorkflow
 
 #: per-sample input: flat 784 features (``MnistLoader(flatten=True)``)
 MNIST_SAMPLE_SHAPE = (784,)
@@ -72,3 +79,81 @@ def mnist_idx_provider(directory):
                 grab("t10k-images-idx3-ubyte"),
                 grab("t10k-labels-idx1-ubyte"))
     return provide
+
+
+class MnistWorkflow(TrainableWorkflow):
+    """784 -> layers... -> 10 softmax classifier, wired as the JAX
+    package's ``MnistWorkflow``."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow=None, provider=None, layers=(100,),
+                 minibatch_size=60, learning_rate=0.1, weights_decay=0.0,
+                 momentum=0.0, lr_decay=1.0, max_epochs=None,
+                 fail_iterations=100, **kwargs):
+        super(MnistWorkflow, self).__init__(workflow, **kwargs)
+
+        self.repeater = Repeater(self)
+        self.repeater.link_from(self.start_point)
+
+        self.loader = MnistLoader(workflow=self, provider=provider,
+                                  minibatch_size=minibatch_size,
+                                  name="MnistLoader")
+        self.loader.link_from(self.repeater)
+
+        self.forwards = []
+        src_attr = "minibatch_data"
+        for width in layers:
+            fwd = All2AllTanh(self, output_sample_shape=(width,),
+                              name="fc%d" % len(self.forwards))
+            src = self.forwards[-1] if self.forwards else self.loader
+            fwd.link_from(src)
+            fwd.link_attrs(src, ("input", src_attr))
+            self.forwards.append(fwd)
+            src_attr = "output"
+        head = All2AllSoftmax(self, output_sample_shape=(10,),
+                              name="softmax")
+        prev = self.forwards[-1] if self.forwards else self.loader
+        head.link_from(prev)
+        head.link_attrs(prev, ("input", src_attr))
+        self.forwards.append(head)
+
+        self.evaluator = EvaluatorSoftmax(self, name="evaluator")
+        self.evaluator.link_from(head)
+        self.evaluator.link_attrs(head, "output")
+        self.evaluator.link_attrs(self.loader,
+                                  ("labels", "minibatch_labels"))
+        self.evaluator.link_attrs(self.loader,
+                                  ("batch_size", "minibatch_size"))
+
+        self.decision = DecisionGD(self, max_epochs=max_epochs,
+                                   fail_iterations=fail_iterations,
+                                   name="decision")
+        self.decision.link_from(self.evaluator)
+        self.decision.link_attrs(self.loader, "minibatch_class",
+                                 "last_minibatch", "epoch_ended",
+                                 "epoch_number", "class_lengths",
+                                 "minibatch_size")
+        self.decision.link_attrs(self.evaluator,
+                                 ("minibatch_n_err", "n_err"))
+
+        self.gds = []
+        err_src, err_attr = self.evaluator, "err_output"
+        for fwd in reversed(self.forwards):
+            gd_cls = GDSoftmax if fwd is head else GDTanh
+            gd = gd_cls(self, forward=fwd, learning_rate=learning_rate,
+                        weights_decay=weights_decay, momentum=momentum,
+                        solver_hp={"lr_decay": lr_decay}
+                        if lr_decay != 1.0 else {},
+                        need_err_input=fwd is not self.forwards[0],
+                        name="gd_" + fwd.name)
+            gd.link_from(self.gds[-1] if self.gds else self.decision)
+            gd.link_attrs(err_src, ("err_output", err_attr))
+            gd.gate_skip = self.decision.gd_skip
+            self.gds.append(gd)
+            err_src, err_attr = gd, "err_input"
+
+        self.repeater.link_from(self.gds[-1])
+        self.repeater.gate_block = self.decision.complete
+        self.end_point.link_from(self.decision)
+        self.end_point.gate_block = ~self.decision.complete

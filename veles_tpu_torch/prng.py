@@ -12,6 +12,10 @@ random`) the same way: :meth:`RandomGenerator.philox_seed` returns the
 next seed of a deterministic chain of (seed, counter) and leaves the
 numpy stream untouched, as ``jax_key()`` does. A restored state
 continues the same chain.
+
+Generators pickle as plain data (key, seed, numpy state, chain
+counter), as the JAX package's do, so the registry rides in every
+snapshot.
 """
 
 import hashlib
@@ -62,6 +66,18 @@ class RandomGenerator(object):
 
     # -- host-side sampling ------------------------------------------------
 
+    def randint(self, low, high=None, size=None):
+        with self._lock:
+            return self.state.randint(low, high, size)
+
+    def uniform(self, low=0.0, high=1.0, size=None):
+        with self._lock:
+            return self.state.uniform(low, high, size)
+
+    def normal(self, loc=0.0, scale=1.0, size=None):
+        with self._lock:
+            return self.state.normal(loc, scale, size)
+
     def shuffle(self, arr):
         with self._lock:
             self.state.shuffle(arr)
@@ -103,6 +119,19 @@ class RandomGenerator(object):
             self._seed_counter = counter
             self.seed_value = seed_value
 
+    def __getstate__(self):
+        return {"key": self.key, "seed_value": self.seed_value,
+                "numpy_state": self.state.get_state(),
+                "seed_counter": self._seed_counter}
+
+    def __setstate__(self, state):
+        self.key = state["key"]
+        self._lock = threading.Lock()
+        self.seed_value = state["seed_value"]
+        self.state = numpy.random.RandomState()
+        self.state.set_state(state["numpy_state"])
+        self._seed_counter = state["seed_counter"]
+
 
 _generators = {}
 _registry_lock = threading.Lock()
@@ -117,3 +146,4 @@ def get(key="default"):
             gen = RandomGenerator(key).seed(str(key).encode())
             _generators[key] = gen
         return gen
+

@@ -1,20 +1,24 @@
 """Serveable models and the named, versioned store.
 
-The port of ``veles_tpu/serving/model_store.py`` without the snapshot
-and export-package loaders (they need the snapshotter's port). A
+The port of ``veles_tpu/serving/model_store.py`` without the
+export-package loader (``export/package.py`` is not ported yet). A
 :class:`ServeableModel` is what a replica runs: the port's model
 (``nn.Sequential`` on one device), the per-sample input shape the
 frontend validates against, a name and a version. Models come from a
 layer list with weights drawn from a seed, or from the JAX package's
 per-layer parameters through :func:`veles_tpu_torch.convert.
-params_from_jax`, or from any module the caller built.
+params_from_jax`, or from a trained workflow or a snapshot of one (the
+port's or the JAX package's), or from any module the caller built.
 
 :class:`ModelStore` keeps versions per name with pinning and
 keep-last-K retention; the replica pool promotes whatever ``get``
-returns.
+returns. ``load`` takes a snapshot file, or a snapshot directory whose
+newest loadable snapshot it serves (a corrupt newest file is skipped
+with a warning).
 """
 
 import logging
+import os
 import threading
 
 import numpy
@@ -55,6 +59,32 @@ class ServeableModel(object):
         return cls(module, sample_shape, name=name, version=version,
                    source="layers" if params is None else "jax params")
 
+    @classmethod
+    def from_workflow(cls, workflow, name=None, version=1, source=None):
+        """Serve an initialized training workflow's model: its forward
+        units' modules, with dropout the identity (the modules' own
+        ``forward``). The sample shape is the loader's."""
+        forwards = getattr(workflow, "forwards", None)
+        if not forwards or any(f.module is None for f in forwards):
+            raise ValueError("workflow %r has no initialized forward chain "
+                             "to serve" % (workflow,))
+        for fwd in forwards:
+            if hasattr(fwd, "testing"):
+                fwd.testing = True
+        return cls(workflow.model, forwards[0].input_shape,
+                   name=name or workflow.name, version=version,
+                   source=source or "workflow")
+
+    @classmethod
+    def from_snapshot(cls, path, name=None, version=1, device=None):
+        """Serve the model of a snapshot file (the port's or the JAX
+        package's), put on ``device`` (the card by default)."""
+        from veles_tpu_torch.snapshotter import load_workflow
+        workflow = load_workflow(path)
+        workflow.initialize(device=device)
+        return cls.from_workflow(workflow, name=name, version=version,
+                                 source=str(path))
+
     def __call__(self, batch):
         """Forward a numpy batch (leading batch axis); float32 numpy
         out. Waits for the device. Runs under the policy's
@@ -78,6 +108,42 @@ class ModelStore(object):
         self._models = {}   # name -> {version: ServeableModel}
         self._pins = {}     # name -> version
         self.keep_last = int(keep_last) if keep_last else None
+
+    def load(self, source, name=None, version=None, device=None):
+        """Load a snapshot file, or the newest loadable snapshot of a
+        snapshot directory, and register it; returns the model."""
+        path = str(source)
+        if os.path.isdir(path):
+            if os.path.exists(os.path.join(path, "contents.json")):
+                raise NotImplementedError(
+                    "%s is an export package: its loader waits for the "
+                    "port of export/package.py" % path)
+            model = self._load_from_snapshot_dir(path, name, device)
+        elif path.endswith(".tar"):
+            raise NotImplementedError(
+                "%s is an export package: its loader waits for the port "
+                "of export/package.py" % path)
+        else:
+            model = ServeableModel.from_snapshot(path, name=name,
+                                                 device=device)
+        return self.add(model, version=version)
+
+    def _load_from_snapshot_dir(self, path, name, device):
+        from veles_tpu_torch.snapshotter import snapshot_candidates
+        candidates = snapshot_candidates(path)
+        if not candidates:
+            raise FileNotFoundError("no snapshots under %s" % path)
+        last_error = None
+        for candidate in candidates:
+            try:
+                return ServeableModel.from_snapshot(candidate, name=name,
+                                                    device=device)
+            except Exception as e:  # noqa: BLE001 -- any load failure
+                last_error = e
+                _log.warning("skipping unloadable snapshot %s: %s",
+                             candidate, e)
+        raise FileNotFoundError("no loadable snapshot under %s (newest "
+                                "error: %s)" % (path, last_error))
 
     def add(self, model, version=None, name=None):
         """Register under ``name`` (default: the model's own name)."""

@@ -78,12 +78,14 @@ class FusedTrainer(object):
     over ``loader`` with ``loss`` (``softmax`` or ``mse``) and
     ``solver`` (a name or a rule of ``nn/optim.py``).
 
-    ``hypers`` holds one solver hyper-parameter dict per module.
+    ``hypers`` holds one solver hyper-parameter dict per module, and
+    ``states``, when given, the solver state of each (``{}`` for a
+    module without weights; else the solver's fresh state).
     ``plain=True`` runs every kernel's plain version instead (the
     reference the kernels are held against on the card)."""
 
     def __init__(self, model, loader, hypers, solver="sgd", loss="softmax",
-                 uniform_source=None, plain=False):
+                 uniform_source=None, plain=False, states=None):
         if loss not in LOSSES:
             raise ValueError("loss must be one of %s, got %r"
                              % (sorted(LOSSES), loss))
@@ -116,8 +118,8 @@ class FusedTrainer(object):
         self.policy = policy_of(model)
         loader.stage(self.device)
         self.params = [layer_params(m) for m in self.forwards]
-        self.states = [self.solver.init(p) if p else {}
-                       for p in self.params]
+        self.states = list(states) if states is not None else [
+            self.solver.init(p) if p else {} for p in self.params]
 
     # -- forward and loss --------------------------------------------------
 
