@@ -145,7 +145,13 @@
    the snapshot after 2 epochs in a cleared registry: the last two
    epochs' losses within 1e-5 relative and fc7's final weights within
    5e-2 of their change over those epochs; the same restore with its
-   random streams dropped must fail that. (3) ``--test -w`` on the final
+   random streams dropped must fail that. In deterministic mode (cuDNN
+   deterministic, its benchmark off, ``torch.use_deterministic_
+   algorithms`` with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before the
+   first cuBLAS call) a second uninterrupted run and the same resume
+   differ from a first one in 0 values of the losses and of every
+   parameter, and the ops without a deterministic version are listed.
+   (3) ``--test -w`` on the final
    snapshot: one forward-only epoch, no weight changed. (4)
    ``ModelStore.load`` of the snapshot directory behind
    ``ServingFrontend``, 16 concurrent requests and a 64-row batch
@@ -154,7 +160,33 @@
    a designed form; the idle share from one profiled step. (6) A CLI run
    of the small AlexNet in a process of its own loads neither ``jax``
    nor any ``veles_tpu`` module.
-10. The line before the last is ``{"kernels": [...], "not_ported":
+10. Eager phase: ``python -m veles_tpu_torch --eager`` on the workflow
+   phase's file, 2 epochs in deterministic mode, a raw snapshot every
+   epoch. (1) Held to the fused CLI run of the same file and seed: each
+   epoch loss within 1e-6 relative and fc7's final weights within 1e-3
+   of their change (the values that differ counted); the same eager run
+   with fc7's gradient unit gated off must fail that. (2) K1, K3, K4, K6
+   and K7 launched exactly the unit graph's counts, the fused run's, at
+   checked forms, K1 on designed variants, K3, K4 and K6 on designed
+   forms. (3) The eager step's device ms (CUDA events from one loop
+   iteration to the next) and host ms beside the fused step's, the idle
+   share of one profiled eager step, the launches per step. (4) The
+   eager snapshot after epoch 0 resumed fused (``-w``) to the eager
+   run's end, 0 values differing.
+11. Export and serve phase: the eager AlexNet written to a ``.tar``
+   package from the card's tensors, every array member its unit's
+   parameters in the JAX layout bit for bit, and refused by
+   ``ModelStore.load`` (``ModelLoadError``: convolutions); mnist-fc
+   (784-100-10, batch 500, golden digits 12000 + 2000, ``-s 1234``)
+   trained one eager epoch on the card (its K1 and K6 counts exact) and
+   exported; the ``serve`` command's arguments (``serving.frontend.
+   serve``, in this process so that launches count) on the mnist-fc
+   package and on the eager AlexNet's snapshot directory, each checked
+   as the slice phase checks (16 concurrent single requests and a
+   64-row batch, the centred-logit check and its two controls, K1 at
+   checked forms on designed variants; p50/p95 and samples/s); every
+   flag the port refuses raises naming itself.
+12. The line before the last is ``{"kernels": [...], "not_ported":
    []}``; the last is ``{"ok": true, "device": {...}}``. Any failure
    raises and exits non-zero before them.
 """
@@ -510,6 +542,15 @@ def gemm_phase(torch):
                 torch, scratch, "%s M=%d K=%d N=%d %s %s bias" % (
                     layer, m, k, n, activation, dtype),
                 x, w, b32, activation, dtype, library))
+    # K1 on the mnist-fc package served at every bucket
+    w = (torch.rand(784, 100, device="cuda", generator=gen) * 2 - 1) / 28.0
+    b32 = torch.rand(100, device="cuda", generator=gen) * 0.2 - 0.1
+    for m in BUCKETS:
+        x = torch.rand(m, 784, device="cuda", generator=gen) * 2 - 1
+        rows.append(gemm_row(
+            torch, scratch, "mnist-fc served M=%d K=784 N=100 tanh float32 "
+            "bias" % m, x, w, b32, "tanh", "float32",
+            lambda x=x: torch.tanh(torch.addmm(b32, x, w))))
     # K1 on the sequence paths: the attention projections
     k = n = SEQUENCE_DIM
     w = (torch.rand(k, n, device="cuda", generator=gen) * 2 - 1) / k ** 0.5
@@ -1150,16 +1191,9 @@ def slice_phase(torch, numpy):
 
 def serve_alexnet(torch, numpy, model, label, rounds):
     """AlexNet-227 ``model`` behind ``ServingFrontend`` (one replica, max
-    batch 64): ``rounds`` of 16 concurrent single requests and one 64-row
-    batch request over HTTP, every reply held to the plain forward on the
-    card by the centred-logit check, with a reply swap and fc7's output
-    zeroed as the controls that must fail it; K1 and K3 twice per
-    forward, no training kernel. Returns (result, launches_by_form)."""
-    from veles_tpu_torch.models.alexnet import ALEXNET_SAMPLE_SHAPE
-    from veles_tpu_torch.models.build import plain_forward
-    from veles_tpu_torch.nn.all2all import All2AllStrictRELU
-    from veles_tpu_torch.serving.frontend import (ServingFrontend,
-                                                  parse_payload)
+    batch 64), checked by :func:`serve_checked`. Returns (result,
+    launches_by_form)."""
+    from veles_tpu_torch.serving.frontend import ServingFrontend
 
     t0 = time.perf_counter()
     frontend = ServingFrontend(model, host="127.0.0.1", port=0,
@@ -1169,11 +1203,34 @@ def serve_alexnet(torch, numpy, model, label, rounds):
     warm_s = time.perf_counter() - t0
     print("%s: replica warmed (buckets %s) in %.2f s" % (
         label, frontend.pool.replicas[0].warmed_buckets, warm_s))
+    return serve_checked(torch, numpy, frontend.start(), label, rounds)
+
+
+def serve_checked(torch, numpy, frontend, label, rounds):
+    """A started frontend's model (its All2All and LRN layers through K1
+    and K3) checked over HTTP: ``rounds`` of 16 concurrent single
+    requests and one 64-row batch request, every reply held to the plain
+    forward on the card by the centred-logit check, with a reply swap
+    and the last K1 layer's output zeroed as the controls that must fail
+    it; K1 and K3 once per such layer per forward, no training kernel.
+    Stops the frontend. Returns (result, launches_by_form)."""
+    from veles_tpu_torch.models.build import plain_forward
+    from veles_tpu_torch.nn.all2all import All2AllSoftmax
+    from veles_tpu_torch.serving.frontend import parse_payload
+
+    model = frontend.model
+    sample_shape = tuple(model.sample_shape)
+    kinds = [type(m).__name__ for m in model.module]
+    k1_layers = [i for i, m in enumerate(model.module)
+                 if type(m).__name__.startswith("All2All") and
+                 not isinstance(m, All2AllSoftmax)]
+    per_forward = {"gemm_bias_act": len(k1_layers),
+                   "lrn_fwd": kinds.count("LRNormalizerForward")}
     rng = numpy.random.RandomState(0)
     n_single = 16
-    singles = rng.uniform(-1, 1, (rounds, n_single) + ALEXNET_SAMPLE_SHAPE
+    singles = rng.uniform(-1, 1, (rounds, n_single) + sample_shape
                           ).astype(numpy.float32)
-    batch = rng.uniform(-1, 1, (64,) + ALEXNET_SAMPLE_SHAPE).astype(
+    batch = rng.uniform(-1, 1, (64,) + sample_shape).astype(
         numpy.float32)
     single_bodies = [[json.dumps({"input": s.tolist(), "codec": "list",
                                   "id": i}).encode()
@@ -1191,7 +1248,6 @@ def serve_alexnet(torch, numpy, model, label, rounds):
             if error is not None:
                 raise AssertionError(error)
         decode_ms[key] = statistics.median(times)
-    frontend.start()
     try:
         replica = frontend.pool.replicas[0]
         forwards0 = replica.batches_done
@@ -1208,32 +1264,33 @@ def serve_alexnet(torch, numpy, model, label, rounds):
         batch_s = time.perf_counter() - t
         counts, by_form = read_counts()
         variants = gemm_variants()
-        lrn_forms = check_designed_forms(label, ("lrn_fwd",))
+        lrn_forms = check_designed_forms(label, ("lrn_fwd",)) \
+            if per_forward["lrn_fwd"] else {"lrn_fwd": {}}
         forwards = replica.batches_done - forwards0
     finally:
         frontend.stop()
-    k1, k3 = counts["gemm_bias_act"], counts["lrn_fwd"]
-    if forwards < 1 or k1 != 2 * forwards or k3 != 2 * forwards or \
-            counts["lrn_bwd"] or counts["column_reduce"] or \
-            counts["uniform_fill"] or counts["kahan_gemm"]:
+    want_counts = dict({k: n * forwards for k, n in per_forward.items()},
+                       lrn_bwd=0, column_reduce=0, uniform_fill=0,
+                       kahan_gemm=0)
+    if forwards < 1 or counts != want_counts:
         raise AssertionError(
-            "serving launch counts %s over %d forwards (expected "
-            "gemm_bias_act and lrn_fwd 2 each per forward, no training "
-            "kernel)" % (counts, forwards))
+            "serving launch counts %s over %d forwards (expected %s: %s "
+            "per forward, no training kernel)" % (
+                counts, forwards, want_counts, per_forward))
     print("%s: %d forwards served, gemm_bias_act launched %d times, "
-          "lrn_fwd %d times (2 each per forward)" % (label, forwards, k1,
-                                                     k3))
+          "lrn_fwd %d times (%s per forward)" % (
+              label, forwards, counts["gemm_bias_act"], counts["lrn_fwd"],
+              per_forward))
 
     # hold every reply against the plain-version forward on the card
     served = numpy.concatenate(
         [numpy.array([replies[(r, i)]["result"] for i in range(n_single)])
          for r in range(rounds)] + [numpy.array(batch_reply["results"])])
-    inputs = numpy.concatenate([singles.reshape(
-        (-1,) + ALEXNET_SAMPLE_SHAPE), batch])
+    inputs = numpy.concatenate([singles.reshape((-1,) + sample_shape),
+                                batch])
     want = forward_rows(torch, numpy, lambda x: plain_forward(
         model.module, x), inputs)
-    if served.shape != (len(inputs), 1000) or \
-            not numpy.isfinite(served).all():
+    if served.shape != want.shape or not numpy.isfinite(served).all():
         raise AssertionError("replies: shape %s, finite %s" % (
             served.shape, numpy.isfinite(served).all()))
     err = float(numpy.abs(served - want).max())
@@ -1250,13 +1307,12 @@ def serve_alexnet(torch, numpy, model, label, rounds):
             "%.3g of their input-dependent spread %.3g (limit %g)" % (
                 logit_err, logit_err / spread, spread, LOGIT_REL_TOL))
     # controls that the same check must fail: two replies swapped, and
-    # the kernel forward with fc7's output zeroed
+    # the kernel forward with the last K1 layer's output (AlexNet's fc7)
+    # zeroed
     swapped = served.copy()
     swapped[[0, 1]] = served[[1, 0]]
-    fc7 = [i for i, m in enumerate(model.module)
-           if isinstance(m, All2AllStrictRELU)][-1]
     zeroed = forward_rows(torch, numpy, lambda x: forward_zeroing(
-        model.module, x, fc7), inputs)
+        model.module, x, k1_layers[-1]), inputs)
     controls = {}
     for control, bad in (("swapped", swapped), ("fc7_zeroed", zeroed)):
         bad_err, _ = reply_mismatch(numpy, bad, want)
@@ -2503,14 +2559,19 @@ def sequence_phase(torch, numpy, kernels):
 WORKFLOW_EPOCHS = 4
 #: the snapshot the resumed run starts from: the one after 2 epochs
 WORKFLOW_RESUME_SNAPSHOT = "wf.1.pickle"
-#: the resumed run against the uninterrupted one: each epoch loss within
-#: this relative distance, and fc7's final weights within this share of
-#: their change over the resumed epochs. cuDNN's convolution backward
-#: (and maybe the pooling's) adds in an order that varies between runs
-#: (K1, K4, K6 and K7 are bitwise repeatable): a resume read 0.0068 of
-#: the change on the H100, the control without the registry 0.63
+#: the resumed run against the uninterrupted one in PyTorch's default
+#: mode: each epoch loss within this relative distance, and fc7's final
+#: weights within this share of their change over the resumed epochs
+#: (a resume read 0.0068 of the change on the H100, the control without
+#: the registry 0.63)
 WORKFLOW_LOSS_REL_TOL = 1e-5
 WORKFLOW_UPDATE_SHARE_TOL = 5e-2
+#: the same resume, and a second uninterrupted run, in deterministic mode
+#: (cuDNN deterministic, its benchmark off, ``torch.
+#: use_deterministic_algorithms``, cuBLAS's workspace fixed): values of
+#: the losses and of every parameter tensor that may differ from the
+#: first uninterrupted run's
+WORKFLOW_DETERMINISTIC_DIFFERING = 0
 
 WORKFLOW_FILE = """
 from veles_tpu_torch.config import root
@@ -2525,8 +2586,8 @@ def run(load, main):
         AlexNetWorkflow,
         loader_factory=lambda wf: SyntheticImageLoader(
             workflow=wf, n_train=%d, n_valid=%d, minibatch_size=%d),
-        layers=ALEXNET_LAYERS, max_epochs=%d, learning_rate=0.01,
-        momentum=0.9, weights_decay=5e-4)
+        layers=ALEXNET_LAYERS, max_epochs=root.smoke.get("epochs", %d),
+        learning_rate=0.01, momentum=0.9, weights_decay=5e-4)
     if not restored:
         snap = SnapshotterToFile(wf, compression="", time_interval=0,
                                  name="snapshotter")
@@ -2566,18 +2627,22 @@ sys.exit(1 if bad else 0)
 
 
 @contextlib.contextmanager
-def timed_method(torch, cls, attr):
+def timed_method(torch, cls, attr, host=None):
     """Times each call of ``cls.attr`` (on every instance) by CUDA events
-    while inside; yields the list of (start, end) events."""
+    while inside; yields the list of (start, end) events. ``host``, a
+    list, gets each call's host milliseconds."""
     fn = getattr(cls, attr)
     timed = []
 
     def timed_fn(self, *args):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
         start.record()
         out = fn(self, *args)
         end.record()
+        if host is not None:
+            host.append(1e3 * (time.perf_counter() - t))
         timed.append((start, end))
         return out
 
@@ -2586,6 +2651,55 @@ def timed_method(torch, cls, attr):
         yield timed
     finally:
         setattr(cls, attr, fn)
+
+
+@contextlib.contextmanager
+def deterministic(torch, warned):
+    """cuDNN deterministic with its benchmark off and
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` while
+    inside (cuBLAS's workspace is fixed by ``CUBLAS_WORKSPACE_CONFIG``,
+    set before the first cuBLAS call); the first line of each warning
+    about an op without a deterministic version goes to ``warned``."""
+    import warnings
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+    for w in caught:
+        text = str(w.message)
+        if "deterministic" in text and text.splitlines()[0] not in warned:
+            warned.append(text.splitlines()[0])
+
+
+def run_state(wf, losses):
+    """(per-epoch {class: loss}, every parameter as a CPU tensor) of a
+    finished run."""
+    from veles_tpu_torch.convert import layer_params
+    return (losses, [{k: p.detach().cpu().clone() for k, p in
+                      layer_params(f.module).items()} for f in wf.forwards])
+
+
+def values_differing(got, want):
+    """How many loss values and parameter values of the run state ``got``
+    differ from ``want``'s (:func:`run_state`); runs of different
+    lengths raise."""
+    if len(got[0]) != len(want[0]) or len(got[1]) != len(want[1]):
+        raise AssertionError("runs of %d and %d epochs" % (len(got[0]),
+                                                           len(want[0])))
+    n = sum(g[k] != w[k] for g, w in zip(got[0], want[0]) for k in w)
+    for g, w in zip(got[1], want[1]):
+        for k in w:
+            n += int((g[k] != w[k]).sum())
+    return int(n)
 
 
 def merge_forms(*all_forms):
@@ -2665,7 +2779,7 @@ def _workflow_phase(torch, numpy, kernels, tmp):
     with open(path, "w") as f:
         f.write(WORKFLOW_FILE)
     dirs = {k: os.path.join(tmp, k) for k in ("snapshots", "resumed",
-                                              "control")}
+                                              "control", "det")}
     result = {}
 
     def where(key):
@@ -2801,6 +2915,41 @@ def _workflow_phase(torch, numpy, kernels, tmp):
                    "control_loss_rel": control_loss_rel,
                    "control_fc7_share": control_share})
 
+    # (2d) deterministic mode: the uninterrupted run twice and the resume
+    warned = []
+    states = {}
+    with deterministic(torch, warned):
+        for key, args in (
+                ("first", ("-s", "7", where("det"))),
+                ("second", ("-s", "7", where("control"))),
+                ("resumed", ("-w", os.path.join(
+                    dirs["det"], WORKFLOW_RESUME_SNAPSHOT),
+                    where("control")))):
+            prng._generators.clear()
+            root.common.disable.snapshotting = key != "first"
+            try:
+                main = workflow_cli(path, *args)
+            finally:
+                root.common.disable.snapshotting = False
+            states[key] = run_state(main.workflow, [
+                t["loss"] for t in main.launcher.runner.epoch_times])
+            del main
+            torch.cuda.empty_cache()
+    first = states["first"]
+    det = {"second": values_differing(states["second"], first),
+           "resumed": values_differing(states["resumed"],
+                                       (first[0][2:], first[1]))}
+    print("workflow deterministic mode: a second uninterrupted run "
+          "differs in %d values, the resumed run in %d (limit %d); ops "
+          "without a deterministic version: %s" % (
+              det["second"], det["resumed"],
+              WORKFLOW_DETERMINISTIC_DIFFERING, warned or "none"))
+    if max(det.values()) > WORKFLOW_DETERMINISTIC_DIFFERING:
+        raise AssertionError("deterministic runs differ: %s" % det)
+    result.update({"deterministic_differing": det,
+                   "deterministic_warned_ops": warned})
+    del states, first
+
     # (3) --test on the final snapshot
     root.common.disable.snapshotting = True
     try:
@@ -2870,6 +3019,454 @@ def _workflow_phase(torch, numpy, kernels, tmp):
     return result, [forms]
 
 
+#: the eager phase: ``--eager`` on the workflow phase's file
+EAGER_EPOCHS = 2
+#: the eager run against the fused run of the same file and seed, both
+#: in deterministic mode: each epoch loss within this relative distance
+#: and fc7's final weights within this share of their change over the
+#: run; fc7's gradient unit gated off must exceed it
+EAGER_LOSS_REL_TOL = 1e-6
+EAGER_UPDATE_SHARE_TOL = 1e-3
+#: the training iteration of the eager run profiled: the last but one
+#: (the last of each epoch also runs the epoch's snapshot)
+EAGER_PROFILED = -2
+
+#: the export phase's mnist-fc: ``MnistWorkflow`` 784-100-10 over the
+#: BASELINE digits, batch 500, one eager epoch
+MNIST_FC_FILE = """
+from veles_tpu_torch.datasets import golden_digits
+from veles_tpu_torch.models.mnist import MnistWorkflow
+
+
+def run(load, main):
+    load(MnistWorkflow, provider=golden_digits(%d, %d), layers=(100,),
+         minibatch_size=500, max_epochs=1)
+    main()
+""" % BASELINE_DIGITS
+
+
+class EagerSteps(object):
+    """While inside, marks each eager loop iteration (each
+    ``Repeater.run``) with a CUDA event and the host clock, and whether
+    the minibatch it serves is a training one; the training iteration
+    ``profiled`` (an index into them) runs under ``torch.profiler``.
+    ``steps()`` gives [(device ms, host ms)] of every training
+    iteration, in order."""
+
+    def __init__(self, torch, profiled):
+        self.torch = torch
+        self.profiled = profiled
+        self.marks = []
+        self.prof = None
+
+    def _mark(self, loader):
+        torch = self.torch
+        if self.prof is not None and self.prof_open:
+            torch.cuda.synchronize()
+            self.prof.stop()
+            self.prof_open = False
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        train = None
+        if loader is not None:
+            offset = loader._global_offset
+            if offset >= loader.total_samples:
+                offset = 0
+            from veles_tpu_torch.loader.base import VALIDATION
+            train = loader.class_end_offsets[VALIDATION] <= offset < \
+                loader.total_samples
+            if train and sum(m[2] for m in self.marks) == self.profiled:
+                from torch.profiler import ProfilerActivity, profile
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof_open = True
+                torch.cuda.synchronize()
+                self.profiled_mark = len(self.marks)
+                self.prof.start()
+        self.marks.append((event, time.perf_counter(), bool(train)))
+
+    def __enter__(self):
+        from veles_tpu_torch.plumbing import Repeater
+        self.run = Repeater.run
+        steps = self
+
+        def marked(repeater):
+            steps._mark(repeater.workflow.loader)
+            return steps.run(repeater)
+
+        Repeater.run = marked
+        self.prof_open = False
+        self.profiled_mark = None
+        return self
+
+    def __exit__(self, *exc):
+        from veles_tpu_torch.plumbing import Repeater
+        Repeater.run = self.run
+        self._mark(None)
+        self.torch.cuda.synchronize()
+
+    def steps(self):
+        out = []
+        for i, (event, host, train) in enumerate(self.marks[:-1]):
+            if train:
+                nxt = self.marks[i + 1]
+                out.append((event.elapsed_time(nxt[0]),
+                            1e3 * (nxt[1] - host)))
+        return out
+
+    def profiled_ms(self):
+        """(wall ms, device ms) of the profiled iteration."""
+        i = self.profiled_mark
+        return (1e3 * (self.marks[i + 1][1] - self.marks[i][1]),
+                self.marks[i][0].elapsed_time(self.marks[i + 1][0]))
+
+
+@contextlib.contextmanager
+def evaluator_losses():
+    """While inside, each eager softmax evaluator's minibatch loss, as
+    (epoch, class, loss); yields the list."""
+    from veles_tpu_torch.nn.units import EvaluatorSoftmax
+    compute = EvaluatorSoftmax.compute
+    seen = []
+
+    def recording(self):
+        compute(self)
+        loader = self.workflow.loader
+        seen.append((loader.epoch_number, loader.minibatch_class, self.loss))
+
+    EvaluatorSoftmax.compute = recording
+    try:
+        yield seen
+    finally:
+        EvaluatorSoftmax.compute = compute
+
+
+def epoch_losses(torch, seen, device):
+    """[{class name: mean minibatch loss}] by epoch of
+    :func:`evaluator_losses`' records, the mean taken as
+    ``FusedRunner.epoch_times`` takes it: of the float32 losses, on the
+    run's device."""
+    from veles_tpu_torch.loader.base import CLASS_NAMES
+    out = {}
+    for epoch, klass, loss in seen:
+        out.setdefault(epoch, {}).setdefault(CLASS_NAMES[klass], []).append(
+            loss)
+    return [{k: float(torch.tensor(v, dtype=torch.float32,
+                                   device=device).mean())
+             for k, v in out[e].items()} for e in sorted(out)]
+
+
+def eager_export_phases(torch, numpy, kernels):
+    """The eager phase, then the export and serve phase over its trained
+    workflow; their temporary directory removed at the end. Returns
+    ((eager result, export result), [launches_by_form])."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="veles_eager_")
+    try:
+        eager, forms, main = eager_phase(torch, numpy, kernels, tmp)
+        served, more = export_phase(torch, numpy, kernels, tmp, main)
+        return (eager, served), forms + more
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def eager_phase(torch, numpy, kernels, tmp):
+    """``python -m veles_tpu_torch --eager`` on the workflow phase's
+    AlexNet-227 file (512 + 128 samples, batch 128, 2 epochs, float32,
+    ``-s 7``) in deterministic mode, snapshotted every epoch: (1) held to
+    the fused CLI run of the same file, each epoch loss within 1e-6
+    relative and fc7 within 1e-3 of its change (bitwise reported), and
+    the same eager run with fc7's gradient unit gated off (its
+    ``err_input`` zeros, as the JAX unit's) must exceed that; (2) K1,
+    K3, K4, K6 and K7 launched exactly the unit graph's counts (the
+    fused step's: no recompute), at checked forms; (3) the eager step's
+    device ms (CUDA events) and host ms beside the fused step's, the
+    idle share of one profiled eager step, launches per step; (4) the
+    snapshot after epoch 0 resumed fused (``-w``) to the eager run's end
+    at the deterministic bound. Returns (result, [launches_by_form], the
+    eager run's ``Main``)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.loader.base import TRAIN, VALIDATION
+    from veles_tpu_torch.mutable import Bool
+    from veles_tpu_torch.nn.units import All2AllStrictRELU
+    from veles_tpu_torch.snapshotter import SnapshotterToFile
+    from veles_tpu_torch.train.step import FusedTrainer
+
+    path = os.path.join(tmp, "alexnet_workflow.py")
+    with open(path, "w") as f:
+        f.write(WORKFLOW_FILE)
+    epochs = "root.smoke.epochs=%d" % EAGER_EPOCHS
+
+    def where(key):
+        return "root.smoke.snapshots=%r" % os.path.join(tmp, key)
+
+    def cli(*args, snapshots=False):
+        prng._generators.clear()
+        root.common.disable.snapshotting = not snapshots
+        try:
+            return workflow_cli(path, "-s", "7", epochs, *args)
+        finally:
+            root.common.disable.snapshotting = False
+
+    result = {}
+    warned = []
+    initial = cli("--dry-run", "init", where("none")).workflow
+    fc7 = [i for i, f in enumerate(initial.forwards)
+           if isinstance(f, All2AllStrictRELU)][-1]
+    before = initial.forwards[fc7].weights.detach().cpu().clone()
+    del initial
+    with deterministic(torch, warned):
+        # the fused reference
+        reset_counts()
+        fused_host = []
+        with timed_method(torch, FusedTrainer, "train_batch",
+                          host=fused_host) as fused_timed:
+            fused = cli(where("none"))
+            torch.cuda.synchronize()
+        fused_counts = read_counts()[0]
+        runner = fused.launcher.runner
+        per_epoch = len(runner.trainer._segment_indices(TRAIN))
+        forwards = per_epoch + len(runner.trainer._segment_indices(
+            VALIDATION))
+        want = run_state(fused.workflow,
+                         [t["loss"] for t in runner.epoch_times])
+        fused_steps = [(a.elapsed_time(b), h) for (a, b), h in zip(
+            fused_timed, fused_host)][1:]
+        del fused, runner
+        torch.cuda.empty_cache()
+        # the eager run, snapshotted every epoch
+        steps_total = EAGER_EPOCHS * per_epoch
+        reset_counts()
+        t = time.perf_counter()
+        with evaluator_losses() as seen, EagerSteps(
+                torch, EAGER_PROFILED % steps_total) as steps:
+            eager = cli("--eager", where("eager"), snapshots=True)
+        result["run_s"] = time.perf_counter() - t
+        counts, forms = read_counts()
+        variants = gemm_variants()
+        designed = check_designed_forms("eager run")
+        if eager.launcher.run_mode_used != "eager":
+            raise AssertionError("--eager ran %s"
+                                 % eager.launcher.run_mode_used)
+        got = run_state(eager.workflow, epoch_losses(
+            torch, seen, eager.workflow.device))
+        # the control: fc7's gradient unit gated off
+        control = cli("--eager", "--dry-run", "init", where("none"))
+        wf = control.workflow
+        (gd,) = [g for g in wf.gds if g.forward is wf.forwards[fc7]]
+        gd.gate_skip = Bool(True)
+        gd.err_input = torch.zeros(gd.err_input.shape, device=wf.device)
+        root.common.disable.snapshotting = True
+        try:
+            with evaluator_losses() as control_seen:
+                control.launcher.run()
+        finally:
+            root.common.disable.snapshotting = False
+        bad = run_state(wf, epoch_losses(torch, control_seen, wf.device))
+        del control, wf, gd
+        torch.cuda.empty_cache()
+        # the eager snapshot after epoch 0, resumed fused
+        resumed = cli("-w", os.path.join(tmp, "eager", "wf.0.pickle"),
+                      where("none"))
+        resumed_state = run_state(resumed.workflow, [
+            t["loss"] for t in resumed.launcher.runner.epoch_times])
+        del resumed
+        torch.cuda.empty_cache()
+    (snapshotter,) = [u for u in eager.workflow
+                      if isinstance(u, SnapshotterToFile)]
+    kinds = [type(f).__name__ for f in eager.workflow.forwards]
+    n_lrn = kinds.count("LRNormalizerForward")
+    expected = {"gemm_bias_act": kinds.count("All2AllStrictRELU") *
+                forwards * EAGER_EPOCHS,
+                "lrn_fwd": n_lrn * forwards * EAGER_EPOCHS,
+                "lrn_bwd": n_lrn * steps_total,
+                "column_reduce": sum(f.bias is not None for f in
+                                     eager.workflow.forwards) * steps_total,
+                "uniform_fill": kinds.count("DropoutForward") * steps_total,
+                "kahan_gemm": 0}
+    print("eager: launch counts %s, expected %s (the fused run's %s)" % (
+        counts, expected, fused_counts))
+    if counts != expected or fused_counts != expected:
+        raise AssertionError("eager launch counts %s, fused %s, expected "
+                             "%s" % (counts, fused_counts, expected))
+    check_forms("eager", kernels, forms)
+    check_designed("eager", variants)
+    def losses_fc7(state):
+        return state[0], state[1][fc7]["weights"].numpy()
+
+    loss_rel, share = resume_gap(numpy, losses_fc7(got), losses_fc7(want),
+                                 before.numpy())
+    bitwise = values_differing(got, want)
+    bad_rel, bad_share = resume_gap(numpy, losses_fc7(bad),
+                                    losses_fc7(want), before.numpy())
+    resume_differing = values_differing(resumed_state,
+                                        (got[0][1:], got[1]))
+    print("eager vs fused (deterministic): losses within %.3g relative "
+          "(limit %g), fc7 within %.3g of its change (limit %g), %d "
+          "values differ; control (fc7's GD gated off) %.3g / %.3g; the "
+          "eager snapshot resumed fused differs in %d values (limit %d); "
+          "ops without a deterministic version: %s" % (
+              loss_rel, EAGER_LOSS_REL_TOL, share, EAGER_UPDATE_SHARE_TOL,
+              bitwise, bad_rel, bad_share, resume_differing,
+              WORKFLOW_DETERMINISTIC_DIFFERING, warned or "none"))
+    if loss_rel > EAGER_LOSS_REL_TOL or share > EAGER_UPDATE_SHARE_TOL:
+        raise AssertionError("the eager run differs from the fused one")
+    if bad_rel <= EAGER_LOSS_REL_TOL and bad_share <= EAGER_UPDATE_SHARE_TOL:
+        raise AssertionError("the control passes the eager check")
+    if resume_differing > WORKFLOW_DETERMINISTIC_DIFFERING:
+        raise AssertionError("the eager snapshot resumed fused differs")
+    # steady steps: not the first, not the profiled one, not an epoch's
+    # last (it also runs the epoch's snapshot)
+    eager_steps = steps.steps()
+    profiled = EAGER_PROFILED % steps_total
+    steady = [step for j, step in enumerate(eager_steps)
+              if j and j != profiled and (j + 1) % per_epoch]
+    wall_ms, device_ms = steps.profiled_ms()
+    split = device_time_split(torch, steps.prof)
+    busy = sum(split.values())
+    eager_p50 = statistics.median(d for d, _ in steady)
+    result.update({
+        "losses": got[0], "fused_losses": want[0],
+        "loss_rel": loss_rel, "fc7_share": share,
+        "values_differing": bitwise, "control_loss_rel": bad_rel,
+        "control_fc7_share": bad_share,
+        "snapshot_resumed_fused_differing": resume_differing,
+        "deterministic_warned_ops": warned, "launches": counts,
+        "launches_per_step": {k: v / steps_total for k, v in
+                              counts.items()},
+        "step_device_ms_p50": eager_p50,
+        "step_host_ms_p50": statistics.median(h for _, h in steady),
+        "step_device_ms": [d for d, _ in eager_steps],
+        "step_host_ms": [h for _, h in eager_steps],
+        "fused_step_device_ms_p50": statistics.median(
+            d for d, _ in fused_steps),
+        "fused_step_host_ms_p50": statistics.median(
+            h for _, h in fused_steps),
+        "profiled_step_wall_ms": wall_ms,
+        "profiled_step_events_ms": device_ms,
+        "profiled_step_device_ms": busy,
+        "device_idle_share": max(0.0, 1.0 - busy / eager_p50),
+        "device_ms_by_group": split, "gemm_variants": variants,
+        "designed_forms": designed,
+        "snapshot_export_s": [sec for sec, _ in snapshotter.exports]})
+    print("eager step: device %.3f ms, host %.3f ms (fused %.3f / %.3f "
+          "ms); idle %.1f%% of a profiled step" % (
+              result["step_device_ms_p50"], result["step_host_ms_p50"],
+              result["fused_step_device_ms_p50"],
+              result["fused_step_host_ms_p50"],
+              100 * result["device_idle_share"]))
+    return result, [forms], eager
+
+
+def export_phase(torch, numpy, kernels, tmp, eager):
+    """Export and serve: (1) the eager-trained AlexNet to a ``.tar``
+    package from the card's tensors, every array member equal to its
+    unit's parameters in the JAX layout bit for bit, and
+    ``ModelStore.load`` of it refused (``ModelLoadError``: the
+    convolutions); (2) mnist-fc (784-100-10, batch 500, golden digits
+    12000 + 2000, ``-s 1234``) trained one eager epoch on the card and
+    exported; (3) ``python -m veles_tpu_torch serve``'s arguments
+    (:func:`veles_tpu_torch.serving.frontend.serve`, in this process so
+    that its launches count) on the mnist-fc package and on the eager
+    AlexNet's snapshot directory: 16 concurrent single requests and one
+    64-row batch each, checked as the slice phase checks them, every K1
+    launch at a checked form and on a designed variant; (4) each flag of
+    the JAX command whose machinery the port lacks raises naming it.
+    Returns (result, [launches_by_form])."""
+    from veles_tpu_torch.convert import layer_params, to_jax_layout
+    from veles_tpu_torch.serving.frontend import REFUSED_FLAGS, serve
+    from veles_tpu_torch.serving.model_store import (ModelLoadError,
+                                                     ModelStore,
+                                                     _read_package)
+    result = {}
+    wf = eager.workflow
+    package = os.path.join(tmp, "alexnet.tar")
+    t = time.perf_counter()
+    wf.package_export(package)
+    result["alexnet_export_s"] = time.perf_counter() - t
+    contents, members = _read_package(package)
+    checked = 0
+    for unit, entry in zip(wf.forwards, contents["workflow"]["units"]):
+        for key, value in to_jax_layout(layer_params(unit.module)).items():
+            member = members[entry["data"][key]]
+            if member.shape != value.shape or \
+                    member.tobytes() != value.tobytes():
+                raise AssertionError("package member %s of %s differs"
+                                     % (key, unit.name))
+            checked += 1
+    try:
+        ModelStore().load(package)
+    except ModelLoadError as e:
+        result["alexnet_package_refused"] = str(e)
+    else:
+        raise AssertionError("ModelStore.load served a conv package")
+    print("export: AlexNet package %.1f MiB, %d arrays equal to the "
+          "card's parameters bit for bit; ModelStore.load refuses it: %s"
+          % (os.path.getsize(package) / 1048576.0, checked,
+             result["alexnet_package_refused"]))
+    del eager, wf
+    torch.cuda.empty_cache()
+
+    mnist = os.path.join(tmp, "mnist_fc.py")
+    with open(mnist, "w") as f:
+        f.write(MNIST_FC_FILE)
+    from veles_tpu_torch import prng
+    prng._generators.clear()
+    reset_counts()
+    t = time.perf_counter()
+    main = workflow_cli(mnist, "-s", str(BASELINE_SEED), "--eager")
+    result["mnist_fc_epoch_s"] = time.perf_counter() - t
+    counts = read_counts()[0]
+    loader = main.workflow.loader
+    steps = -(-loader.class_lengths[2] // loader.max_minibatch_size)
+    forwards = steps + -(-loader.class_lengths[1] //
+                         loader.max_minibatch_size)
+    want = {"gemm_bias_act": forwards, "lrn_fwd": 0, "lrn_bwd": 0,
+            "column_reduce": 2 * steps, "uniform_fill": 0,
+            "kahan_gemm": 0}
+    if counts != want:
+        raise AssertionError("mnist-fc eager launch counts %s, expected "
+                             "%s" % (counts, want))
+    history = main.workflow.decision.epoch_history
+    result["mnist_fc_history"] = history
+    pkg = os.path.join(tmp, "mnist_fc.tar")
+    main.workflow.package_export(pkg)
+    del main
+    print("export: mnist-fc one eager epoch on the card (%s), launches %s;"
+          " exported" % (history, counts))
+    forms = []
+    for label, artifact in (("mnist-fc package", pkg),
+                            ("alexnet snapshot", os.path.join(tmp,
+                                                              "eager"))):
+        frontend = serve(["--model", artifact, "--host", "127.0.0.1",
+                          "--port", "0", "--max-batch-size", "64",
+                          "--response-timeout", "300"])
+        served, by_form = serve_checked(torch, numpy, frontend,
+                                        "serve CLI " + label, rounds=1)
+        check_forms("serve CLI " + label, kernels, by_form)
+        check_designed("serve CLI " + label, served["gemm_variants"])
+        result[label] = served
+        forms.append(by_form)
+        del frontend
+        torch.cuda.empty_cache()
+    refused = {}
+    for dest, (flag, _) in sorted(REFUSED_FLAGS.items()):
+        try:
+            serve(["--model", pkg, flag, "x:1" if dest == "tenant" else "1"])
+        except NotImplementedError as e:
+            if flag not in str(e):
+                raise AssertionError("%s refused without its name: %s"
+                                     % (flag, e))
+            refused[flag] = str(e)
+        else:
+            raise AssertionError("serve took %s" % flag)
+    result["refused_flags"] = refused
+    print("serve CLI: refused by name %s" % sorted(refused))
+    return result, forms
+
+
 def rating_phase(torch):
     """``gemm_benchmark()`` at bf16 and float32 (1500^2, the rating),
     bf16 at 1536^2 (3072-byte rows, 16-byte aligned, where 1500's
@@ -2907,6 +3504,9 @@ def rating_phase(torch):
 
 
 def main():
+    # deterministic cuBLAS for the workflow and eager phases' runs: read
+    # when the first cuBLAS handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy
     import torch
     if not torch.cuda.is_available():
@@ -2991,6 +3591,12 @@ def main():
     workflow, forms = workflow_phase(torch, numpy, kernels)
     phases.extend(forms)
     print("workflow (%s): %s" % (card, json.dumps(workflow, default=str)))
+
+    (eager, served), forms = eager_export_phases(torch, numpy, kernels)
+    phases.extend(forms)
+    print("eager (%s): %s" % (card, json.dumps(eager, default=str)))
+    print("export and serve (%s): %s" % (card, json.dumps(served,
+                                                          default=str)))
 
     for row in kernels:
         form = row.pop("_form")

@@ -20,6 +20,10 @@ Kahan GEMM is held to its plain loop at atol = rtol = 1e-4 (float32
 sums of K <= 1000 products of values below 1, in other orders), and
 ``gemm()``'s float32 products to 2e-6 of ``|a| @ |b|`` against float64:
 float32 sums read a few 1e-7 at most there, TF32 products ~1e-5.
+The workflow tests run the CLI on the card: an epoch fused, eagerly
+(``--eager``: the same launches and history as the fused run), and an
+eager run exported to a package holding the card's parameters bit for
+bit, a dense package served on the card as on the CPU.
 """
 
 import numpy
@@ -1002,3 +1006,95 @@ def test_snapshot_crosses_between_card_and_cpu(card, tmp_path, direction):
             want = solver_state_to_jax([ref.opt_state])[0]["velocity"]
             for k in want:
                 numpy.testing.assert_array_equal(got[k], want[k])
+
+
+def test_cli_eager_epoch_of_small_alexnet_on_the_card(card, tmp_path):
+    """One epoch of the small AlexNet through ``python -m veles_tpu_torch
+    --eager`` on the card: every kernel launched as often as by the
+    fused CLI run of the same file, the same history, and parameters
+    within 1e-2 of their change (cuDNN's backward may add in another
+    order outside deterministic mode)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.__main__ import Main
+    from veles_tpu_torch.ops.lrn import lrn_backward, lrn_forward
+    from veles_tpu_torch.ops.reduce import column_sum
+    path = tmp_path / "small_alexnet.py"
+    path.write_text("SNAPS = %r\n" % str(tmp_path / "snaps") +
+                    SMALL_ALEXNET_FILE)
+    wrappers = (linear_act, lrn_forward, lrn_backward, column_sum,
+                uniform_fill)
+    runs = {}
+    for mode, flags in (("init", ["--dry-run", "init"]), ("fused", []),
+                        ("eager", ["--eager"])):
+        prng._generators.clear()
+        for fn in wrappers:
+            fn.launches = 0
+        main = Main()
+        assert main.run([str(path), "-s", "7"] + flags) == 0
+        runs[mode] = (main.workflow, [fn.launches for fn in wrappers])
+    eager, fused = runs["eager"][0], runs["fused"][0]
+    launched = dict(zip(("linear_act", "lrn_forward", "lrn_backward",
+                         "column_sum", "uniform_fill"), runs["eager"][1]))
+    assert runs["eager"][1] == runs["fused"][1]
+    assert launched["linear_act"] and launched["column_sum"] and \
+        launched["uniform_fill"]  # the small AlexNet has no LRN
+    assert eager.decision.epoch_history[0]["train"]["samples"] == 256
+    assert numpy.isfinite(eager.evaluator.loss)
+    for got, want, start in zip(_workflow_weights(eager),
+                                _workflow_weights(fused),
+                                _workflow_weights(runs["init"][0])):
+        for k in want:
+            change = numpy.abs(want[k] - start[k]).max()
+            assert numpy.abs(got[k] - want[k]).max() <= 1e-2 * change
+
+
+def test_package_export_on_the_card(card, tmp_path):
+    """A package written from the card's tensors holds them bit for bit
+    in the JAX layout, and a dense package served on the card (K1)
+    answers as it does on the CPU."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.__main__ import Main
+    from veles_tpu_torch.convert import layer_params, to_jax_layout
+    from veles_tpu_torch.dummy import DummyLauncher
+    from veles_tpu_torch.loader.fullbatch import ProviderLoader
+    from veles_tpu_torch.serving.model_store import (ModelLoadError,
+                                                     ModelStore,
+                                                     _read_package)
+    from veles_tpu_torch.standard_workflow import StandardWorkflow
+    path = tmp_path / "small_alexnet.py"
+    path.write_text("SNAPS = %r\n" % str(tmp_path / "snaps") +
+                    SMALL_ALEXNET_FILE)
+    main = Main()
+    assert main.run([str(path), "-s", "7", "--eager"]) == 0
+    package = main.workflow.package_export(str(tmp_path / "alexnet.tar"))
+    contents, members = _read_package(package)
+    for unit, entry in zip(main.workflow.forwards,
+                           contents["workflow"]["units"]):
+        for key, value in to_jax_layout(layer_params(unit.module)).items():
+            assert members[entry["data"][key]].tobytes() == value.tobytes()
+    with pytest.raises(ModelLoadError, match="Conv"):
+        ModelStore().load(package)
+
+    def provider():
+        rng = numpy.random.RandomState(0)
+        x = rng.rand(300, 64).astype(numpy.float32)
+        y = rng.randint(0, 10, 300).astype(numpy.int32)
+        return x[:240], y[:240], x[240:], y[240:]
+
+    prng._generators.clear()
+    prng.get().seed(5)
+    wf = StandardWorkflow(
+        DummyLauncher(), loader=lambda w: ProviderLoader(
+            workflow=w, provider=provider, minibatch_size=60),
+        layers=[{"type": "all2all_tanh", "output_sample_shape": 100},
+                {"type": "softmax", "output_sample_shape": 10}],
+        max_epochs=1)
+    wf.initialize(device="cuda")
+    wf.run()
+    dense = wf.package_export(str(tmp_path / "dense"))
+    linear_act.launches = 0
+    batch = numpy.random.RandomState(1).rand(64, 64).astype(numpy.float32)
+    got = ModelStore().load(dense)(batch)
+    assert linear_act.launches >= 1
+    want = ModelStore().load(dense, device="cpu")(batch)
+    numpy.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)

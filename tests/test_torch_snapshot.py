@@ -9,7 +9,8 @@ the CPU.
 * The file format: raw, gz, bz2 and xz round-trip (read by magic
   bytes), the ``_current`` link names the newest, ``restore_latest``
   falls back past a corrupt newest file (``ModelStore.load`` of the
-  directory too; an export package raises), a pickle that is not a
+  directory too; an export package loads as one, an empty one raises
+  ``ModelLoadError``), a pickle that is not a
   snapshot is refused, no tensor (and no torch class) is pickled, and a
   snapshot loads and serves with no card.
 * The JAX reader: JAX's own mid-epoch case (``tests/test_fused_runner.
@@ -43,7 +44,7 @@ torch = pytest.importorskip("torch")
 from test_mnist_e2e import synthetic_digits  # noqa: E402
 from test_torch_workflow import (JaxUniforms, MNIST_FILE,  # noqa: E402
                                  SMALL_LOADER, _jax_weights, _port_weights,
-                                 workflow_file)
+                                 _small_mnist, workflow_file)
 
 from veles_tpu import prng as jax_prng  # noqa: E402
 from veles_tpu.backends import Device  # noqa: E402
@@ -213,7 +214,9 @@ def test_a_pickle_that_is_not_a_snapshot_is_refused(tmp_path):
 
 def test_a_snapshot_loads_and_serves_without_a_card(uninterrupted,
                                                     monkeypatch):
-    from veles_tpu_torch.serving.model_store import ModelStore
+    from veles_tpu_torch.serving.model_store import (ModelLoadError,
+                                                     ModelStore,
+                                                     ServeableModel)
     full, directory = uninterrupted
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     wf = load_workflow(os.path.join(str(directory), "wf.3.pickle"))
@@ -454,12 +457,23 @@ def test_no_jax_on_the_cli_snapshot_and_serving_paths(tmp_path):
     assert sorted(os.listdir(str(snaps)))[-1] == "wf_current.pickle.gz"
 
 
+def _mnist_trained():
+    """A tiny ``MnistWorkflow`` after one fused epoch on the CPU."""
+    wf = _small_mnist(max_epochs=1)
+    wf.initialize(device="cpu")
+    FusedRunner(wf).run()
+    return wf
+
+
 def test_model_store_skips_a_corrupt_newest_snapshot(tmp_path,
                                                      uninterrupted):
     """``ModelStore.load`` of a snapshot directory serves the newest
-    snapshot that loads; an export package raises until its loader is
-    ported."""
-    from veles_tpu_torch.serving.model_store import ModelStore
+    snapshot that loads; a directory holding ``contents.json`` is read
+    as an export package instead: one without units raises
+    ``ModelLoadError``, the snapshot's own package loads and serves."""
+    from veles_tpu_torch.serving.model_store import (ModelLoadError,
+                                                     ModelStore,
+                                                     ServeableModel)
     full, directory = uninterrupted
     for name in ("wf.2.pickle", "wf.3.pickle"):
         with open(os.path.join(str(directory), name), "rb") as f:
@@ -472,8 +486,15 @@ def test_model_store_skips_a_corrupt_newest_snapshot(tmp_path,
     package = tmp_path / "package"
     package.mkdir()
     (package / "contents.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="export"):
-        ModelStore().load(str(package))
+    with pytest.raises(ModelLoadError, match="no units"):
+        ModelStore().load(str(package), device="cpu")
+    dense = tmp_path / "dense.tar"
+    mnist = _mnist_trained()
+    mnist.package_export(str(dense))
+    served = ModelStore().load(str(dense), device="cpu")
+    batch = numpy.random.RandomState(3).rand(5, 6, 6).astype(numpy.float32)
+    numpy.testing.assert_array_equal(
+        served(batch), ServeableModel.from_workflow(mnist)(batch))
 
 
 def test_jax_snapshot_written_by_its_snapshotter(tmp_path):

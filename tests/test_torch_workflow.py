@@ -20,9 +20,10 @@
   once an epoch with gate_block swallowing and gate_skip propagating,
   ``--test -w`` on a finished snapshot (one forward-only epoch, no
   weight changed), and a finished snapshot resuming to nothing.
-* What the port refuses: ``--eager``, ``-l``, ``-m``, ``--gspmd``,
-  ``--auto-resume`` and a graph the fused path rejects raise
-  ``NotImplementedError``.
+* What the port refuses: ``-l``, ``-m``, ``--gspmd`` and
+  ``--auto-resume`` raise ``NotImplementedError``; ``--eager`` runs the
+  eager scheduler, and a graph the fused path rejects falls back to it
+  (``tests/test_torch_eager.py`` holds that path to JAX's).
 """
 
 import json
@@ -603,21 +604,39 @@ def test_finished_snapshot_resumes_to_nothing(tmp_path):
                                    ["-m", "127.0.0.1:5000"], ["--gspmd"],
                                    ["--auto-resume", "snapshots"]])
 def test_cli_refuses_unported_modes(tmp_path, flags):
-    from veles_tpu_torch.__main__ import main
+    """The modes the port lacks raise; ``--eager``, once refused too,
+    now runs the eager scheduler to the end."""
+    from veles_tpu_torch.__main__ import Main, main
     path = workflow_file(tmp_path, MNIST_FILE, "veles_tpu_torch", 1, "ref")
+    if flags == ["--eager"]:
+        cli = Main()
+        assert cli.run([path, "-a", "cpu"] + flags) == 0
+        assert cli.launcher.run_mode_used == "eager"
+        assert len(cli.workflow.decision.epoch_history) == 1
+        return
     with pytest.raises(NotImplementedError):
         main([path, "-a", "cpu"] + flags)
 
 
-def test_launcher_refuses_a_rejected_graph():
+def test_launcher_refuses_a_rejected_graph(caplog):
+    """A graph the fused path refuses (a unit it does not model) is no
+    longer refused: the launcher says why in the log and runs it eager,
+    the custom unit once a minibatch."""
     from veles_tpu_torch.launcher import Launcher
     launcher = Launcher(backend="cpu")
     wf = MnistWorkflow(launcher, provider=_tiny_provider(), layers=(8,),
                        minibatch_size=20, max_epochs=1)
-    TrivialUnit(wf, name="custom").link_from(wf.decision)
+    custom = Recorder(wf, name="custom")
+    custom.link_from(wf.decision)
     launcher.initialize()
-    with pytest.raises(NotImplementedError, match="custom"):
+    Recorder.trace = []
+    with caplog.at_level("INFO"):
         launcher.run()
+    assert launcher.run_mode_used == "eager"
+    assert "fused path unavailable" in caplog.text and "custom" in \
+        caplog.text
+    assert Recorder.trace == ["custom"] * 4  # 80 samples, batches of 20
+    assert len(wf.decision.epoch_history) == 1
 
 
 def test_auto_backend_needs_a_card(monkeypatch):

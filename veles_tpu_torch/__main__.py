@@ -8,16 +8,26 @@ registry from ``-s`` (``default``, ``loader`` and ``chaos``; the keys a
 short list leaves out are seeded from the first, as in the JAX
 package), applies the config file and the ``root.`` overrides,
 initializes the workflow on the card (``-a cpu`` for the CPU) and runs
-it through ``FusedRunner``. ``-w <snapshot>`` resumes a snapshot (the
-port's or the JAX package's), ``--test`` runs one forward-only epoch,
-``--result-file`` writes the gathered metrics as JSON,
-``--workflow-graph`` the DOT graph, ``--dry-run exec|init`` stops after
-building or initializing, ``--precision`` picks the layers' precision
-policy. The JAX CLI's other modes (``serve``, ``sched``, ``-l``/``-m``,
-``--optimize``, the ensembles, ``-i``, ``--trace-out``) are not ported
-yet.
+it through ``FusedRunner`` (the eager per-unit scheduler with
+``--eager``, or when the fused path refuses the graph). ``-w
+<snapshot>`` resumes a snapshot (the port's or the JAX package's),
+``--test`` runs one forward-only epoch, ``--result-file`` writes the
+gathered metrics as JSON, ``--workflow-graph`` the DOT graph,
+``--dry-run exec|init`` stops after building or initializing,
+``--precision`` picks the layers' precision policy, ``-i`` opens a
+console between initializing and running (``workflow``, ``launcher``,
+``units``, ``root`` and ``main()`` in scope; IPython on a terminal that
+has it, ``code.interact`` otherwise; ``main()`` runs once, and leaving
+the console runs it if it has not run).
+
+    python -m veles_tpu_torch serve --model <snapshot | package> ...
+
+is the serving engine (``serving/frontend.py`` ``main``). The JAX CLI's
+other modes (``sched``, ``-l``/``-m``, ``--optimize``, the ensembles,
+``--trace-out``) are not ported yet.
 """
 
+import code
 import importlib.util
 import json
 import logging
@@ -57,6 +67,10 @@ class Main(Logger):
                                  "keys default,loader,chaos")
         parser.add_argument("-w", "--snapshot", default=None,
                             help="resume from a snapshot file")
+        parser.add_argument("-i", "--interactive", action="store_true",
+                            help="initialize the workflow, then drop "
+                                 "into a console with it in scope; "
+                                 "call main() there (or exit) to run")
         parser.add_argument("-v", "--verbosity", default="info",
                             choices=["debug", "info", "warning", "error"],
                             help="logging level")
@@ -167,9 +181,55 @@ class Main(Logger):
                       self.args.workflow_graph)
         if self.args.dry_run == "init":
             return
-        self.launcher.run()
-        self._write_results()
-        self.workflow.print_stats()
+        if self.args.interactive:
+            self._interact()
+            if self._run_error is not None:
+                # the console printed the failure; the exit code must
+                # still say it
+                raise self._run_error
+        if not self._ran:
+            self._run_and_report()
+
+    def _run_and_report(self):
+        """Run and write the results, once: a second call (``main()``
+        again in the console) warns and keeps the first results."""
+        if self._ran:
+            self.warning("main() already ran in this session; skipping "
+                         "(results were already written)")
+            return
+        self._ran = True
+        try:
+            self.launcher.run()
+            self._write_results()
+            self.workflow.print_stats()
+        except BaseException as e:
+            self._run_error = e
+            raise
+
+    def _interact(self):
+        """``-i``: the console, with the initialized workflow in scope;
+        ``main()`` there runs it."""
+        namespace = {"workflow": self.workflow, "launcher": self.launcher,
+                     "units": list(self.workflow.units), "root": root,
+                     "main": self._run_and_report}
+        banner = ("\nveles_tpu_torch interactive mode: the workflow is "
+                  "initialized, not run.\nIn scope: workflow, launcher, "
+                  "units, root, main().\nmain() runs it now; leaving the "
+                  "console runs it if main() has not.")
+        shell = None
+        if sys.stdin.isatty():
+            try:
+                from IPython.terminal.embed import InteractiveShellEmbed
+                shell = InteractiveShellEmbed(banner1=banner)
+            except ImportError:
+                pass
+        try:
+            if shell is not None:
+                shell(local_ns=namespace)
+            else:
+                code.interact(banner=banner, local=namespace, exitmsg="")
+        except SystemExit:
+            pass
 
     def _write_results(self):
         if not self.args.result_file:
@@ -191,6 +251,12 @@ class Main(Logger):
     def run(self, argv=None):
         if argv is None:
             argv = sys.argv[1:]
+        if argv and argv[0] == "serve":
+            # the serving engine has its own flags and no workflow loop
+            from veles_tpu_torch.serving.frontend import main as serve_main
+            return serve_main(argv[1:])
+        self._ran = False
+        self._run_error = None
         parser = self.init_parser()
         self.args = parser.parse_intermixed_args(argv)
         setup_logging(getattr(logging, self.args.verbosity.upper()))

@@ -3,13 +3,20 @@
 An :class:`AcceleratedUnit` is given its ``torch.device`` at
 ``initialize(device=...)``: the card unless the caller asks for the CPU
 (``device.resolve_device``). An :class:`AcceleratedWorkflow` resolves
-the device once and hands it to every unit. The per-unit ``run()``
-bodies of the JAX package (its eager execution) are not ported yet: the
-port's units describe the model and keep its state, and
-``train.runner.FusedRunner`` runs them.
+the device once and hands it to every unit.
+
+``run()`` is the eager scheduler's call: it runs the unit's
+:meth:`AcceleratedUnit.compute` on the unit's device inside the
+precision policy's ``backends()`` (``nn/precision.py``), as the fused
+trainer holds them around a step, so switches the caller turned on
+(TF32, bf16 reductions) cannot reach the unit's products. The policy
+is ``root.common.engine.precision_type``, the one the forward units'
+modules are built under.
 """
 
+from veles_tpu_torch.config import root
 from veles_tpu_torch.device import resolve_device
+from veles_tpu_torch.nn.precision import get_policy
 from veles_tpu_torch.units import Unit
 from veles_tpu_torch.workflow import Workflow
 
@@ -27,11 +34,20 @@ class AcceleratedUnit(Unit):
         self.device = resolve_device(device)
         return None
 
+    @property
+    def policy(self):
+        """The precision policy the unit computes under."""
+        return get_policy(root.common.engine.get("precision_type",
+                                                 "float32"))
+
     def run(self):
+        with self.policy.backends():
+            return self.compute()
+
+    def compute(self):
+        """The unit's eager body, on ``self.device``."""
         raise NotImplementedError(
-            "%s has no eager run(): the port's eager compute units are "
-            "not written yet, its workflows run through FusedRunner"
-            % type(self).__name__)
+            "%s has no eager compute()" % type(self).__name__)
 
     def __getstate__(self):
         state = super(AcceleratedUnit, self).__getstate__()

@@ -71,7 +71,12 @@ def from_host(value):
 
 
 class Pickleable(Logger):
-    """Base class with the ``*_``-is-transient pickling convention."""
+    """Base class with the ``*_``-is-transient pickling convention.
+    The tensors named in :attr:`SHAPE_ONLY_STATE` (the eager
+    scheduler's per-minibatch buffers) are pickled as their shape and
+    dtype alone."""
+
+    SHAPE_ONLY_STATE = ()
 
     def __init__(self, **kwargs):
         super(Pickleable, self).__init__(**kwargs)
@@ -90,6 +95,9 @@ class Pickleable(Logger):
                 continue
             if callable(value) and getattr(value, "__self__", None) is self:
                 continue  # bound methods re-bind on init_unpickled
+            if name in self.SHAPE_ONLY_STATE and \
+                    isinstance(value, torch.Tensor):
+                value = value.to("meta")
             state[name] = to_host(value)
         return self.pickle_logger_state(state)
 

@@ -5,14 +5,14 @@ resolves the device (``-a/--backend`` and ``-d/--device``: ``auto``,
 the default, is the CUDA card and raises without one; ``cpu`` is the
 only way onto the CPU), applies ``--test`` (``set_testing``) and
 initializes the workflow on the device; ``run`` runs the workflow's own
-runner (``make_fused_runner``) or else :class:`~veles_tpu_torch.train.
-runner.FusedRunner`.
+runner (``make_fused_runner``), or else :class:`~veles_tpu_torch.train.
+runner.FusedRunner`, or the eager per-unit scheduler (``Workflow.run``)
+on ``--eager`` and for a graph ``fused_compatible`` refuses (said in the
+log). ``run_mode_used`` names the one that ran.
 
 Not in the port yet, and refused with ``NotImplementedError``: the
 master/slave modes (``-l``/``-m``), ``--gspmd`` and ``--auto-resume``
-(the parallel and fault-tolerance tiers), and the eager per-unit
-scheduler (``--eager``, and the JAX launcher's fallback for a graph
-``fused_compatible`` refuses), which needs the eager compute units.
+(the parallel and fault-tolerance tiers).
 """
 
 import time
@@ -31,8 +31,6 @@ NOT_PORTED = {
     "gspmd": "--gspmd waits for the port's parallel tier",
     "auto_resume": "--auto-resume waits for the port's fault-tolerance "
                    "tier",
-    "eager": "--eager needs the eager compute units (GD, evaluator and "
-             "loader run()), which the port does not have yet",
 }
 
 
@@ -55,7 +53,7 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
     """Owns the device and runs the workflow, standalone."""
 
     def __init__(self, backend="auto", device=None, testing=False,
-                 **kwargs):
+                 eager=False, **kwargs):
         super(Launcher, self).__init__()
         for key, value in kwargs.items():
             if key not in NOT_PORTED:
@@ -66,12 +64,13 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         self.device_index = device
         self.device = None
         self.testing = testing
+        self.eager = eager
         self.mode = "standalone"
         self.workflow = None
         self.stopped = False
         self.start_time = None
         #: "fused" once ``run`` picked the standard runner, "custom" for
-        #: the workflow's own
+        #: the workflow's own, "eager" for the per-unit scheduler
         self.run_mode_used = None
         self.runner = None
 
@@ -88,7 +87,8 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
             help="run the workflow in testing (forward-only) mode")
         parser.add_argument(
             "--eager", action="store_true",
-            help="the eager per-unit scheduler (not in the port yet)")
+            help="run the eager per-unit scheduler instead of the fused "
+                 "trainer")
         parser.add_argument(
             "--gspmd", nargs="?", const="auto", default=None,
             metavar="MESH", help="the GSPMD path (not in the port yet)")
@@ -144,23 +144,27 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         return self
 
     def run(self):
-        """Run the workflow to its end through its own runner or the
-        standard ``FusedRunner``."""
+        """Run the workflow to its end: eagerly on ``--eager``, else
+        through its own runner, the standard ``FusedRunner``, or eagerly
+        when ``fused_compatible`` refuses the graph."""
         from veles_tpu_torch.train.runner import FusedRunner, \
             fused_compatible
         workflow = self.workflow
         try:
+            if self.eager:
+                self.info("running the eager per-unit scheduler (--eager)")
+                self._run_eager()
+                return workflow
             runner = workflow.make_fused_runner()
             if runner is not None:
                 self.run_mode_used = "custom"
             else:
                 reason = fused_compatible(workflow)
                 if reason is not None:
-                    raise NotImplementedError(
-                        "the fused path cannot run this workflow (%s), "
-                        "and the eager per-unit scheduler needs the eager "
-                        "compute units, which the port does not have yet"
-                        % reason)
+                    self.info("fused path unavailable (%s); running eager",
+                              reason)
+                    self._run_eager()
+                    return workflow
                 self.run_mode_used = "fused"
                 runner = FusedRunner(workflow)
             self.runner = runner
@@ -168,6 +172,11 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         finally:
             self.stop()
         return workflow
+
+    def _run_eager(self):
+        self.run_mode_used = "eager"
+        self.runner = None
+        self.workflow.run()
 
     def stop(self):
         self.stopped = True

@@ -23,11 +23,17 @@ kept as the JAX package has it:
   wrap.
 
 ``minibatch_data``, ``minibatch_labels`` and ``minibatch_indices`` are
-tensors on the ``meta`` device: they carry the minibatch's shape to the
-units linked to them and hold no data. The eager serving loop of the
-JAX loader (``run()``, ``serve_next_minibatch``) and its distribution
-hooks are not ported yet: the fused trainer reads index matrices
-(``train/step.py`` ``_segment_indices``).
+tensors on the ``meta`` device after ``initialize()``: they carry the
+minibatch's shape to the units linked to them and hold no data. The
+eager serving loop (``run()``, :meth:`Loader.serve_next_minibatch`) is
+the JAX loader's: each call advances the epoch position by one
+minibatch (classes in the order test, validation, train; a short tail
+padded to ``max_minibatch_size`` with index -1), sets the flags the
+decision reads, and has :meth:`Loader.fill_minibatch` put real device
+tensors in those attributes. The fused trainer reads index matrices
+instead (``train/step.py`` ``_segment_indices``). In a snapshot the
+minibatch tensors keep only their shape. The JAX loader's distribution
+hooks are not ported yet.
 """
 
 import numpy
@@ -49,6 +55,9 @@ class Loader(Unit):
 
     hide_from_registry = True
     view_group = "LOADER"
+    #: what :meth:`fill_minibatch` fills; a snapshot keeps their shapes
+    SHAPE_ONLY_STATE = ("minibatch_data", "minibatch_labels",
+                        "minibatch_indices")
 
     def __init__(self, minibatch_size=100, shuffle_limit=numpy.inf,
                  rand="loader", workflow=None, **kwargs):
@@ -72,6 +81,11 @@ class Loader(Unit):
         self.samples_served = 0
         self._global_offset = 0
 
+    def init_unpickled(self):
+        super(Loader, self).init_unpickled()
+        #: the device the eager minibatches go to (``initialize``'s)
+        self.device_ = None
+
     @property
     def total_samples(self):
         return int(sum(self.class_lengths))
@@ -92,11 +106,17 @@ class Loader(Unit):
         """The per-sample shape of the data (for ``minibatch_data``)."""
         raise NotImplementedError
 
+    def fill_minibatch(self):
+        """Put the minibatch of ``minibatch_indices`` (an int32 tensor on
+        ``device_``, -1 in padded slots) into the minibatch tensors."""
+        raise NotImplementedError
+
     def initialize(self, device=None, **kwargs):
         """Load the data, cut the minibatch to the largest class, set up
         the permutation and the shape-only minibatch tensors. A loader
         restored from a snapshot keeps its epoch position and flags.
         Returns the loader."""
+        self.device_ = device
         self.load_data()
         if self.total_samples == 0:
             raise ValueError("%s loaded an empty dataset"
@@ -122,9 +142,66 @@ class Loader(Unit):
         return self
 
     def run(self):
-        raise NotImplementedError(
-            "the loader's eager serve loop is not ported yet: the port's "
-            "workflows run through FusedRunner")
+        self.serve_next_minibatch()
+
+    # -- the eager serving loop -------------------------------------------
+
+    def _advance_global_offset(self):
+        """Move to the next minibatch, wrapping the epoch (and
+        reshuffling) first when the last one ended it. Returns (start,
+        count) in index space."""
+        if self._global_offset >= self.total_samples:
+            self._finish_epoch()
+        ends = self.class_end_offsets
+        klass = next(k for k, end in enumerate(ends)
+                     if self._global_offset < end and self.class_lengths[k])
+        count = min(self.max_minibatch_size,
+                    ends[klass] - self._global_offset)
+        start = self._global_offset
+        self._global_offset += count
+        self.minibatch_class = klass
+        self.minibatch_offset = self._global_offset
+        self.minibatch_size = count
+        self.last_minibatch <<= self._global_offset == ends[klass]
+        self.train_ended <<= (klass == TRAIN and
+                              self._global_offset == ends[TRAIN])
+        self.epoch_ended <<= self._global_offset == self.total_samples
+        return start, count
+
+    def _next_payload(self):
+        """The next minibatch as a self-contained description: its
+        sample indices, class, position and flags (a requeued one
+        first)."""
+        if self.failed_minibatches:
+            return self.failed_minibatches.pop()
+        start, count = self._advance_global_offset()
+        return {"indices": numpy.asarray(
+                    self.shuffled_indices[start:start + count]),
+                "class": self.minibatch_class, "start": start,
+                "size": count, "epoch": self.epoch_number,
+                "last": bool(self.last_minibatch),
+                "train_ended": bool(self.train_ended),
+                "epoch_ended": bool(self.epoch_ended)}
+
+    def _apply_payload(self, data):
+        count = data["size"]
+        self.minibatch_class = data["class"]
+        self.minibatch_size = count
+        self.minibatch_offset = data["start"] + count
+        self.epoch_number = data["epoch"]
+        self.last_minibatch <<= data["last"]
+        self.train_ended <<= data["train_ended"]
+        self.epoch_ended <<= data["epoch_ended"]
+        indices = numpy.full(self.max_minibatch_size, -1, numpy.int32)
+        indices[:count] = data["indices"]
+        self.minibatch_indices = torch.from_numpy(indices).to(self.device_)
+        self.fill_minibatch()
+
+    def serve_next_minibatch(self):
+        """One step of the eager loop: the next minibatch, served."""
+        payload = self._next_payload()
+        self._apply_payload(payload)
+        self.samples_served += payload["size"]
 
     def _finish_epoch(self):
         """The epoch wrap: the next epoch number, the offset back to 0,

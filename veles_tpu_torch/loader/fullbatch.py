@@ -13,7 +13,9 @@ stage` copies the dataset to the device once (a transient copy: a
 snapshot holds the host dataset, already normalized, and a restored
 loader stages it again); every minibatch is then gathered there by
 index (:func:`gather_minibatch`), so the host never touches sample data
-in the training loop.
+in the training loop. The eager loop (:meth:`FullBatchLoader.
+fill_minibatch`) gathers from the same staged copy, so neither path
+holds a second copy of the dataset on the device.
 
 * :class:`ProviderLoader` reads ``(train_x, train_y, valid_x, valid_y)``
   from a provider callable, validation before training, flat
@@ -107,6 +109,14 @@ class FullBatchLoader(Loader):
         rows, picked = gather_minibatch(data, indices, labels)
         return rows, picked, indices >= 0
 
+    def fill_minibatch(self):
+        """The eager minibatch: data and truth of ``minibatch_indices``
+        gathered from the staged copy (staged on first use)."""
+        self.stage(self.device_)
+        data, truth, _ = self.gather(self.minibatch_indices)
+        self.minibatch_data = data
+        setattr(self, "minibatch_" + self.TRUTH, truth)
+
 
 class ProviderLoader(FullBatchLoader):
     """Full batch over a provider callable returning ``(train_x, train_y,
@@ -159,10 +169,20 @@ class FullBatchLoaderMSE(FullBatchLoader):
     padded slot gets a zero row)."""
 
     TRUTH = "targets"
+    SHAPE_ONLY_STATE = FullBatchLoader.SHAPE_ONLY_STATE + (
+        "minibatch_targets",)
 
     def __init__(self, **kwargs):
         super(FullBatchLoaderMSE, self).__init__(**kwargs)
         self.original_targets = None
+        self.minibatch_targets = None
+
+    def initialize(self, device=None, **kwargs):
+        super(FullBatchLoaderMSE, self).initialize(device=device, **kwargs)
+        self.minibatch_targets = torch.empty(
+            (self.max_minibatch_size,) + tuple(
+                self.original_targets.shape[1:]), device="meta")
+        return self
 
     def truth(self):
         return self.original_targets

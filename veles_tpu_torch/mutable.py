@@ -187,6 +187,13 @@ def link(dst, dst_name, src, src_name=None, two_way=False):
     return descr
 
 
+def link_source(dst, dst_name):
+    """The ``(src, src_name)`` that ``dst.<dst_name>`` is linked to, or
+    None when the attribute is not linked."""
+    ref = dst.__dict__.get("__linked__", {}).get(dst_name)
+    return None if ref is None else ref[:2]
+
+
 def _resolve_link_slot(cls, name):
     """Walk the MRO for ``name``: returns the installed
     :class:`LinkableAttribute` if any, else ``(None, default)`` where

@@ -90,12 +90,17 @@ class All2AllSoftmax(All2All):
         return self._logits(x, plain).reshape(
             (x.shape[0],) + self.output_sample_shape)
 
-    def forward(self, x):
-        logits = self._logits(x, plain=False)
-        z = logits - logits.max(dim=1, keepdim=True).values
+    def softmax(self, logits):
+        """The max-subtracted softmax of ``logits`` (batch, ...) over
+        the flattened sample, in the output's shape."""
+        flat = logits.reshape(logits.shape[0], -1)
+        z = flat - flat.max(dim=1, keepdim=True).values
         e = torch.exp(z)
         return (e / e.sum(dim=1, keepdim=True)).reshape(
-            (x.shape[0],) + self.output_sample_shape)
+            (logits.shape[0],) + self.output_sample_shape)
+
+    def forward(self, x):
+        return self.softmax(self._logits(x, plain=False))
 
     def plain_forward(self, x):
         return self(x)

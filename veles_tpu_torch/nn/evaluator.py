@@ -39,7 +39,9 @@ def softmax_loss_and_metrics(logits, labels, valid):
     return grad_loss, report_loss, n_err
 
 
-def _masked_difference(out, targets, valid):
+def masked_difference(out, targets, valid):
+    """``out - targets`` in float32 as (batch, features), zero on the
+    rows whose ``valid`` is False."""
     batch = out.shape[0]
     diff = out.float().reshape(batch, -1) - targets.float().reshape(
         batch, -1)
@@ -49,7 +51,7 @@ def _masked_difference(out, targets, valid):
 def mse_loss_and_metrics(out, targets, valid):
     """(grad_loss, report_loss, metric) of ``out`` against ``targets``
     (same rows, any sample shape) with boolean ``valid`` (batch,)."""
-    diff = _masked_difference(out, targets, valid)
+    diff = masked_difference(out, targets, valid)
     n_valid = valid.sum().clamp(min=1).to(torch.float32)
     grad_loss = 0.5 * torch.sum(torch.square(diff)) / n_valid
     metric = torch.sum(torch.mean(torch.square(diff.detach()), dim=1))
@@ -59,7 +61,7 @@ def mse_loss_and_metrics(out, targets, valid):
 def mse_rmse(out, targets, valid):
     """``_mse_eval``'s RMSE of one minibatch: sqrt of the mean over the
     valid rows of each row's mean squared difference."""
-    diff = _masked_difference(out, targets, valid)
+    diff = masked_difference(out, targets, valid)
     n_valid = valid.sum().clamp(min=1).to(torch.float32)
     return torch.sqrt(torch.sum(torch.mean(torch.square(diff), dim=1)) /
                       n_valid)

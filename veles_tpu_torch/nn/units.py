@@ -16,11 +16,37 @@ A gradient unit holds its layer's solver hyper-parameters (``hyper``,
 the JAX unit's) and its slice of the solver state (``opt_state``). The
 evaluator units carry the JAX units' summary state (``loss``,
 ``n_err``, ``confusion_matrix``, ``rmse``, ``testing``) and
-``get_metric_values``. ``FusedRunner`` drives all of them; none has an
-eager ``run()`` yet.
+``get_metric_values``. ``FusedRunner`` drives all of them, or the eager
+scheduler (``Workflow.run``) runs each one's ``compute()``, one
+minibatch at a time:
+
+* a forward unit runs its module on its ``input`` (the kernels on the
+  card); on a training minibatch it keeps the graph of that call, its
+  input a detached leaf, for its gradient unit, and the softmax head
+  keeps its logits beside its probabilities (``apply_for_grad``);
+* the evaluator differentiates the fused trainer's own loss
+  (``nn/evaluator.py``) with respect to the softmax head's logits (the
+  MSE head's output) into ``err_output``, so the eager chain and the
+  fused step run the same backward functions on the same values;
+* a gradient unit takes ``torch.autograd.grad`` of its forward's graph
+  at ``err_output`` for the parameters (K6 in the bias gradients, K4
+  through ``LRNFunction``) and, when the layer before needs it, the
+  input (``err_input``), then updates the parameters and ``opt_state``
+  with the solver of ``nn/optim.py``, the state dicts the fused
+  trainer updates too;
+* dropout draws its mask in the fused trainer's order (one seed an
+  epoch, ``TrainableWorkflow.dropout_draw``; K7, or the workflow's
+  ``uniform_source``) on training minibatches only, and
+  :class:`DropoutBackward` multiplies by the stored mask.
+
+Unlike the JAX package's eager dropout, which also masks evaluation
+minibatches (its ``testing`` flag is set by ``--test`` alone), the
+port's masks only training minibatches, as both fused trainers do.
 
 ``input``, ``output``, ``err_output`` and ``err_input`` are tensors on
-the ``meta`` device: the shapes of the minibatch each link carries.
+the ``meta`` device after ``initialize()``, the shapes of the minibatch
+each link carries; an eager run puts real tensors there, and a snapshot
+keeps only their shapes.
 
 In a snapshot a forward unit keeps its parameters and a gradient unit
 its solver state as numpy arrays in the JAX package's layout
@@ -38,10 +64,16 @@ from veles_tpu_torch.config import root
 from veles_tpu_torch.convert import (layer_params, params_from_jax,
                                      solver_state_from_jax,
                                      solver_state_to_jax, to_jax_layout)
+from veles_tpu_torch.mutable import link_source
 from veles_tpu_torch.nn import (activation, all2all, attention, conv,
                                 dropout, moe, normalization, pooling)
 from veles_tpu_torch.nn.base import WeightedBase
+from veles_tpu_torch.nn.evaluator import (batch_confusion,
+                                          masked_difference,
+                                          mse_loss_and_metrics, mse_rmse,
+                                          softmax_loss_and_metrics)
 from veles_tpu_torch.nn.optim import get_solver
+from veles_tpu_torch.ops.random import dropout_uniforms
 from veles_tpu_torch.result_provider import IResultProvider
 
 #: descriptor keys the workflow reads for training, never the module
@@ -51,6 +83,14 @@ _TRAINING_KEYS = ("learning_rate", "learning_rate_bias", "weights_decay",
 
 def _meta(shape, dtype=torch.float32):
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def training_minibatch(unit):
+    """Whether the minibatch in flight trains: the workflow's
+    ``training_minibatch`` (a TRAIN minibatch outside ``--test``), True
+    in a workflow that does not say."""
+    flag = getattr(unit.workflow, "training_minibatch", None)
+    return True if flag is None else bool(flag)
 
 
 class ForwardBase(AcceleratedUnit):
@@ -64,6 +104,7 @@ class ForwardBase(AcceleratedUnit):
     consumes_global_rng_on_init = True
     LAYER = None
     INCLUDE_BIAS = True
+    SHAPE_ONLY_STATE = ("output",)
 
     def __init__(self, workflow, **kwargs):
         self.include_bias = kwargs.pop("include_bias", self.INCLUDE_BIAS)
@@ -84,12 +125,18 @@ class ForwardBase(AcceleratedUnit):
         self.layer_kwargs = kwargs
         self.input = None
         self.output = None
+        #: whether the gradient unit wants ``err_input`` (its
+        #: ``need_err_input``, set at its ``initialize()``)
+        self.need_input_grad = True
         self.demand("input")
 
     def init_unpickled(self):
         super(ForwardBase, self).init_unpickled()
         self.module_ = None
         self._built_for_ = None
+        #: (input leaf, differentiated output) of the last training
+        #: minibatch's forward, until the gradient unit consumes it
+        self.graph_ = None
 
     @property
     def module(self):
@@ -114,6 +161,28 @@ class ForwardBase(AcceleratedUnit):
     def input_shape(self):
         """The per-sample input shape."""
         return tuple(self.input.shape[1:])
+
+    @property
+    def policy(self):
+        return self.module_.policy
+
+    def compute(self):
+        """The module on ``input``; on a training minibatch with the
+        graph kept for the gradient unit."""
+        if not training_minibatch(self):
+            self.graph_ = None
+            with torch.no_grad():
+                self.output = self._differentiated(self.input)
+            return
+        leaf = self.input.detach().requires_grad_(self.need_input_grad)
+        out = self._differentiated(leaf)
+        self.graph_ = (leaf, out)
+        self.output = out.detach()
+
+    def _differentiated(self, x):
+        """The function the gradient unit differentiates (the JAX unit's
+        ``apply_for_grad``): the module's forward."""
+        return self.module_(x)
 
     def initialize(self, device=None, **kwargs):
         super(ForwardBase, self).initialize(device=device, **kwargs)
@@ -201,7 +270,29 @@ All2AllRELU = _forward_class("All2AllRELU", all2all.All2AllRELU)
 All2AllStrictRELU = _forward_class("All2AllStrictRELU",
                                    all2all.All2AllStrictRELU)
 All2AllSigmoid = _forward_class("All2AllSigmoid", all2all.All2AllSigmoid)
-All2AllSoftmax = _forward_class("All2AllSoftmax", all2all.All2AllSoftmax)
+
+
+class All2AllSoftmax(ForwardBase):
+    """The unit of ``nn.all2all.All2AllSoftmax``: ``output`` holds the
+    probabilities and ``logits`` the logits they come from, the output
+    its gradient unit differentiates."""
+
+    hide_from_registry = False
+    LAYER = all2all.All2AllSoftmax
+    SHAPE_ONLY_STATE = ("output", "logits")
+
+    def __init__(self, workflow, **kwargs):
+        super(All2AllSoftmax, self).__init__(workflow, **kwargs)
+        self.logits = None
+
+    def compute(self):
+        super(All2AllSoftmax, self).compute()
+        self.logits = self.output
+        self.output = self.module_.softmax(self.logits)
+
+    def _differentiated(self, x):
+        return self.module_.logits(x)
+
 Conv = _forward_class("Conv", conv.Conv)
 ConvTanh = _forward_class("ConvTanh", conv.ConvTanh)
 ConvRELU = _forward_class("ConvRELU", conv.ConvRELU)
@@ -218,7 +309,7 @@ ActivationUnit = _forward_class("ActivationUnit",
                                 activation.ActivationUnit)
 MultiHeadAttentionForward = _forward_class(
     "MultiHeadAttentionForward", attention.MultiHeadAttentionForward)
-MoEForward = _forward_class("MoEForward", moe.MoEForward)
+MoEForward = _forward_class("MoEForward", moe.MoEForward, include_bias=False)
 
 
 class DropoutForward(ForwardBase):
@@ -234,6 +325,29 @@ class DropoutForward(ForwardBase):
         super(DropoutForward, self).__init__(workflow, **kwargs)
         self.testing = False
 
+    def init_unpickled(self):
+        super(DropoutForward, self).init_unpickled()
+        #: the 0/1 mask of the last training minibatch, None otherwise
+        self.mask_ = None
+
+    def compute(self):
+        """Identity off training minibatches; else the inverted-dropout
+        mask of the uniforms the workflow's ``dropout_draw`` names, at
+        this layer's index."""
+        x = self.input.detach()
+        if self.testing or not training_minibatch(self):
+            self.mask_ = None
+            self.output = x
+            return
+        workflow = self.workflow
+        seed, batch = workflow.dropout_draw()
+        u = dropout_uniforms(x.shape, seed, batch,
+                             workflow.forwards.index(self), x.device,
+                             workflow.uniform_source)
+        module = self.module_
+        self.mask_ = (u < 1.0 - module.dropout_ratio).to(x.dtype)
+        self.output = module.train_forward(x, u)
+
     def _build(self, shape):
         return self.LAYER(shape, rand=self.rand_name, **dict(
             self.layer_kwargs, policy=root.common.engine.get(
@@ -246,6 +360,7 @@ class GradientDescentBase(AcceleratedUnit):
 
     hide_from_registry = True
     view_group = "TRAINER"
+    SHAPE_ONLY_STATE = ("err_input",)
 
     def __init__(self, workflow, forward=None, **kwargs):
         self.learning_rate = kwargs.pop("learning_rate", 0.01)
@@ -280,6 +395,7 @@ class GradientDescentBase(AcceleratedUnit):
         super(GradientDescentBase, self).initialize(device=device, **kwargs)
         if self.need_err_input:
             self.err_input = _meta(self.forward.input.shape)
+        self.forward.need_input_grad = self.need_err_input
         module = self.forward.module
         params = layer_params(module)
         saved = self.__dict__.pop("_solver_state", None)
@@ -291,6 +407,41 @@ class GradientDescentBase(AcceleratedUnit):
             self.opt_state = get_solver(self.solver_name).init(params)
         else:
             self.opt_state = _to_device(self.opt_state, self.device)
+
+    @property
+    def policy(self):
+        return self.forward.policy
+
+    def compute(self):
+        """The gradient of the forward's last training graph at
+        ``err_output``: the parameters' (updated in place with the
+        solver and ``opt_state``) and, with ``need_err_input``, the
+        input's into ``err_input``."""
+        forward = self.forward
+        if forward.graph_ is None:
+            raise RuntimeError("%s: %s kept no training graph" % (
+                self.name, forward.name))
+        if getattr(forward.module, "aux_loss_weight", 0.0):
+            raise NotImplementedError(
+                "%s: the eager step has no auxiliary losses (run it "
+                "fused)" % forward.name)
+        leaf, out = forward.graph_
+        forward.graph_ = None
+        params = {k: p for k, p in layer_params(forward.module).items()
+                  if p.requires_grad}
+        inputs = list(params.values())
+        if self.need_err_input:
+            inputs.append(leaf)
+        if not inputs or not out.requires_grad:
+            return
+        grads = torch.autograd.grad(out, inputs,
+                                    grad_outputs=self.err_output)
+        if self.need_err_input:
+            self.err_input = grads[-1]
+        if params:
+            get_solver(self.solver_name).update(
+                params, dict(zip(params, grads)), self.opt_state,
+                self.hyper)
 
     def __getstate__(self):
         state = super(GradientDescentBase, self).__getstate__()
@@ -323,28 +474,89 @@ GDSoftmax = _gd_class("GDSoftmax", "For the softmax head (its "
 GDConv = _gd_class("GDConv", "For the convolutions.")
 GDPooling = _gd_class("GDPooling", "For the poolings (no parameters).")
 GDActivation = _gd_class("GDActivation", "For ActivationUnit.")
-DropoutBackward = _gd_class("DropoutBackward", "For DropoutForward "
-                            "(the mask, no parameters).")
+
+
+class DropoutBackward(GradientDescentBase):
+    """For DropoutForward: ``err_input = err_output / keep * mask``, the
+    order of the fused step's backward through ``x * mask / keep``."""
+
+    hide_from_registry = False
+
+    def compute(self):
+        forward = self.forward
+        if forward.mask_ is None:
+            self.err_input = self.err_output
+        else:
+            keep = 1.0 - forward.module.dropout_ratio
+            self.err_input = self.err_output / keep * forward.mask_
 
 
 class EvaluatorBase(AcceleratedUnit, IResultProvider):
     """Loss head: its ``output`` is linked from the head forward unit;
-    ``err_output`` seeds the gradient chain."""
+    ``err_output`` seeds the gradient chain.
+
+    ``publish_output``: in testing mode only (one clean forward pass),
+    each minibatch's output (and labels), pad rows trimmed, is recorded
+    and published as ``Output`` (and ``Labels``) in the results."""
 
     hide_from_registry = True
     view_group = "EVALUATOR"
+    SHAPE_ONLY_STATE = ("err_output",)
 
     def __init__(self, workflow, **kwargs):
         self.testing = kwargs.pop("testing", False)
+        self.publish_output = kwargs.pop("publish_output", False)
         super(EvaluatorBase, self).__init__(workflow, **kwargs)
         self.output = None
         self.err_output = None
         self.batch_size = None
+        self.recorded_outputs = []
+        self.recorded_labels = []
         self.demand("output")
 
     def initialize(self, device=None, **kwargs):
         super(EvaluatorBase, self).initialize(device=device, **kwargs)
+        self.recorded_outputs = []
+        self.recorded_labels = []
         self.err_output = _meta(self.output.shape)
+
+    def _loss(self, out, loss_fn, truth, valid):
+        """(report_loss, metric) of ``loss_fn`` at ``out``, and its
+        gradient with respect to ``out`` into ``err_output`` unless
+        testing: the fused step's loss, differentiated alone."""
+        train = not self.testing
+        leaf = out.detach().requires_grad_(train)
+        with torch.enable_grad():
+            grad_loss, report, metric = loss_fn(leaf, truth, valid)
+        if train:
+            self.err_output = torch.autograd.grad(grad_loss, leaf)[0]
+        return report, metric
+
+    def _record(self, output, labels=None):
+        if not (self.publish_output and self.testing):
+            return
+        output = output.detach().float().cpu().numpy()
+        labels = None if labels is None else labels.cpu().numpy()
+        # the short tail minibatch is padded at its end
+        if self.batch_size is not None:
+            n = int(self.batch_size)
+        elif labels is not None:
+            valid = numpy.flatnonzero(labels >= 0)
+            n = int(valid[-1]) + 1 if len(valid) else 0
+        else:
+            n = len(output)
+        self.recorded_outputs.append(output[:n])
+        if labels is not None:
+            self.recorded_labels.append(labels[:n])
+
+    def _recorded_metrics(self):
+        if not (self.publish_output and self.recorded_outputs):
+            return {}
+        out = {"Output": numpy.concatenate(self.recorded_outputs).tolist()}
+        if self.recorded_labels:
+            out["Labels"] = numpy.concatenate(
+                self.recorded_labels).tolist()
+        return out
 
 
 class EvaluatorSoftmax(EvaluatorBase):
@@ -364,8 +576,39 @@ class EvaluatorSoftmax(EvaluatorBase):
         self.confusion_matrix = None
         self.demand("labels")
 
+    def compute(self):
+        """Loss, error count, ``max_err_output_sum`` and this
+        minibatch's confusion matrix; pad rows (label -1) count
+        nothing."""
+        source = link_source(self, "output")
+        logits = None if source is None else \
+            getattr(source[0], "logits", None)
+        if logits is None:
+            raise NotImplementedError(
+                "%s: the eager softmax evaluator differentiates the logits "
+                "of the All2AllSoftmax unit its output is linked from"
+                % self.name)
+        labels = self.labels
+        valid = labels >= 0
+        report, n_err = self._loss(logits, softmax_loss_and_metrics,
+                                   labels, valid)
+        stats = [report, n_err.to(report.dtype)]
+        if not self.testing:
+            stats.append(self.err_output.reshape(len(labels), -1).abs()
+                         .sum(dim=1).max().to(report.dtype))
+        stats = torch.stack(stats).tolist()  # one wait for the device
+        self.loss, self.n_err = stats[0], int(stats[1])
+        if not self.testing:
+            self.max_err_output_sum = stats[2]
+        if self.compute_confusion:
+            self.confusion_matrix = batch_confusion(
+                logits.detach(), labels, valid).cpu().numpy()
+        self._record(self.output, labels)
+
     def get_metric_values(self):
-        return {"n_err": self.n_err, "loss": self.loss}
+        out = {"n_err": self.n_err, "loss": self.loss}
+        out.update(self._recorded_metrics())
+        return out
 
 
 class EvaluatorMSE(EvaluatorBase):
@@ -382,5 +625,20 @@ class EvaluatorMSE(EvaluatorBase):
         self.mse_per_sample = None
         self.demand("target")
 
+    def compute(self):
+        """RMSE over the valid rows (``indices`` >= 0, when linked) and
+        each row's mean squared difference."""
+        out, target = self.output, self.target
+        valid = (self.indices >= 0 if self.indices is not None else
+                 torch.ones(len(out), dtype=torch.bool, device=out.device))
+        self._loss(out, mse_loss_and_metrics, target, valid)
+        out = out.detach()
+        self.mse_per_sample = torch.mean(torch.square(masked_difference(
+            out, target, valid)), dim=1).cpu().numpy()
+        self.rmse = float(mse_rmse(out, target, valid))
+        self._record(out)
+
     def get_metric_values(self):
-        return {"rmse": self.rmse}
+        out = {"rmse": self.rmse}
+        out.update(self._recorded_metrics())
+        return out

@@ -23,6 +23,7 @@ gives the same bits.
 """
 
 import collections
+import math
 import threading
 
 import numpy
@@ -42,6 +43,23 @@ def dropout_offset(batch_index, layer_index):
     """The stream offset of one dropout mask: batch index in the epoch
     in the high 32 bits, absolute layer index in the low 32."""
     return ((int(batch_index) & _MASK) << 32) | (int(layer_index) & _MASK)
+
+
+def dropout_uniforms(shape, seed, batch_index, layer_index, device,
+                     source=None, plain=False):
+    """The uniforms of one dropout mask of ``shape``: ``source``'s
+    (``source(shape, seed, batch_index, layer_index, device)``), or else
+    this module's fill (its plain version when ``plain``) at stream
+    (seed, :func:`dropout_offset`), filled as (shape[0], rest) and
+    reshaped. The fused trainer and the eager dropout unit both draw
+    through here, so the two give the same masks."""
+    shape = tuple(shape)
+    if source is not None:
+        return source(shape, seed, batch_index, layer_index, device)
+    fill = uniform_fill_plain if plain else uniform_fill
+    return fill((shape[0], math.prod(shape[1:])), seed,
+                dropout_offset(batch_index, layer_index),
+                device=device).reshape(shape)
 
 
 def _mulhilo(a, m):

@@ -16,11 +16,24 @@ a request whose ``X-Deadline-Ms`` budget passed while it queued answers
 504. ``X-Tenant`` / ``X-QoS`` (or the body's ``"tenant"`` / ``"qos"``)
 pick the admission bucket.
 
-Not ported yet: multi-model routing, the result cache, tracing spans,
-metrics endpoints, alerts, history, the autoscaler, the status reporter
-and the command-line ``main()``.
+:func:`main` is ``python -m veles_tpu_torch serve --model <snapshot
+file or directory | export package>`` with the JAX command's
+``--name``, ``--host``, ``--port``, ``--path``, ``--replicas``,
+``--max-batch-size``, ``--batch-timeout-ms``, ``--max-queue``,
+``--keep-last``, ``--response-timeout`` and ``-v``, and the training
+command's ``-a/--backend`` and ``-d/--device`` (the card unless ``-a
+cpu``); :func:`serve` parses the same arguments and returns the started
+frontend.
+
+Not ported yet: multi-model routing (a second ``--model``), the result
+cache (``--cache-mb``, ``--cache-ttl-s``), pre-registered tenants
+(``--tenant``), the autoscaler (``--min-replicas``, ``--max-replicas``),
+the status reporter (``--web-status``) and tracing (``--trace-out``):
+each of those flags raises ``NotImplementedError`` naming it. Nor are
+metrics endpoints, alerts and history.
 """
 
+import argparse
 import base64
 import binascii
 import concurrent.futures
@@ -385,3 +398,92 @@ class ServingFrontend(object):
         if rid is not None:
             payload["id"] = rid
         respond_json(handler, 200, payload)
+
+
+#: the JAX command's flags whose machinery the port lacks, and why
+REFUSED_FLAGS = {
+    "cache_mb": ("--cache-mb", "the result cache"),
+    "cache_ttl_s": ("--cache-ttl-s", "the result cache"),
+    "tenant": ("--tenant", "pre-registered tenant buckets"),
+    "min_replicas": ("--min-replicas", "the autoscaler"),
+    "max_replicas": ("--max-replicas", "the autoscaler"),
+    "web_status": ("--web-status", "the status reporter"),
+    "trace_out": ("--trace-out", "span tracing"),
+}
+
+
+def _parser():
+    parser = argparse.ArgumentParser(
+        prog="veles_tpu_torch serve",
+        description="dynamic-batching inference server on the card")
+    parser.add_argument("--model", required=True, action="append",
+                        help="snapshot file or directory, or export "
+                             "package (directory or .tar)")
+    parser.add_argument("--name", default=None,
+                        help="model name in the store (default: the "
+                             "artifact's)")
+    parser.add_argument("--host", default="")
+    parser.add_argument("--port", type=int, default=8180)
+    parser.add_argument("--path", default="/api")
+    parser.add_argument("--replicas", type=int, default=1)
+    parser.add_argument("--max-batch-size", type=int, default=64)
+    parser.add_argument("--batch-timeout-ms", type=float, default=5.0)
+    parser.add_argument("--max-queue", type=int, default=256,
+                        help="admission bound; beyond it requests get "
+                             "503 + Retry-After")
+    parser.add_argument("--keep-last", type=int, default=None,
+                        help="retain at most K versions per model "
+                             "(pinned exempt)")
+    parser.add_argument("--response-timeout", type=float, default=30.0)
+    parser.add_argument("-a", "--backend", default="auto",
+                        choices=["auto", "cuda", "cpu"],
+                        help="where to serve: the CUDA card (auto, the "
+                             "default) or the CPU")
+    parser.add_argument("-d", "--device", default=None,
+                        help="CUDA device index")
+    parser.add_argument("-v", "--verbosity", default="info",
+                        choices=["debug", "info", "warning", "error"])
+    for dest, (flag, _) in sorted(REFUSED_FLAGS.items()):
+        parser.add_argument(flag, dest=dest, default=None,
+                            action="append" if dest == "tenant" else None,
+                            help="not in the port yet")
+    return parser
+
+
+def serve(argv=None):
+    """Parse ``serve``'s arguments, load the model onto the card and
+    start the frontend; returns it (``stop()`` ends it)."""
+    args = _parser().parse_args(argv)
+    for dest, (flag, machinery) in sorted(REFUSED_FLAGS.items()):
+        if getattr(args, dest) is not None:
+            raise NotImplementedError(
+                "%s: %s is not in the port yet" % (flag, machinery))
+    if len(args.model) > 1:
+        raise NotImplementedError(
+            "--model given %d times: multi-model routing is not in the "
+            "port yet" % len(args.model))
+    from veles_tpu_torch.launcher import resolve_backend
+    from veles_tpu_torch.logger import setup_logging
+    setup_logging(getattr(logging, args.verbosity.upper()))
+    store = ModelStore(keep_last=args.keep_last)
+    model = store.load(args.model[0], name=args.name,
+                       device=resolve_backend(args.backend, args.device))
+    frontend = ServingFrontend(
+        model, host=args.host, port=args.port, path=args.path,
+        replicas=args.replicas, max_batch_size=args.max_batch_size,
+        batch_timeout_ms=args.batch_timeout_ms, max_queue=args.max_queue,
+        response_timeout=args.response_timeout, store=store)
+    return frontend.start()
+
+
+def main(argv=None):
+    """``python -m veles_tpu_torch serve ...``: serve until interrupted."""
+    frontend = serve(argv)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        frontend.stop()
+    return 0

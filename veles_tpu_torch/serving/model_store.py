@@ -1,24 +1,36 @@
-"""Serveable models and the named, versioned store.
+"""Serveable models and the named, versioned store
+(``veles_tpu/serving/model_store.py``).
 
-The port of ``veles_tpu/serving/model_store.py`` without the
-export-package loader (``export/package.py`` is not ported yet). A
-:class:`ServeableModel` is what a replica runs: the port's model
+A :class:`ServeableModel` is what a replica runs: the port's model
 (``nn.Sequential`` on one device), the per-sample input shape the
 frontend validates against, a name and a version. Models come from a
 layer list with weights drawn from a seed, or from the JAX package's
 per-layer parameters through :func:`veles_tpu_torch.convert.
 params_from_jax`, or from a trained workflow or a snapshot of one (the
-port's or the JAX package's), or from any module the caller built.
+port's or the JAX package's), or from an export package
+(``export/package.py``, the port's or the JAX package's: a directory or
+``.tar`` holding ``contents.json``), or from any module the caller
+built.
+
+A package is served as the JAX loader serves it: the dense units only
+(``All2All`` and its activations, ``All2AllSoftmax``,
+``ActivationUnit``, ``DropoutForward`` as the identity), rebuilt as the
+port's modules, so ``All2All`` layers run K1 on the card and the
+softmax head its plain product; any other unit raises
+:class:`ModelLoadError` (serve the snapshot instead).
 
 :class:`ModelStore` keeps versions per name with pinning and
 keep-last-K retention; the replica pool promotes whatever ``get``
-returns. ``load`` takes a snapshot file, or a snapshot directory whose
-newest loadable snapshot it serves (a corrupt newest file is skipped
-with a warning).
+returns. ``load`` takes a package, a snapshot file, or a snapshot
+directory whose newest loadable snapshot it serves (a corrupt newest
+file is skipped with a warning).
 """
 
+import io
+import json
 import logging
 import os
+import tarfile
 import threading
 
 import numpy
@@ -28,6 +40,44 @@ from veles_tpu_torch.models.build import build_model
 from veles_tpu_torch.nn.precision import policy_of
 
 _log = logging.getLogger(__name__)
+
+#: package unit class -> the layer descriptor type it serves as
+_DENSE_TYPES = {"All2All": "all2all", "All2AllTanh": "all2all_tanh",
+                "All2AllRELU": "all2all_relu",
+                "All2AllStrictRELU": "all2all_str",
+                "All2AllSigmoid": "all2all_sigmoid",
+                "All2AllSoftmax": "softmax",
+                "ActivationUnit": "activation",
+                "DropoutForward": "dropout"}
+
+
+class ModelLoadError(Exception):
+    """The artifact at the given path is not a serveable model."""
+
+
+def _dense_layer(entry, resolve):
+    """(descriptor, JAX-layout params) of one package unit."""
+    cls = entry["class"]["name"]
+    data = entry["data"]
+    ltype = _DENSE_TYPES.get(cls)
+    if ltype is None:
+        raise ModelLoadError(
+            "package unit %r is not supported by the serving loader "
+            "(serve the snapshot instead)" % cls)
+    descr = {"type": ltype}
+    if ltype == "activation":
+        descr["activation"] = data["activation"]
+    if ltype == "dropout" or ltype == "activation":
+        return descr, {}
+    descr["output_sample_shape"] = tuple(data["output_sample_shape"])
+    if ltype != "softmax":
+        descr["activation"] = data["activation"]
+    params = {"weights": resolve(data["weights"])}
+    if "bias" in data:
+        params["bias"] = resolve(data["bias"])
+    else:
+        descr["include_bias"] = False
+    return descr, params
 
 
 class ServeableModel(object):
@@ -76,6 +126,36 @@ class ServeableModel(object):
                    source=source or "workflow")
 
     @classmethod
+    def from_package(cls, path, name=None, version=1, device=None):
+        """Serve an export package (a directory or ``.tar``), put on
+        ``device`` (the card by default)."""
+        contents, members = _read_package(path)
+        info = contents.get("workflow") or {}
+
+        def resolve(ref):
+            array = members.get(ref)
+            if array is None:
+                raise ModelLoadError("package member %r missing" % ref)
+            return numpy.asarray(array, numpy.float32)
+
+        layers = [_dense_layer(entry, resolve)
+                  for entry in info.get("units", [])]
+        if not layers:
+            raise ModelLoadError("package %s has no units" % path)
+        input_shape = contents.get("input_shape")
+        if input_shape:
+            sample_shape = tuple(input_shape[1:])
+        elif "weights" in layers[0][1]:
+            sample_shape = (int(layers[0][1]["weights"].shape[0]),)
+        else:
+            raise ModelLoadError("cannot infer the sample shape of %s"
+                                 % path)
+        module = build_model([d for d, _ in layers], sample_shape,
+                             params=[p for _, p in layers], device=device)
+        return cls(module, sample_shape, name=name or info.get(
+            "name", "model"), version=version, source=str(path))
+
+    @classmethod
     def from_snapshot(cls, path, name=None, version=1, device=None):
         """Serve the model of a snapshot file (the port's or the JAX
         package's), put on ``device`` (the card by default)."""
@@ -95,6 +175,42 @@ class ServeableModel(object):
             return self.module(x).float().cpu().numpy()
 
 
+def _read_package(path):
+    """(contents.json, {member: array}) of a package directory or tar."""
+    members = {}
+    if os.path.isdir(path):
+        with open(os.path.join(path, "contents.json"), "rb") as f:
+            contents = json.loads(f.read())
+        for fname in os.listdir(path):
+            if fname.startswith("@") and fname.endswith(".npy"):
+                members[fname[:-len(".npy")]] = numpy.load(
+                    os.path.join(path, fname), allow_pickle=False)
+    else:
+        with tarfile.open(path, "r") as tar:
+            contents = json.loads(tar.extractfile("contents.json").read())
+            for info in tar.getmembers():
+                if info.name.startswith("@") and \
+                        info.name.endswith(".npy"):
+                    members[info.name[:-len(".npy")]] = numpy.load(
+                        io.BytesIO(tar.extractfile(info).read()),
+                        allow_pickle=False)
+    return contents, members
+
+
+def _is_package(path):
+    """A directory holding ``contents.json``, or a ``.tar`` that holds
+    it."""
+    if os.path.isdir(path):
+        return os.path.exists(os.path.join(path, "contents.json"))
+    if str(path).endswith(".tar") and os.path.exists(path):
+        try:
+            with tarfile.open(path, "r") as tar:
+                return "contents.json" in tar.getnames()
+        except tarfile.TarError:
+            return False
+    return False
+
+
 class ModelStore(object):
     """Named, versioned serveable models with pinning and retention.
 
@@ -110,19 +226,15 @@ class ModelStore(object):
         self.keep_last = int(keep_last) if keep_last else None
 
     def load(self, source, name=None, version=None, device=None):
-        """Load a snapshot file, or the newest loadable snapshot of a
-        snapshot directory, and register it; returns the model."""
+        """Load an export package, a snapshot file, or the newest
+        loadable snapshot of a snapshot directory, and register it;
+        returns the model."""
         path = str(source)
-        if os.path.isdir(path):
-            if os.path.exists(os.path.join(path, "contents.json")):
-                raise NotImplementedError(
-                    "%s is an export package: its loader waits for the "
-                    "port of export/package.py" % path)
+        if _is_package(path):
+            model = ServeableModel.from_package(path, name=name,
+                                                device=device)
+        elif os.path.isdir(path):
             model = self._load_from_snapshot_dir(path, name, device)
-        elif path.endswith(".tar"):
-            raise NotImplementedError(
-                "%s is an export package: its loader waits for the port "
-                "of export/package.py" % path)
         else:
             model = ServeableModel.from_snapshot(path, name=name,
                                                  device=device)

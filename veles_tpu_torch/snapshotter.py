@@ -124,6 +124,11 @@ class SnapshotterBase(Unit, IResultProvider):
         if time.time() - self.time < self.time_interval:
             return
         self._skipped_counter = 0
+        # in the eager scheduler, after the gradient units of the
+        # minibatch in flight have all run
+        self.workflow.defer(self._export_now)
+
+    def _export_now(self):
         self.export()
         self.time = time.time()
 

@@ -17,7 +17,9 @@ JAX workflow's topology. After ``initialize()``, :attr:`model` is the
 
 from torch import nn
 
+from veles_tpu_torch import prng
 from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
+from veles_tpu_torch.loader.base import TRAIN, VALIDATION
 from veles_tpu_torch.nn import units
 from veles_tpu_torch.nn.decision import DecisionGD, DecisionMSE
 from veles_tpu_torch.plumbing import Repeater
@@ -51,13 +53,41 @@ LAYER_TYPES = {
 class TrainableWorkflow(AcceleratedWorkflow):
     """What ``FusedRunner`` reads from a training workflow: ``loader``,
     ``forwards``, ``evaluator``, ``decision``, ``gds`` (in reverse
-    layer order) and the ``model`` of the forward modules."""
+    layer order) and the ``model`` of the forward modules; and what the
+    eager units ask it: whether the minibatch in flight trains, and the
+    dropout masks' seed and batch index."""
 
     hide_from_registry = True
 
     #: a uniform source replacing the dropout masks' Philox fill (see
     #: ``train.step.FusedTrainer``); None is the fill
     uniform_source = None
+    #: (epoch, seed) of the eager dropout masks, drawn at the epoch's
+    #: first training minibatch
+    _dropout_seed = None
+
+    @property
+    def training_minibatch(self):
+        """Whether the eager minibatch in flight trains: a TRAIN one,
+        outside testing mode."""
+        return self.loader.minibatch_class == TRAIN and \
+            not self.decision.testing
+
+    def dropout_draw(self):
+        """(seed, batch index) of the eager training minibatch's dropout
+        masks, as the fused trainer draws them: one seed an epoch from
+        the first dropout layer's stream, the batch's index in the TRAIN
+        class."""
+        loader = self.loader
+        epoch = loader.epoch_number
+        if self._dropout_seed is None or self._dropout_seed[0] != epoch:
+            first = next(f for f in self.forwards
+                         if isinstance(f, units.DropoutForward))
+            self._dropout_seed = (epoch, prng.get(
+                first.rand_name).philox_seed())
+        start = loader.minibatch_offset - loader.minibatch_size - \
+            loader.class_end_offsets[VALIDATION]
+        return self._dropout_seed[1], start // loader.max_minibatch_size
 
     @property
     def model(self):

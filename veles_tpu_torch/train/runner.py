@@ -18,9 +18,10 @@ once per epoch with the loader's ``epoch_ended``/``last_minibatch``
 raised. A snapshot taken mid-epoch resumes through the same sweeps,
 serving only the remaining minibatches.
 
-:func:`fused_compatible` says why a graph cannot run this way. The JAX
-package then falls back to its eager per-unit scheduler; the port has
-no eager compute units yet, so the launcher raises instead.
+:func:`fused_compatible` says why a graph cannot run this way (a unit
+the trainer does not model, a loader position inside a minibatch, more
+than one solver); the launcher then runs the eager per-unit scheduler
+(``Workflow.run``), as the JAX launcher does.
 
 Each epoch's wall time is split in :attr:`FusedRunner.epoch_times`:
 the evaluation and training sweeps (each ends in a host read of its
@@ -94,6 +95,10 @@ def fused_compatible(workflow):
                     return ("resume offset %d is not minibatch-aligned"
                             % offset)
                 break
+    solvers = sorted({gd.solver_name for gd in getattr(workflow, "gds", ())
+                      if gd.opt_state})
+    if len(solvers) > 1:
+        return "the trainer runs one solver, the workflow has %s" % solvers
     covered = _covered_units(workflow)
     for unit in workflow:
         if unit in covered:

@@ -62,8 +62,7 @@ from veles_tpu_torch.nn.evaluator import (batch_confusion,
                                           softmax_loss_and_metrics)
 from veles_tpu_torch.nn.optim import get_solver
 from veles_tpu_torch.nn.precision import policy_of
-from veles_tpu_torch.ops.random import (dropout_offset, uniform_fill,
-                                        uniform_fill_plain)
+from veles_tpu_torch.ops.random import dropout_uniforms
 
 _log = logging.getLogger(__name__)
 
@@ -123,19 +122,6 @@ class FusedTrainer(object):
 
     # -- forward and loss --------------------------------------------------
 
-    def _uniforms(self, shape, seed, batch_index, layer_index, device):
-        """A dropout mask's uniforms: the uniform source's, or else K7
-        (its plain version when ``plain``) at stream (seed, offset of
-        batch and layer), filled as (shape[0], rest) and reshaped."""
-        shape = tuple(shape)
-        if self.uniform_source is not None:
-            return self.uniform_source(shape, seed, batch_index,
-                                       layer_index, device)
-        fill = uniform_fill_plain if self.plain else uniform_fill
-        return fill((shape[0], math.prod(shape[1:])), seed,
-                    dropout_offset(batch_index, layer_index),
-                    device=device).reshape(shape)
-
     def _forward(self, x, train, batch_index=0, seed=0, aux=None,
                  valid=None):
         """The chain; dropout masks only in training; the head yields
@@ -148,8 +134,9 @@ class FusedTrainer(object):
                 aux.append(module.aux_loss(x, valid))
             if isinstance(module, DropoutForward):
                 if train:
-                    x = module.train_forward(x, self._uniforms(
-                        x.shape, seed, batch_index, i, x.device))
+                    x = module.train_forward(x, dropout_uniforms(
+                        x.shape, seed, batch_index, i, x.device,
+                        self.uniform_source, self.plain))
             elif i == last and hasattr(module, "logits"):
                 x = module.logits(x, self.plain)
             elif self.plain:

@@ -4,9 +4,15 @@
 Execution uses a deterministic single-threaded signal queue: units fire
 control signals into a FIFO; a unit runs when its barrier of incoming
 links is complete and its gates allow. :meth:`Workflow.run` is that
-eager drain; the port's training runs through ``train.runner.
-FusedRunner``, which fires the same units at epoch boundaries. The
-JAX package's master/slave data methods, plotters and tracing spans are
+eager drain (``python -m veles_tpu_torch --eager``); by default the
+port's training runs through ``train.runner.FusedRunner``, which fires
+the same units at epoch boundaries.
+
+A unit may :meth:`Workflow.defer` work to the end of the loop iteration
+in flight: the snapshotter does, so that an eager snapshot taken on an
+epoch's last minibatch holds every gradient unit's update of that
+minibatch, not only those that ran before it in the queue. The JAX
+package's master/slave data methods, plotters and tracing spans are
 not ported yet.
 """
 
@@ -38,6 +44,8 @@ class Workflow(Container):
         super(Workflow, self).init_unpickled()
         self._signals_ = collections.deque()
         self._aborted_ = False
+        self._draining_ = False
+        self._deferred_ = []
         self.on_finished_callbacks_ = []
 
     # Workflow.stopped shadows Unit.stopped (which proxies to the parent).
@@ -172,12 +180,15 @@ class Workflow(Container):
         start = time.perf_counter()
         try:
             self._signals_.clear()
+            self._deferred_ = []
             for unit in self._units:
                 unit.reset_fired()
             self.start_point._run_wrapped()
             self.signal_fired(self.start_point)
+            self._draining_ = True
             self._drain()
         finally:
+            self._draining_ = False
             self.is_running = False
             self._run_time += time.perf_counter() - start
             self.event("run", "end")
@@ -190,10 +201,20 @@ class Workflow(Container):
         # point of an uninterrupted run. An explicit stop() (abort) is
         # different: it discards everything in flight immediately.
         signals = self._signals_
-        while signals:
-            dst, src = signals.popleft()
+        while signals or self._deferred_:
             if self._aborted_:
+                signals.clear()
+                self._deferred_ = []
+                break
+            if self._deferred_ and all(isinstance(d, (EndPoint, Repeater))
+                                       for d, _ in signals):
+                # the iteration in flight is done: only the loop's
+                # anchors are left to fire
+                deferred, self._deferred_ = self._deferred_, []
+                for fn in deferred:
+                    fn()
                 continue
+            dst, src = signals.popleft()
             if bool(self.stopped) and isinstance(dst, (EndPoint, Repeater)):
                 # the end point already ran once; Repeaters anchor loops,
                 # so blocking them after the stop guarantees termination
@@ -211,6 +232,15 @@ class Workflow(Container):
             dst._run_wrapped()
             if not (isinstance(dst, EndPoint)):
                 self.signal_fired(dst)
+
+    def defer(self, fn):
+        """Call ``fn()`` once the eager loop iteration in flight has
+        finished (when only signals to repeaters or the end point are
+        queued), or now outside the eager scheduler."""
+        if self._draining_:
+            self._deferred_.append(fn)
+        else:
+            fn()
 
     def on_workflow_finished(self):
         if bool(self.stopped):
@@ -284,6 +314,12 @@ class Workflow(Container):
                     lines.append("  %s -> %s;" % (ids[unit], ids[dst]))
         lines.append("}")
         return "\n".join(lines)
+
+    def package_export(self, path, precision="float32"):
+        """Write the inference package of the forward chain
+        (:func:`veles_tpu_torch.export.package.export_workflow`)."""
+        from veles_tpu_torch.export.package import export_workflow
+        return export_workflow(self, path, precision=precision)
 
     @property
     def computing_power(self):
