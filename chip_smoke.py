@@ -186,7 +186,30 @@
    64-row batch, the centred-logit check and its two controls, K1 at
    checked forms on designed variants; p50/p95 and samples/s); every
    flag the port refuses raises naming itself.
-12. The line before the last is ``{"kernels": [...], "not_ported":
+12. Residency phase (out of core), deterministic mode: full-width
+   AlexNet-227 at ``bench.py``'s settings over ``SyntheticImageLoader``
+   2048 + 256 samples in bf16 (712 MB). (1) Resident in-core, 2 epochs:
+   the reference. (2) Streamed: ``VELES_DEVICE_BUDGET_MB=400`` makes the
+   planner stream (2 minibatches a shard, 8 training shards, the plan
+   printed); 0 values differ from (1) (losses, validation errors,
+   confusion, parameters), the same launches, the peak allocated bytes
+   at most (1)'s less the dataset plus the ring's slots and a slack; a
+   throttled loader (``VELES_ETL_THROTTLE_MS`` of a shard's compute)
+   waits less at depth 2 than at depth 0; controls that must differ:
+   shard k fed shard k-1's rows, and a ring that refills a slot without
+   the consumer's event (a ``torch.cuda._sleep`` before each shard's
+   first use, one minibatch a shard), beside the same sleep with the
+   ring as it is (0 values). (3) Offloaded: ``VELES_OFFLOAD=1``,
+   ``VELES_OFFLOAD_GROUP_MB=150``: the plan's 4 groups, 0 values differ
+   from (1), launches as derived from the plan (the forwards of groups
+   0..G-2 again in each backward walk), the peak below (1)'s less fc6's
+   state plus the largest group; control: fc6's writeback skipped.
+   Step ms by CUDA events, input and upload waits, starvation, overlap,
+   H2D and D2H GB/s. (4) A streamed and an offloaded epoch in a process
+   of their own load no JAX. (5) ``ChannelsWorkflow`` through the CLI
+   for 3 epochs when Pillow imports (the line says which): the loss
+   falls, K1 and K6 at the model's counts.
+13. The line before the last is ``{"kernels": [...], "not_ported":
    []}``; the last is ``{"ok": true, "device": {...}}``. Any failure
    raises and exits non-zero before them.
 """
@@ -3503,10 +3526,537 @@ def rating_phase(torch):
     return rating
 
 
+# -- phase 12: out-of-core training (streamed dataset, offloaded model) ------
+
+#: the phase's data: ``SyntheticImageLoader`` of 2048 + 256 samples in
+#: bf16 storage (~712 MB), trained at ``bench.py``'s settings
+RESIDENCY_SAMPLES = (2048, 256)
+RESIDENCY_EPOCHS = 2
+#: the device budget that makes the planner stream that dataset
+RESIDENCY_BUDGET_MB = "400"
+RESIDENCY_DEPTH = 2
+#: the offload run's group target, and the groups it must give:
+#: conv1-pool5; fc6; fc6's dropout, fc7 and fc7's dropout; the head
+OFFLOAD_GROUP_MB = "150"
+OFFLOAD_GROUPS = [(0, 10), (10, 11), (11, 14), (14, 15)]
+#: a ``torch.cuda._sleep`` before each shard's first use in the ring
+#: control (~200 ms at the H100's ~1.98 GHz), so the device falls
+#: behind the host and an early refill lands before the read. The
+#: host's lead is bounded by the card's launch queue (~1024 launches,
+#: ~200 a training step), so the control runs shards of one minibatch
+#: (``VELES_SHARD_MB``): at depth 2 a slot is refilled two shards after
+#: its read was enqueued, well inside that lead
+RING_SLEEP_CYCLES = 400000000
+RING_SHARD_MB = "40"
+#: slack of the streamed and offloaded peak-memory bounds: the
+#: allocator's 2 MiB rounding of each block and the small tensors of a
+#: sweep (index matrices, losses, norms)
+PEAK_SLACK_BYTES = 64 << 20
+
+RESIDENCY_IMPORT_CHECK = """
+import sys
+import torch
+from veles_tpu_torch.models.alexnet import (SyntheticImageLoader,
+                                            small_alexnet_layers)
+from veles_tpu_torch.models.build import build_training
+for kw in ({"stream": True}, {"offload": True}):
+    loader = SyntheticImageLoader(n_train=64, n_valid=32, side=32,
+                                  n_classes=10, minibatch_size=16)
+    t = build_training(small_alexnet_layers(10), (32, 32, 3), loader,
+                       seed=0, device="cuda", learning_rate=0.01,
+                       momentum=0.9, **kw)
+    assert t.streaming or t.offloaded
+    stats = t.run_epoch(0)
+    t.shutdown()
+    assert stats["train"]["loss"] == stats["train"]["loss"]
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "veles_tpu" or m.startswith("veles_tpu."))
+print("LOADED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+#: the channels cell: ``ChannelsWorkflow`` through the CLI on a tree that
+#: ``generate_channels_dataset`` renders (its defaults: 6 channels, 30 +
+#: 7 logos each, 32x32)
+CHANNELS_EPOCHS = 3
+CHANNELS_FILE = """
+from veles_tpu_torch.config import root
+from veles_tpu_torch.models.samples import (ChannelsWorkflow,
+                                            generate_channels_dataset)
+
+
+def run(load, main):
+    train, valid = generate_channels_dataset(root.smoke.channels)
+    load(ChannelsWorkflow, train_paths=train, validation_paths=valid,
+         max_epochs=%d)
+    main()
+""" % CHANNELS_EPOCHS
+
+
+def channels_cell(torch, tmp):
+    """``python -m veles_tpu_torch`` on a ``ChannelsWorkflow`` file, 3
+    epochs: the loss falls, K1 and K6 launch at the model's counts.
+    None when Pillow does not import."""
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return None
+    from veles_tpu_torch.loader.base import TRAIN, VALIDATION
+    from veles_tpu_torch.nn.all2all import All2All
+    path = os.path.join(tmp, "channels_workflow.py")
+    with open(path, "w") as f:
+        f.write(CHANNELS_FILE)
+    reset_counts()
+    t = time.perf_counter()
+    main = workflow_cli(path, "-s", "11", "root.smoke.channels=%r"
+                        % os.path.join(tmp, "channels"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    counts = read_counts()[0]
+    trainer = main.launcher.runner.trainer
+    steps = CHANNELS_EPOCHS * len(trainer._segment_indices(TRAIN))
+    forwards = steps + CHANNELS_EPOCHS * len(
+        trainer._segment_indices(VALIDATION))
+    want = {"gemm_bias_act": forwards * sum(
+                isinstance(m, All2All) for m in trainer.forwards[:-1]),
+            "column_reduce": steps * sum("bias" in p
+                                         for p in trainer.params)}
+    got = {name: counts[name] for name in want}
+    losses = [t["loss"]["train"] for t in main.launcher.runner.epoch_times]
+    if got != want or not losses[-1] < losses[0]:
+        raise AssertionError("channels: launches %s (want %s), train "
+                             "losses %s" % (got, want, losses))
+    return {"losses": losses, "launches": got, "run_s": run_s,
+            "samples": list(trainer.loader.class_lengths)}
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """``os.environ`` with ``values`` set (None removes) while inside."""
+    saved = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def patched(owner, attr, value):
+    saved = getattr(owner, attr)
+    setattr(owner, attr, value)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, saved)
+
+
+def residency_data():
+    """The phase's dataset, generated once: (data, labels, class
+    lengths) as ``SyntheticImageLoader`` makes them."""
+    from veles_tpu_torch.models.alexnet import (ALEXNET_SAMPLE_SHAPE,
+                                                SyntheticImageLoader)
+    n_train, n_valid = RESIDENCY_SAMPLES
+    loader = SyntheticImageLoader(
+        n_train=n_train, n_valid=n_valid, side=ALEXNET_SAMPLE_SHAPE[0],
+        n_classes=1000, minibatch_size=TRAIN_BATCH, dtype="bfloat16")
+    loader.load_dataset()
+    return loader.original_data, loader.original_labels, \
+        list(loader.class_lengths)
+
+
+def residency_trainer(data, **residency):
+    """Full-width AlexNet-227 over the phase's dataset at ``bench.py``'s
+    settings, its streams seeded as every run of the phase seeds them."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models.alexnet import (ALEXNET_LAYERS,
+                                                ALEXNET_SAMPLE_SHAPE,
+                                                ALEXNET_TRAINING,
+                                                SyntheticImageLoader)
+    from veles_tpu_torch.models.build import build_training
+    prng.get().seed(42)
+    prng.get("loader").seed(43)
+    loader = SyntheticImageLoader(
+        n_train=RESIDENCY_SAMPLES[0], n_valid=RESIDENCY_SAMPLES[1],
+        side=ALEXNET_SAMPLE_SHAPE[0], n_classes=1000,
+        minibatch_size=TRAIN_BATCH, dtype="bfloat16")
+    loader.original_data, loader.original_labels, loader.class_lengths = \
+        data[0], data[1], list(data[2])
+    return build_training(ALEXNET_LAYERS, ALEXNET_SAMPLE_SHAPE, loader,
+                          seed=42, device="cuda", **dict(ALEXNET_TRAINING,
+                                                         **residency))
+
+
+def residency_run(torch, data, epochs, **residency):
+    """``epochs`` epochs of :func:`residency_trainer` from a clean
+    allocator: the run's state (per epoch: validation and training
+    losses, validation errors and confusion; every parameter), its peak
+    allocated bytes over the epochs, the training sweeps' device ms by
+    CUDA events, the launches, and the trainer."""
+    from veles_tpu_torch.convert import layer_params
+    from veles_tpu_torch.train.step import FusedTrainer
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    trainer = residency_trainer(data, **residency)
+    torch.cuda.synchronize()
+    built = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    epochs_out = []
+    with timed_method(torch, FusedTrainer, "train_class") as sweeps:
+        for epoch in range(epochs):
+            stats = trainer.run_epoch(epoch)
+            epochs_out.append({
+                "validation": stats["validation"]["losses"],
+                "train": stats["train"]["losses"],
+                "n_err": stats["validation"]["metric"],
+                "confusion": stats["validation"]["confusion"]})
+    torch.cuda.synchronize()
+    counts, forms = read_counts()
+    run = {"state": (epochs_out, [{k: p.detach().cpu().clone()
+                                   for k, p in layer_params(m).items()}
+                                  for m in trainer.forwards]),
+           "peak": torch.cuda.max_memory_allocated() - base,
+           "built": built,
+           "sweep_ms": [s.elapsed_time(e) for s, e in sweeps],
+           "counts": counts, "forms": forms,
+           "variants": gemm_variants(), "trainer": trainer}
+    run["designed"] = check_designed_forms(
+        "residency " + ("streamed" if trainer.streaming else
+                        "offloaded" if trainer.offloaded else "resident"))
+    return run
+
+
+def state_differing(numpy, got, want):
+    """Values of the run state ``got`` that differ from ``want``'s, over
+    ``got``'s epochs (losses, validation errors, confusion counts,
+    parameters: the parameters only when the runs are as long)."""
+    n = 0
+    for g, w in zip(got[0], want[0]):
+        for key in ("validation", "train", "confusion"):
+            n += int((numpy.asarray(g[key]) != numpy.asarray(w[key])).sum())
+        n += int(g["n_err"] != w["n_err"])
+    if len(got[0]) == len(want[0]):
+        for g, w in zip(got[1], want[1]):
+            for k in w:
+                n += int((g[k] != w[k]).sum())
+    return n
+
+
+def copy_rate(torch, copies):
+    """GB/s of (start, end, bytes) copies timed by CUDA events."""
+    ms = sum(s.elapsed_time(e) for s, e, _ in copies)
+    return sum(c[2] for c in copies) / ms / 1e6 if ms else None
+
+
+def residency_phase(torch, numpy, kernels):
+    """Phase 12 (see the module docstring). Returns (result, the
+    launches by form of the streamed and offloaded runs)."""
+    warned = []
+    with tempfile_dir() as tmp:
+        with deterministic(torch, warned):
+            result, forms = _residency_phase(torch, numpy, kernels, tmp)
+    if warned:
+        raise AssertionError("residency: ops without a deterministic "
+                             "version: %s" % warned)
+    return result, forms
+
+
+@contextlib.contextmanager
+def tempfile_dir():
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="veles-residency-")
+    try:
+        yield tmp
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _residency_phase(torch, numpy, kernels, tmp):
+    import subprocess
+    from veles_tpu_torch.loader import prefetch
+    from veles_tpu_torch.nn.all2all import All2All
+    from veles_tpu_torch.nn.dropout import DropoutForward
+    from veles_tpu_torch.nn.normalization import LRNormalizerForward
+    from veles_tpu_torch.train.offload import OffloadEngine
+    t0 = time.perf_counter()
+    data = residency_data()
+    dataset_bytes = (data[0].numel() * data[0].element_size() +
+                     data[1].numel() * data[1].element_size())
+    result = {"dataset_mb": dataset_bytes / 1e6,
+              "data_s": time.perf_counter() - t0}
+    knobs = dict(VELES_STREAM=None, VELES_OFFLOAD=None,
+                 VELES_SHARD_MB=None, VELES_ETL_THROTTLE_MS=None,
+                 VELES_PREFETCH=str(RESIDENCY_DEPTH),
+                 VELES_DEVICE_BUDGET_MB=None)
+
+    # -- resident, in-core: the reference of both residencies
+    with env_set(**dict(knobs, VELES_OFFLOAD="0")):
+        resident = residency_run(torch, data, RESIDENCY_EPOCHS)
+    trainer = resident.pop("trainer")
+    assert not trainer.streaming and not trainer.offloaded
+    fc6 = next(m for m in trainer.forwards if isinstance(m, All2All))
+    fc6_state = 2 * sum(p.numel() * p.element_size()
+                        for p in (fc6.weights, fc6.bias))
+    del fc6
+    n_train = trainer._segment_indices(2).shape[0]
+    trainer.shutdown()
+    del trainer
+    step = resident["sweep_ms"][-1] / n_train
+    result["resident"] = {"peak_mb": resident["peak"] / 1e6,
+                          "built_mb": resident["built"] / 1e6,
+                          "step_ms": step, "counts": resident["counts"]}
+
+    # -- streamed: the planner chooses it under the budget
+    streamed_knobs = dict(knobs, VELES_DEVICE_BUDGET_MB=RESIDENCY_BUDGET_MB,
+                          VELES_OFFLOAD="0")
+    with env_set(**streamed_knobs):
+        streamed = residency_run(torch, data, RESIDENCY_EPOCHS)
+    trainer = streamed.pop("trainer")
+    if not trainer.streaming:
+        raise AssertionError("residency: a %.0f MB dataset under a %s MB "
+                             "budget did not stream" % (
+                                 dataset_bytes / 1e6, RESIDENCY_BUDGET_MB))
+    bounds = trainer._shard_bounds(n_train)
+    shard_bytes = trainer.shard_bytes
+    plan = {"batches_per_shard": trainer._batches_per_shard,
+            "train_shards": len(bounds), "shard_mb": shard_bytes / 1e6,
+            "slots": trainer._staging_ring.slots}
+    print("residency: streamed plan %s" % json.dumps(plan))
+    differing = state_differing(numpy, streamed["state"], resident["state"])
+    if differing:
+        raise AssertionError("residency: the streamed run differs from the "
+                             "resident one in %d values" % differing)
+    if streamed["counts"] != resident["counts"]:
+        raise AssertionError("residency: streamed launches %s, resident %s"
+                             % (streamed["counts"], resident["counts"]))
+    limit = (resident["peak"] - dataset_bytes +
+             trainer._staging_ring.slots * shard_bytes + PEAK_SLACK_BYTES)
+    print("residency: peaks (MB) resident %.1f (built %.1f), streamed %.1f "
+          "(built %.1f), bound %.1f" % (
+              resident["peak"] / 1e6, resident["built"] / 1e6,
+              streamed["peak"] / 1e6, streamed["built"] / 1e6, limit / 1e6))
+    if streamed["peak"] > limit:
+        raise AssertionError("residency: streamed peak %.1f MB over its "
+                             "bound %.1f MB" % (streamed["peak"] / 1e6,
+                                                limit / 1e6))
+    sweeps_s = sum(streamed["sweep_ms"]) / 1e3
+    result["streamed"] = {
+        "plan": plan, "differing": differing,
+        "peak_mb": streamed["peak"] / 1e6, "peak_bound_mb": limit / 1e6,
+        "built_mb": streamed["built"] / 1e6,
+        "step_ms": streamed["sweep_ms"][-1] / n_train,
+        "input_wait_s": trainer.input_wait_s,
+        "first_wait_s": trainer.first_wait_s,
+        "starvation": trainer.input_wait_s / sweeps_s,
+        "shard_etl_ms": statistics.median(trainer.shard_etl_ms),
+        "h2d_gb_s": copy_rate(torch, trainer.shard_copies)}
+    check_forms("residency streamed", kernels, streamed["forms"])
+    check_designed("residency streamed", streamed["variants"])
+
+    # the overlap: a slow loader (a shard's compute time a shard) waits
+    # less at depth 2 than inline
+    shard_ms = step * trainer._batches_per_shard
+    waits = {}
+    with env_set(**dict(streamed_knobs,
+                        VELES_ETL_THROTTLE_MS="%.1f" % shard_ms)):
+        for depth in (0, RESIDENCY_DEPTH):
+            trainer.prefetch_depth = depth
+            before = trainer.input_wait_s
+            trainer.train_class()
+            torch.cuda.synchronize()
+            waits[depth] = trainer.input_wait_s - before
+    trainer.shutdown()
+    del trainer
+    result["streamed"]["throttle"] = {"etl_ms": shard_ms,
+                                      "input_wait_s": waits}
+    if not waits[RESIDENCY_DEPTH] < waits[0]:
+        raise AssertionError("residency: under a %.1f ms ETL depth %d "
+                             "waited %.3f s, depth 0 %.3f s" % (
+                                 shard_ms, RESIDENCY_DEPTH,
+                                 waits[RESIDENCY_DEPTH], waits[0]))
+
+    # controls: shard k fed shard k-1's rows; a ring that refills a slot
+    # without waiting for the consumer's event (compute delayed by a
+    # sleep before each shard, so the refill lands first), beside the
+    # same sleep with the ring as it is
+    def shifted(real):
+        prev = [None]
+
+        def fill(indices, kind=None, out=None):
+            use = prev[0] if prev[0] is not None and \
+                prev[0].shape == indices.shape else indices
+            prev[0] = numpy.array(indices)
+            return real(use, kind, out)
+        return fill
+
+    wait = prefetch.Staged.wait
+
+    def slow_wait(self):
+        tree = wait(self)
+        torch.cuda._sleep(RING_SLEEP_CYCLES)
+        return tree
+
+    controls = {}
+    from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+    with env_set(**dict(streamed_knobs, VELES_SHARD_MB=RING_SHARD_MB)):
+        real_fill = FullBatchLoader.fill_indices
+
+        def shifted_method(self, indices, kind=None, out=None,
+                           _state={}):
+            fill = _state.setdefault(id(self), shifted(
+                lambda i, k, o: real_fill(self, i, k, o)))
+            return fill(indices, kind, out)
+
+        with patched(FullBatchLoader, "fill_indices", shifted_method):
+            run = residency_run(torch, data, 1)
+        controls["previous_shard_rows"] = state_differing(
+            numpy, run["state"], resident["state"])
+        run["trainer"].shutdown()
+        del run
+        with patched(prefetch.Staged, "wait", slow_wait):
+            run = residency_run(torch, data, 1)
+            controls["sleep_ring_as_is"] = state_differing(
+                numpy, run["state"], resident["state"])
+            run["trainer"].shutdown()
+            del run
+            with patched(prefetch.StagingRing, "_order_refill",
+                         lambda self, stream, event: None):
+                run = residency_run(torch, data, 1)
+            controls["sleep_refill_unordered"] = state_differing(
+                numpy, run["state"], resident["state"])
+            run["trainer"].shutdown()
+            del run
+    result["streamed"]["controls"] = controls
+    print("residency: streamed controls (values differing) %s" % controls)
+    if controls["sleep_ring_as_is"]:
+        raise AssertionError("residency: the ring under the sleep differs "
+                             "in %d values" % controls["sleep_ring_as_is"])
+    if not (controls["previous_shard_rows"] and
+            controls["sleep_refill_unordered"]):
+        raise AssertionError("residency: a control passed: %s" % controls)
+
+    # -- offloaded: the same model and data, resident, model state on
+    # the host walked in the planned groups
+    offload_knobs = dict(knobs, VELES_OFFLOAD="1",
+                         VELES_OFFLOAD_GROUP_MB=OFFLOAD_GROUP_MB)
+    with env_set(**offload_knobs):
+        offloaded = residency_run(torch, data, RESIDENCY_EPOCHS)
+    trainer = offloaded.pop("trainer")
+    engine = trainer._offload_engine
+    if not trainer.offloaded or engine.plan.groups != OFFLOAD_GROUPS:
+        raise AssertionError("residency: offload plan %s, want %s" % (
+            engine and engine.plan.groups, OFFLOAD_GROUPS))
+    plan = {"groups": engine.plan.groups,
+            "group_mb": [b / 1e6 for b in engine.plan.group_bytes],
+            "depth": engine.depth, "slots": engine._ring.slots}
+    print("residency: offload plan %s" % json.dumps(plan))
+    differing = state_differing(numpy, offloaded["state"], resident["state"])
+    if differing:
+        raise AssertionError("residency: the offloaded run differs from "
+                             "the in-core one in %d values" % differing)
+    # the forwards of groups 0..G-2 run again inside the backward walk
+    remat = {"gemm_bias_act": 0, "lrn_fwd": 0, "uniform_fill": 0}
+    for lo, hi in engine.plan.groups[:-1]:
+        for m in trainer.forwards[lo:hi]:
+            if isinstance(m, All2All):
+                remat["gemm_bias_act"] += 1
+            elif isinstance(m, LRNormalizerForward):
+                remat["lrn_fwd"] += 1
+            elif isinstance(m, DropoutForward):
+                remat["uniform_fill"] += 1
+    steps = RESIDENCY_EPOCHS * n_train
+    want = {name: n + steps * remat.get(name, 0)
+            for name, n in resident["counts"].items()}
+    if offloaded["counts"] != want:
+        raise AssertionError("residency: offloaded launches %s, derived %s"
+                             % (offloaded["counts"], want))
+    limit = (resident["peak"] - fc6_state + max(engine.plan.group_bytes) +
+             PEAK_SLACK_BYTES)
+    print("residency: peaks (MB) offloaded %.1f (built %.1f), bound %.1f"
+          % (offloaded["peak"] / 1e6, offloaded["built"] / 1e6,
+             limit / 1e6))
+    if offloaded["peak"] > limit:
+        raise AssertionError("residency: offloaded peak %.1f MB over its "
+                             "bound %.1f MB" % (offloaded["peak"] / 1e6,
+                                                limit / 1e6))
+    h2d = [t[:3] for t in engine.transfers if t[3] == "h2d"]
+    d2h = [t[:3] for t in engine.transfers if t[3] == "d2h"]
+    result["offloaded"] = {
+        "plan": plan, "differing": differing,
+        "peak_mb": offloaded["peak"] / 1e6, "peak_bound_mb": limit / 1e6,
+        "built_mb": offloaded["built"] / 1e6,
+        "saving_mb": (resident["peak"] - offloaded["peak"]) / 1e6,
+        "step_ms": offloaded["sweep_ms"][-1] / n_train,
+        "offload_wait_s": trainer.offload_wait_s,
+        "overlap": dict(engine.overlap),
+        "h2d_gb_s": copy_rate(torch, h2d), "d2h_gb_s": copy_rate(torch, d2h),
+        "bytes_a_step_gb": (sum(t[2] for t in h2d) +
+                            sum(t[2] for t in d2h)) / n_train / 1e9,
+        "counts": offloaded["counts"], "remat_a_step": remat}
+    check_forms("residency offloaded", kernels, offloaded["forms"])
+    check_designed("residency offloaded", offloaded["variants"])
+    trainer.shutdown()
+    del trainer
+
+    # control: one group's writeback skipped
+    real_copy = OffloadEngine._copy_back
+
+    def skip_fc6(self, g, masters, leaves):
+        if g != 1:
+            real_copy(self, g, masters, leaves)
+
+    with env_set(**offload_knobs), patched(OffloadEngine, "_copy_back",
+                                           skip_fc6):
+        run = residency_run(torch, data, 1)
+    result["offloaded"]["control_skipped_writeback"] = state_differing(
+        numpy, run["state"], resident["state"])
+    run["trainer"].shutdown()
+    del run
+    if not result["offloaded"]["control_skipped_writeback"]:
+        raise AssertionError("residency: skipping fc6's writeback changed "
+                             "nothing")
+
+    # a streamed and an offloaded epoch in a process of their own load
+    # neither jax nor the JAX package
+    path = os.path.join(tmp, "residency_import.py")
+    with open(path, "w") as f:
+        f.write(RESIDENCY_IMPORT_CHECK)
+    env = dict(os.environ, PYTHONPATH=REPO, VELES_OFFLOAD_GROUP_MB="0.05",
+               VELES_SHARD_MB="0.5")
+    proc = subprocess.run([sys.executable, path], cwd=tmp, env=env,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0 or "LOADED []" not in proc.stdout:
+        raise AssertionError("residency import check: %s %s" % (
+            proc.stdout[-2000:], proc.stderr[-2000:]))
+    result["import_check"] = "LOADED []"
+    channels = channels_cell(torch, tmp)
+    result["channels"] = channels if channels is not None else \
+        "absent: Pillow does not import"
+    print("residency: channels-f32 %s" % json.dumps(result["channels"]))
+    result["phase_s"] = time.perf_counter() - t0
+    return result, [streamed["forms"], offloaded["forms"]]
+
+
 def main():
     # deterministic cuBLAS for the workflow and eager phases' runs: read
     # when the first cuBLAS handle is made
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # every run generates its synthetic data: no dataset cache on disk
+    os.environ.setdefault("VELES_DATASET_CACHE", "0")
     import numpy
     import torch
     if not torch.cuda.is_available():
@@ -3597,6 +4147,10 @@ def main():
     print("eager (%s): %s" % (card, json.dumps(eager, default=str)))
     print("export and serve (%s): %s" % (card, json.dumps(served,
                                                           default=str)))
+
+    residency, forms = residency_phase(torch, numpy, kernels)
+    phases.extend(forms)
+    print("residency (%s): %s" % (card, json.dumps(residency, default=str)))
 
     for row in kernels:
         form = row.pop("_form")

@@ -1098,3 +1098,86 @@ def test_package_export_on_the_card(card, tmp_path):
     assert linear_act.launches >= 1
     want = ModelStore().load(dense, device="cpu")(batch)
     numpy.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+
+
+# -- out-of-core training: the staging rings and the residencies ------------
+
+
+def test_staging_ring_orders_refills_and_bounds_residency(card):
+    """A 2-slot ring over 6 placements: each read (after a sleep that
+    holds the compute stream) sees its own shard's values though the
+    worker refills behind it, and at most two shards' buffers exist."""
+    from veles_tpu_torch.loader import prefetch
+    ring = prefetch.StagingRing(2, card)
+    host = [torch.full((1 << 20,), float(i)).pin_memory() for i in range(6)]
+    pipe = prefetch.PrefetchPipeline(lambda i: ring.place((host[i],)), 6,
+                                     depth=1, workers=1, name="ring")
+    pipe.start()
+    sums = []
+    for i in range(6):
+        staged = pipe.get()[0]
+        (x,) = staged.wait()
+        torch.cuda._sleep(20000000)
+        sums.append(x.sum())
+        ring.release(staged)
+        assert ring.resident_bytes() <= 2 * (1 << 22)
+    pipe.close()
+    assert [float(s) for s in sums] == [float(i << 20) for i in range(6)]
+    ring.clear()
+    with pytest.raises(RuntimeError, match="pinned"):
+        prefetch.StagingRing(2, card).place((torch.zeros(4),))
+
+
+def _small_trainer(card, **residency):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models.alexnet import (ALEXNET_TRAINING,
+                                                SyntheticImageLoader,
+                                                small_alexnet_layers)
+    prng.get().seed(3)
+    prng.get("loader").seed(4)
+    loader = SyntheticImageLoader(n_train=70, n_valid=24, side=32,
+                                  n_classes=10, minibatch_size=16)
+    return build_training(small_alexnet_layers(10), (32, 32, 3), loader,
+                          seed=1, device=card, **dict(ALEXNET_TRAINING,
+                                                      **residency))
+
+
+@pytest.mark.parametrize("residency", [
+    {"stream": True}, {"stream": True, "prefetch_depth": 0},
+    {"offload": True}, {"offload": True, "offload_depth": 0}],
+    ids=["streamed", "streamed_inline", "offloaded", "offloaded_inline"])
+def test_out_of_core_equals_resident_on_the_card(card, monkeypatch,
+                                                 residency):
+    """Two epochs streamed (one minibatch a shard) or offloaded (one
+    group a weighted layer) on the card, in deterministic mode, against
+    the resident in-core run: every loss, confusion count, parameter and
+    velocity equal."""
+    monkeypatch.setenv("VELES_SHARD_MB", "0.2")
+    monkeypatch.setenv("VELES_OFFLOAD_GROUP_MB", "0.0001")
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        runs = []
+        for kw in ({}, residency):
+            trainer = _small_trainer(card, **kw)
+            history = [trainer.run_epoch(e) for e in range(2)]
+            trainer.shutdown()
+            runs.append((trainer, history))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    (want, want_history), (got, history) = runs
+    assert got.streaming or got.offloaded
+    for x, y in zip(history, want_history):
+        for klass in ("validation", "train"):
+            numpy.testing.assert_array_equal(x[klass]["losses"],
+                                             y[klass]["losses"])
+        numpy.testing.assert_array_equal(x["validation"]["confusion"],
+                                         y["validation"]["confusion"])
+    for pa, pb in zip(got.params, want.params):
+        for k in pa:
+            assert torch.equal(pa[k].cpu(), pb[k].cpu()), k
+    for sa, sb in zip(got.states, want.states):
+        for k in (sa or {}).get("velocity", {}):
+            assert torch.equal(sa["velocity"][k].cpu(),
+                               sb["velocity"][k].cpu())

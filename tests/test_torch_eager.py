@@ -458,3 +458,48 @@ def test_an_eager_epoch_loads_no_jax(tmp_path):
         cwd=str(tmp_path), capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "LOADED []" in out.stdout
+
+
+def _moe_pair(epochs=2):
+    """(JAX workflow, port workflow): a token-sequence classifier with a
+    Switch MoE layer whose load-balance loss has weight 0.01, built and
+    initialized under the same ``-s 7``."""
+    from veles_tpu.loader.fullbatch import ProviderLoader as JaxProvider
+    from veles_tpu.standard_workflow import \
+        StandardWorkflow as JaxStandard
+    from veles_tpu_torch.loader.fullbatch import ProviderLoader
+    from veles_tpu_torch.models.samples import SequenceProvider
+    from veles_tpu_torch.standard_workflow import StandardWorkflow
+    provider = SequenceProvider(n_train=60, n_valid=20, seq=4, dim=8,
+                                n_classes=3)
+    layers = [{"type": "moe", "n_experts": 4, "aux_loss_weight": 0.01},
+              {"type": "softmax", "output_sample_shape": 3}]
+    common = dict(layers=layers, loss="softmax", max_epochs=epochs,
+                  learning_rate=0.1, momentum=0.9)
+    _seed_both()
+    jax_wf = JaxStandard(
+        JaxDummyLauncher(), loader=lambda w: JaxProvider(
+            w, provider=provider, minibatch_size=16, sequence=True),
+        **common)
+    port_wf = StandardWorkflow(
+        DummyLauncher(), loader=lambda w: ProviderLoader(
+            workflow=w, provider=provider, minibatch_size=16,
+            sequence=True), **common)
+    jax_wf.initialize(device=Device(backend="cpu"))
+    port_wf.initialize(device="cpu")
+    return jax_wf, port_wf
+
+
+def test_eager_moe_with_aux_loss_trains_as_jax_eager(caplog):
+    """An MoE layer with ``aux_loss_weight`` > 0 trains eagerly without
+    the auxiliary term, as the JAX package's eager path does (the term
+    is the fused loss's alone), and the port says so once: two epochs
+    held to JAX's history, parameters and velocity within 1e-6 (5
+    training minibatches an epoch, the last a short tail of 12)."""
+    jax_wf, port_wf = _moe_pair()
+    assert port_wf.forwards[0].module.aux_loss_weight == 0.01
+    with caplog.at_level("INFO"):
+        _eager_against_jax(jax_wf, port_wf, [])
+    noted = [r for r in caplog.records
+             if "trains without it" in r.getMessage()]
+    assert len(noted) == 1

@@ -111,6 +111,27 @@ class Loader(Unit):
         ``device_``, -1 in padded slots) into the minibatch tensors."""
         raise NotImplementedError
 
+    def fill_indices(self, indices, kind="labels", out=None):
+        """Host ETL of an arbitrary index vector without touching the
+        minibatch state: ``(data_rows, truth_rows)`` host tensors, index
+        -1 giving a zero data row and the truth taken at ``max(idx,
+        0)``. Thread-safe over read-only state: the prefetch pipeline
+        calls it from worker threads."""
+        raise NotImplementedError(
+            "%s does not support prefetchable fills" % type(self).__name__)
+
+    def iter_shards(self, klass, shard_samples):
+        """The class's shuffled sample indices in shards of
+        ``shard_samples`` (the last one short), for consumers of
+        :meth:`fill_indices` outside the fused trainer (which shards its
+        index matrix itself)."""
+        ends = self.class_end_offsets
+        start = ends[klass] - self.class_lengths[klass]
+        seg = numpy.asarray(self.shuffled_indices[start:ends[klass]],
+                            numpy.int32)
+        for offset in range(0, len(seg), shard_samples):
+            yield seg[offset:offset + shard_samples]
+
     def initialize(self, device=None, **kwargs):
         """Load the data, cut the minibatch to the largest class, set up
         the permutation and the shape-only minibatch tensors. A loader

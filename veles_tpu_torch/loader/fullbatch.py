@@ -15,7 +15,11 @@ loader stages it again); every minibatch is then gathered there by
 index (:func:`gather_minibatch`), so the host never touches sample data
 in the training loop. The eager loop (:meth:`FullBatchLoader.
 fill_minibatch`) gathers from the same staged copy, so neither path
-holds a second copy of the dataset on the device.
+holds a second copy of the dataset on the device. A run that streams
+the dataset instead (``train/step.py``, out of core) reads the host
+copy through :meth:`FullBatchLoader.host_backing` and
+:meth:`FullBatchLoader.fill_indices` from the prefetch workers and
+drops any staged copy (:meth:`FullBatchLoader.release_staged`).
 
 * :class:`ProviderLoader` reads ``(train_x, train_y, valid_x, valid_y)``
   from a provider callable, validation before training, flat
@@ -33,6 +37,7 @@ import numpy
 import torch
 
 from veles_tpu_torch.loader.base import VALIDATION, Loader
+from veles_tpu_torch.loader.prefetch import gather_rows
 from veles_tpu_torch.normalization import NormalizerRegistry
 from veles_tpu_torch.ops.gather import gather_minibatch
 
@@ -60,6 +65,38 @@ class FullBatchLoader(Loader):
         """Fill ``original_data``, ``original_labels`` and
         ``class_lengths``."""
         raise NotImplementedError
+
+    def load_class_files(self, paths, reader, kind="data"):
+        """Assemble the dataset from per-class files: ``paths`` =
+        (test, validation, train), None for an absent class;
+        ``reader(path) -> (data, labels or None)``. Labels must match
+        their data's length, and every class file carries them or none
+        does (the pickle and HDF5 loaders)."""
+        data_parts, label_parts = [], []
+        for klass, path in enumerate(paths):
+            if path is None:
+                continue
+            data, labels = reader(path)
+            self.class_lengths[klass] = len(data)
+            data_parts.append(data)
+            if labels is not None:
+                if len(labels) != len(data):
+                    raise ValueError("%s: %d labels for %d samples in %s" % (
+                        type(self).__name__, len(labels), len(data), path))
+                label_parts.append(labels)
+        if not data_parts:
+            raise ValueError("%s: no %s paths given"
+                             % (type(self).__name__, kind))
+        if label_parts and len(label_parts) != len(data_parts):
+            raise ValueError("%s: %d of %d class files carry labels -- need "
+                             "all or none" % (type(self).__name__,
+                                              len(label_parts),
+                                              len(data_parts)))
+        self.original_data = torch.from_numpy(numpy.ascontiguousarray(
+            numpy.concatenate(data_parts)))
+        if label_parts:
+            self.original_labels = torch.from_numpy(
+                numpy.concatenate(label_parts))
 
     def load_data(self):
         if self.original_data is None:
@@ -99,13 +136,37 @@ class FullBatchLoader(Loader):
                              self.truth().to(device))
         return self._staged_
 
+    def release_staged(self):
+        """Drop the staged device copy (a streamed run must not keep it
+        resident beside its staging ring)."""
+        self._staged_ = None
+
+    def host_backing(self, kind=None):
+        """``(data, truth)``: the host tensors the dataset streams from.
+        ``kind`` (``labels`` or ``targets``) must be this loader's
+        truth."""
+        if kind is not None and kind != self.TRUTH:
+            raise ValueError("%s has no host-resident %s"
+                             % (type(self).__name__, kind))
+        return self.original_data, self.truth()
+
+    def fill_indices(self, indices, kind=None, out=None):
+        data, truth = self.host_backing(kind)
+        return gather_rows(data, truth, indices, out=out)
+
     def gather(self, indices):
         """(data, labels, valid) of one minibatch from the staged copy;
         ``indices`` an integer tensor on its device. A padded slot (index
         below 0) has a zero row, label -1 and valid False."""
         if self._staged_ is None:
             raise RuntimeError("stage() the dataset on a device first")
-        data, labels = self._staged_
+        return self.gather_from(self._staged_, indices)
+
+    def gather_from(self, data_args, indices):
+        """:meth:`gather` from ``data_args`` = (data, truth) on the
+        indices' device: the staged copy, or a streamed shard with its
+        local indices."""
+        data, labels = data_args
         rows, picked = gather_minibatch(data, indices, labels)
         return rows, picked, indices >= 0
 
@@ -187,11 +248,9 @@ class FullBatchLoaderMSE(FullBatchLoader):
     def truth(self):
         return self.original_targets
 
-    def gather(self, indices):
+    def gather_from(self, data_args, indices):
         """(data, targets, valid) of one minibatch."""
-        if self._staged_ is None:
-            raise RuntimeError("stage() the dataset on a device first")
-        data, targets = self._staged_
+        data, targets = data_args
         rows, _ = gather_minibatch(data, indices)
         picked, _ = gather_minibatch(targets, indices)
         return rows, picked, indices >= 0

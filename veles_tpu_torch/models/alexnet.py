@@ -71,7 +71,10 @@ class SyntheticImageLoader(FullBatchLoader):
 
     ``dtype="bfloat16"`` stores the samples as bf16, rounded to nearest
     even from the float32 draws (``Tensor.to``), the rounding
-    ``ml_dtypes`` gives the JAX package, so both hold the same bytes."""
+    ``ml_dtypes`` gives the JAX package, so both hold the same bytes.
+    The arrays are kept in the dataset cache (``loader/dataset_cache.
+    py``) under the JAX loader's key, so either package reads the
+    other's."""
 
     def __init__(self, n_train=512, n_valid=128, side=227, channels=3,
                  n_classes=1000, seed=1, dtype="float32", **kwargs):
@@ -85,6 +88,22 @@ class SyntheticImageLoader(FullBatchLoader):
     def load_dataset(self):
         (n_train, n_valid, side, channels, n_classes, seed,
          dtype) = self._gen
+        # deterministic from its config, so kept on disk under the JAX
+        # package's key (VELES_DATASET_CACHE=0 generates always)
+        from veles_tpu_torch.loader.dataset_cache import cached_build
+        arrays = cached_build(
+            "synthetic-image",
+            {"n_train": n_train, "n_valid": n_valid, "side": side,
+             "channels": channels, "n_classes": n_classes,
+             "seed": seed, "dtype": dtype},
+            self._generate)
+        self.original_data = arrays["data"]
+        self.original_labels = arrays["labels"]
+        self.class_lengths = [0, n_valid, n_train]
+
+    def _generate(self):
+        (n_train, n_valid, side, channels, n_classes, seed,
+         dtype) = self._gen
         rng = numpy.random.RandomState(seed)
         total = n_train + n_valid
         data = torch.empty((total, side, side, channels),
@@ -95,9 +114,7 @@ class SyntheticImageLoader(FullBatchLoader):
                 numpy.float32) * 2 - 1
             data[start:stop] = torch.from_numpy(chunk).to(data.dtype)
         labels = rng.randint(0, n_classes, total).astype(numpy.int32)
-        self.original_data = data
-        self.original_labels = torch.from_numpy(labels)
-        self.class_lengths = [0, n_valid, n_train]
+        return {"data": data, "labels": torch.from_numpy(labels)}
 
 
 class AlexNetWorkflow(StandardWorkflow):

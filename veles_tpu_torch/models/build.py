@@ -143,7 +143,7 @@ def build_training(layers, sample_shape, loader, learning_rate=0.01,
                    weights_decay=0.0, momentum=0.0, lr_decay=1.0,
                    learning_rate_bias=None, solver="sgd", loss="softmax",
                    params=None, seed=None, policy="float32", device=None,
-                   uniform_source=None):
+                   uniform_source=None, **residency):
     """A :class:`veles_tpu_torch.train.step.FusedTrainer` for ``layers``
     over ``loader`` (initialized here, its dataset staged on the
     device once): the model built trainable from ``params`` or
@@ -152,11 +152,17 @@ def build_training(layers, sample_shape, loader, learning_rate=0.01,
     by name or class; ``loss`` is ``softmax`` (the loader's labels) or
     ``mse`` (the targets of a ``FullBatchLoaderMSE``). ``device``
     defaults to the card; ``uniform_source`` replaces the dropout masks'
-    Philox fill (see the trainer)."""
+    Philox fill (see the trainer). ``residency`` holds the trainer's
+    ``stream``, ``prefetch_depth``, ``prefetch_workers``, ``offload``,
+    ``offload_depth`` and ``offload_workers``; with ``offload=True`` the
+    model is built on the host, where its state stays."""
     from veles_tpu_torch.train.step import FusedTrainer
+    device = resolve_device(device)
     model = build_model(layers, sample_shape, params=params, seed=seed,
-                        policy=policy, device=device, trainable=True)
+                        policy=policy, trainable=True,
+                        device="cpu" if residency.get("offload") else device)
     hypers = layer_hypers(layers, learning_rate, weights_decay, momentum,
                           lr_decay, learning_rate_bias)
     return FusedTrainer(model, loader.initialize(), hypers, solver=solver,
-                        loss=loss, uniform_source=uniform_source)
+                        loss=loss, uniform_source=uniform_source,
+                        device=device, **residency)

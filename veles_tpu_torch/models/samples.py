@@ -18,8 +18,13 @@ layer between the two attention layers with ``moe=True``;
 :func:`sequence_bench` gives ``scripts/bench_all.py``'s ``attention``
 and ``moe`` configurations. A provider may be any callable returning
 ``(train_x, train_y, valid_x, valid_y)``; :func:`sequence` reads the
-sample shape from its ``sample_shape``. ``ChannelsWorkflow`` reads
-image trees from disk and comes with the port's input pipeline.
+sample shape from its ``sample_shape``.
+
+The ``channels`` sample reads image trees from disk:
+:func:`generate_channels_dataset` renders synthetic TV-channel logos
+into per-channel directories (Pillow), the JAX package's bytes from the
+same seed, and :class:`ChannelsWorkflow` trains on them through
+:class:`~veles_tpu_torch.loader.image.FileImageLoader`.
 """
 
 import collections
@@ -27,6 +32,7 @@ import collections
 import numpy
 
 from veles_tpu_torch.loader.fullbatch import TabularLoader
+from veles_tpu_torch.standard_workflow import StandardWorkflow
 
 #: what a sample function returns
 Sample = collections.namedtuple("Sample",
@@ -238,3 +244,92 @@ def sequence_bench(moe=False, provider=None):
     :func:`sequence_bench_provider`'s)."""
     return sequence(provider or sequence_bench_provider(moe),
                     minibatch_size=64, heads=8, moe=moe, n_experts=8)
+
+
+def generate_channels_dataset(directory, n_channels=6, per_class=30,
+                              side=32, seed=21):
+    """Render synthetic TV-channel logos into ``<directory>/{train,
+    validation}/<channel-name>/*.png``: a geometric emblem a channel
+    (bars, disc, frame, checker, stripes, cross) with position jitter and
+    background noise. Returns the (train_paths, validation_paths) roots
+    for :class:`~veles_tpu_torch.loader.image.FileImageLoader`."""
+    import os
+
+    from PIL import Image
+
+    rng = numpy.random.RandomState(seed)
+    names = ["channel%02d" % i for i in range(n_channels)]
+
+    def emblem(klass, jitter):
+        img = (rng.rand(side, side, 3) * 60).astype(numpy.uint8)
+        yy, xx = numpy.mgrid[0:side, 0:side]
+        cy, cx = side // 2 + jitter[0], side // 2 + jitter[1]
+        color = numpy.zeros(3, numpy.uint8)
+        color[klass % 3] = 230
+        color[(klass + 1) % 3] = 120 if klass >= 3 else 0
+        kind = klass % 6
+        edge = numpy.minimum.reduce([yy, xx, side - 1 - yy, side - 1 - xx])
+        if kind == 0:
+            mask = (xx // 4) % 2 == 0
+        elif kind == 1:
+            mask = (yy - cy) ** 2 + (xx - cx) ** 2 < (side // 3) ** 2
+        elif kind == 2:
+            border = side // 5
+            mask = (edge > border) & (edge < 2 * border)
+        elif kind == 3:
+            mask = ((yy // 4) + (xx // 4)) % 2 == 0
+        elif kind == 4:
+            mask = (yy // 4) % 2 == 0
+        else:
+            mask = (abs(yy - cy) < 3) | (abs(xx - cx) < 3)
+        img[mask] = color
+        return img
+
+    splits = {"train": per_class, "validation": max(per_class // 4, 2)}
+    for split, count in splits.items():
+        for klass, name in enumerate(names):
+            d = os.path.join(directory, split, name)
+            os.makedirs(d, exist_ok=True)
+            for i in range(count):
+                jitter = rng.randint(-3, 4, size=2)
+                Image.fromarray(emblem(klass, jitter)).save(
+                    os.path.join(d, "frame%03d.png" % i))
+    return ([os.path.join(directory, "train")],
+            [os.path.join(directory, "validation")])
+
+
+#: ``ChannelsWorkflow``'s conv net over 32x32 logos
+CHANNELS_LAYERS = [
+    {"type": "conv_relu", "n_kernels": 12, "kx": 5, "ky": 5},
+    {"type": "max_pooling", "kx": 2, "ky": 2},
+    {"type": "conv_relu", "n_kernels": 24, "kx": 3, "ky": 3},
+    {"type": "max_pooling", "kx": 2, "ky": 2},
+    {"type": "all2all_relu", "output_sample_shape": 64},
+]
+
+
+class ChannelsWorkflow(StandardWorkflow):
+    """The ``channels`` sample: a conv net over channel-logo directory
+    trees, loaded by :class:`~veles_tpu_torch.loader.image.
+    FileImageLoader` (scan, decode, resize, ``linear`` normalization;
+    labels from directory names)."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow=None, train_paths=(),
+                 validation_paths=(), n_classes=6, minibatch_size=30,
+                 size=(32, 32), **kwargs):
+        from veles_tpu_torch.loader.image import FileImageLoader
+        kwargs.setdefault("learning_rate", 0.05)
+        kwargs.setdefault("loss", "softmax")
+        loader_kwargs = {
+            "train_paths": tuple(train_paths),
+            "validation_paths": tuple(validation_paths),
+            "size": size, "minibatch_size": minibatch_size,
+            "normalization_type": "linear"}
+        super(ChannelsWorkflow, self).__init__(
+            workflow,
+            loader=lambda w: FileImageLoader(workflow=w, **loader_kwargs),
+            layers=CHANNELS_LAYERS + [
+                {"type": "softmax", "output_sample_shape": n_classes}],
+            **kwargs)

@@ -42,6 +42,9 @@ minibatch at a time:
 Unlike the JAX package's eager dropout, which also masks evaluation
 minibatches (its ``testing`` flag is set by ``--test`` alone), the
 port's masks only training minibatches, as both fused trainers do.
+A layer's auxiliary loss (the mixture of experts' load balance) is the
+fused step's alone, as in the JAX package: the eager gradient unit
+trains without it and says so once.
 
 ``input``, ``output``, ``err_output`` and ``err_input`` are tensors on
 the ``meta`` device after ``initialize()``, the shapes of the minibatch
@@ -361,6 +364,8 @@ class GradientDescentBase(AcceleratedUnit):
     hide_from_registry = True
     view_group = "TRAINER"
     SHAPE_ONLY_STATE = ("err_input",)
+    #: the eager step noted that it trains without the auxiliary loss
+    _aux_noted = False
 
     def __init__(self, workflow, forward=None, **kwargs):
         self.learning_rate = kwargs.pop("learning_rate", 0.01)
@@ -421,10 +426,14 @@ class GradientDescentBase(AcceleratedUnit):
         if forward.graph_ is None:
             raise RuntimeError("%s: %s kept no training graph" % (
                 self.name, forward.name))
-        if getattr(forward.module, "aux_loss_weight", 0.0):
-            raise NotImplementedError(
-                "%s: the eager step has no auxiliary losses (run it "
-                "fused)" % forward.name)
+        if getattr(forward.module, "aux_loss_weight", 0.0) and \
+                not self._aux_noted:
+            # the JAX package adds the term to the fused loss only
+            # (veles_tpu/nn/moe.py); its eager step trains without it
+            self._aux_noted = True
+            self.info("%s: the auxiliary loss of %s is added by the fused "
+                      "step only; the eager step trains without it",
+                      self.name, forward.name)
         leaf, out = forward.graph_
         forward.graph_ = None
         params = {k: p for k, p in layer_params(forward.module).items()

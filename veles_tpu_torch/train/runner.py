@@ -26,9 +26,14 @@ than one solver); the launcher then runs the eager per-unit scheduler
 Each epoch's wall time is split in :attr:`FusedRunner.epoch_times`:
 the evaluation and training sweeps (each ends in a host read of its
 metrics, which waits for the device), the decision's bookkeeping and
-the services; each class's mean minibatch loss rides beside. The JAX
+the services; each class's mean minibatch loss rides beside. A streamed
+run adds the epoch's input wait and its starvation fraction (wait over
+the sweeps' wall), an offloaded one its upload wait and the overlap
+fraction (1 - wait over wall), as ``veles_tpu/train/runner.py``
+publishes them; each is logged once an epoch. The run ends with
+``trainer.shutdown()``, so no pipeline thread outlives it. The JAX
 runner's telemetry (tracing spans, metrics registry, flight recorder,
-cost book, prefetch and offload gauges) is not ported yet.
+cost book) is not ported yet.
 """
 
 import collections
@@ -286,6 +291,27 @@ class FusedRunner(object):
             if gd is not None and state:
                 gd.opt_state = state
 
+    def _residency_times(self, times, waits):
+        """The epoch's input-starvation and offload-overlap readings
+        from the trainer's wait counters at the epoch's start."""
+        trainer = self.trainer
+        sweeps = times.get("eval_s", 0.0) + times.get("train_s", 0.0) + \
+            times.get("sweeps_s", 0.0)
+        if trainer.streaming:
+            wait = trainer.input_wait_s - waits[0]
+            times["input_wait_s"] = wait
+            times["first_wait_s"] = trainer.first_wait_s
+            times["starvation"] = min(1.0, wait / sweeps) if sweeps else 0.0
+            _log.info("epoch %d: input wait %.3f s, starvation %.3f",
+                      times["epoch"], wait, times["starvation"])
+        if trainer.offloaded:
+            wait = trainer.offload_wait_s - waits[1]
+            times["offload_wait_s"] = wait
+            times["offload_overlap"] = max(0.0, 1.0 - wait / sweeps) \
+                if sweeps else 0.0
+            _log.info("epoch %d: offload wait %.3f s, overlap %.3f",
+                      times["epoch"], wait, times["offload_overlap"])
+
     def _epoch_end(self, services, stats, times, start):
         times["loss"] = {CLASS_NAMES[k]: s["loss"] for k, s in stats.items()}
         self._refresh_units()
@@ -321,6 +347,8 @@ class FusedRunner(object):
                 epochs_done += 1
                 samples_done += sum(s["samples"] for s in stats.values())
             while not (bool(decision.complete) or bool(workflow.stopped)):
+                waits = (self.trainer.input_wait_s,
+                         self.trainer.offload_wait_s)
                 if loader.total_samples and \
                         loader._global_offset >= loader.total_samples:
                     # the eager loader's lazy epoch wrap on next serve
@@ -336,6 +364,7 @@ class FusedRunner(object):
                 if not testing and loader.class_lengths[TRAIN]:
                     stats[TRAIN] = self._train_class()
                 times["train_s"] = time.perf_counter() - t
+                self._residency_times(times, waits)
                 t = time.perf_counter()
                 self._close_epoch(stats)
                 times["decision_s"] = time.perf_counter() - t
@@ -343,6 +372,7 @@ class FusedRunner(object):
                 epochs_done += 1
                 samples_done += sum(s["samples"] for s in stats.values())
         finally:
+            self.trainer.shutdown()
             self._refresh_units()
             workflow.is_running = False
             elapsed = time.perf_counter() - start

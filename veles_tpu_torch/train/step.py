@@ -42,8 +42,30 @@ layer_index, device)`` returning float32 uniforms of ``shape`` may
 replace it (the parity tests hand over JAX's own ``jax.random``
 numbers this way).
 
-Left out for later slices: streaming and offload, the space-to-depth
-staging pack and the cost-book harvest.
+Residency (``veles_tpu/train/step.py`` ``_setup_data_residency`` and
+``_setup_model_residency``): the dataset is staged on the device when it
+fits the budget (:func:`veles_tpu_torch.loader.prefetch.plan_residency`:
+``stream``, ``VELES_STREAM``, ``VELES_DEVICE_BUDGET_MB``) and otherwise
+*streamed*: each class sweep's index matrix is cut into shards of
+``shard_batches`` minibatches, which worker threads gather on the host
+into pinned buffers and copy to the device through a
+:class:`~veles_tpu_torch.loader.prefetch.StagingRing` while the step
+thread computes the shard before (``prefetch_depth``,
+``prefetch_workers``, ``VELES_PREFETCH``). The model state stays on
+the device unless it exceeds the budget or ``offload`` /
+``VELES_OFFLOAD`` ask: then the parameters and solver state live on the
+host (pinned) and each step walks layer groups through
+:class:`~veles_tpu_torch.train.offload.OffloadEngine`. A streamed
+dataset wins over offload. Batch indices, dropout seeds and fold order
+are the resident sweep's, so a streamed or offloaded epoch gives the
+resident in-core epoch's values. :meth:`FusedTrainer.shutdown` joins
+every pipeline thread. The readings the JAX package publishes as
+gauges are attributes: ``input_wait_s`` and ``first_wait_s`` (the step
+thread's wait for shards), ``shard_etl_ms`` / ``shard_h2d_ms`` (per
+shard of the last streamed sweep) and ``offload_wait_s``.
+
+Left out for later slices: the space-to-depth staging pack and the
+cost-book harvest.
 """
 
 import logging
@@ -55,6 +77,7 @@ import torch
 
 from veles_tpu_torch import prng
 from veles_tpu_torch.convert import layer_params
+from veles_tpu_torch.loader import prefetch
 from veles_tpu_torch.loader.base import CLASS_NAMES, TEST, TRAIN, VALIDATION
 from veles_tpu_torch.nn.dropout import DropoutForward
 from veles_tpu_torch.nn.evaluator import (batch_confusion,
@@ -84,7 +107,9 @@ class FusedTrainer(object):
     reference the kernels are held against on the card)."""
 
     def __init__(self, model, loader, hypers, solver="sgd", loss="softmax",
-                 uniform_source=None, plain=False, states=None):
+                 uniform_source=None, plain=False, states=None, device=None,
+                 stream=None, prefetch_depth=None, prefetch_workers=None,
+                 offload=None, offload_depth=None, offload_workers=None):
         if loss not in LOSSES:
             raise ValueError("loss must be one of %s, got %r"
                              % (sorted(LOSSES), loss))
@@ -113,12 +138,145 @@ class FusedTrainer(object):
         self.epoch_history = []
         self.best_metric = math.inf
         self.best_epoch = -1
-        self.device = next(model.parameters()).device
+        self.device = _card(device if device is not None
+                            else next(model.parameters()).device)
         self.policy = policy_of(model)
-        loader.stage(self.device)
+        self.stream = stream
+        self.prefetch_depth = prefetch_depth
+        self.prefetch_workers = prefetch_workers
+        self.offload = offload
+        self.offload_depth = offload_depth
+        self.offload_workers = offload_workers
+        #: the step thread's cumulative wait for streamed shards, the
+        #: wait for the first shard of the last sweep, and each shard's
+        #: host ETL and copy-dispatch ms in the last streamed sweep
+        self.input_wait_s = 0.0
+        self.first_wait_s = None
+        self.shard_etl_ms = []
+        self.shard_h2d_ms = []
+        #: (copy start, copy end, bytes) of each shard of the last
+        #: streamed sweep (CUDA events; empty off the card)
+        self.shard_copies = []
+        self.streaming = False
+        self.offloaded = False
+        self._active_pipeline = None
+        self._staging_ring = None
+        self._offload_engine = None
+        self._setup_data_residency()
         self.params = [layer_params(m) for m in self.forwards]
+        self._setup_model_residency(states)
+
+    # -- residency ---------------------------------------------------------
+
+    def _setup_data_residency(self):
+        """Stage the dataset on the device when it fits the budget, else
+        stream it from the loader's host copy through the staging ring
+        (``veles_tpu/train/step.py`` ``_setup_data_residency``)."""
+        loader = self.loader
+        data, truth = loader.original_data, loader.truth()
+        total = (data.numel() * data.element_size() +
+                 truth.numel() * truth.element_size())
+        self.streaming = prefetch.plan_residency(
+            total, device=self.device, force=self.stream) == "streamed"
+        if self.streaming and not hasattr(loader, "host_backing"):
+            _log.warning("loader %s has no host backing: cannot stream; "
+                         "the dataset stays resident",
+                         type(loader).__name__)
+            self.streaming = False
+        if not self.streaming:
+            loader.stage(self.device)
+            return
+        loader.release_staged()
+        mb = loader.max_minibatch_size
+        self._sample = (tuple(data.shape[1:]), data.dtype,
+                        tuple(truth.shape[1:]), truth.dtype)
+        batch_bytes = mb * (
+            int(numpy.prod(data.shape[1:], dtype=numpy.int64)) *
+            data.element_size() +
+            int(numpy.prod(truth.shape[1:], dtype=numpy.int64)) *
+            truth.element_size())
+        depth = (prefetch.default_depth() if self.prefetch_depth is None
+                 else self.prefetch_depth)
+        self._batches_per_shard = prefetch.shard_batches(
+            batch_bytes, depth=depth,
+            budget_bytes=prefetch.device_budget_bytes(self.device))
+        #: device bytes of one full shard (rows, truth, local indices)
+        self.shard_bytes = self._batches_per_shard * (batch_bytes + mb * 4)
+        slots = max(1, depth) + 2
+        self._staging_ring = prefetch.StagingRing(slots, self.device)
+        self._host_ring = prefetch.HostRing(
+            slots, pin=self.device.type == "cuda")
+        _log.info("dataset streams out of core: %.0f MB over the device "
+                  "budget; shards of %d minibatches (%.0f MB), prefetch "
+                  "depth %d", total / 1e6, self._batches_per_shard,
+                  self._batches_per_shard * batch_bytes / 1e6, depth)
+
+    def _setup_model_residency(self, states):
+        """Solver state beside the parameters, both on the device, or
+        both on the host when the model state offloads
+        (``veles_tpu/train/step.py`` ``_setup_model_residency``; a
+        streamed dataset keeps the model in-core)."""
+        from veles_tpu_torch.train import offload
+        solvers = [self.solver if p else None for p in self.params]
+        layer_bytes = offload.model_layer_bytes(self.forwards, solvers)
+        decision = offload.plan_offload(sum(layer_bytes), device=self.device,
+                                        force=self.offload)
+        if decision == "offloaded" and self.streaming:
+            _log.warning("offloaded model state needs a resident dataset: "
+                         "the streamed input pipeline owns the staging "
+                         "budget; the parameters stay in-core")
+            decision = "resident"
+        self.offloaded = decision == "offloaded"
+        if self.offloaded:
+            pin = self.device.type == "cuda"
+            with torch.no_grad():
+                for params in self.params:
+                    for p in params.values():
+                        p.data = offload.host_copy(p.data, pin)
+            if states is not None:
+                states = [offload.host_tree(s, pin) for s in states]
+        elif any(p.device != self.device for params in self.params
+                 for p in params.values()):
+            raise ValueError("the model's parameters are not on %s; an "
+                             "in-core trainer needs them there"
+                             % self.device)
         self.states = list(states) if states is not None else [
             self.solver.init(p) if p else {} for p in self.params]
+        if not self.offloaded:
+            return
+        if states is None:
+            pin = self.device.type == "cuda"
+            self.states = [offload.host_tree(s, pin) for s in self.states]
+        depth = (offload.offload_depth() if self.offload_depth is None
+                 else max(0, self.offload_depth))
+        plan = offload.OffloadPlan.build(
+            layer_bytes, offload.group_budget_bytes(self.device, depth))
+        self._offload_engine = offload.OffloadEngine(
+            self, plan, depth=depth, workers=self.offload_workers)
+        _log.info("model state offloads out of core: %.1f MB in %d layer "
+                  "groups (%s), staging depth %d", plan.total_bytes / 1e6,
+                  plan.n_groups, "/".join("%d-%d" % g for g in plan.groups),
+                  depth)
+
+    @property
+    def offload_wait_s(self):
+        """The step thread's cumulative wait for offloaded layer groups
+        (0 in-core)."""
+        engine = self._offload_engine
+        return engine.wait_s if engine is not None else 0.0
+
+    def shutdown(self):
+        """Join any live prefetch pipeline, drop the staged shards and
+        close the offload engine. Idempotent: the sweeps close their
+        pipelines themselves; this is the backstop of a failed run."""
+        pipe = self._active_pipeline
+        if pipe is not None:
+            pipe.close()
+            self._active_pipeline = None
+        if self._staging_ring is not None:
+            self._staging_ring.clear()
+        if self._offload_engine is not None:
+            self._offload_engine.close()
 
     # -- forward and loss --------------------------------------------------
 
@@ -128,8 +286,17 @@ class FusedTrainer(object):
         logits (``apply_for_grad``). ``aux``, a list, collects the
         auxiliary loss of every layer whose ``aux_loss_weight`` is not 0,
         taken on its input with the batch's ``valid`` mask."""
+        return self._forward_range(x, 0, len(self.forwards), train,
+                                   batch_index, seed, aux, valid)
+
+    def _forward_range(self, x, lo, hi, train, batch_index=0, seed=0,
+                       aux=None, valid=None):
+        """:meth:`_forward` through layers ``[lo, hi)`` only: the walk
+        of offloaded layer groups. Dropout masks are drawn by the
+        absolute layer index, so a walk gives the whole chain's."""
         last = len(self.forwards) - 1
-        for i, module in enumerate(self.forwards):
+        for i in range(lo, hi):
+            module = self.forwards[i]
             if aux is not None and getattr(module, "aux_loss_weight", 0.0):
                 aux.append(module.aux_loss(x, valid))
             if isinstance(module, DropoutForward):
@@ -153,13 +320,23 @@ class FusedTrainer(object):
                 return prng.get(module.rand_name).philox_seed()
         return 0
 
-    def gradients(self, indices, batch_index, seed):
+    def _gather(self, indices, data_args=None):
+        """(x, truth, valid) of one minibatch: from the staged dataset,
+        or from ``data_args`` (a streamed shard) by its local indices."""
+        if data_args is None:
+            return self.loader.gather(indices)
+        return self.loader.gather_from(data_args, indices)
+
+    def gradients(self, indices, batch_index, seed, data_args=None):
         """Loss and gradients of one minibatch (``indices`` on the
         device), without an update: (report_loss, metric) -- the metric
         the error count (softmax) or the summed per-row MSE -- with each
-        parameter's ``.grad`` set."""
+        parameter's ``.grad`` set. In-core only."""
+        if self.offloaded:
+            raise RuntimeError("an offloaded trainer's gradients live in "
+                               "its layer-group walk (train_class)")
         with self.policy.backends():
-            x, truth, valid = self.loader.gather(indices)
+            x, truth, valid = self._gather(indices, data_args)
             for params in self.params:
                 for p in params.values():
                     p.grad = None
@@ -179,12 +356,13 @@ class FusedTrainer(object):
         return torch.linalg.vector_norm(torch.stack(
             torch._foreach_norm(grads)))
 
-    def train_batch(self, indices, batch_index, seed):
+    def train_batch(self, indices, batch_index, seed, data_args=None):
         """One step: gradients, their norm (``batch_norm``), then the
         solver over the layers in order. Returns (report_loss, metric)
         as device scalars."""
         with self.policy.backends():
-            report, metric = self.gradients(indices, batch_index, seed)
+            report, metric = self.gradients(indices, batch_index, seed,
+                                            data_args)
             self.batch_norm = self.grad_norm()
             for params, state, hp in zip(self.params, self.states,
                                          self.hypers):
@@ -210,44 +388,130 @@ class FusedTrainer(object):
         mat.reshape(-1)[:len(seg)] = seg
         return mat
 
+    def _eval_rows(self, idx, out, data_args=None):
+        """Forward-only over the rows of the device index matrix
+        ``idx``: each row's report loss and metric appended to ``out``
+        = [losses, metrics, confusion], the confusion counts (softmax)
+        added to its third item."""
+        losses, metrics = out[0], out[1]
+        with torch.no_grad(), self.policy.backends():
+            for row in idx:
+                x, truth, valid = self._gather(row, data_args)
+                logits = self._forward(x, False)
+                _, report, metric = self._loss(logits, truth, valid)
+                losses.append(report)
+                metrics.append(metric)
+                if self.loss_kind == "softmax":
+                    counts = batch_confusion(logits, truth, valid)
+                    out[2] = counts if out[2] is None else out[2] + counts
+
     def eval_class(self, klass, skip=0):
         """Forward-only sweep of one class: (losses, metrics, confusion)
         per minibatch as device tensors, the confusion matrix summed over
         the sweep (softmax only, else None)."""
-        idx = torch.from_numpy(self._segment_indices(klass, skip)).to(
-            self.device)
-        losses, metrics = [], []
-        confusion = None
-        with torch.no_grad(), self.policy.backends():
-            for row in idx:
-                x, truth, valid = self.loader.gather(row)
-                out = self._forward(x, False)
-                _, report, metric = self._loss(out, truth, valid)
-                losses.append(report)
-                metrics.append(metric)
-                if self.loss_kind == "softmax":
-                    counts = batch_confusion(out, truth, valid)
-                    confusion = counts if confusion is None \
-                        else confusion + counts
-        return torch.stack(losses), torch.stack(metrics), confusion
+        idx = self._segment_indices(klass, skip)
+        out = [[], [], None]
+        if self.offloaded:
+            self._offload_engine.eval_segment(idx, out)
+        elif self.streaming:
+            self._stream_segment("eval", idx, lambda data, local, row0:
+                                 self._eval_rows(local, out, data))
+        else:
+            self._eval_rows(torch.from_numpy(idx).to(self.device), out)
+        return torch.stack(out[0]), torch.stack(out[1]), out[2]
+
+    def _train_rows(self, idx, first, seed, out, data_args=None):
+        """:meth:`train_batch` over the rows of the device index matrix
+        ``idx``, batch indices from ``first``; losses, metrics and norms
+        appended to the lists of ``out``."""
+        for j, row in enumerate(idx):
+            report, metric = self.train_batch(row, first + j, seed,
+                                              data_args)
+            out[0].append(report)
+            out[1].append(metric)
+            out[2].append(self.batch_norm)
 
     def train_class(self, skip=0):
         """One training sweep of the TRAIN class: (losses, metrics) per
         minibatch; the batches' gradient norms go to
         ``last_grad_norms``. Batch indices continue from ``skip``'s
         position in the epoch, as the JAX trainer's fold indices do."""
-        idx = torch.from_numpy(self._segment_indices(TRAIN, skip)).to(
-            self.device)
+        idx = self._segment_indices(TRAIN, skip)
         seed = self._dropout_seed()
         first = skip // self.loader.max_minibatch_size
-        losses, metrics, norms = [], [], []
-        for j, row in enumerate(idx):
-            report, metric = self.train_batch(row, first + j, seed)
-            losses.append(report)
-            metrics.append(metric)
-            norms.append(self.batch_norm)
-        self.last_grad_norms = torch.stack(norms)
-        return torch.stack(losses), torch.stack(metrics)
+        out = [[], [], []]
+        if self.offloaded:
+            self._offload_engine.train_segment(idx, first, seed, out)
+        elif self.streaming:
+            self._stream_segment("train", idx, lambda data, local, row0:
+                                 self._train_rows(local, first + row0,
+                                                  seed, out, data))
+        else:
+            self._train_rows(torch.from_numpy(idx).to(self.device), first,
+                             seed, out)
+        self.last_grad_norms = torch.stack(out[2])
+        return torch.stack(out[0]), torch.stack(out[1])
+
+    # -- streamed sweeps ---------------------------------------------------
+
+    def _shard_bounds(self, n_rows):
+        """[(row0, row1)] index-matrix row ranges, one per shard."""
+        rows = max(1, min(self._batches_per_shard, n_rows))
+        return [(r, min(r + rows, n_rows)) for r in range(0, n_rows, rows)]
+
+    def _stream_segment(self, kind, idx, run_shard):
+        """One class sweep shard by shard: worker threads gather shard
+        N+k's rows into pinned host buffers and copy them (with the
+        shard-local index matrix) through the staging ring while
+        ``run_shard((data, truth), local_idx, row0)`` computes shard N
+        on the step thread."""
+        bounds = self._shard_bounds(idx.shape[0])
+        ring, host = self._staging_ring, self._host_ring
+        loader = self.loader
+        dshape, ddtype, tshape, tdtype = self._sample
+        etl_ms = [0.0] * len(bounds)
+        h2d_ms = [0.0] * len(bounds)
+        copies = [None] * len(bounds)
+
+        def produce(i):
+            row0, row1 = bounds[i]
+            rows_idx = idx[row0:row1]
+            n = rows_idx.size
+            t0 = time.perf_counter()
+            data, truth, local = host.buffers(i, [
+                ((n,) + dshape, ddtype), ((n,) + tshape, tdtype),
+                (rows_idx.shape, torch.int32)])
+            loader.fill_indices(rows_idx, out=(data, truth))
+            local.copy_(torch.from_numpy(prefetch.local_indices(rows_idx)))
+            t1 = time.perf_counter()
+            staged = ring.place((data, truth, local))
+            host.guard(i, staged.ready)
+            etl_ms[i] = (t1 - t0) * 1e3
+            h2d_ms[i] = (time.perf_counter() - t1) * 1e3
+            copies[i] = (staged.started, staged.ready, sum(
+                t.numel() * t.element_size() for t in (data, truth, local)))
+            return staged, row0
+
+        pipe = prefetch.PrefetchPipeline(
+            produce, len(bounds), depth=self.prefetch_depth,
+            workers=self.prefetch_workers, name=kind)
+        self._active_pipeline = pipe
+        try:
+            ring.reopen()
+            pipe.start()
+            for _ in bounds:
+                (staged, row0), _ = pipe.get()
+                data, truth, local = staged.wait()
+                run_shard((data, truth), local, row0)
+                ring.release(staged)
+        finally:
+            pipe.close()
+            self._active_pipeline = None
+            self.input_wait_s += pipe.wait_s
+            self.first_wait_s = pipe.first_wait_s
+            self.shard_etl_ms, self.shard_h2d_ms = etl_ms, h2d_ms
+            self.shard_copies = [c for c in copies
+                                 if c is not None and c[0] is not None]
 
     def run_epoch(self, epoch=None):
         """One epoch: evaluation classes in reference order, then
@@ -336,6 +600,14 @@ class FusedTrainer(object):
                 for k, p in layer.items():
                     p.copy_(values[k])
         self.states = [_clone_state(s) for s in states]
+
+
+def _card(device):
+    """``device`` as a ``torch.device``, a card with its index."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _clone_state(state):
