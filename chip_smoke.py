@@ -184,8 +184,8 @@
    package and on the eager AlexNet's snapshot directory, each checked
    as the slice phase checks (16 concurrent single requests and a
    64-row batch, the centred-logit check and its two controls, K1 at
-   checked forms on designed variants; p50/p95 and samples/s); every
-   flag the port refuses raises naming itself.
+   checked forms on designed variants; p50/p95 and samples/s); the
+   port refuses none of the JAX command's flags.
 12. Residency phase (out of core), deterministic mode: full-width
    AlexNet-227 at ``bench.py``'s settings over ``SyntheticImageLoader``
    2048 + 256 samples in bf16 (712 MB). (1) Resident in-core, 2 epochs:
@@ -209,12 +209,60 @@
    of their own load no JAX. (5) ``ChannelsWorkflow`` through the CLI
    for 3 epochs when Pillow imports (the line says which): the loss
    falls, K1 and K6 at the model's counts.
-13. The line before the last is ``{"kernels": [...], "not_ported":
+13. Observability phase: the telemetry plane and the full serving
+   engine on the card. (1) alexnet-train-traced-f32: ``python -m
+   veles_tpu_torch --trace-out`` on phase 9's file, 3 epochs, snapshotted:
+   the trace loads with 3 ``step:train``, ``step:eval`` and ``epoch``
+   spans and no unit spans but the snapshotter's (one eager epoch's trace
+   has every forward unit's); ``veles_step_mfu`` in (0, 1] and within 1%
+   of this script's reckoning (``model_cost``'s FLOPs a sample x the
+   sweep's samples / the runner's ``train_s`` / 989 TFLOP/s);
+   ``veles_step_ms{phase="train"}``'s p50 within 5% of the runner's
+   median sweep; the launches exactly the untraced run's derived counts;
+   the memory profile written. (2) alexnet-stream-traced: one streamed
+   epoch (``VELES_STREAM=1``, the 400 MB budget) with the ``prefetch:*``
+   spans and ``veles_input_starvation_fraction`` equal to the runner's
+   starvation, and one offloaded epoch (150 MB groups) with
+   ``offload:h2d`` / ``offload:d2h`` spans for every group of the plan and
+   the ``offload:<dir>/g<k>`` cost rows. (3) The flight recorder: 2 epochs
+   with a NaN written into one staged training row after epoch 0 write
+   one record a detector (non-finite loss, non-finite gradient norm),
+   the first naming epoch 1 and the row's batch, with log lines and
+   spans; the same run
+   without the NaN writes none. (4) Tracing's cost: 11 epochs with
+   tracing flipped at each epoch's end, the median train sweep of 5
+   traced against 5 untraced: AlexNet-227 at most 2%, mnist-fc reported.
+   (5) alexnet-serve-full-f32: ``serve`` with every flag (``--model
+   alexnet=<the traced run's snapshots> --model mnist=<mnist-fc's
+   package>``, ``--cache-mb 64``, two ``--tenant``s, ``--min-replicas 1
+   --max-replicas 2``, ``--web-status`` at a local stub, ``--trace-out``):
+   on each route 16 concurrent singles (from a client process of their
+   own, each with an ``X-Request-Id``) and a 64-row batch, checked as the
+   slice phase checks, K1 and K3 at the forwards' counts; the server's
+   latency p50 within 20% of the clients' over 16 sequential requests
+   (the concurrent round's reported beside); the 16 bodies again: bit for
+   bit, 16 cache hits, no K1 or K3 launch; a swap answered by the new
+   model, while a cache keyed by the content alone serves a stale row
+   (the control); a burst of new rows submitted to the AlexNet route's
+   engine under a cut admission bound (through HTTP the queue never
+   builds: the card outruns the frontend) scales it to 2 replicas, the
+   new one warmed on the card while the first serves, every admitted row
+   answered, then back to 1 (reaction time printed); ``/metrics``
+   (Prometheus lines, the
+   serving, op, HBM families), ``/profile.json`` (``serve_forward:b64``
+   with FLOPs, bytes, p50, bound, utilization <= 1.05), ``/alerts.json``,
+   ``/history.json`` and a status POST with the JAX payload's keys; the
+   trace's ``http:*`` spans carry the request ids, and the attribution
+   (``http:<endpoint>`` p50 against ``serve_forward`` p50) is printed.
+   (6) ``serve`` with every flag and a traced CLI epoch in a process of
+   their own load no JAX.
+14. The line before the last is ``{"kernels": [...], "not_ported":
    []}``; the last is ``{"ok": true, "device": {...}}``. Any failure
    raises and exits non-zero before them.
 """
 
 import base64
+import collections
 import contextlib
 import json
 import math
@@ -223,6 +271,7 @@ import statistics
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1535,19 +1584,10 @@ def model_train_flops_per_sample(model):
     """``bench.py``'s accounting: 3x the forward FLOPs of the
     convolutions and the fully-connected layers (forward, data
     gradient, weight gradient); LRN, pooling, dropout and activations
-    count nothing."""
-    from veles_tpu_torch.nn.all2all import All2All
-    from veles_tpu_torch.nn.conv import Conv
-    total = 0.0
-    for module in model:
-        if isinstance(module, Conv):
-            cout, cin, ky, kx = module.weights.shape
-            h, w, _ = module.output_shape()
-            total += 2.0 * h * w * ky * kx * cin * cout * 3.0
-        elif isinstance(module, All2All):
-            fin, fout = module.jax_weights_shape()
-            total += 2.0 * fin * fout * 3.0
-    return total
+    count nothing (:func:`veles_tpu_torch.models.build.model_cost`, the
+    cost book's source)."""
+    from veles_tpu_torch.models.build import model_cost
+    return model_cost(model)["train_flops"]
 
 
 def gradient_copies(trainer):
@@ -2234,15 +2274,15 @@ def b64_body(array, **extra):
         type="float32")).encode()
 
 
-def concurrent_posts(port, bodies):
-    """POST ``bodies`` to ``/api`` from one thread each, all at once:
+def concurrent_posts(port, bodies, path="/api"):
+    """POST ``bodies`` to ``path`` from one thread each, all at once:
     (replies in order, latencies in s, wall s)."""
     replies, latencies, errors = {}, [], []
 
     def ask(i):
         try:
             t = time.perf_counter()
-            replies[i] = post(port, "/api", bodies[i])
+            replies[i] = post(port, path, bodies[i])
             latencies.append(time.perf_counter() - t)
         except Exception as e:  # re-raised below, in the caller
             errors.append(e)
@@ -3395,8 +3435,8 @@ def export_phase(torch, numpy, kernels, tmp, eager):
     that its launches count) on the mnist-fc package and on the eager
     AlexNet's snapshot directory: 16 concurrent single requests and one
     64-row batch each, checked as the slice phase checks them, every K1
-    launch at a checked form and on a designed variant; (4) each flag of
-    the JAX command whose machinery the port lacks raises naming it.
+    launch at a checked form and on a designed variant; (4) the port
+    refuses no flag of the JAX command (``REFUSED_FLAGS`` is empty).
     Returns (result, [launches_by_form])."""
     from veles_tpu_torch.convert import layer_params, to_jax_layout
     from veles_tpu_torch.serving.frontend import REFUSED_FLAGS, serve
@@ -3474,19 +3514,8 @@ def export_phase(torch, numpy, kernels, tmp, eager):
         forms.append(by_form)
         del frontend
         torch.cuda.empty_cache()
-    refused = {}
-    for dest, (flag, _) in sorted(REFUSED_FLAGS.items()):
-        try:
-            serve(["--model", pkg, flag, "x:1" if dest == "tenant" else "1"])
-        except NotImplementedError as e:
-            if flag not in str(e):
-                raise AssertionError("%s refused without its name: %s"
-                                     % (flag, e))
-            refused[flag] = str(e)
-        else:
-            raise AssertionError("serve took %s" % flag)
-    result["refused_flags"] = refused
-    print("serve CLI: refused by name %s" % sorted(refused))
+    if REFUSED_FLAGS:
+        raise AssertionError("serve refuses %s" % sorted(REFUSED_FLAGS))
     return result, forms
 
 
@@ -4051,6 +4080,1184 @@ def _residency_phase(torch, numpy, kernels, tmp):
     return result, [streamed["forms"], offloaded["forms"]]
 
 
+# -- phase 13: the observability plane and the full serving engine ---------
+
+#: epochs of the traced AlexNet-227 run (phase 9's file): odd, so that
+#: the step histogram's p50 is the median of the runner's sweeps
+OBSERVE_EPOCHS = 3
+#: the step MFU against this script's own reckoning, and the step
+#: histogram's p50 against the runner's train sweeps (relative)
+MFU_REL_TOL = 0.01
+STEP_MS_REL_TOL = 0.05
+#: tracing's cost on AlexNet-227's float32 train sweep: the medians of
+#: five traced and five untraced epochs, interleaved (the JAX package's
+#: bar, ``docs/PERF.md``)
+TRACE_OVERHEAD_LIMIT = 0.02
+OVERHEAD_PAIRS = 5
+#: /metrics.json's latency p50 against the clients' (relative)
+LATENCY_P50_REL_TOL = 0.2
+#: /profile.json's utilization of serve_forward:b64 against the spec
+UTILIZATION_LIMIT = 1.05
+#: the burst on the AlexNet route: BURST_THREADS threads submit new
+#: rows to its engine as fast as they can for BURST_S seconds, with the
+#: route's admission bound cut to BURST_CAPACITY samples, so that the
+#: queue fills and sheds (the card serves a forward faster than HTTP
+#: can feed it: through the frontend the queue never builds), against
+#: the autoscaler's queue bar and breach window
+BURST_THREADS = 4
+BURST_CAPACITY = 24
+BURST_S = 3.0
+BURST_UP_QUEUE = 4.0
+BURST_UP_FOR_S = 0.5
+#: the drained-back autoscaler's idle window and cooldown (s)
+DRAIN_IDLE_S = 1.0
+DRAIN_TIMEOUT_S = 60.0
+#: the JAX package's status payload (``veles_tpu/serving/frontend.py``
+#: ``_StatusReporter._payload``)
+STATUS_KEYS = {"id", "name", "mode", "master", "time", "units", "stopped",
+               "serving"}
+#: one line of the Prometheus text exposition (``tests/test_telemetry.py``)
+PROM_LINE = (r'^(?:# (?:HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]* .+|'
+             r'[a-zA-Z_:][a-zA-Z0-9_:]*'
+             r'(?:\{[a-zA-Z0-9_]+="(?:[^"\\]|\\.)*"'
+             r'(?:,[a-zA-Z0-9_]+="(?:[^"\\]|\\.)*")*\})?'
+             r' -?[0-9.]+(?:[eE][+-]?[0-9]+)?|[^ ]+ (?:nan|inf|-inf))$')
+
+#: phase 9's AlexNet run with one service unit more: ``root.smoke.
+#: overhead`` flips tracing at each epoch's end (epoch 0 untraced, then
+#: on, off, ...), ``root.smoke.poison`` writes a NaN into one training
+#: row of the staged dataset after epoch 0; no snapshotter
+SERVICE_FILE = """
+import math
+from veles_tpu_torch.config import root
+from veles_tpu_torch.datasets import golden_digits
+from veles_tpu_torch.loader.base import VALIDATION
+from veles_tpu_torch.models.alexnet import (ALEXNET_LAYERS,
+                                            AlexNetWorkflow,
+                                            SyntheticImageLoader)
+from veles_tpu_torch.models.mnist import MnistWorkflow
+from veles_tpu_torch.telemetry import tracing
+from veles_tpu_torch.units import Unit
+
+
+class EpochService(Unit):
+    hide_from_registry = True
+    view_group = "SERVICE"
+
+    def initialize(self, **kwargs):
+        self.traced = []
+        self.poisoned = None
+
+    def run(self):
+        loader = self.workflow.loader
+        if root.smoke.get("overhead", False):
+            self.traced.append(tracing.enabled())
+            if tracing.enabled():
+                tracing.disable()
+            else:
+                tracing.enable()
+        if root.smoke.get("poison", False) and self.poisoned is None:
+            start = loader.class_end_offsets[VALIDATION]
+            self.poisoned = int(loader.shuffled_indices[start])
+            # the staged copy on the card is what the sweeps read
+            loader._staged_[0][self.poisoned] = math.nan
+
+
+def run(load, main):
+    if root.smoke.get("mnist", False):
+        wf, _ = load(MnistWorkflow, provider=golden_digits(%d, %d),
+                     layers=(100,), minibatch_size=500,
+                     max_epochs=root.smoke.epochs)
+    else:
+        wf, _ = load(
+            AlexNetWorkflow,
+            loader_factory=lambda wf: SyntheticImageLoader(
+                workflow=wf, n_train=%d, n_valid=%d, minibatch_size=%d),
+            layers=ALEXNET_LAYERS, max_epochs=root.smoke.epochs,
+            learning_rate=0.01, momentum=0.9, weights_decay=5e-4)
+    service = EpochService(wf, name="epoch_service")
+    service.link_from(wf.decision)
+    service.gate_skip = ~wf.loader.epoch_ended
+    main()
+""" % (BASELINE_DIGITS + (TRAIN_SAMPLES, TRAIN_BATCH, TRAIN_BATCH))
+
+#: the import check of phase 13, in a process of its own: ``serve``
+#: with every flag on a small package, then a traced CLI epoch
+OBSERVE_IMPORT_CHECK = """
+import json, sys, threading, time, urllib.request
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from veles_tpu_torch.__main__ import main
+from veles_tpu_torch.serving.frontend import serve
+
+out, package, workflow = sys.argv[1:4]
+posts = []
+
+
+class Stub(BaseHTTPRequestHandler):
+    def do_POST(self):
+        posts.append(self.rfile.read(int(self.headers["Content-Length"])))
+        self.send_response(200)
+        self.send_header("Content-Length", "0")
+        self.end_headers()
+
+    def log_message(self, *args):
+        pass
+
+
+stub = ThreadingHTTPServer(("127.0.0.1", 0), Stub)
+threading.Thread(target=stub.serve_forever, daemon=True).start()
+fe = serve(["--model", "a=" + package, "--model", "b=" + package,
+            "--host", "127.0.0.1", "--port", "0", "--cache-mb", "8",
+            "--cache-ttl-s", "60", "--tenant", "interactive:4:interactive",
+            "--tenant", "batch:1:batch", "--min-replicas", "1",
+            "--max-replicas", "2", "--max-batch-size", "8",
+            "--web-status", "127.0.0.1:%d" % stub.server_address[1],
+            "--trace-out", out + "/serve.json"])
+req = urllib.request.Request(
+    "http://127.0.0.1:%d/api/b" % fe.port,
+    data=json.dumps({"input": [0.5] * 784, "codec": "list"}).encode(),
+    headers={"Content-Type": "application/json", "X-Tenant": "batch"})
+json.loads(urllib.request.urlopen(req, timeout=120).read())["result"]
+deadline = time.time() + 30
+while not posts and time.time() < deadline:
+    time.sleep(0.05)
+fe.stop()
+stub.shutdown()
+assert posts, "no status POST"
+assert main([workflow, "-s", "7", "--trace-out", out + "/train.json"]) == 0
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "veles_tpu" or m.startswith("veles_tpu."))
+print("LOADED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def span_table(path):
+    """The events of a dumped Chrome trace (it must load), by name."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    table = collections.defaultdict(list)
+    for e in events:
+        table[e["name"]].append(e)
+    return table
+
+
+def expected_training_counts(trainer, epochs, testing=False):
+    """K1/K3/K4/K6/K7 launches of ``epochs`` epochs of a trainer's run
+    (the workflow phase's derivation): K1 and K3 per forward, K4 and K7
+    per step at the model's counts, K6 per step per bias."""
+    from veles_tpu_torch.loader.base import TRAIN, VALIDATION
+    per_epoch = len(trainer._segment_indices(TRAIN))
+    steps = 0 if testing else epochs * per_epoch
+    forwards = steps + epochs * len(trainer._segment_indices(VALIDATION))
+    kinds = [type(m).__name__ for m in trainer.forwards]
+    n_lrn = kinds.count("LRNormalizerForward")
+    k1 = sum(k.startswith("All2All") and k != "All2AllSoftmax"
+             for k in kinds)
+    return {"gemm_bias_act": k1 * forwards, "lrn_fwd": n_lrn * forwards,
+            "lrn_bwd": n_lrn * steps,
+            "column_reduce": sum("bias" in p for p in trainer.params) *
+            steps,
+            "uniform_fill": kinds.count("DropoutForward") * steps,
+            "kahan_gemm": 0}
+
+
+def reset_series(*names):
+    """Drop every series of the named registry families: the readings
+    that follow are this run's alone."""
+    from veles_tpu_torch.telemetry.registry import get_registry
+    for name in names:
+        family = get_registry().get(name)
+        if family is not None:
+            family.reset()
+
+
+def traced_training(torch, numpy, tmp, card):
+    """alexnet-train-traced-f32: ``python -m veles_tpu_torch --trace-out``
+    on phase 9's file, 2 epochs (snapshotted into ``tmp/snapshots``,
+    which the serving cell serves), then one eager epoch traced.
+    Returns (result, launches_by_form)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models.build import model_cost
+    from veles_tpu_torch.telemetry import profiler
+    from veles_tpu_torch.telemetry.registry import get_registry
+    path = os.path.join(tmp, "alexnet_workflow.py")
+    with open(path, "w") as f:
+        f.write(WORKFLOW_FILE)
+    trace = os.path.join(tmp, "train.trace.json")
+    prng._generators.clear()
+    reset_counts()
+    reset_series("veles_step_ms", "veles_op_ms", "veles_epoch_ms")
+    main = workflow_cli(path, "-s", "7", "--precision", "float32",
+                        "--trace-out", trace,
+                        "root.smoke.snapshots=%r" % os.path.join(
+                            tmp, "snapshots"),
+                        "root.smoke.epochs=%d" % OBSERVE_EPOCHS)
+    counts, by_form = read_counts()
+    runner = main.launcher.runner
+    trainer = runner.trainer
+    want = expected_training_counts(trainer, OBSERVE_EPOCHS)
+    if counts != want:
+        raise AssertionError("traced training launch counts %s, expected %s"
+                             " (the untraced run's)" % (counts, want))
+    check_designed("traced training", gemm_variants())
+    forms = check_designed_forms("traced training")
+    spans = span_table(trace)
+    names = {n: len(v) for n, v in spans.items()}
+    for name, n in (("step:train", OBSERVE_EPOCHS),
+                    ("step:eval", OBSERVE_EPOCHS), ("epoch", OBSERVE_EPOCHS)):
+        if names.get(name) != n:
+            raise AssertionError("traced training: %d %s spans, expected %d"
+                                 % (names.get(name, 0), name, n))
+    # the fused step stands in for every unit it covers: only the
+    # epoch-boundary services (the snapshotter) run as units
+    units = sorted(n for n in names if n.startswith("unit:"))
+    if units != ["unit:snapshotter"]:
+        raise AssertionError("fused run traced unit spans %s" % units)
+    memprof = trace + ".memprof"
+    if not os.path.getsize(memprof):
+        raise AssertionError("empty memory profile %s" % memprof)
+    reg = get_registry()
+    mfu = reg.get("veles_step_mfu").value
+    train_s = [t["train_s"] for t in runner.epoch_times]
+    samples = trainer.loader.class_lengths[2]
+    flops = model_cost(trainer.model)["train_flops"]
+    mine = flops * samples / train_s[-1] / PEAK_OPS["bfloat16"]
+    if not 0.0 < mfu <= 1.0 or abs(mfu - mine) > MFU_REL_TOL * mine:
+        raise AssertionError("veles_step_mfu %.6g, this script's reckoning "
+                             "%.6g (%.4g FLOP x %d samples / %.6f s / "
+                             "%.4g)" % (mfu, mine, flops, samples,
+                                        train_s[-1], PEAK_OPS["bfloat16"]))
+    step = reg.get("veles_step_ms").labels(phase="train")
+    step_p50 = step.percentile(50)
+    wall_p50 = 1e3 * statistics.median(train_s)
+    if step.count != OBSERVE_EPOCHS or \
+            abs(step_p50 - wall_p50) > STEP_MS_REL_TOL * wall_p50:
+        raise AssertionError("veles_step_ms{phase=train}: %d samples, p50 "
+                             "%.4f ms against the runner's %.4f" % (
+                                 step.count, step_p50, wall_p50))
+    book = {row["op"]: row for row in
+            profiler.get_cost_book().report()["ops"]}
+    result = {"step_mfu": mfu, "step_mfu_reckoned": mine,
+              "train_flops_per_sample": flops,
+              "train_s": train_s, "step_ms_p50": step_p50,
+              "train_segment": book["train_segment"],
+              "eval_segment": book["eval_segment"],
+              "memprof_mib": os.path.getsize(memprof) / 1048576.0,
+              "trace_spans": len(sum(spans.values(), []))}
+    print("traced training (%s): veles_step_mfu %.4f (reckoned %.4f: "
+          "%.4g FLOP/sample x %d / %.4f s / %.0f TFLOP/s bf16), step p50 "
+          "%.3f ms against %.3f; spans %s; memory profile %.1f MiB" % (
+              card, mfu, mine, flops, samples, train_s[-1],
+              PEAK_OPS["bfloat16"] / 1e12, step_p50, wall_p50,
+              {n: names[n] for n in ("step:train", "step:eval", "epoch")},
+              result["memprof_mib"]))
+    del main, runner, trainer
+    torch.cuda.empty_cache()
+
+    # the eager path: unit spans, one epoch
+    eager_trace = os.path.join(tmp, "eager.trace.json")
+    prng._generators.clear()
+    reset_counts()
+    main = workflow_cli(path, "-s", "7", "--precision", "float32",
+                        "--eager", "--trace-out", eager_trace,
+                        "root.smoke.snapshots=%r" % os.path.join(
+                            tmp, "eager_snapshots"), "root.smoke.epochs=1")
+    more = read_counts()[1]
+    spans = span_table(eager_trace)
+    units = {n: len(v) for n, v in spans.items() if n.startswith("unit:")}
+    forwards = ["unit:%s" % f.name for f in main.workflow.forwards]
+    if [f for f in forwards if f not in units] or \
+            "workflow:%s" % main.workflow.name not in spans:
+        raise AssertionError("eager traced run: unit spans %s, workflow "
+                             "span %s" % (units, sorted(
+                                 n for n in spans if n.startswith("wf"))))
+    result["eager_unit_spans"] = units
+    print("traced eager epoch: %d unit:* spans over %d units" % (
+        sum(units.values()), len(units)))
+    del main
+    torch.cuda.empty_cache()
+    return result, [by_form, more]
+
+
+def overhead_run(torch, tmp, name, mnist=False):
+    """The service file run through the CLI with tracing flipped at each
+    epoch's end: (traced train sweeps s, untraced s, launches by epoch
+    kind). Epoch 0 (untraced) is the warm-up and left out."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.telemetry import tracing
+    path = os.path.join(tmp, "service_workflow.py")
+    with open(path, "w") as f:
+        f.write(SERVICE_FILE)
+    prng._generators.clear()
+    reset_counts()
+    try:
+        main = workflow_cli(path, "-s", "7", "--precision", "float32",
+                            "root.smoke.overhead=True",
+                            "root.smoke.poison=False",
+                            "root.smoke.mnist=%r" % mnist,
+                            "root.smoke.epochs=%d" % (2 * OVERHEAD_PAIRS + 1))
+    finally:
+        tracing.disable()
+    service = [u for u in main.workflow if u.name == "epoch_service"][0]
+    times = main.launcher.runner.epoch_times
+    counts = read_counts()[0]
+    want = expected_training_counts(main.launcher.runner.trainer,
+                                    2 * OVERHEAD_PAIRS + 1)
+    if counts != want:
+        raise AssertionError("%s: launch counts %s, expected %s" % (
+            name, counts, want))
+    on = [t["train_s"] for t, traced in zip(times, service.traced)
+          if traced]
+    off = [t["train_s"] for t, traced in zip(times[1:], service.traced[1:])
+           if not traced]
+    if len(on) != OVERHEAD_PAIRS or len(off) != OVERHEAD_PAIRS:
+        raise AssertionError("%s: %d traced and %d untraced epochs" % (
+            name, len(on), len(off)))
+    del main
+    torch.cuda.empty_cache()
+    return on, off
+
+
+def overhead_cell(torch, tmp, card):
+    """Tracing's cost: AlexNet-227 f32 gated, mnist-fc reported."""
+    result = {}
+    for name, mnist in (("alexnet227", False), ("mnist_fc", True)):
+        on, off = overhead_run(torch, tmp, name, mnist)
+        share = statistics.median(on) / statistics.median(off) - 1.0
+        result[name] = {"traced_train_s": on, "untraced_train_s": off,
+                        "overhead": share}
+        print("tracing overhead (%s) %s: median train sweep %.4f ms traced,"
+              " %.4f untraced: %+.2f%%%s" % (
+                  card, name, 1e3 * statistics.median(on),
+                  1e3 * statistics.median(off), 100 * share,
+                  "" if mnist else " (limit %.0f%%)" %
+                  (100 * TRACE_OVERHEAD_LIMIT)))
+        if not mnist and abs(share) > TRACE_OVERHEAD_LIMIT:
+            raise AssertionError("tracing costs AlexNet-227's sweep %+.2f%%"
+                                 " (limit %.0f%%)" % (
+                                     100 * share, 100 * TRACE_OVERHEAD_LIMIT))
+    return result
+
+
+def residency_traced(torch, tmp):
+    """alexnet-stream-traced: one streamed epoch (the residency phase's
+    400 MB budget) and one offloaded epoch (its 150 MB groups) of phase
+    9's file through the CLI with ``--trace-out``. Returns (result,
+    launches_by_form)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.telemetry import profiler
+    from veles_tpu_torch.telemetry.registry import get_registry
+    path = os.path.join(tmp, "alexnet_workflow.py")
+    result, forms = {}, []
+    for kind, env in (("streamed", {"VELES_STREAM": "1",
+                                    "VELES_DEVICE_BUDGET_MB":
+                                    RESIDENCY_BUDGET_MB}),
+                      ("offloaded", {"VELES_OFFLOAD": "1",
+                                     "VELES_OFFLOAD_GROUP_MB":
+                                     OFFLOAD_GROUP_MB})):
+        trace = os.path.join(tmp, "%s.trace.json" % kind)
+        prng._generators.clear()
+        reset_counts()
+        with env_set(**env):
+            main = workflow_cli(path, "-s", "7", "--precision", "float32",
+                                "--trace-out", trace,
+                                "root.smoke.snapshots=%r" % os.path.join(
+                                    tmp, kind), "root.smoke.epochs=1")
+        forms.append(read_counts()[1])
+        runner = main.launcher.runner
+        trainer = runner.trainer
+        spans = span_table(trace)
+        times = runner.epoch_times[-1]
+        row = {"epoch": times}
+        if kind == "streamed":
+            if not trainer.streaming:
+                raise AssertionError("the streamed cell did not stream")
+            need = ("prefetch:produce", "prefetch:wait", "prefetch:etl",
+                    "prefetch:h2d")
+            gauge = get_registry().get(
+                "veles_input_starvation_fraction").labels(
+                phase="epoch").value
+            if gauge != times["starvation"]:
+                raise AssertionError("veles_input_starvation_fraction %r, "
+                                     "the runner's starvation %r" % (
+                                         gauge, times["starvation"]))
+            row["starvation"] = gauge
+        else:
+            if not trainer.offloaded:
+                raise AssertionError("the offloaded cell did not offload")
+            need = ("offload:h2d", "offload:d2h", "offload:plan",
+                    "offload:pin")
+            groups = set(range(trainer._offload_engine.plan.n_groups))
+            seen = {d: {e["args"]["group"] for e in spans["offload:" + d]}
+                    for d in ("h2d", "d2h")}
+            if seen["h2d"] != groups or seen["d2h"] != groups:
+                raise AssertionError("offload spans by group %s, the plan's "
+                                     "groups %s" % (seen, sorted(groups)))
+            book = {r["op"]: r for r in
+                    profiler.get_cost_book().report()["ops"]}
+            row["groups"] = {
+                "g%d" % g: {d: {k: book["offload:%s/g%d" % (d, g)][k]
+                                for k in ("bytes", "calls", "p50_ms",
+                                          "achieved_gbps")}
+                            for d in ("h2d", "d2h")} for g in groups}
+            row["overlap"] = get_registry().get(
+                "veles_offload_compute_overlap_fraction").labels(
+                phase="epoch").value
+        missing = [n for n in need if not spans.get(n)]
+        if missing:
+            raise AssertionError("%s traced epoch lacks spans %s" % (
+                kind, missing))
+        row["spans"] = {n: len(spans[n]) for n in need}
+        result[kind] = row
+        print("traced %s epoch: spans %s%s" % (
+            kind, row["spans"], " starvation %.4f" % row["starvation"]
+            if kind == "streamed" else
+            " every group %s, overlap %.4f" % (sorted(row["groups"]),
+                                               row["overlap"])))
+        del main, runner, trainer
+        torch.cuda.empty_cache()
+    return result, forms
+
+
+def flight_cell(torch, tmp):
+    """The flight recorder: the service file's AlexNet run, 2 epochs, with
+    a NaN written into one training row after epoch 0, and without.
+    Returns (result, launches_by_form of the clean run)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.loader.base import VALIDATION
+    from veles_tpu_torch.telemetry import flight, tracing
+    path = os.path.join(tmp, "service_workflow.py")
+    with open(path, "w") as f:
+        f.write(SERVICE_FILE)
+    result = {}
+    for poison in (False, True):
+        out = os.path.join(tmp, "flight_%s" % ("nan" if poison else "clean"))
+        flight.reset_recorder()
+        prng._generators.clear()
+        reset_counts()
+        with env_set(VELES_FLIGHT_DIR=out):
+            try:
+                tracing.enable()
+                main = workflow_cli(path, "-s", "7", "--precision",
+                                    "float32", "root.smoke.epochs=2",
+                                    "root.smoke.overhead=False",
+                                    "root.smoke.mnist=False",
+                                    "root.smoke.poison=%r" % poison)
+            finally:
+                tracing.disable()
+                flight.reset_recorder()
+        records = sorted(os.listdir(out)) if os.path.isdir(out) else []
+        if not poison:
+            forms = read_counts()[1]
+            if records:
+                raise AssertionError("the clean run wrote flight records %s"
+                                     % records)
+            result["clean_records"] = 0
+            continue
+        loader = main.workflow.loader
+        service = [u for u in main.workflow if u.name == "epoch_service"][0]
+        start = loader.class_end_offsets[VALIDATION]
+        train = list(loader.shuffled_indices[start:])
+        batch = train.index(service.poisoned) // loader.max_minibatch_size
+        # one record a detector: the first written names the row's
+        # batch. Which detector trips first depends on the card: its
+        # max-pooling drops a NaN (fmax), so the forward's loss may stay
+        # finite while the conv1 weight gradient goes NaN
+        records = sorted((r for r in records if r.endswith(".json")),
+                         key=lambda r: int(r[:-len(".json")].rsplit(
+                             "-", 1)[1]))
+        loaded = [flight.load_record(os.path.join(out, r))
+                  for r in records]
+        reasons = [r["reason"] for r in loaded]
+        first = loaded[0]["context"] if loaded else {}
+        if not loaded or len(set(reasons)) != len(reasons) or \
+                not set(reasons) <= {"non_finite_loss",
+                                     "non_finite_grad_norm"} or \
+                (first.get("epoch"), first.get("batch")) != (1, batch) or \
+                any(r["context"]["epoch"] != 1 for r in loaded) or \
+                not loaded[0]["log_tail"] or not loaded[0]["spans"]:
+            raise AssertionError(
+                "the NaN row %d sits in epoch 1's batch %d; the records %s "
+                "name %s" % (service.poisoned, batch, reasons,
+                             [r["context"] for r in loaded]))
+        result.update(nan_records=reasons, nan_context=first,
+                      log_lines=len(loaded[0]["log_tail"]),
+                      spans=len(loaded[0]["spans"]))
+        print("flight: the NaN row %d (epoch 1, batch %d) wrote %s, the "
+              "first naming epoch %s batch %s with %d log lines and %d "
+              "spans; the clean run none" % (
+                  service.poisoned, batch, reasons, first["epoch"],
+                  first["batch"], len(loaded[0]["log_tail"]),
+                  len(loaded[0]["spans"])))
+        del main
+    torch.cuda.empty_cache()
+    return result, forms
+
+
+class StatusStub(object):
+    """A local HTTP server recording the bodies POSTed to it."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        posts = self.posts = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                posts.append((self.path, json.loads(self.rfile.read(
+                    int(self.headers["Content-Length"])))))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    @property
+    def address(self):
+        return "127.0.0.1:%d" % self.server.server_address[1]
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def get_url(port, path):
+    with urllib.request.urlopen("http://127.0.0.1:%d%s" % (port, path),
+                                timeout=120) as resp:
+        if resp.status != 200:
+            raise AssertionError("HTTP %d from %s" % (resp.status, path))
+        return resp.read()
+
+
+def route_replicas(entry):
+    return {id(r): r.batches_done for r in entry.pool.replicas}
+
+
+def route_forwards(entry, before):
+    return sum(r.batches_done - before.get(id(r), 0)
+               for r in entry.pool.replicas)
+
+
+#: the clients of a round in a process of their own: the server's
+#: latency is held to what they see, without their threads contending
+#: with the server's for one interpreter
+CLIENTS = """
+import json, sys, threading, time, urllib.request
+port, path, bodies_file, mode = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                                 sys.argv[4])
+with open(bodies_file) as f:
+    bodies = json.load(f)
+replies, latencies, errors = {}, {}, []
+# the first urlopen imports and builds the opener: not a request's time
+urllib.request.urlopen("http://127.0.0.1:%d/healthz" % port,
+                       timeout=600).read()
+
+
+def ask(i, body, rid):
+    try:
+        req = urllib.request.Request(
+            "http://127.0.0.1:%d%s" % (port, path), data=body.encode(),
+            headers={"Content-Type": "application/json",
+                     "X-Request-Id": rid}, method="POST")
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            replies[i] = json.loads(resp.read())["result"]
+        latencies[i] = time.perf_counter() - t
+    except Exception as e:
+        errors.append(repr(e))
+
+
+t = time.perf_counter()
+if mode == "sequential":
+    for i, (b, rid) in enumerate(bodies):
+        ask(i, b, rid)
+else:
+    threads = [threading.Thread(target=ask, args=(i, b, rid))
+               for i, (b, rid) in enumerate(bodies)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+wall = time.perf_counter() - t
+json.dump({"replies": [replies.get(i) for i in range(len(bodies))],
+           "latencies": [latencies.get(i) for i in range(len(bodies))],
+           "wall": wall, "errors": errors}, sys.stdout)
+"""
+
+
+def process_posts(port, path, bodies, ids, sequential=False):
+    """POST ``bodies`` (bytes), each with its ``X-Request-Id`` of ``ids``,
+    all at once from client threads of a process of its own (one after
+    another with ``sequential``): (replies, latencies s, wall s)."""
+    import subprocess
+    import tempfile
+    with tempfile.NamedTemporaryFile("w", suffix=".json",
+                                     delete=False) as f:
+        json.dump([[b.decode(), rid] for b, rid in zip(bodies, ids)], f)
+    try:
+        proc = subprocess.run([sys.executable, "-c", CLIENTS, str(port),
+                               path, f.name, "sequential" if sequential
+                               else "concurrent"], capture_output=True,
+                              text=True, timeout=900)
+    finally:
+        os.remove(f.name)
+    if proc.returncode != 0:
+        raise AssertionError("clients exited %d: %s" % (
+            proc.returncode, proc.stderr[-2000:]))
+    out = json.loads(proc.stdout)
+    if out["errors"] or None in out["replies"]:
+        raise AssertionError("clients: %s" % out["errors"][:3])
+    return out["replies"], out["latencies"], out["wall"]
+
+
+def route_post(numpy, frontend, route, rng, ids):
+    """16 concurrent single requests (list codec, ``X-Request-Id``s
+    ``ids``) and one 64-row batch (base64) on ``route``. Returns (the
+    round's numbers, single bodies, inputs, served rows)."""
+    model = frontend.entries[route].model
+    shape = tuple(model.sample_shape)
+    singles = rng.uniform(-1, 1, (16,) + shape).astype(numpy.float32)
+    batch = rng.uniform(-1, 1, (64,) + shape).astype(numpy.float32)
+    bodies = [json.dumps({"input": s.tolist(), "codec": "list"}).encode()
+              for s in singles]
+    path = "/api/" + route
+    replies, latencies, wall = process_posts(frontend.port, path, bodies,
+                                             ids)
+    t = time.perf_counter()
+    batch_reply = post(frontend.port, path + "/batch", b64_body(batch))
+    batch_s = time.perf_counter() - t
+    lat = sorted(latencies)
+    return ({"single_p50_ms": 1e3 * statistics.median(lat),
+             "single_p95_ms": 1e3 * lat[min(len(lat) - 1,
+                                            int(0.95 * len(lat)))],
+             "singles_wall_s": wall, "batch64_ms": 1e3 * batch_s},
+            bodies, numpy.concatenate([singles, batch]),
+            numpy.array(replies + batch_reply["results"]))
+
+
+def route_check(torch, numpy, frontend, route, inputs, served):
+    """Every served row of ``route`` held to its model's plain forward by
+    the centred-logit check, with a reply swap and the last K1 layer's
+    output zeroed (the kernel forward) as controls that must fail it.
+    Returns the check's numbers and the kernels a forward launches."""
+    from veles_tpu_torch.models.build import plain_forward
+    from veles_tpu_torch.nn.all2all import All2AllSoftmax
+    model = frontend.entries[route].model
+    want = forward_rows(torch, numpy, lambda x: plain_forward(
+        model.module, x), inputs)
+    k1 = [i for i, m in enumerate(model.module)
+          if type(m).__name__.startswith("All2All") and
+          not isinstance(m, All2AllSoftmax)]
+    swapped = served.copy()
+    swapped[[0, 1]] = served[[1, 0]]
+    zeroed = forward_rows(torch, numpy, lambda x: forward_zeroing(
+        model.module, x, k1[-1]), inputs)
+    err, spread, shares = check_replies(
+        numpy, "observability %s" % route, served, want,
+        [("swapped", swapped), ("last_k1_zeroed", zeroed)])
+    return {"centred_logit_err": err, "spread": spread,
+            "control_shares": shares, "k1_per_forward": len(k1),
+            "k3_per_forward": [type(m).__name__ for m in model.module
+                               ].count("LRNormalizerForward")}
+
+
+def serving_cell(torch, numpy, kernels, tmp, card):
+    """alexnet-serve-full-f32 (see the module docstring). Returns (result,
+    [launches_by_form])."""
+    import re
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.serving.cache import ResultCache
+    from veles_tpu_torch.serving.frontend import REFUSED_FLAGS, serve
+    from veles_tpu_torch.telemetry import profiler
+    if REFUSED_FLAGS:
+        raise AssertionError("serve refuses %s" % sorted(REFUSED_FLAGS))
+    # the mnist-fc route: one eager epoch on the card, exported
+    mnist = os.path.join(tmp, "mnist_fc.py")
+    with open(mnist, "w") as f:
+        f.write(MNIST_FC_FILE)
+    prng._generators.clear()
+    main = workflow_cli(mnist, "-s", str(BASELINE_SEED), "--eager")
+    package = os.path.join(tmp, "mnist_fc.tar")
+    main.workflow.package_export(package)
+    del main
+    torch.cuda.empty_cache()
+    stub = StatusStub()
+    trace = os.path.join(tmp, "serve.trace.json")
+    profiler.reset_phases()
+    reset_series("veles_serving_latency_ms", "veles_op_ms")
+    t0 = time.perf_counter()
+    frontend = serve([
+        "--model", "alexnet=" + os.path.join(tmp, "snapshots"),
+        "--model", "mnist=" + package, "--host", "127.0.0.1", "--port",
+        "0", "--max-batch-size", "64", "--response-timeout", "300",
+        "--cache-mb", "64", "--tenant", "interactive:4:interactive",
+        "--tenant", "batch:1:batch", "--min-replicas", "1",
+        "--max-replicas", "2", "--web-status", stub.address,
+        "--trace-out", trace])
+    result = {"start_s": time.perf_counter() - t0,
+              "replica_warmup_ms": profiler.phase_report().get(
+                  "replica_warmup")}
+    alex, mn = frontend.entries["alexnet"], frontend.entries["mnist"]
+    # no scaling until the burst: the rounds below count their forwards
+    for entry in (alex, mn):
+        entry.autoscaler.up_for_s = 1e9
+    forms = []
+    try:
+        # (1) routing
+        reset_counts()
+        before = {r: route_replicas(frontend.entries[r])
+                  for r in ("alexnet", "mnist")}
+        rng = numpy.random.RandomState(13)
+        rounds, bodies, served = {}, {}, {}
+        for route in ("alexnet", "mnist"):
+            ids = ["%s-%d" % (route, i) for i in range(16)]
+            rounds[route], bodies[route], inputs, served[route] = \
+                route_post(numpy, frontend, route, rng, ids)
+            served[route] = (inputs, served[route])
+        counts, by_form = read_counts()
+        forwards = {r: route_forwards(frontend.entries[r], before[r])
+                    for r in before}
+        for route in ("alexnet", "mnist"):   # the checks launch kernels
+            rounds[route].update(route_check(torch, numpy, frontend, route,
+                                             *served[route]))
+        alex_first = served["alexnet"][1][:16].tolist()
+        want = dict.fromkeys(kernel_counters(), 0)
+        want["gemm_bias_act"] = sum(rounds[r]["k1_per_forward"] *
+                                    forwards[r] for r in forwards)
+        want["lrn_fwd"] = sum(rounds[r]["k3_per_forward"] * forwards[r]
+                              for r in forwards)
+        if counts != want:
+            raise AssertionError("served rounds launch counts %s over "
+                                 "forwards %s, expected %s" % (
+                                     counts, forwards, want))
+        check_forms("observability serving", kernels, by_form)
+        check_designed("observability serving", gemm_variants())
+        check_designed_forms("observability serving", ("lrn_fwd",))
+        forms.append(by_form)
+        result.update(routes=rounds, forwards=forwards,
+                      latency=latency_check(numpy, frontend, rng, rounds))
+        print("observability serving: routes %s; forwards %s, launches %s"
+              % ({r: "%.1f ms p50, batch %.1f ms" % (
+                  v["single_p50_ms"], v["batch64_ms"])
+                  for r, v in rounds.items()}, forwards, counts))
+
+        # (2) the cache: the same 16 bodies again on the AlexNet route
+        hits0 = alex.cache.stats()["hits"]
+        reset_counts()
+        replies, _, _ = concurrent_posts(frontend.port, bodies["alexnet"],
+                                         path="/api/alexnet")
+        counts = read_counts()[0]
+        hits = alex.cache.stats()["hits"] - hits0
+        if [r["result"] for r in replies] != alex_first or hits != 16 or \
+                counts["gemm_bias_act"] or counts["lrn_fwd"]:
+            raise AssertionError(
+                "cache round: replies equal %s, %d hits, launches %s" % (
+                    [r["result"] for r in replies] == alex_first, hits,
+                    counts))
+        result["cache"] = alex.cache.stats()
+        print("observability cache: 16 repeated bodies answered bit for "
+              "bit by %d hits, K1 %d and K3 %d launches" % (
+                  hits, counts["gemm_bias_act"], counts["lrn_fwd"]))
+
+        # (3) a swap invalidates; a cache keyed without the version
+        #     (the control) serves a stale row after it
+        result["swap"] = swap_check(torch, numpy, frontend, package,
+                                    ResultCache)
+
+        # (4) the autoscaler: a burst up to 2 replicas, drained to 1
+        result["autoscale"] = burst(numpy, frontend, alex)
+
+        # (5) the endpoints
+        result["endpoints"] = endpoints_check(numpy, frontend, stub, re)
+        result["status_posts"] = len(stub.posts)
+    finally:
+        frontend.stop()                  # writes the trace files
+        stub.close()
+    result["attribution"] = attribution(trace)
+    if not os.path.getsize(trace + ".memprof"):
+        raise AssertionError("empty memory profile")
+    del frontend, alex, mn
+    torch.cuda.empty_cache()
+    return result, forms
+
+
+def latency_p50(port):
+    """veles_serving_latency_ms{endpoint="/api"}'s p50 as /metrics
+    renders it, and /metrics.json's p50 of the same endpoint."""
+    prom = get_url(port, "/metrics").decode()
+    quantile = [float(line.split()[-1]) for line in prom.splitlines()
+                if line.startswith('veles_serving_latency_ms{endpoint='
+                                   '"/api",quantile="0.5"}')]
+    stats = json.loads(get_url(port, "/metrics.json"))
+    return (quantile[0] if quantile else None,
+            stats["endpoints"]["/api"]["p50_ms"])
+
+
+def latency_check(numpy, frontend, rng, rounds):
+    """The server's latency clock against the clients': 16 new list-codec
+    requests on the AlexNet route one after another from the client
+    process, the registry's p50 (reset before them) within
+    LATENCY_P50_REL_TOL of the clients'. Beside it, the 16 concurrent
+    requests of the routing round: the server's p50 then (both
+    renderings) against the clients' -- the part of a request the
+    server's clock does not see under concurrency, reported."""
+    registry_p50, json_p50 = latency_p50(frontend.port)
+    concurrent = {"client_p50_ms": rounds["alexnet"]["single_p50_ms"],
+                  "registry_p50_ms": registry_p50,
+                  "metrics_json_p50_ms": json_p50}
+    reset_series("veles_serving_latency_ms")
+    shape = tuple(frontend.entries["alexnet"].model.sample_shape)
+    bodies = [json.dumps({"input": s.tolist(), "codec": "list"}).encode()
+              for s in rng.uniform(-1, 1, (16,) + shape).astype(
+                  numpy.float32)]
+    _, latencies, _ = process_posts(frontend.port, "/api/alexnet", bodies,
+                                    ["seq-%d" % i for i in range(16)],
+                                    sequential=True)
+    client = 1e3 * statistics.median(latencies)
+    server = latency_p50(frontend.port)[0]
+    if server is None or abs(server - client) > LATENCY_P50_REL_TOL * client:
+        raise AssertionError("veles_serving_latency_ms p50 %s ms against the"
+                             " clients' %.3f (sequential requests)" % (
+                                 server, client))
+    out = {"sequential": {"client_p50_ms": client,
+                          "registry_p50_ms": server},
+           "concurrent": concurrent}
+    print("observability latency: sequential requests p50 %.2f ms at the "
+          "server, %.2f at the clients; 16 concurrent: %.2f (/metrics.json "
+          "%.2f) against the clients' %.2f" % (
+              server, client, registry_p50, json_p50,
+              concurrent["client_p50_ms"]))
+    return out
+
+
+def swap_check(torch, numpy, frontend, package, cache_cls):
+    """On the mnist route: after ``swap_model`` to perturbed weights, a
+    repeated body is answered by the new model (the real cache); with a
+    cache keyed by the content alone (no model version, no invalidation)
+    the same swap serves the old, stale row, which the same check must
+    refuse."""
+    from veles_tpu_torch.serving.model_store import ServeableModel
+
+    class VersionBlind(cache_cls):
+        """Keyed by the content alone: no model version in the key, no
+        invalidation on a swap."""
+
+        @staticmethod
+        def key_for(sample, name, version):
+            return cache_cls.key_for(sample, name, 0)
+
+        def invalidate(self):
+            return 0
+
+    entry = frontend.entries["mnist"]
+    x = numpy.random.RandomState(21).rand(1, 784).astype(numpy.float32)
+    body = json.dumps({"input": x[0].tolist(), "codec": "list"}).encode()
+    out = {}
+    for step, (label, cache) in enumerate((
+            ("versioned", entry.cache),
+            ("version_blind", VersionBlind(max_bytes=1 << 20,
+                                           model="control")))):
+        saved = entry.cache
+        entry.cache = entry.engine.cache = cache
+        try:
+            before = post(frontend.port, "/api/mnist", body)["result"]
+            again = post(frontend.port, "/api/mnist", body)["result"]
+            model = ServeableModel.from_package(package, device="cuda")
+            with torch.no_grad():
+                noise = numpy.random.RandomState(step)
+                for p in model.module.parameters():
+                    p.add_(torch.from_numpy(noise.normal(
+                        0.0, 0.05, tuple(p.shape))).to(p))
+            frontend.swap_model(model, name="mnist")
+            after = post(frontend.port, "/api/mnist", body)["result"]
+        finally:
+            entry.cache = entry.engine.cache = saved
+        fresh = model(x)[0]
+        err = float(numpy.abs(numpy.asarray(after) - fresh).max())
+        moved = float(numpy.abs(numpy.asarray(before) - fresh).max())
+        out[label] = {"err": err, "moved": moved, "repeat_equal":
+                      again == before}
+        stale = err > 1e-5
+        if stale != (label == "version_blind") or moved <= 1e-5 or \
+                again != before:
+            raise AssertionError("swap %s: reply %.3g from the new model "
+                                 "(the swap moved it %.3g), repeat equal %s"
+                                 % (label, err, moved, again == before))
+    print("observability swap: the versioned cache answers the new model "
+          "(err %.3g), the version-blind control serves the stale row "
+          "(err %.3g of a %.3g move) and fails" % (
+              out["versioned"]["err"], out["version_blind"]["err"],
+              out["version_blind"]["moved"]))
+    return out
+
+
+def burst(numpy, frontend, entry):
+    """BURST_THREADS threads submit new rows (no cache hit) to the
+    AlexNet route's engine for BURST_S seconds, its admission bound cut
+    to BURST_CAPACITY: the autoscaler (queue bar BURST_UP_QUEUE a
+    replica, breach window BURST_UP_FOR_S, shedding counts as pressure)
+    grows the pool to 2, the new replica warmed on the card before it
+    serves while the first one serves; every admitted row is answered, a
+    finite row of the model's width; then, idle, the pool drains back
+    to 1."""
+    from veles_tpu_torch.serving.engine import EngineOverloaded
+    from veles_tpu_torch.telemetry import profiler
+    from veles_tpu_torch.telemetry.registry import get_registry
+    scaler, engine = entry.autoscaler, entry.engine
+    warm0 = profiler.phase_report().get("replica_warmup", 0.0)
+    scaler.up_queue_per_replica = BURST_UP_QUEUE
+    scaler.up_for_s = BURST_UP_FOR_S
+    scaler.down_idle_for_s = 1e9
+    capacity = entry.admission.capacity
+    entry.admission.capacity = BURST_CAPACITY
+    base = numpy.random.RandomState(5).uniform(
+        -1, 1, (BURST_THREADS,) + tuple(entry.model.sample_shape)).astype(
+        numpy.float32)
+    futures, shed, errors = [], [0] * BURST_THREADS, []
+    stop = time.time() + BURST_S
+
+    def feeder(i):
+        row, k = base[i].copy(), 0
+        while time.time() < stop:
+            # a first pixel unique to the row: never a cache hit
+            row[0, 0, 0] = -1.0 + 2e-7 * (i * 10000000 + k)
+            k += 1
+            try:
+                futures.append(engine.submit(row.copy()))
+            except EngineOverloaded:
+                shed[i] += 1
+                time.sleep(0.001)
+            except Exception as e:  # re-raised below
+                errors.append(e)
+                return
+
+    t0 = time.time()
+    threads = [threading.Thread(target=feeder, args=(i,))
+               for i in range(BURST_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    entry.admission.capacity = capacity
+    rows = [f.result(timeout=300) for f in futures]
+    burst_s = time.time() - t0
+    width = rows[0].shape if rows else None
+    if errors or not rows or any(r.shape != width or
+                                 not numpy.isfinite(r).all() for r in rows):
+        raise AssertionError("burst: errors %s, %d rows" % (errors[:3],
+                                                            len(rows)))
+    ups = [t for t in scaler.transitions if t[1] == "up"]
+    if entry.pool.size() != 2 or not ups:
+        raise AssertionError("burst: the pool has %d replicas, transitions "
+                             "%s (%d rows answered, %d shed)" % (
+                                 entry.pool.size(), scaler.transitions,
+                                 len(rows), sum(shed)))
+    warmed = profiler.phase_report().get("replica_warmup", 0.0) - warm0
+    new = entry.pool.replicas[-1]
+    if warmed <= 0 or len(new.warmed_buckets) != len(BUCKETS) or \
+            not new.batches_done:
+        raise AssertionError("the new replica: warm-up %.1f ms, buckets %s,"
+                             " batches %d" % (warmed, new.warmed_buckets,
+                                              new.batches_done))
+    scaler.down_idle_for_s = DRAIN_IDLE_S
+    scaler.down_cooldown_s = DRAIN_IDLE_S
+    t1 = time.time()
+    while (entry.pool.size() > 1 or scaler.transitions[-1][1] != "down") \
+            and time.time() - t1 < DRAIN_TIMEOUT_S:
+        time.sleep(0.1)
+    if entry.pool.size() != 1 or scaler.transitions[-1][1] != "down":
+        raise AssertionError("the pool did not drain back to 1 in %.0f s"
+                             % DRAIN_TIMEOUT_S)
+    reaction = get_registry().get("veles_autoscale_reaction_s").labels(
+        model="alexnet")
+    out = {"rows_answered": len(rows), "shed": sum(shed),
+           "rows_per_s": len(rows) / burst_s,
+           "transitions": [(d, n) for _, d, n in scaler.transitions],
+           "reaction_s": reaction.percentile(50),
+           "new_replica_batches": new.batches_done,
+           "replica_warmup_ms": warmed, "drained_in_s": time.time() - t1}
+    print("observability autoscale: %d threads for %.0f s at an admission "
+          "bound of %d: %d rows answered (%.0f rows/s), %d shed; up to 2 "
+          "replicas (reaction %.3f s, the new replica warmed %.1f ms over "
+          "buckets %s, then served %d batches), drained back to 1 in %.2f "
+          "s; transitions %s" % (
+              BURST_THREADS, BURST_S, BURST_CAPACITY, len(rows),
+              out["rows_per_s"], sum(shed), out["reaction_s"], warmed,
+              new.warmed_buckets, new.batches_done, out["drained_in_s"],
+              out["transitions"]))
+    return out
+
+
+def endpoints_check(numpy, frontend, stub, re):
+    """/metrics (Prometheus text with the serving, op and HBM families),
+    /profile.json (serve_forward:b64: FLOPs, bytes, p50, bound and
+    utilization <= UTILIZATION_LIMIT), /alerts.json, /history.json, and
+    a status POST with the JAX package's payload keys."""
+    # /profile.json first: it samples the card's memory into the gauges
+    profile = json.loads(get_url(frontend.port, "/profile.json"))
+    prom = get_url(frontend.port, "/metrics").decode()
+    pattern = re.compile(PROM_LINE)
+    bad = [line for line in prom.strip().splitlines()
+           if not pattern.match(line)]
+    families = {line.split()[2] for line in prom.splitlines()
+                if line.startswith("# TYPE ")}
+    needed = ("veles_serving_requests_total", "veles_serving_latency_ms",
+              "veles_serving_cache_hits_total", "veles_op_ms",
+              "veles_hbm_live_bytes", "veles_hbm_peak_bytes",
+              "veles_hbm_limit_bytes", "veles_step_mfu",
+              "veles_autoscale_replicas", "veles_alerts_active")
+    if bad or [f for f in needed if f not in families]:
+        raise AssertionError("/metrics: %d bad lines (%s), missing %s" % (
+            len(bad), bad[:3], [f for f in needed if f not in families]))
+    if 'veles_hbm_live_bytes{device="cuda:0"}' not in prom:
+        raise AssertionError("/metrics has no card memory series")
+    rows = {r["op"]: r for r in profile["ops"]}
+    row = rows.get("serve_forward:b64")
+    if row is None or not row.get("flops") or not row.get("bytes") or \
+            row.get("p50_ms") is None or row.get("bound") is None or \
+            not 0.0 < row.get("utilization", 0.0) <= UTILIZATION_LIMIT:
+        raise AssertionError("/profile.json serve_forward:b64 row %s" % row)
+    alerts = json.loads(get_url(frontend.port, "/alerts.json"))
+    history = json.loads(get_url(frontend.port,
+                                 "/history.json?series=veles_serving"))
+    if not alerts["rules"] or "series" not in history:
+        raise AssertionError("/alerts.json %s, /history.json %s" % (
+            sorted(alerts), sorted(history)))
+    deadline = time.time() + 10
+    while not stub.posts and time.time() < deadline:
+        time.sleep(0.1)
+    if not stub.posts or stub.posts[-1][0] != "/update" or \
+            set(stub.posts[-1][1]) != STATUS_KEYS:
+        raise AssertionError("status posts: %s" % (
+            [(p, sorted(b)) for p, b in stub.posts[-1:]]))
+    out = {"families": len(families), "serve_forward_b64": row,
+           "device": profile["device"], "memory": profile["memory"],
+           "alerts_firing": [r["name"] for r in alerts["rules"]
+                             if r["firing"]],
+           "history_series": len(history["series"])}
+    print("observability endpoints: /metrics %d families, all lines "
+          "Prometheus; /profile.json serve_forward:b64 %.4g FLOP, %.4g B, "
+          "p50 %.3f ms, %s-bound, utilization %.4f; alerts firing %s; "
+          "history %d series; %d status POSTs" % (
+              len(families), row["flops"], row["bytes"], row["p50_ms"],
+              row["bound"], row["utilization"], out["alerts_firing"],
+              out["history_series"], len(stub.posts)))
+    return out
+
+
+def attribution(trace):
+    """The serving trace: it loads, its ``http:*`` spans carry the
+    clients' ``X-Request-Id``s; the p50 of ``http:/api`` (the AlexNet
+    route's single requests of the routing round) against the p50 of
+    the forwards that ran in that round (``op:serve_forward:b<n>``, n <
+    64), and ``http:/api/batch`` against ``op:serve_forward:b64``."""
+    spans = span_table(trace)
+    ids = {"alexnet-%d" % i for i in range(16)} | \
+        {"mnist-%d" % i for i in range(16)}
+    carried = {e["args"].get("trace_id") for name, events in spans.items()
+               if name.startswith("http:") for e in events}
+    if not ids <= carried:
+        raise AssertionError("http spans lack request ids %s" % sorted(
+            ids - carried)[:5])
+    singles = [e for e in spans["http:/api"]
+               if str(e["args"].get("trace_id", "")).startswith("alexnet-")]
+    start = min(e["ts"] for e in singles)
+    end = max(e["ts"] + e["dur"] for e in singles)
+    forwards = [e for name, events in spans.items()
+                if re_bucket(name) is not None and re_bucket(name) < 64
+                for e in events if start <= e["ts"] <= end]
+    batch = spans["http:/api/batch"]
+    b64 = [e for e in spans["op:serve_forward:b64"]
+           if batch[0]["ts"] <= e["ts"] <= batch[0]["ts"] + batch[0]["dur"]]
+    out = {}
+    for key, reqs, fwds in (("single", singles, forwards),
+                            ("batch64", batch[:1], b64)):
+        req = statistics.median(e["dur"] for e in reqs) / 1e3
+        fwd = statistics.median(e["dur"] for e in fwds) / 1e3
+        out[key] = {"http_p50_ms": req, "forward_p50_ms": fwd,
+                    "outside_forward": 1.0 - fwd / req,
+                    "requests": len(reqs), "forwards": len(fwds)}
+    print("observability attribution: single requests http:/api p50 %.3f "
+          "ms against serve_forward p50 %.3f ms (%d forwards): %.1f%% of a "
+          "request outside the forward; the 64-row batch %.3f ms against "
+          "%.3f ms: %.1f%%" % (
+              out["single"]["http_p50_ms"], out["single"]["forward_p50_ms"],
+              out["single"]["forwards"],
+              100 * out["single"]["outside_forward"],
+              out["batch64"]["http_p50_ms"],
+              out["batch64"]["forward_p50_ms"],
+              100 * out["batch64"]["outside_forward"]))
+    return out
+
+
+def re_bucket(name):
+    """n of the first route's ``op:serve_forward:b<n>``, else None."""
+    prefix = "op:serve_forward:b"
+    if name.startswith(prefix) and name[len(prefix):].isdigit():
+        return int(name[len(prefix):])
+    return None
+
+
+def observe_import_check(tmp):
+    """``serve`` with every flag and a traced CLI epoch of the small
+    AlexNet in a process of their own load no JAX."""
+    import subprocess
+    small = os.path.join(tmp, "small_workflow.py")
+    with open(small, "w") as f:
+        f.write(SMALL_WORKFLOW_FILE)
+    check = os.path.join(tmp, "observe_import_check.py")
+    with open(check, "w") as f:
+        f.write(OBSERVE_IMPORT_CHECK)
+    proc = subprocess.run(
+        [sys.executable, check, tmp, os.path.join(tmp, "mnist_fc.tar"),
+         small], cwd=REPO, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    if proc.returncode != 0 or "LOADED []" not in proc.stdout:
+        raise AssertionError("observability import check: exit %d\n%s\n%s"
+                             % (proc.returncode, proc.stdout[-2000:],
+                                proc.stderr[-4000:]))
+    for name in ("serve.json", "train.json"):
+        span_table(os.path.join(tmp, name))
+    print("observability import check: serve with every flag and a traced"
+          " epoch loaded no JAX")
+
+
+def observability_phase(torch, numpy, kernels):
+    """Phase 13 (see the module docstring). Returns (result,
+    [launches_by_form])."""
+    import shutil
+    import tempfile
+    from veles_tpu_torch.ops.gemm_bench import card_line
+    card = card_line()
+    tmp = tempfile.mkdtemp(prefix="veles-observe-")
+    result, forms = {}, []
+    try:
+        cell, more = traced_training(torch, numpy, tmp, card)
+        result["alexnet_train_traced_f32"] = cell
+        forms.extend(more)
+        cell, more = residency_traced(torch, tmp)
+        result["alexnet_stream_traced"] = cell
+        forms.extend(more)
+        cell, more = flight_cell(torch, tmp)
+        result["flight"] = cell
+        forms.append(more)
+        result["overhead"] = overhead_cell(torch, tmp, card)
+        cell, more = serving_cell(torch, numpy, kernels, tmp, card)
+        result["alexnet_serve_full_f32"] = cell
+        forms.extend(more)
+        observe_import_check(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_forms("observability", kernels, merge_forms(*forms))
+    return result, forms
+
+
 def main():
     # deterministic cuBLAS for the workflow and eager phases' runs: read
     # when the first cuBLAS handle is made
@@ -4151,6 +5358,11 @@ def main():
     residency, forms = residency_phase(torch, numpy, kernels)
     phases.extend(forms)
     print("residency (%s): %s" % (card, json.dumps(residency, default=str)))
+
+    observed, forms = observability_phase(torch, numpy, kernels)
+    phases.extend(forms)
+    print("observability (%s): %s" % (card, json.dumps(observed,
+                                                       default=str)))
 
     for row in kernels:
         form = row.pop("_form")

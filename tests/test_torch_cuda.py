@@ -1181,3 +1181,51 @@ def test_out_of_core_equals_resident_on_the_card(card, monkeypatch,
         for k in (sa or {}).get("velocity", {}):
             assert torch.equal(sa["velocity"][k].cpu(),
                                sb["velocity"][k].cpu())
+
+
+# -- telemetry and the result cache on the card -------------------------------
+
+def test_memory_gauges_read_the_allocator(card):
+    """``sample_memory``'s live bytes of the card equal
+    ``torch.cuda.memory_allocated`` at the moment of the sample, its peak
+    ``max_memory_allocated``, and its limit the card's total memory."""
+    from veles_tpu_torch.telemetry import profiler
+    from veles_tpu_torch.telemetry.registry import MetricsRegistry
+    held = torch.empty(64 << 20, dtype=torch.uint8, device=card)
+    reg = MetricsRegistry()
+    sample = profiler.sample_memory(reg)
+    index = card.index if card.index is not None else 0
+    entry = sample["devices"]["cuda:%d" % index]
+    assert entry["live_bytes"] == torch.cuda.memory_allocated(index)
+    assert entry["peak_bytes"] == torch.cuda.max_memory_allocated(index)
+    assert entry["limit_bytes"] == torch.cuda.get_device_properties(
+        index).total_memory
+    gauge = reg.get("veles_hbm_live_bytes").labels(device="cuda:%d" % index)
+    assert gauge.value == entry["live_bytes"] >= held.numel()
+
+
+def test_cache_hit_launches_no_kernel(card):
+    """A served request answered from the result cache returns the first
+    reply's row bit for bit and launches neither K1 nor K3."""
+    from veles_tpu_torch.serving.engine import DynamicBatcher
+    from veles_tpu_torch.serving.cache import ResultCache
+    from veles_tpu_torch.serving.model_store import ServeableModel
+    from veles_tpu_torch.serving.replica import ReplicaPool
+    model = ServeableModel.from_layers(small_alexnet_layers(10),
+                                       (32, 32, 3), seed=3, device=card)
+    pool = ReplicaPool(model, n_replicas=1, max_batch_size=4)
+    engine = DynamicBatcher(pool, batch_timeout_ms=1,
+                            cache=ResultCache(max_bytes=1 << 20))
+    try:
+        x = _rand((3, 32, 32, 3), 7)
+        first = [engine.submit(row).result(timeout=60) for row in x]
+        launched = (linear_act.launches, lrn_forward.launches)
+        again = [engine.submit(row).result(timeout=60) for row in x]
+        assert (linear_act.launches, lrn_forward.launches) == launched
+        assert launched[0] > 0 and launched[1] > 0
+        for a, b in zip(first, again):
+            assert a is b or numpy.array_equal(a, b)
+        assert engine.cache.stats()["hits"] == 3
+    finally:
+        engine.stop()
+        pool.stop()

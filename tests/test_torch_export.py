@@ -17,8 +17,8 @@
 * Unsupported units are rejected at export (an unknown class, a
   ``sincos`` convolution).
 * ``python -m veles_tpu_torch serve -a cpu`` over loopback, on a
-  package and on a snapshot; each flag whose machinery the port lacks
-  raises ``NotImplementedError`` naming it.
+  package and on a snapshot; each flag the port once refused takes
+  effect, and without its value is refused by the parser naming it.
 """
 
 import json
@@ -318,16 +318,61 @@ def test_serve_command_on_a_package_and_a_snapshot(tmp_path):
         numpy.testing.assert_allclose(rows, want, atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("dest", sorted(REFUSED_FLAGS) + ["model"])
-def test_serve_refuses_by_name(tmp_path, dest):
-    """Each flag whose machinery the port lacks, and a second
-    ``--model``, raises ``NotImplementedError`` naming it."""
-    argv = ["--model", str(tmp_path / "a.tar"), "-a", "cpu"]
-    if dest == "model":
-        flag = "--model"
-        argv += ["--model", str(tmp_path / "b.tar")]
-    else:
-        flag = REFUSED_FLAGS[dest][0]
-        argv += [flag, "x:1" if dest == "tenant" else "1"]
-    with pytest.raises(NotImplementedError, match=flag):
-        serve(argv)
+#: the flags the port once refused, by argparse dest, and a second --model
+ONCE_REFUSED = ("cache_mb", "cache_ttl_s", "max_replicas", "min_replicas",
+                "model", "tenant", "trace_out", "web_status")
+
+
+@pytest.fixture(scope="module")
+def digits_package(tmp_path_factory):
+    _, wf = _pair("mnist")
+    return wf.package_export(str(tmp_path_factory.mktemp("pkg") /
+                                 "digits.tar"))
+
+
+@pytest.mark.parametrize("dest", ONCE_REFUSED)
+def test_serve_refuses_by_name(tmp_path, dest, digits_package, capsys):
+    """The port refuses none of the JAX command's flags
+    (``REFUSED_FLAGS`` is empty): each flag it once refused now takes
+    effect on a served package, and the same flag without its value is
+    refused by the parser naming it."""
+    from veles_tpu_torch.telemetry import tracing
+    assert REFUSED_FLAGS == {}
+    flag = "--" + dest.replace("_", "-")
+    value = {"cache_mb": "2", "cache_ttl_s": "7", "max_replicas": "2",
+             "min_replicas": "1", "tenant": "gold:3:interactive",
+             "trace_out": str(tmp_path / "serve.trace.json"),
+             "web_status": "127.0.0.1:%d" % _free_port(),
+             "model": "second=" + digits_package}[dest]
+    first = ("first=" if dest == "model" else "") + digits_package
+    argv = ["--model", first, "-a", "cpu", "--port", "0",
+            "--max-batch-size", "4"]
+    if dest == "min_replicas":
+        argv += ["--max-replicas", "2"]
+    frontend = serve(argv + [flag, value])
+    try:
+        if dest == "cache_mb":
+            assert frontend.cache.max_bytes == 2 << 20
+        elif dest == "cache_ttl_s":
+            assert frontend.cache.ttl_s == 7.0
+        elif dest in ("max_replicas", "min_replicas"):
+            assert (frontend.autoscaler.min_replicas,
+                    frontend.autoscaler.max_replicas) == (1, 2)
+        elif dest == "tenant":
+            assert frontend.admission.stats()["tenants"]["gold"][
+                "qos"] == "interactive"
+        elif dest == "trace_out":
+            assert tracing.enabled()
+        elif dest == "web_status":
+            assert frontend._reporter is not None
+        else:
+            assert sorted(frontend.entries) == ["first", "second"]
+    finally:
+        frontend.stop()
+        tracing.disable()
+    if dest == "trace_out":
+        with open(value) as f:
+            assert json.load(f)["traceEvents"] is not None
+    with pytest.raises(SystemExit):
+        serve(["--model", digits_package, "-a", "cpu", flag])
+    assert flag in capsys.readouterr().err

@@ -18,13 +18,18 @@ gathered metrics as JSON, ``--workflow-graph`` the DOT graph,
 console between initializing and running (``workflow``, ``launcher``,
 ``units``, ``root`` and ``main()`` in scope; IPython on a terminal that
 has it, ``code.interact`` otherwise; ``main()`` runs once, and leaving
-the console runs it if it has not run).
+the console runs it if it has not run). ``--trace-out FILE`` enables
+span tracing (removing a stale FILE first) and, at exit, writes the
+trace buffer there (Chrome trace-event JSON: open it in Perfetto) and,
+on the card, the caching allocator's snapshot, recorded from the start,
+to ``FILE.memprof``. Every run starts the memory sampler
+(``VELES_MEMORY_SAMPLE_S``; 0 turns it off).
 
     python -m veles_tpu_torch serve --model <snapshot | package> ...
 
 is the serving engine (``serving/frontend.py`` ``main``). The JAX CLI's
-other modes (``sched``, ``-l``/``-m``, ``--optimize``, the ensembles,
-``--trace-out``) are not ported yet.
+other modes (``sched``, ``-l``/``-m``, ``--optimize``, the ensembles)
+are not ported yet.
 """
 
 import code
@@ -85,6 +90,11 @@ class Main(Logger):
         parser.add_argument("--precision", default=None, choices=PRECISIONS,
                             help="precision policy of the layers (default "
                                  "float32)")
+        parser.add_argument("--trace-out", default=None, metavar="FILE",
+                            help="enable span tracing and dump the trace "
+                                 "buffer (Chrome trace-event JSON, open "
+                                 "in Perfetto) to FILE at exit, and the "
+                                 "card's memory profile to FILE.memprof")
         return parser
 
     # -- seeding -----------------------------------------------------------
@@ -280,7 +290,20 @@ class Main(Logger):
         if self.args.config:
             apply_config_file(self.args.config)
         self._override_config(overrides)
-        return self._run_regular(module)
+        from veles_tpu_torch.telemetry import profiler
+        if self.args.trace_out:
+            profiler.start_trace(self.args.trace_out)
+        profiler.start_memory_sampler()
+        try:
+            return self._run_regular(module)
+        except KeyboardInterrupt:
+            self.warning("interrupted")
+            return self.EXIT_FAILURE
+        finally:
+            if self.args.trace_out:
+                profiler.dump_trace(self.args.trace_out, getattr(
+                    getattr(self, "launcher", None), "mode", None) or
+                    "veles_tpu_torch")
 
 
 def main(argv=None):

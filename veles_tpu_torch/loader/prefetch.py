@@ -44,10 +44,13 @@ would otherwise wait up to the default 5 ms for the GIL at each of the
 dozen calls a shard makes.
 
 ``VELES_ETL_THROTTLE_MS`` adds a sleep to each shard's host ETL: the
-deliberately slow loader the overlap checks use. The JAX package's
-registry gauges and ``prefetch:*`` spans are not ported yet; the same
-readings are attributes here (``wait_s``, ``first_wait_s``) and on the
-trainer.
+deliberately slow loader the overlap checks use.
+
+Telemetry, as the JAX package's: each produced item is a
+``prefetch:produce`` span (on its worker thread) and each consumer wait
+a ``prefetch:wait`` span and a ``veles_step_input_wait_ms`` sample; the
+first wait of an input pipeline is the ``pipeline_fill`` startup phase.
+The readings are also attributes (``wait_s``, ``first_wait_s``).
 """
 
 import contextlib
@@ -60,6 +63,8 @@ import numpy
 import torch
 
 from veles_tpu_torch.envknob import env_knob
+from veles_tpu_torch.telemetry import tracing
+from veles_tpu_torch.telemetry.registry import get_registry
 
 #: live pipelines (weak): :func:`shutdown_all` closes any a crashed run
 #: left behind
@@ -110,6 +115,19 @@ def etl_throttle_s():
 # -- the pipeline ------------------------------------------------------------
 
 
+def input_wait_histogram():
+    return get_registry().histogram(
+        "veles_step_input_wait_ms",
+        "Step-thread wait for the next prefetched input shard")
+
+
+def starvation_gauge():
+    return get_registry().gauge(
+        "veles_input_starvation_fraction",
+        "Input wait / wall fraction of the last streamed segment",
+        labels=("phase",))
+
+
 class PrefetchPipeline(object):
     """Ordered bounded-depth producer pipeline over ``n_items`` items.
 
@@ -118,10 +136,13 @@ class PrefetchPipeline(object):
     ``depth`` produced-but-unconsumed items exist at any time. A worker
     exception is re-raised by the :meth:`get` that reaches the failing
     index (after the pipeline closed). ``depth=0`` runs ``produce``
-    inline on the consumer's thread."""
+    inline on the consumer's thread. ``wait_hist`` (default
+    ``veles_step_input_wait_ms``) receives each wait and ``fill_phase``
+    names the startup phase of the first (None: none), so non-input
+    consumers keep out of the input accounting."""
 
     def __init__(self, produce, n_items, depth=None, workers=None,
-                 name="input"):
+                 name="input", wait_hist=None, fill_phase="pipeline_fill"):
         self.produce = produce
         self.n_items = int(n_items)
         self.depth = default_depth() if depth is None else max(0, depth)
@@ -137,6 +158,9 @@ class PrefetchPipeline(object):
         self._stop = False
         self._threads = []
         self._switching = False
+        self._wait_hist = (input_wait_histogram() if wait_hist is None
+                           else wait_hist)
+        self._fill_phase = fill_phase
 
     def start(self):
         if self.depth == 0 or self.n_items == 0:
@@ -165,7 +189,9 @@ class PrefetchPipeline(object):
                 i = self._next_claim
                 self._next_claim += 1
             try:
-                out = ("ok", self.produce(i))
+                with tracing.span("prefetch:produce", index=i,
+                                  pipeline=self.name):
+                    out = ("ok", self.produce(i))
             except BaseException as e:  # delivered to the consumer
                 out = ("error", e)
             with self._cond:
@@ -204,8 +230,14 @@ class PrefetchPipeline(object):
                 self._cond.notify_all()
         wait = time.perf_counter() - start
         self.wait_s += wait
+        self._wait_hist.observe(wait * 1e3)
+        tracing.add_complete("prefetch:wait", start, wait, index=i,
+                             pipeline=self.name)
         if self.first_wait_s is None:
             self.first_wait_s = wait
+            if self._fill_phase:
+                from veles_tpu_torch.telemetry import profiler
+                profiler.record_phase(self._fill_phase, wait)
         if kind == "error":
             self.close()
             raise payload

@@ -117,6 +117,69 @@ def plain_forward(model, x):
     return x
 
 
+def model_cost(model):
+    """Analytic cost of ONE sample through ``model``, the cost book's
+    source (``telemetry/profiler.py``):
+
+    * ``forward_flops``: ``bench.py``'s accounting of the forward --
+      2 x the multiply-adds of the convolutions, the fully-connected
+      layers, the attention layers (4 projections, the scores and their
+      product with the values) and the mixture of experts (one expert's
+      up and down per token, and the router); LRN, pooling, dropout,
+      activations and deconvolutions count nothing;
+    * ``train_flops``: 3 x ``forward_flops`` (forward, data gradient,
+      weight gradient), ``bench.py``'s ``model_train_flops_per_sample``;
+    * ``param_bytes``: every parameter's bytes, once;
+    * ``input_bytes`` and ``activation_bytes``: the sample's input and
+      the sum of every layer's output, at the policy's compute type.
+    """
+    total = 0.0
+    for module in model:
+        if isinstance(module, Conv):
+            cout, cin, ky, kx = module.weights.shape
+            h, w, _ = module.output_shape()
+            total += 2.0 * h * w * ky * kx * cin * cout
+        elif isinstance(module, All2All):
+            fin, fout = module.jax_weights_shape()
+            total += 2.0 * fin * fout
+        elif isinstance(module, MultiHeadAttentionForward):
+            s, d = module.input_shape
+            total += 4 * 2.0 * s * d * d + 2 * 2.0 * s * s * d
+        elif isinstance(module, MoEForward):
+            s, d = module.input_shape
+            total += s * (2.0 * d * module.hidden * 2 +
+                          2.0 * d * module.n_experts)
+    size = model[0].policy.compute_dtype.itemsize
+    return {"forward_flops": total, "train_flops": 3.0 * total,
+            "param_bytes": float(sum(p.numel() * p.element_size()
+                                     for p in model.parameters())),
+            "input_bytes": float(numpy.prod(model[0].input_shape)) * size,
+            "activation_bytes": float(sum(
+                numpy.prod(m.output_shape()) for m in model)) * size}
+
+
+def forward_cost(cost, rows):
+    """(FLOPs, bytes) of one forward of ``rows`` samples given
+    :func:`model_cost`'s ``cost``: the parameters read once, each
+    sample's input read once and each layer's output written once and
+    read once."""
+    return (cost["forward_flops"] * rows,
+            cost["param_bytes"] + rows * (cost["input_bytes"] +
+                                          2.0 * cost["activation_bytes"]))
+
+
+def sweep_cost(cost, samples, batches, train):
+    """(FLOPs, bytes) of one class sweep of ``samples`` samples in
+    ``batches`` minibatches: training counts :func:`model_cost`'s
+    ``train_flops`` a sample and, a minibatch, the parameters read and
+    written; evaluation the forward's. Each sample's input is read once
+    and each activation written once and read once (the backward's
+    read, or the next layer's)."""
+    flops = cost["train_flops" if train else "forward_flops"] * samples
+    return (flops, batches * cost["param_bytes"] * (2.0 if train else 1.0) +
+            samples * (cost["input_bytes"] + 2.0 * cost["activation_bytes"]))
+
+
 def layer_hypers(layers, learning_rate=0.01, weights_decay=0.0,
                  momentum=0.0, lr_decay=1.0, learning_rate_bias=None):
     """Per-layer solver hyper-parameters, the JAX GD units' ``hyper``:

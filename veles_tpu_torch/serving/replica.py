@@ -7,6 +7,14 @@ Batch shapes are padded to power-of-two buckets up to
 ``warm()`` runs the forward once per bucket under
 ``torch.inference_mode()``, which builds the kernels, picks cuDNN's
 algorithms and grows the caching allocator before the first request.
+The sweep is the ``replica_warmup`` startup phase, and it notes each
+bucket's analytic forward FLOPs and bytes in the cost book
+(``serve_forward:b<bucket>``, from :func:`veles_tpu_torch.models.build.
+model_cost`); every served forward is timed under that op, from the
+padded batch's upload to its copy back to the host (the forward's own
+wait for the card). A pool given an ``op_name`` (a frontend's second and
+later routes) files its rows as ``serve_forward:<op_name>:b<bucket>``,
+so that two models' forwards never share a row.
 
 :class:`ReplicaPool` fans batches out by least queued work and
 hot-swaps the model (each replica drains what it accepted, swaps,
@@ -21,6 +29,11 @@ import threading
 import time
 
 import numpy
+from torch import nn
+
+from veles_tpu_torch.models.build import forward_cost, model_cost
+from veles_tpu_torch.nn.base import ForwardBase
+from veles_tpu_torch.telemetry import profiler
 
 _log = logging.getLogger(__name__)
 
@@ -51,6 +64,15 @@ class _Swap(object):
         self.model = model
         self.done = threading.Event()
 
+def _model_cost(model):
+    """:func:`model_cost` of a served model's layer chain, or None for a
+    module that is not one (nothing is noted then)."""
+    module = model.module
+    if not isinstance(module, nn.Sequential) or not all(
+            isinstance(m, ForwardBase) for m in module):
+        return None
+    return model_cost(module)
+
 
 class Replica(object):
     """One warm copy of the model with a private dispatch queue."""
@@ -59,8 +81,11 @@ class Replica(object):
     #: around a swapping replica
     SWAP_LOAD = 1 << 20
 
-    def __init__(self, model, index=0, max_batch_size=64, warm=True):
+    def __init__(self, model, index=0, max_batch_size=64, warm=True,
+                 op_name=None):
         self.index = index
+        self.op_prefix = "serve_forward:%s" % (
+            "" if op_name is None else op_name + ":")
         self.max_batch_size = int(max_batch_size)
         self._queue = queue.Queue()
         self._pending = 0           # queued + running rows, approx load
@@ -84,12 +109,19 @@ class Replica(object):
             self.warm()
 
     def warm(self):
-        """Run the forward once per batch bucket ahead of traffic."""
+        """Run the forward once per batch bucket ahead of traffic, and
+        note each bucket's analytic cost."""
+        book = profiler.get_cost_book()
+        cost = _model_cost(self.model)
         t0 = time.perf_counter()
-        for bucket in buckets_upto(self.max_batch_size):
-            self.model(numpy.zeros((bucket,) + self.model.sample_shape,
-                                   numpy.float32))
-            self.warmed_buckets.append(bucket)
+        with profiler.phase("replica_warmup"):
+            for bucket in buckets_upto(self.max_batch_size):
+                self.model(numpy.zeros(
+                    (bucket,) + self.model.sample_shape, numpy.float32))
+                if cost is not None:
+                    book.note_cost("%sb%d" % (self.op_prefix, bucket),
+                                   *forward_cost(cost, bucket))
+                self.warmed_buckets.append(bucket)
         _log.info("replica %d warm: %s v%d, buckets %s in %.2f s",
                   self.index, self.model.name, self.model.version,
                   self.warmed_buckets, time.perf_counter() - t0)
@@ -104,7 +136,9 @@ class Replica(object):
             pad = numpy.zeros((bucket - rows,) + batch.shape[1:],
                               batch.dtype)
             batch = numpy.concatenate([batch, pad], axis=0)
-        return self.model(batch)[:rows], bucket
+        with profiler.timed_op("%sb%d" % (self.op_prefix, bucket)):
+            out = self.model(batch)
+        return out[:rows], bucket
 
     @property
     def load(self):
@@ -199,14 +233,20 @@ class Replica(object):
                 batch, on_done = item
                 on_done(None, 0, RuntimeError("replica stopped"))
 
+    def stats(self):
+        return {"index": self.index, "load": self.load,
+                "batches": self.batches_done, "rows": self.rows_done,
+                "model": self.model.name, "version": self.model.version}
+
 
 class ReplicaPool(object):
     """Elastic replica set: least-loaded dispatch, atomic swap,
     grow/shrink under live traffic."""
 
     def __init__(self, model, n_replicas=1, max_batch_size=64,
-                 warm=True):
+                 warm=True, op_name=None):
         self.max_batch_size = int(max_batch_size)
+        self.op_name = op_name
         self._dispatch_lock = threading.Lock()
         self._rr = 0
         self._warm = bool(warm)
@@ -254,7 +294,7 @@ class ReplicaPool(object):
             current = self._model
         replica = Replica(current, index=index,
                           max_batch_size=self.max_batch_size,
-                          warm=self._warm)
+                          warm=self._warm, op_name=self.op_name)
         while True:
             with self._dispatch_lock:
                 if replica.model is self._model:
@@ -289,7 +329,7 @@ class ReplicaPool(object):
                   victim.index)
         return victim
 
-    # -- swap / lifecycle ---------------------------------------------------
+    # -- swap / stats / lifecycle -------------------------------------------
 
     def swap(self, model, timeout=120.0):
         """Hot-swap every replica, one at a time."""
@@ -302,6 +342,11 @@ class ReplicaPool(object):
                     "replica %d did not finish the swap in %.0fs" %
                     (replica.index, timeout))
         _log.info("pool promoted to %s v%d", model.name, model.version)
+
+    def stats(self):
+        with self._dispatch_lock:
+            replicas = list(self.replicas)
+        return [r.stats() for r in replicas]
 
     def stop(self):
         with self._dispatch_lock:

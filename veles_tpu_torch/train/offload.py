@@ -29,11 +29,18 @@ walks contiguous layer groups through a staging ring.
   writeback's event. ``VELES_OFFLOAD_DEPTH=0`` runs every upload inline
   on the step thread.
 
-The readings the JAX engine publishes as gauges are attributes here:
-``wait_s`` (the step thread's wait for uploads), ``h2d_ms`` / ``d2h_ms``
-(host ms to enqueue a transfer), ``overlap`` (1 - wait / wall of the last
-segment, by phase) and, on the card, ``transfers`` ((start, end, bytes,
-direction) events of the last segment).
+The readings are attributes -- ``wait_s`` (the step thread's wait for
+uploads), ``h2d_ms`` / ``d2h_ms`` (host ms to enqueue a transfer),
+``overlap`` (1 - wait / wall of the last segment, by phase) and, on the
+card, ``transfers`` ((start, end, bytes, direction) events of the last
+segment) -- and, as in the JAX engine, telemetry: the
+``veles_offload_h2d_ms`` / ``veles_offload_d2h_ms`` /
+``veles_offload_wait_ms`` histograms, the
+``veles_offload_compute_overlap_fraction{phase}`` gauge, each transfer an
+``offload:h2d`` / ``offload:d2h`` span with its ``group`` and a sample of
+the cost-book row ``offload:h2d/g<k>`` / ``offload:d2h/g<k>`` (the
+group's bytes, no FLOPs). The transfer times are host times: the time
+to enqueue the copy on its stream.
 """
 
 import threading
@@ -46,11 +53,38 @@ from torch import nn
 from veles_tpu_torch.convert import layer_params
 from veles_tpu_torch.envknob import env_knob
 from veles_tpu_torch.loader import prefetch
+from veles_tpu_torch.telemetry import profiler, tracing
+from veles_tpu_torch.telemetry.registry import get_registry
 
 #: live engines (weak): :func:`shutdown_all` closes any a crashed run
 #: left behind
 _live_lock = threading.Lock()
 _live = weakref.WeakSet()
+
+
+def h2d_histogram():
+    return get_registry().histogram(
+        "veles_offload_h2d_ms",
+        "Host->device upload time per offloaded layer group")
+
+
+def d2h_histogram():
+    return get_registry().histogram(
+        "veles_offload_d2h_ms",
+        "Device->host writeback time per offloaded layer group")
+
+
+def wait_histogram():
+    return get_registry().histogram(
+        "veles_offload_wait_ms",
+        "Step-thread wait for the next staged layer group")
+
+
+def overlap_gauge():
+    return get_registry().gauge(
+        "veles_offload_compute_overlap_fraction",
+        "1 - transfer wait / wall of the last offloaded segment",
+        labels=("phase",))
 
 
 def offload_depth():
@@ -229,6 +263,15 @@ class OffloadEngine(object):
         self._written = {g: None for g in range(plan.n_groups)}
         self._walks = [_Walk(trainer, lo, hi) for lo, hi in plan.groups]
         self._active_pipe = None
+        self._h2d_hist = h2d_histogram()
+        self._d2h_hist = d2h_histogram()
+        self._wait_hist = wait_histogram()
+        self._overlap = overlap_gauge()
+        self._book = profiler.get_cost_book()
+        for g, nbytes in enumerate(plan.group_bytes):
+            # transfer rows: bytes and observed ms give GB/s per group
+            self._book.note_cost("offload:h2d/g%d" % g, 0.0, float(nbytes))
+            self._book.note_cost("offload:d2h/g%d" % g, 0.0, float(nbytes))
         with _live_lock:
             _live.add(self)
 
@@ -276,7 +319,12 @@ class OffloadEngine(object):
             if throttle:
                 time.sleep(throttle)
             staged = ring.place(self._masters(g, kind == "B"), after=after)
-            h2d_ms.append((time.perf_counter() - t0) * 1e3)
+            elapsed = time.perf_counter() - t0
+            h2d_ms.append(elapsed * 1e3)
+            self._h2d_hist.observe(elapsed * 1e3)
+            self._book.observe_ms("offload:h2d/g%d" % g, elapsed)
+            tracing.add_complete("offload:h2d", t0, elapsed, group=g,
+                                 batch=b, phase=kind)
             if staged.ready is not None:
                 self.transfers.append((staged.started, staged.ready,
                                        _tree_bytes(staged.tree), "h2d"))
@@ -284,7 +332,8 @@ class OffloadEngine(object):
 
         return prefetch.PrefetchPipeline(
             produce, len(schedule), depth=self.depth,
-            workers=self.workers, name=name)
+            workers=self.workers, name=name, wait_hist=self._wait_hist,
+            fill_phase=None)
 
     def _writeback(self, g, staged, b, gate):
         """Copy the updated group back into its host masters (a
@@ -314,7 +363,11 @@ class OffloadEngine(object):
         else:
             self._copy_back(g, masters, leaves)
             self._ring.release(staged)
-        self.d2h_ms.append((time.perf_counter() - t0) * 1e3)
+        elapsed = time.perf_counter() - t0
+        self.d2h_ms.append(elapsed * 1e3)
+        self._d2h_hist.observe(elapsed * 1e3)
+        self._book.observe_ms("offload:d2h/g%d" % g, elapsed)
+        tracing.add_complete("offload:d2h", t0, elapsed, group=g, batch=b)
         with cond:
             events[g] = event
             versions[g] = b + 1
@@ -358,6 +411,7 @@ class OffloadEngine(object):
         wall = time.perf_counter() - start
         if wall > 0:
             self.overlap[phase] = max(0.0, 1.0 - pipe.wait_s / wall)
+            self._overlap.labels(phase=phase).set(self.overlap[phase])
 
     def train_segment(self, idx, first, seed, out):
         """One training sweep over the index matrix ``idx`` (numpy),

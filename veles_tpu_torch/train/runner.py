@@ -31,19 +31,37 @@ run adds the epoch's input wait and its starvation fraction (wait over
 the sweeps' wall), an offloaded one its upload wait and the overlap
 fraction (1 - wait over wall), as ``veles_tpu/train/runner.py``
 publishes them; each is logged once an epoch. The run ends with
-``trainer.shutdown()``, so no pipeline thread outlives it. The JAX
-runner's telemetry (tracing spans, metrics registry, flight recorder,
-cost book) is not ported yet.
+``trainer.shutdown()``, so no pipeline thread outlives it.
+
+Telemetry, as the JAX runner's (``veles_tpu/train/runner.py``): each
+sweep is a ``step:eval`` / ``step:train`` span and a
+``veles_step_ms{phase}`` sample, timed to the host read of its losses
+(the sweep's own wait for the card; nothing here synchronizes), the
+same elapsed time the epoch's ``eval_s`` / ``train_s`` report; the first
+training sweep is the ``first_step`` phase. The cost book receives each
+sweep's analytic FLOPs and bytes (``train_segment`` / ``eval_segment``,
+:meth:`FusedTrainer.note_sweep_cost`) and its time, and the train sweep
+sets ``veles_step_mfu``. The flight recorder's stall watchdog is armed
+around each sweep; the sweep's per-batch losses (already on the host)
+and, after the sweep, its gradient norms go to its detectors. Each
+epoch is an ``epoch`` span and a ``veles_epoch_ms`` sample, and sets
+``veles_train_loss``, ``veles_train_samples_per_s`` and, streamed or
+offloaded, ``veles_input_starvation_fraction`` /
+``veles_offload_compute_overlap_fraction`` to the epoch's readings.
 """
 
 import collections
 import logging
 import time
 
+from veles_tpu_torch.loader import prefetch
 from veles_tpu_torch.loader.base import (CLASS_NAMES, TEST, TRAIN,
                                          VALIDATION)
 from veles_tpu_torch.nn.units import EvaluatorMSE, EvaluatorSoftmax
 from veles_tpu_torch.plumbing import EndPoint, Repeater, StartPoint
+from veles_tpu_torch.telemetry import flight, profiler, tracing
+from veles_tpu_torch.telemetry.registry import get_registry
+from veles_tpu_torch.train import offload
 from veles_tpu_torch.train.step import FusedTrainer
 
 _log = logging.getLogger(__name__)
@@ -152,6 +170,78 @@ class FusedRunner(object):
         #: one dict per epoch run: seconds of the evaluation and
         #: training sweeps, the decision, the services, the whole epoch
         self.epoch_times = []
+        self._epoch_index = 0
+        self._first_step_done = False
+        self._bind_telemetry()
+
+    #: the process's telemetry handles: not part of a pickled runner (a
+    #: workflow snapshot taken mid-run may hold it)
+    _TELEMETRY = ("_step_ms", "_epoch_ms", "_m_loss", "_m_samples_per_s",
+                  "_starvation", "_offload_overlap", "_flight", "_book")
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        for name in self._TELEMETRY:
+            state.pop(name, None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._bind_telemetry()
+
+    def _bind_telemetry(self):
+        registry = get_registry()
+        self._step_ms = registry.histogram(
+            "veles_step_ms", "Fused step (one class sweep) wall time",
+            labels=("phase",))
+        self._epoch_ms = registry.histogram(
+            "veles_epoch_ms", "End-to-end epoch wall time")
+        self._m_loss = registry.gauge(
+            "veles_train_loss", "Last training batch loss")
+        self._m_samples_per_s = registry.gauge(
+            "veles_train_samples_per_s",
+            "Samples served per second over the last epoch")
+        self._starvation = prefetch.starvation_gauge()
+        self._offload_overlap = offload.overlap_gauge()
+        self._flight = flight.get_recorder()
+        self._book = profiler.get_cost_book()
+
+    def _timed_step(self, phase, fn, *args, **kwargs):
+        """Run one sweep (``fn`` returns its per-class stats, read to the
+        host) under the stall watchdog, a ``step:<phase>`` span and the
+        step histogram; note its cost and time in the cost book (and the
+        step MFU of a train sweep). Returns (stats, elapsed s)."""
+        label = "%s sweep epoch %d" % (phase, self._epoch_index)
+        self._flight.step_begin(label)
+        start = time.perf_counter()
+        try:
+            stats = fn(*args, **kwargs)
+        except Exception as e:
+            self._flight.record_exception(e, step=label)
+            raise
+        finally:
+            self._flight.step_end()
+            elapsed = time.perf_counter() - start
+            self._step_ms.labels(phase=phase).observe(elapsed * 1e3)
+            tracing.add_complete("step:%s" % phase, start, elapsed)
+            if phase == "train" and not self._first_step_done:
+                self._first_step_done = True
+                profiler.record_phase("first_step", elapsed)
+        train = phase == "train"
+        op = "train_segment" if train else "eval_segment"
+        per_class = [stats] if train else list(stats.values())
+        samples = sum(s["samples"] for s in per_class)
+        if samples:
+            self.trainer.note_sweep_cost(op, samples, train)
+        self._book.observe_ms(op, elapsed)
+        if train:
+            self._book.record_step_mfu(op, elapsed)
+        self._flight.observe_step(phase, elapsed, loss=self._last_batch[0],
+                                  epoch=self._epoch_index)
+        for s in per_class:
+            self._flight.check_losses(s["losses"], epoch=self._epoch_index,
+                                      phase=phase)
+        return stats, elapsed
 
     # -- epoch bodies ------------------------------------------------------
 
@@ -270,10 +360,13 @@ class FusedRunner(object):
                 continue
             skips[klass] = None if offset >= ends[klass] else \
                 max(offset - (ends[klass] - length), 0)
-        stats = self._eval_classes(testing, skips=skips)
+        stats, _ = self._timed_step("eval", self._eval_classes, testing,
+                                    skips=skips)
         train_skip = skips.get(TRAIN)
         if not testing and train_skip is not None:
-            stats[TRAIN] = self._train_class(skip=train_skip)
+            stats[TRAIN], _ = self._timed_step("train", self._train_class,
+                                               skip=train_skip)
+            self._observe_grad_norms()
         _log.info("resumed mid-epoch snapshot at offset %d: served the "
                   "remaining %d samples", offset,
                   sum(s["samples"] for s in stats.values()))
@@ -291,6 +384,14 @@ class FusedRunner(object):
             if gd is not None and state:
                 gd.opt_state = state
 
+    def _observe_grad_norms(self):
+        """The train sweep's gradient norms to the flight recorder's
+        divergence detector (after the sweep's timing)."""
+        norms = self.trainer.last_grad_norms
+        if norms is not None:
+            self._flight.observe_grad_norms(norms.float().cpu().numpy(),
+                                            epoch=self._epoch_index)
+
     def _residency_times(self, times, waits):
         """The epoch's input-starvation and offload-overlap readings
         from the trainer's wait counters at the epoch's start."""
@@ -302,6 +403,7 @@ class FusedRunner(object):
             times["input_wait_s"] = wait
             times["first_wait_s"] = trainer.first_wait_s
             times["starvation"] = min(1.0, wait / sweeps) if sweeps else 0.0
+            self._starvation.labels(phase="epoch").set(times["starvation"])
             _log.info("epoch %d: input wait %.3f s, starvation %.3f",
                       times["epoch"], wait, times["starvation"])
         if trainer.offloaded:
@@ -309,6 +411,8 @@ class FusedRunner(object):
             times["offload_wait_s"] = wait
             times["offload_overlap"] = max(0.0, 1.0 - wait / sweeps) \
                 if sweeps else 0.0
+            self._offload_overlap.labels(phase="epoch").set(
+                times["offload_overlap"])
             _log.info("epoch %d: offload wait %.3f s, overlap %.3f",
                       times["epoch"], wait, times["offload_overlap"])
 
@@ -320,6 +424,14 @@ class FusedRunner(object):
         times["services_s"] = time.perf_counter() - t
         times["wall_s"] = time.perf_counter() - start
         self.epoch_times.append(times)
+        self._epoch_ms.observe(times["wall_s"] * 1e3)
+        tracing.add_complete("epoch", start, times["wall_s"],
+                             index=times["epoch"])
+        self._m_loss.set(self._last_batch[0])
+        samples = sum(s["samples"] for s in stats.values())
+        if times["wall_s"] > 0:
+            self._m_samples_per_s.set(samples / times["wall_s"])
+        self._epoch_index += 1
 
     # -- the loop ----------------------------------------------------------
 
@@ -358,12 +470,13 @@ class FusedRunner(object):
                 epoch_start = time.perf_counter()
                 times = {"epoch": loader.epoch_number}
                 testing = bool(decision.testing)
-                stats = self._eval_classes(testing)
-                t = time.perf_counter()
-                times["eval_s"] = t - epoch_start
+                stats, times["eval_s"] = self._timed_step(
+                    "eval", self._eval_classes, testing)
+                times["train_s"] = 0.0
                 if not testing and loader.class_lengths[TRAIN]:
-                    stats[TRAIN] = self._train_class()
-                times["train_s"] = time.perf_counter() - t
+                    stats[TRAIN], times["train_s"] = self._timed_step(
+                        "train", self._train_class)
+                    self._observe_grad_norms()
                 self._residency_times(times, waits)
                 t = time.perf_counter()
                 self._close_epoch(stats)
@@ -371,6 +484,13 @@ class FusedRunner(object):
                 self._epoch_end(services, stats, times, epoch_start)
                 epochs_done += 1
                 samples_done += sum(s["samples"] for s in stats.values())
+        except Exception as e:
+            # the crash path: the black box is written before the
+            # exception unwinds the run (the recorder rate-limits the
+            # sweep's own dump)
+            self._flight.record_exception(
+                e, step="epoch %d" % self._epoch_index)
+            raise
         finally:
             self.trainer.shutdown()
             self._refresh_units()

@@ -59,13 +59,20 @@ host (pinned) and each step walks layer groups through
 dataset wins over offload. Batch indices, dropout seeds and fold order
 are the resident sweep's, so a streamed or offloaded epoch gives the
 resident in-core epoch's values. :meth:`FusedTrainer.shutdown` joins
-every pipeline thread. The readings the JAX package publishes as
-gauges are attributes: ``input_wait_s`` and ``first_wait_s`` (the step
-thread's wait for shards), ``shard_etl_ms`` / ``shard_h2d_ms`` (per
-shard of the last streamed sweep) and ``offload_wait_s``.
+every pipeline thread. The readings are attributes -- ``input_wait_s``
+and ``first_wait_s`` (the step thread's wait for shards),
+``shard_etl_ms`` / ``shard_h2d_ms`` (per shard of the last streamed
+sweep) and ``offload_wait_s`` -- and, as in the JAX package, telemetry:
+``veles_prefetch_etl_ms`` / ``veles_prefetch_h2d_ms`` with the
+``prefetch:etl`` / ``prefetch:h2d`` spans of each shard, the
+``offload_plan`` startup phase with the ``offload:plan`` and
+``offload:pin`` spans. :meth:`run_epoch` publishes the live training
+view (``veles_train_loss``, ``veles_train_samples_per_s`` and the step
+MFU of its training sweep); :meth:`sweep_cost` gives the cost book a
+sweep's analytic FLOPs and bytes
+(:func:`veles_tpu_torch.models.build.sweep_cost`).
 
-Left out for later slices: the space-to-depth staging pack and the
-cost-book harvest.
+Left out for later slices: the space-to-depth staging pack.
 """
 
 import logging
@@ -86,6 +93,8 @@ from veles_tpu_torch.nn.evaluator import (batch_confusion,
 from veles_tpu_torch.nn.optim import get_solver
 from veles_tpu_torch.nn.precision import policy_of
 from veles_tpu_torch.ops.random import dropout_uniforms
+from veles_tpu_torch.telemetry import profiler, tracing
+from veles_tpu_torch.telemetry.registry import get_registry
 
 _log = logging.getLogger(__name__)
 
@@ -206,6 +215,7 @@ class FusedTrainer(object):
         self._staging_ring = prefetch.StagingRing(slots, self.device)
         self._host_ring = prefetch.HostRing(
             slots, pin=self.device.type == "cuda")
+
         _log.info("dataset streams out of core: %.0f MB over the device "
                   "budget; shards of %d minibatches (%.0f MB), prefetch "
                   "depth %d", total / 1e6, self._batches_per_shard,
@@ -229,12 +239,15 @@ class FusedTrainer(object):
         self.offloaded = decision == "offloaded"
         if self.offloaded:
             pin = self.device.type == "cuda"
+            t0 = time.perf_counter()
             with torch.no_grad():
                 for params in self.params:
                     for p in params.values():
                         p.data = offload.host_copy(p.data, pin)
             if states is not None:
                 states = [offload.host_tree(s, pin) for s in states]
+            tracing.add_complete("offload:pin", t0,
+                                 time.perf_counter() - t0)
         elif any(p.device != self.device for params in self.params
                  for p in params.values()):
             raise ValueError("the model's parameters are not on %s; an "
@@ -249,10 +262,11 @@ class FusedTrainer(object):
             self.states = [offload.host_tree(s, pin) for s in self.states]
         depth = (offload.offload_depth() if self.offload_depth is None
                  else max(0, self.offload_depth))
-        plan = offload.OffloadPlan.build(
-            layer_bytes, offload.group_budget_bytes(self.device, depth))
-        self._offload_engine = offload.OffloadEngine(
-            self, plan, depth=depth, workers=self.offload_workers)
+        with profiler.phase("offload_plan"), tracing.span("offload:plan"):
+            plan = offload.OffloadPlan.build(
+                layer_bytes, offload.group_budget_bytes(self.device, depth))
+            self._offload_engine = offload.OffloadEngine(
+                self, plan, depth=depth, workers=self.offload_workers)
         _log.info("model state offloads out of core: %.1f MB in %d layer "
                   "groups (%s), staging depth %d", plan.total_bytes / 1e6,
                   plan.n_groups, "/".join("%d-%d" % g for g in plan.groups),
@@ -471,6 +485,12 @@ class FusedTrainer(object):
         dshape, ddtype, tshape, tdtype = self._sample
         etl_ms = [0.0] * len(bounds)
         h2d_ms = [0.0] * len(bounds)
+        registry = get_registry()
+        etl_hist = registry.histogram(
+            "veles_prefetch_etl_ms", "Host ETL time per streamed shard")
+        h2d_hist = registry.histogram(
+            "veles_prefetch_h2d_ms",
+            "Host->device transfer dispatch time per streamed shard")
         copies = [None] * len(bounds)
 
         def produce(i):
@@ -486,8 +506,13 @@ class FusedTrainer(object):
             t1 = time.perf_counter()
             staged = ring.place((data, truth, local))
             host.guard(i, staged.ready)
+            t2 = time.perf_counter()
             etl_ms[i] = (t1 - t0) * 1e3
-            h2d_ms[i] = (time.perf_counter() - t1) * 1e3
+            h2d_ms[i] = (t2 - t1) * 1e3
+            etl_hist.observe(etl_ms[i])
+            h2d_hist.observe(h2d_ms[i])
+            tracing.add_complete("prefetch:etl", t0, t1 - t0, shard=i)
+            tracing.add_complete("prefetch:h2d", t1, t2 - t1, shard=i)
             copies[i] = (staged.started, staged.ready, sum(
                 t.numel() * t.element_size() for t in (data, truth, local)))
             return staged, row0
@@ -530,12 +555,49 @@ class FusedTrainer(object):
                     stats[CLASS_NAMES[klass]]["confusion"] = \
                         confusion.cpu().numpy()
         if loader.class_lengths[TRAIN]:
+            t0 = time.perf_counter()
             stats[CLASS_NAMES[TRAIN]] = self._summarize(
                 *self.train_class(), klass=TRAIN)
+            # _summarize read the losses to the host: the elapsed time
+            # covers the sweep
+            self._publish_live(stats[CLASS_NAMES[TRAIN]],
+                               time.perf_counter() - t0)
             loader.epoch_number = epoch + 1
             if loader.epoch_number <= loader.shuffle_limit:
                 loader.shuffle()
         return stats
+
+    def sweep_cost(self, samples, train):
+        """(FLOPs, bytes) of a sweep over ``samples`` samples of this
+        trainer's model, in minibatches of the loader's size."""
+        from veles_tpu_torch.models.build import model_cost, sweep_cost
+        if getattr(self, "_model_cost", None) is None:
+            self._model_cost = model_cost(self.model)
+        mb = self.loader.max_minibatch_size
+        return sweep_cost(self._model_cost, samples, -(-samples // mb),
+                          train)
+
+    def note_sweep_cost(self, op, samples, train):
+        """Note ``op``'s analytic cost in the cost book for a sweep of
+        ``samples`` samples."""
+        profiler.get_cost_book().note_cost(
+            op, *self.sweep_cost(samples, train))
+
+    def _publish_live(self, train_stats, elapsed_s):
+        """The live training view for runs that drive :meth:`run_epoch`
+        directly (the runner publishes the same families): the loss,
+        samples/s and the train sweep's cost and step MFU."""
+        registry = get_registry()
+        registry.gauge(
+            "veles_train_loss",
+            "Last training batch loss").set(train_stats["loss"])
+        if elapsed_s > 0:
+            registry.gauge(
+                "veles_train_samples_per_s",
+                "Samples served per second over the last epoch").set(
+                train_stats["samples"] / elapsed_s)
+        self.note_sweep_cost("train_segment", train_stats["samples"], True)
+        profiler.get_cost_book().record_step_mfu("train_segment", elapsed_s)
 
     def _summarize(self, losses, metrics, klass):
         n = self.loader.class_lengths[klass]

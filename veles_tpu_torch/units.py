@@ -15,8 +15,12 @@ A Unit is a node in a workflow graph with
   must be provided (set or linked) before ``initialize()``.
 
 Execution is driven by the owning workflow's deterministic scheduler
-(:mod:`veles_tpu_torch.workflow`). The JAX package's tracing spans and
-run-time histogram are not ported yet; ``timings`` logs each run's time.
+(:mod:`veles_tpu_torch.workflow`). With tracing on, each run is a
+``unit:<name>`` span; with tracing on or ``timings``, its wall time lands
+in ``veles_unit_run_ms{unit}`` (and ``timings`` logs it), as in the JAX
+package. A unit's span times the host: it ends when ``run()`` returns,
+which for a unit that only issues work to the card is before the card
+has done it.
 """
 
 import time
@@ -24,7 +28,21 @@ import time
 from veles_tpu_torch.config import root
 from veles_tpu_torch.distributable import Distributable
 from veles_tpu_torch.mutable import Bool, link, unlink
+from veles_tpu_torch.telemetry import tracing
+from veles_tpu_torch.telemetry.registry import get_registry
 from veles_tpu_torch.unit_registry import UnitRegistry
+
+_unit_run_ms = None
+
+
+def _unit_run_hist():
+    """Lazy: most processes never flip ``timings`` or enable tracing."""
+    global _unit_run_ms
+    if _unit_run_ms is None:
+        _unit_run_ms = get_registry().histogram(
+            "veles_unit_run_ms", "Per-unit run() wall time",
+            labels=("unit",))
+    return _unit_run_ms
 
 
 class Unit(Distributable, metaclass=UnitRegistry):
@@ -219,6 +237,12 @@ class Unit(Distributable, metaclass=UnitRegistry):
             elapsed = time.perf_counter() - start
             self.run_calls += 1
             self.run_time += elapsed
+            if tracing.enabled():
+                tracing.add_complete("unit:%s" % self.name, start, elapsed,
+                                     unit=type(self).__name__)
+            if self.timings or tracing.enabled():
+                _unit_run_hist().labels(unit=self.name).observe(
+                    elapsed * 1e3)
             if self.timings:
                 self.debug("%s ran in %.3f ms", self.name, elapsed * 1e3)
             self.event("run", "end")

@@ -22,6 +22,7 @@ import time
 
 from veles_tpu_torch.mutable import Bool
 from veles_tpu_torch.plumbing import StartPoint, EndPoint, Repeater
+from veles_tpu_torch.telemetry import tracing
 from veles_tpu_torch.units import Container
 
 
@@ -190,7 +191,11 @@ class Workflow(Container):
         finally:
             self._draining_ = False
             self.is_running = False
-            self._run_time += time.perf_counter() - start
+            elapsed = time.perf_counter() - start
+            self._run_time += elapsed
+            if tracing.enabled():
+                tracing.add_complete("workflow:%s" % self.name, start,
+                                     elapsed, units=len(self._units))
             self.event("run", "end")
 
     def _drain(self):
