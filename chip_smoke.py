@@ -256,7 +256,35 @@
    (``http:<endpoint>`` p50 against ``serve_forward`` p50) is printed.
    (6) ``serve`` with every flag and a traced CLI epoch in a process of
    their own load no JAX.
-14. The line before the last is ``{"kernels": [...], "not_ported":
+14. Distributed phase: master/slave training on phase 9's file through
+   the CLI (``-l`` / ``-m``), each process of its own, the master with
+   no visible card (``CUDA_VISIBLE_DEVICES`` empty; it reports CUDA
+   uninitialized and no dataset staged), the slaves on the card; no
+   process loads ``jax``, ``ml_dtypes`` or ``veles_tpu``. (1) One slave,
+   ``--segment-size 8 --no-pipeline``, deterministic, 4 epochs, against
+   the deterministic standalone run of the same file and seed, a
+   process of its own too: each epoch's loss within 1e-6 relative, fc7
+   within 5e-2 of its change (the workflow phase's bound for runs that
+   are not bitwise: additive deltas round where a weight shrinks toward
+   zero), the values that differ printed; the master dropping fc7's
+   deltas must fail it.
+   (2) Two pipelined slaves, ``--segment-size 2``, float32 deltas, 4
+   epochs: every epoch exactly 512 training and 128 validation samples,
+   a finite falling loss, both slaves did jobs, their summed K1, K3,
+   K4, K6 and K7 launches (each slave writes its counters on exit) the
+   counts the minibatches the master served give (the pipelines' run
+   past the last epoch included, and printed), at checked and designed
+   forms.
+   (3) A slave killed by the chaos stream on its 8th job (mid-epoch 1,
+   ``--segment-size 1 --no-pipeline``, deterministic, momentum 0, a
+   replacement finishing the run) against the unfaulted run: the curve
+   and every parameter bit for bit, ``veles_jobs_requeued_total
+   {reason="dead"}`` risen. (4) ``--exchange-dtype bfloat16`` trains 2
+   epochs; with (1)'s full pushes and (2)'s float32 deltas, the bytes a
+   job each way. (5) Per job, the slaves' decode, compute, encode and
+   shared-memory ms and their waits, the master's encode and decode ms,
+   and the fleet's samples/s beside the standalone sweeps'.
+15. The line before the last is ``{"kernels": [...], "not_ported":
    []}``; the last is ``{"ok": true, "device": {...}}``. Any failure
    raises and exits non-zero before them.
 """
@@ -2650,7 +2678,8 @@ def run(load, main):
         loader_factory=lambda wf: SyntheticImageLoader(
             workflow=wf, n_train=%d, n_valid=%d, minibatch_size=%d),
         layers=ALEXNET_LAYERS, max_epochs=root.smoke.get("epochs", %d),
-        learning_rate=0.01, momentum=0.9, weights_decay=5e-4)
+        learning_rate=0.01, momentum=root.smoke.get("momentum", 0.9),
+        weights_decay=5e-4)
     if not restored:
         snap = SnapshotterToFile(wf, compression="", time_interval=0,
                                  name="snapshotter")
@@ -4250,6 +4279,12 @@ def expected_training_counts(trainer, epochs, testing=False):
     per_epoch = len(trainer._segment_indices(TRAIN))
     steps = 0 if testing else epochs * per_epoch
     forwards = steps + epochs * len(trainer._segment_indices(VALIDATION))
+    return launch_counts(trainer, forwards, steps)
+
+
+def launch_counts(trainer, forwards, steps):
+    """K1/K3/K4/K6/K7 launches of ``forwards`` minibatch forwards of
+    which ``steps`` trained, on a trainer's model."""
     kinds = [type(m).__name__ for m in trainer.forwards]
     n_lrn = kinds.count("LRNormalizerForward")
     k1 = sum(k.startswith("All2All") and k != "All2AllSoftmax"
@@ -5258,6 +5293,614 @@ def observability_phase(torch, numpy, kernels):
     return result, forms
 
 
+#: phase 14: master/slave training on the workflow phase's file. Epochs
+#: of the one-slave run (1) and the two-slave run (2); of the kill leg
+#: (3) and the bf16 leg (4)
+DIST_EPOCHS = 4
+DIST_SHORT_EPOCHS = 2
+#: (1) against the standalone run in deterministic mode: each epoch's
+#: loss within this relative distance, fc7's final weights within this
+#: share of their change. The run is not bitwise: a weight that shrinks
+#: toward zero within a job comes back as ``base + (new - base)``,
+#: rounded (no float32 delta lands on it), and AlexNet's max-pool
+#: selections carry such ulps into every weight over later epochs (the
+#: first epoch is bitwise; after 4, fc7 read 3.07e-3 of its change on
+#: the H100). So the bound is the workflow phase's for runs that are
+#: not bitwise; the control reads 1.
+DIST_LOSS_REL_TOL = 1e-6
+DIST_UPDATE_SHARE_TOL = WORKFLOW_UPDATE_SHARE_TOL
+#: (3): the chaos stream seeded 7 kills a slave on its 8th job at this
+#: probability (epoch 1's third one-minibatch job of 5)
+DIST_DEATH_PROBABILITY = "0.073"
+DIST_DEATH_JOB = 8
+#: seconds a leg's processes may take (start-up included)
+DIST_LEG_S = 420
+#: the master's floor on a job's overrun before it drops a slave
+DIST_JOB_TIMEOUT = "900"
+
+#: one process of a leg: ``python -c DIST_DRIVER role out <CLI args>``
+#: (role ``master``, ``slave`` or ``standalone``) runs
+#: ``veles_tpu_torch.__main__.Main().run(args)`` and pickles a report to
+#: ``out``: the modules it loaded of jax, ml_dtypes and veles_tpu; a
+#: master or a standalone run its parameters (``out.params.npz``) and
+#: fc7 before training (``out.fc7_init.npy``), a master its history,
+#: epoch close times, minibatches served and exchange series, a
+#: standalone run its epoch losses and times; a slave its launch
+#: counters (read at exit: the process started with them at 0), job log
+#: and per-minibatch launches. SMOKE_DETERMINISTIC=1 sets the
+#: deterministic mode, SMOKE_DROP_DELTA=1 makes a master drop fc7's
+#: deltas (the control), SMOKE_GATE=<file> holds a slave before it dials
+#: until the file exists.
+DIST_DRIVER = r"""
+import faulthandler, os, pickle, sys, time
+role, out, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+# a leg that stalls shows where: every thread's stack each minute
+faulthandler.dump_traceback_later(60, repeat=True)
+import numpy
+import torch
+if os.environ.get("SMOKE_DETERMINISTIC") == "1":
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+from veles_tpu_torch.__main__ import Main
+from veles_tpu_torch.convert import layer_params
+from veles_tpu_torch.launcher import Launcher
+report = {"role": role, "closed": [], "first_job": None}
+
+
+def fc7_index(wf):
+    return [i for i, f in enumerate(wf.forwards)
+            if type(f).__name__ == "All2AllStrictRELU"][-1]
+
+
+if role in ("master", "standalone"):
+    initialize = Launcher.initialize
+
+    def initialized(self, **kwargs):
+        initialize(self, **kwargs)
+        wf = self.workflow
+        numpy.save(out + ".fc7_init.npy", wf.forwards[
+            fc7_index(wf)].module.weights.detach().cpu().numpy())
+        return self
+
+    Launcher.initialize = initialized
+if role == "master":
+    start_master = Launcher._start_master
+
+    def hooked(self):
+        wf = self.workflow
+        fc7 = fc7_index(wf)
+        if os.environ.get("SMOKE_DROP_DELTA") == "1":
+            gd = next(g for g in wf.gds if g.forward is wf.forwards[fc7])
+            gd.apply_data_from_slave = lambda data, slave=None: None
+        finished = wf.decision._on_epoch_finished
+
+        def closing(epoch=None, stats_set=None):
+            finished(epoch=epoch, stats_set=stats_set)
+            report["closed"].append(time.perf_counter())
+
+        wf.decision._on_epoch_finished = closing
+        served = report["served"] = {"batches": 0, "train": 0}
+        for name in ("generate_segment_for_slave",
+                     "generate_data_for_slave"):
+            def counted(*args, _fn=getattr(wf, name), **kwargs):
+                if report["first_job"] is None:
+                    report["first_job"] = time.perf_counter()
+                job = _fn(*args, **kwargs)
+                batches = [] if job is None else job["batches"] \
+                    if isinstance(job, dict) else \
+                    [p for n, p in job if n == wf.loader.name]
+                served["batches"] += len(batches)
+                served["train"] += sum(b["class"] == 2 for b in batches)
+                return job
+            setattr(wf, name, counted)
+        start_master(self)
+
+    Launcher._start_master = hooked
+elif role == "slave" and os.environ.get("SMOKE_GATE"):
+    connect = Launcher._connect_slave
+
+    def gated(self):
+        while not os.path.exists(os.environ["SMOKE_GATE"]):
+            time.sleep(0.05)
+        connect(self)
+
+    Launcher._connect_slave = gated
+cli = Main()
+try:
+    report["rc"] = cli.run(argv)
+    report["error"] = None
+except RuntimeError as e:
+    report["rc"], report["error"] = 1, str(e)
+report["bad_modules"] = sorted(
+    m for m in sys.modules if m in ("jax", "ml_dtypes", "veles_tpu") or
+    m.startswith(("jax.", "ml_dtypes.", "veles_tpu.")))
+launcher = cli.launcher
+wf = cli.workflow
+if role == "standalone":
+    report["losses"] = [t["loss"] for t in launcher.runner.epoch_times]
+    report["times"] = launcher.runner.epoch_times
+if role != "slave":
+    numpy.savez(out + ".params.npz", **{
+        "%d.%s" % (i, k): p.detach().cpu().numpy()
+        for i, f in enumerate(wf.forwards)
+        for k, p in layer_params(f.module).items()})
+if role != "slave":
+    report["fc7"] = fc7_index(wf)
+if role == "master":
+    from veles_tpu_torch.telemetry.registry import get_registry
+    report["history"] = wf.decision.epoch_history
+    registry = get_registry()
+    report["series"] = {}
+    for name in ("veles_exchange_bytes_total", "veles_jobs_total",
+                 "veles_jobs_requeued_total", "veles_exchange_encode_ms",
+                 "veles_exchange_decode_ms", "veles_slave_job_ms"):
+        family = registry.get(name)
+        report["series"][name] = [] if family is None else [
+            (labels, child.summary() if hasattr(child, "summary")
+             else child.value) for labels, child in family.series()]
+    report["cuda"] = (torch.cuda.device_count(),
+                      torch.cuda.is_initialized())
+    report["staged"] = getattr(wf.loader, "_staged_", None) is not None
+elif role == "slave":
+    import chip_smoke
+    report["counts"], report["forms"] = chip_smoke.read_counts()
+    report["variants"] = {
+        name: dict(fn.launches_by_variant)
+        for name, fn in chip_smoke.variant_counters().items()}
+    report["job_log"] = launcher.job_log
+    report["jobs_done"] = launcher._client.jobs_done
+    executor = launcher._executor
+    trainer = executor._trainer if executor is not None else None
+    if trainer is None and executor is not None and launcher.job_log:
+        trainer = executor.trainer
+    report["per_batch"] = None if trainer is None else (
+        chip_smoke.launch_counts(trainer, 1, 0),
+        chip_smoke.launch_counts(trainer, 1, 1))
+with open(out, "wb") as f:
+    pickle.dump(report, f)
+sys.exit(report["rc"] if report["error"] is None else 0)
+"""
+
+
+class DistLeg(object):
+    """The processes of one leg on the card, started together: a master
+    (``CUDA_VISIBLE_DEVICES`` empty: it sees no card) and its slaves, or
+    a standalone run. ``processes`` holds (role, CLI args, extra
+    environment) triples; a master's and a slave's get ``-l`` / ``-m``
+    and the leg's address."""
+
+    def __init__(self, name, tmp, path, processes):
+        import socket
+        import subprocess
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            self.address = "127.0.0.1:%d" % probe.getsockname()[1]
+        self.name, self.tmp = name, tmp
+        self.procs, self.outs = [], []
+        env = dict(os.environ, PYTHONPATH=REPO,
+                   VELES_CONNECT_RETRY_S=str(DIST_LEG_S))
+        flag = {"master": ["-l", self.address],
+                "slave": ["-m", self.address], "standalone": []}
+        for i, (role, args, extra) in enumerate(processes):
+            if role == "master":
+                extra = dict(extra, CUDA_VISIBLE_DEVICES="")
+            out = os.path.join(tmp, "%s_%s%d.pickle" % (name, role, i))
+            log = open(out + ".log", "w")
+            self.outs.append(out)
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-c", DIST_DRIVER, role, out, path] +
+                list(args) + flag[role], env=dict(env, **extra), cwd=tmp,
+                stdout=log, stderr=subprocess.STDOUT))
+            log.close()
+
+    def wait(self, deadline):
+        """Each process's report: (master, [slaves]); any non-zero exit,
+        missing report or overrun raises (after killing them all)."""
+        import pickle
+        import subprocess
+        for proc, out in zip(self.procs, self.outs):
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError("%s: %s overran its time:\n%s" % (
+                    self.name, out, self.logs()))
+            if proc.returncode != 0 or not os.path.exists(out):
+                raise AssertionError("%s: %s exited %s:\n%s" % (
+                    self.name, out, proc.returncode, self.logs()))
+        reports = []
+        for out in self.outs:
+            with open(out, "rb") as f:
+                reports.append(pickle.load(f))
+        for report in reports:
+            if report["bad_modules"]:
+                raise AssertionError("%s: a %s loaded %s" % (
+                    self.name, report["role"], report["bad_modules"]))
+        return reports[0], reports[1:]
+
+    def fc7_init(self):
+        import numpy
+        return numpy.load(self.outs[0] + ".fc7_init.npy")
+
+    def logs(self, tail=3000):
+        """The end of every process's output, each under its name."""
+        parts = []
+        for proc, out in zip(self.procs, self.outs):
+            with open(out + ".log", errors="replace") as f:
+                parts.append("-- %s (exit %s):\n%s" % (
+                    os.path.basename(out), proc.poll(), f.read()[-tail:]))
+        return "\n".join(parts)
+
+    def kill(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def params(self):
+        """The parameters the master (or the standalone run) saved."""
+        import numpy
+        with numpy.load(self.outs[0] + ".params.npz") as data:
+            return {k: data[k] for k in data.files}
+
+
+@contextlib.contextmanager
+def dist_legs(*legs):
+    """The legs, their processes killed on the way out (a leg that
+    failed, or one left running by another's failure)."""
+    try:
+        yield legs
+    finally:
+        for leg in legs:
+            leg.kill()
+
+
+def dist_epoch_losses(history):
+    return [{k: h[k]["loss"] for k in ("validation", "train")}
+            for h in history]
+
+
+def dist_slave_counts(phase, kernels, slaves):
+    """The slaves' launches summed, each slave's held to the counts its
+    own jobs' minibatches give (K1 and K3 a forward, K4 and K7 a step,
+    K6 a bias a step), every launch at a checked form and K1/K3/K4/K6 on
+    designed forms; returns (summed counts, forwards, steps, forms)."""
+    total, forms = {}, []
+    forwards = steps = 0
+    variants = {}
+    for i, slave in enumerate(slaves):
+        f = sum(e["batches"] for e in slave["job_log"])
+        s = sum(e["train_batches"] for e in slave["job_log"])
+        forwards, steps = forwards + f, steps + s
+        if slave["per_batch"] is not None:
+            per_forward, per_step = slave["per_batch"]
+            want = {k: per_forward[k] * f + (per_step[k] - per_forward[k])
+                    * s for k in per_forward}
+            if slave["counts"] != want:
+                raise AssertionError(
+                    "%s slave %d: launches %s, its %d forwards and %d steps "
+                    "give %s" % (phase, i, slave["counts"], f, s, want))
+        for k, v in slave["counts"].items():
+            total[k] = total.get(k, 0) + v
+        forms.append(slave["forms"])
+        for name, by in slave["variants"].items():
+            mine = variants.setdefault(name, {})
+            for form, n in by.items():
+                mine[form] = mine.get(form, 0) + n
+    merged = merge_forms(*forms)
+    check_forms(phase, kernels, merged)
+    check_designed(phase, variants["gemm_bias_act"])
+    for name, designed in DESIGNED_FORMS.items():
+        off = {v: n for v, n in variants[name].items()
+               if n and v not in designed}
+        if off:
+            raise AssertionError("%s: %s launches by form %s" % (
+                phase, name, variants[name]))
+    return total, forwards, steps, merged
+
+
+def dist_exchange(master, slaves, card):
+    """Per job: the slaves' decode, compute, encode and shared-memory ms
+    and their waits, the master's encode and decode ms (medians after
+    each slave's first job), and the bytes each way."""
+    log = [e for s in slaves for e in s["job_log"][1:]] or \
+        [e for s in slaves for e in s["job_log"]]
+
+    def med(key):
+        values = [e[key] for e in log if key in e]
+        return statistics.median(values) if values else None
+
+    series = master["series"]
+
+    def p50(name):
+        rows = [v["p50"] for _, v in series[name]]
+        return statistics.median(rows) if rows else None
+
+    sent = {d: sum(v for labels, v in series["veles_exchange_bytes_total"]
+                   if labels["direction"] == d)
+            for d in ("to_slave", "from_slave")}
+    jobs = sum(v for _, v in series["veles_jobs_total"])
+    out = {"card": card, "jobs": jobs,
+           "slave_ms": {k: med(k) for k in (
+               "decode_ms", "compute_ms", "encode_ms", "shm_ms",
+               "wait_ms", "result_ms")},
+           "master_encode_ms_p50": p50("veles_exchange_encode_ms"),
+           "master_decode_ms_p50": p50("veles_exchange_decode_ms"),
+           "bytes_to_slave_per_job": sent["to_slave"] / max(jobs, 1),
+           "bytes_from_slave_per_job": sent["from_slave"] / max(jobs, 1),
+           "minibatches_per_job": statistics.mean(
+               e["batches"] for s in slaves for e in s["job_log"])}
+    exchange = sum(out["slave_ms"][k] or 0.0 for k in (
+        "decode_ms", "encode_ms", "wait_ms", "result_ms"))
+    out["exchange_over_compute"] = exchange / out["slave_ms"]["compute_ms"]
+    return out
+
+
+def dist_rate(master, epochs, per_epoch):
+    """Samples/s of a fleet: the whole run from the first job handed out,
+    and the epochs after the first (between epoch closes)."""
+    closed = master["closed"]
+    return {"samples_per_s": epochs * per_epoch /
+            (closed[-1] - master["first_job"]),
+            "samples_per_s_after_first_epoch":
+            (epochs - 1) * per_epoch / (closed[-1] - closed[0])}
+
+
+def distributed_phase(torch, numpy, kernels):
+    """Master/slave training on phase 9's AlexNet-227 file, the master a
+    process with no visible card, each slave a process on the card:
+    (1) one slave, ``--segment-size 8 --no-pipeline``, deterministic, 4
+    epochs, held to the deterministic standalone run; the master dropping
+    fc7's deltas must fail that; (2) two pipelined slaves, ``--segment-size
+    2``, float32 delta exchange, 4 epochs; (3) a slave killed mid-epoch
+    (``--segment-size 1 --no-pipeline``, deterministic, momentum 0) and
+    the unfaulted run: the same curve and weights bit for bit; (4)
+    ``--exchange-dtype bfloat16``; (5) the exchange against the compute.
+    Returns (result, [launches_by_form])."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="veles_distributed_")
+    try:
+        return _distributed_phase(torch, numpy, kernels, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _distributed_phase(torch, numpy, kernels, tmp):
+    from veles_tpu_torch.loader.base import TRAIN, VALIDATION
+    from veles_tpu_torch.ops.gemm_bench import card_line
+
+    card = card_line()
+    path = os.path.join(tmp, "alexnet_workflow.py")
+    with open(path, "w") as f:
+        f.write(WORKFLOW_FILE)
+    snaps = "root.smoke.snapshots=%r" % os.path.join(tmp, "snaps")
+    quiet = [snaps, "root.common.disable.snapshotting=True"]
+    per_epoch = TRAIN_SAMPLES + TRAIN_BATCH
+    deadline = lambda: time.time() + DIST_LEG_S  # noqa: E731
+    result, all_forms = {"card": card}, []
+    det = dict(SMOKE_DETERMINISTIC="1")
+
+    # the reference: the standalone run of the same file and seed in a
+    # process of its own, deterministic, as the slaves run
+    with dist_legs(DistLeg("standalone", tmp, path, [
+            ("standalone", quiet + ["-s", "7"], det)])) as (ref_leg,):
+        reference, _ = ref_leg.wait(deadline())
+    ref_losses, ref_times = reference["losses"], reference["times"]
+    ref_flat = ref_leg.params()
+    ref_fc7_init = ref_leg.fc7_init()
+
+    def held(leg, master):
+        """(largest relative loss gap, fc7's share of its change, values
+        of the losses and parameters that differ) against the
+        reference."""
+        losses = dist_epoch_losses(master["history"])
+        if len(losses) != len(ref_losses):
+            raise AssertionError("%s: %d epochs" % (leg.name, len(losses)))
+        loss_rel = max(abs(g[k] - w[k]) / abs(w[k])
+                       for g, w in zip(losses, ref_losses) for k in w)
+        params = leg.params()
+        fc7 = "%d.weights" % master["fc7"]
+        if not numpy.array_equal(leg.fc7_init(), ref_fc7_init):
+            raise AssertionError("%s: fc7 started elsewhere" % leg.name)
+        share = float(numpy.abs(params[fc7] - ref_flat[fc7]).max() /
+                      numpy.abs(ref_flat[fc7] - ref_fc7_init).max())
+        differing = sum(g[k] != w[k] for g, w in zip(losses, ref_losses)
+                        for k in w) + sum(int((params[k] != v).sum())
+                                          for k, v in ref_flat.items())
+        return loss_rel, share, int(differing)
+
+    def check_epochs(name, master, epochs):
+        history = master["history"]
+        if [h["epoch"] for h in history] != list(range(epochs)):
+            raise AssertionError("%s: epochs %s" % (
+                name, [h["epoch"] for h in history]))
+        for h in history:
+            if h["train"]["samples"] != TRAIN_SAMPLES or \
+                    h["validation"]["samples"] != TRAIN_BATCH:
+                raise AssertionError("%s: epoch %d served %s" % (
+                    name, h["epoch"], {k: h[k]["samples"] for k in (
+                        "train", "validation")}))
+            if not all(math.isfinite(h[k]["loss"]) for k in (
+                    "train", "validation")):
+                raise AssertionError("%s: loss %s" % (name, h))
+        if master["cuda"] != (0, False) or master["staged"]:
+            raise AssertionError("%s: the master saw %d cards, initialized "
+                                 "CUDA %s, staged %s" % ((name,) +
+                                                         master["cuda"] +
+                                                         (master["staged"],)))
+
+    # (1) one slave, deterministic, held to the standalone run
+    with dist_legs(DistLeg("one_slave", tmp, path, [
+            ("master", quiet + ["-s", "7", "--segment-size", "8",
+                                "--job-timeout", DIST_JOB_TIMEOUT], {}),
+            ("slave", quiet + ["-s", "7", "--no-pipeline"], det)])) \
+            as (leg1,):
+        master, slaves = leg1.wait(deadline())
+    check_epochs("one slave", master, DIST_EPOCHS)
+    loss_rel, share, differing = held(leg1, master)
+    print("distributed one slave: losses within %.3g relative (limit %g), "
+          "fc7 within %.3g of its change (limit %g), %d values differ "
+          "from the standalone run" % (loss_rel, DIST_LOSS_REL_TOL, share,
+                                      DIST_UPDATE_SHARE_TOL, differing))
+    if loss_rel > DIST_LOSS_REL_TOL or share > DIST_UPDATE_SHARE_TOL:
+        raise AssertionError("the one-slave run differs from the "
+                             "standalone run")
+    counts, forwards, steps, forms = dist_slave_counts(
+        "distributed one slave", kernels, slaves)
+    all_forms.append(forms)
+    result["one_slave"] = {
+        "loss_rel": loss_rel, "fc7_share": share,
+        "values_differing": differing, "launches": counts,
+        "exchange": dist_exchange(master, slaves, card),
+        "fleet": dist_rate(master, DIST_EPOCHS, per_epoch),
+        "standalone": {
+            "samples_per_s_sweeps": DIST_EPOCHS * per_epoch / sum(
+                t["eval_s"] + t["train_s"] for t in ref_times),
+            "samples_per_s_sweeps_after_first_epoch":
+            (DIST_EPOCHS - 1) * per_epoch / sum(
+                t["eval_s"] + t["train_s"] for t in ref_times[1:])}}
+    print("distributed one slave (%s): exchange %s; fleet %s beside the "
+          "standalone sweeps' %s" % (
+              card, json.dumps(result["one_slave"]["exchange"]),
+              json.dumps(result["one_slave"]["fleet"]),
+              json.dumps(result["one_slave"]["standalone"])))
+
+    # (4) bf16 deltas, beside the control (fc7's deltas dropped)
+    short = ["root.smoke.epochs=%d" % DIST_SHORT_EPOCHS]
+    with dist_legs(
+            DistLeg("bf16", tmp, path, [
+                ("master", quiet + short + [
+                    "-s", "7", "--segment-size", "8", "--exchange-dtype",
+                    "bfloat16", "--job-timeout", DIST_JOB_TIMEOUT], {}),
+                ("slave", quiet + short + ["-s", "7"], {})]),
+            DistLeg("control", tmp, path, [
+                ("master", quiet + ["-s", "7", "--segment-size", "8",
+                                    "--job-timeout", DIST_JOB_TIMEOUT],
+                 dict(SMOKE_DROP_DELTA="1")),
+                ("slave", quiet + ["-s", "7", "--no-pipeline"], det)])) \
+            as (leg4, control):
+        master4, slaves4 = leg4.wait(deadline())
+        master_c, slaves_c = control.wait(deadline())
+    check_epochs("bf16 exchange", master4, DIST_SHORT_EPOCHS)
+    counts4, _, _, forms4 = dist_slave_counts("distributed bf16", kernels,
+                                              slaves4)
+    all_forms.append(forms4)
+    result["bf16"] = {"losses": dist_epoch_losses(master4["history"]),
+                      "launches": counts4,
+                      "exchange": dist_exchange(master4, slaves4, card)}
+    print("distributed bf16 deltas (%s): %s" % (card,
+                                               json.dumps(result["bf16"])))
+    _, control_share, _ = held(control, master_c)
+    print("distributed control (the master drops fc7's deltas): fc7 %.3g "
+          "of its change (limit %g)" % (control_share,
+                                        DIST_UPDATE_SHARE_TOL))
+    if control_share <= DIST_UPDATE_SHARE_TOL:
+        raise AssertionError("the control passes the one-slave check")
+    result["control_fc7_share"] = control_share
+    all_forms.append(dist_slave_counts("distributed control", kernels,
+                                       slaves_c)[3])
+
+    # (3) a slave killed mid-epoch against the unfaulted run, both
+    # deterministic; momentum 0: a slave's SGD velocity is its own, so a
+    # replacement would start from none
+    kill = quiet + short + ["-s", "7,7,7", "root.smoke.momentum=0.0"]
+    masters = kill + ["--segment-size", "1", "--job-timeout",
+                      DIST_JOB_TIMEOUT]
+    gate = os.path.join(tmp, "gate")
+    with dist_legs(
+            DistLeg("unfaulted", tmp, path, [
+                ("master", masters, {}),
+                ("slave", kill + ["--no-pipeline"], det)]),
+            DistLeg("faulted", tmp, path, [
+                ("master", masters, {}),
+                ("slave", kill + ["--no-pipeline",
+                                  "--slave-death-probability",
+                                  DIST_DEATH_PROBABILITY], det),
+                ("slave", kill + ["--no-pipeline"],
+                 dict(det, SMOKE_GATE=gate))])) as (unfaulted, faulted):
+        # the replacement dials once the chaos death has happened
+        faulted.procs[1].wait(timeout=DIST_LEG_S)
+        open(gate, "w").close()
+        master_u, _ = unfaulted.wait(deadline())
+        master_f, slaves_f = faulted.wait(deadline())
+    check_epochs("unfaulted", master_u, DIST_SHORT_EPOCHS)
+    check_epochs("faulted", master_f, DIST_SHORT_EPOCHS)
+    died = slaves_f[0]
+    if "chaos death" not in str(died["error"]) or \
+            died["jobs_done"] != DIST_DEATH_JOB - 1:
+        raise AssertionError("the chaotic slave: %s after %d jobs" % (
+            died["error"], died["jobs_done"]))
+    requeued = sum(v for labels, v in master_f["series"][
+        "veles_jobs_requeued_total"] if labels["reason"] == "dead")
+    curve = [[h[k][m] for k in ("validation", "train")
+              for m in ("samples", "metric", "normalized", "loss")]
+             for h in master_f["history"]]
+    want = [[h[k][m] for k in ("validation", "train")
+             for m in ("samples", "metric", "normalized", "loss")]
+            for h in master_u["history"]]
+    params_f, params_u = faulted.params(), unfaulted.params()
+    differing = sum(int((params_f[k] != v).sum())
+                    for k, v in params_u.items())
+    print("distributed kill: the slave died on job %d holding epoch 1's "
+          "minibatch; requeued (dead) %d; the curve %s the unfaulted run's, "
+          "%d parameter values differ" % (
+              died["jobs_done"] + 1, requeued,
+              "equals" if curve == want else "DIFFERS FROM", differing))
+    if curve != want or differing or requeued < 1:
+        raise AssertionError("the faulted run differs: %s against %s"
+                             % (curve, want))
+    result["kill"] = {"curve": curve, "requeued_dead": requeued,
+                      "replacement_jobs": slaves_f[1]["jobs_done"]}
+
+    # (2) two pipelined slaves, float32 deltas
+    with dist_legs(DistLeg("two_slaves", tmp, path, [
+            ("master", quiet + ["-s", "7", "--segment-size", "2",
+                                "--exchange-dtype", "float32",
+                                "--job-timeout", DIST_JOB_TIMEOUT], {})] +
+            [("slave", quiet + ["-s", "7"], {})] * 2)) as (leg2,):
+        master2, slaves2 = leg2.wait(deadline())
+    check_epochs("two slaves", master2, DIST_EPOCHS)
+    losses = dist_epoch_losses(master2["history"])
+    if not losses[-1]["train"] < losses[0]["train"]:
+        raise AssertionError("two slaves: the loss did not fall: %s"
+                             % losses)
+    if not all(s["jobs_done"] > 0 for s in slaves2):
+        raise AssertionError("two slaves: jobs %s" % [
+            s["jobs_done"] for s in slaves2])
+    counts2, forwards, steps, forms2 = dist_slave_counts(
+        "distributed two slaves", kernels, slaves2)
+    # every minibatch the master served ran once on one slave; those past
+    # the last epoch are the pipelines' run-ahead, cancelled on the master
+    served = master2["served"]
+    per_forward, per_step = slaves2[0]["per_batch"]
+    derived = {k: per_forward[k] * served["batches"] +
+               (per_step[k] - per_forward[k]) * served["train"]
+               for k in per_forward}
+    epoch_batches = DIST_EPOCHS * (-(-TRAIN_SAMPLES // TRAIN_BATCH) + 1)
+    if (forwards, steps) != (served["batches"], served["train"]) or \
+            counts2 != derived or forwards < epoch_batches:
+        raise AssertionError(
+            "two slaves: %d forwards, %d steps, launches %s; the master "
+            "served %s minibatches, which give %s" % (
+                forwards, steps, counts2, served, derived))
+    all_forms.append(forms2)
+    result["two_slaves"] = {
+        "losses": losses, "jobs": [s["jobs_done"] for s in slaves2],
+        "served": served, "run_ahead_minibatches": forwards - epoch_batches,
+        "launches": counts2, "exchange": dist_exchange(master2, slaves2,
+                                                       card),
+        "fleet": dist_rate(master2, DIST_EPOCHS, per_epoch)}
+    print("distributed two slaves (%s): jobs %s, launches %s (derived "
+          "from the %d minibatches served, %d of them trained; %d past "
+          "the last epoch), exchange %s, fleet %s" % (
+              card, result["two_slaves"]["jobs"], counts2, forwards, steps,
+              forwards - epoch_batches,
+              json.dumps(result["two_slaves"]["exchange"]),
+              json.dumps(result["two_slaves"]["fleet"])))
+    return result, all_forms
+
+
 def main():
     # deterministic cuBLAS for the workflow and eager phases' runs: read
     # when the first cuBLAS handle is made
@@ -5363,6 +6006,11 @@ def main():
     phases.extend(forms)
     print("observability (%s): %s" % (card, json.dumps(observed,
                                                        default=str)))
+
+    distributed, forms = distributed_phase(torch, numpy, kernels)
+    phases.extend(forms)
+    print("distributed (%s): %s" % (card, json.dumps(distributed,
+                                                     default=str)))
 
     for row in kernels:
         form = row.pop("_form")

@@ -20,14 +20,20 @@
   once an epoch with gate_block swallowing and gate_skip propagating,
   ``--test -w`` on a finished snapshot (one forward-only epoch, no
   weight changed), and a finished snapshot resuming to nothing.
-* What the port refuses: ``-l``, ``-m``, ``--gspmd`` and
-  ``--auto-resume`` raise ``NotImplementedError``; ``--eager`` runs the
-  eager scheduler, and a graph the fused path rejects falls back to it
-  (``tests/test_torch_eager.py`` holds that path to JAX's).
+* The modes once refused: ``--eager`` runs the eager scheduler, ``-l``
+  and ``-m`` run a master and a slave through the CLI to the last epoch
+  (``tests/test_torch_distributed.py`` holds them to JAX's), and
+  ``--auto-resume`` snapshots every closed epoch; ``--gspmd`` alone
+  still raises ``NotImplementedError``. A graph the fused path rejects
+  falls back to the eager scheduler (``tests/test_torch_eager.py``
+  holds that path to JAX's).
 """
 
 import json
+import os
 import pickle
+import threading
+import time
 
 import jax
 import numpy
@@ -600,22 +606,91 @@ def test_finished_snapshot_resumes_to_nothing(tmp_path):
 
 # -- what the port refuses ---------------------------------------------------
 
-@pytest.mark.parametrize("flags", [["--eager"], ["-l", "127.0.0.1:5000"],
-                                   ["-m", "127.0.0.1:5000"], ["--gspmd"],
+def _cli_in_thread(argv):
+    """``Main().run(argv)`` in a thread: (thread, Main, results)."""
+    from veles_tpu_torch.__main__ import Main
+    cli, results = Main(), []
+    thread = threading.Thread(target=lambda: results.append(cli.run(argv)),
+                              daemon=True)
+    thread.start()
+    return thread, cli, results
+
+
+def _wait_for(predicate, timeout=60.0):
+    deadline = time.time() + timeout
+    while not predicate():
+        assert time.time() < deadline, "timed out"
+        time.sleep(0.02)
+
+
+@pytest.mark.parametrize("flags", [["--eager"], ["-l", "127.0.0.1:0"],
+                                   ["-m", "127.0.0.1:0"], ["--gspmd"],
                                    ["--auto-resume", "snapshots"]])
 def test_cli_refuses_unported_modes(tmp_path, flags):
-    """The modes the port lacks raise; ``--eager``, once refused too,
-    now runs the eager scheduler to the end."""
+    """``--gspmd`` alone raises. ``--eager``, ``-l``, ``-m`` and
+    ``--auto-resume``, once refused too, now run to the last epoch: the
+    master and the slave each through the CLI (the other side of the
+    pair through the launcher), the auto-resume master with a snapshot
+    of every closed epoch in its directory."""
     from veles_tpu_torch.__main__ import Main, main
+    from veles_tpu_torch.launcher import Launcher
     path = workflow_file(tmp_path, MNIST_FILE, "veles_tpu_torch", 1, "ref")
+    if flags == ["--gspmd"]:
+        with pytest.raises(NotImplementedError):
+            main([path, "-a", "cpu"] + flags)
+        return
     if flags == ["--eager"]:
         cli = Main()
         assert cli.run([path, "-a", "cpu"] + flags) == 0
         assert cli.launcher.run_mode_used == "eager"
         assert len(cli.workflow.decision.epoch_history) == 1
         return
-    with pytest.raises(NotImplementedError):
-        main([path, "-a", "cpu"] + flags)
+    threads = []
+    if flags[0] == "-m":
+        # a master through the launcher, the slave under test the CLI
+        prng.get().seed(7)
+        prng.get("loader").seed(7)
+        master = Launcher(listen_address="127.0.0.1:0")
+        master_wf = MnistWorkflow(master, provider=_tiny_provider(),
+                                  layers=(8,), minibatch_size=20,
+                                  max_epochs=1)
+        master.initialize()
+        thread, cli, results = _cli_in_thread(
+            [path, "-a", "cpu", "-s", "7", "-m",
+             "127.0.0.1:%d" % master._server.address[1]])
+        master.run()
+        thread.join(timeout=60)
+        assert not thread.is_alive() and results == [0]
+        assert cli.launcher.run_mode_used == "slave"
+        assert cli.launcher._client.jobs_done > 0
+        history = master_wf.decision.epoch_history
+    else:
+        argv = [path, "-s", "7", "-l", "127.0.0.1:0"]
+        if flags[0] == "--auto-resume":
+            argv += ["--auto-resume", str(tmp_path / flags[1])]
+        thread, cli, results = _cli_in_thread(argv)
+        _wait_for(lambda: getattr(getattr(cli, "launcher", None),
+                                  "_server", None) is not None)
+        slave = Launcher(master_address="127.0.0.1:%d" %
+                         cli.launcher._server.address[1], backend="cpu")
+        prng.get().seed(7)
+        prng.get("loader").seed(7)
+        MnistWorkflow(slave, provider=_tiny_provider(), layers=(8,),
+                      minibatch_size=20, max_epochs=1)
+        slave.initialize()
+        threads.append(threading.Thread(target=slave.run, daemon=True))
+        threads[0].start()
+        thread.join(timeout=60)
+        threads[0].join(timeout=60)
+        assert not thread.is_alive() and not threads[0].is_alive()
+        assert results == [0]
+        assert cli.launcher.run_mode_used == "master"
+        history = cli.workflow.decision.epoch_history
+        if flags[0] == "--auto-resume":
+            assert any(name.endswith(".pickle.gz") for name in
+                       os.listdir(str(tmp_path / flags[1])))
+    assert [h["epoch"] for h in history] == [0]
+    assert history[0]["train"]["samples"] == 60
 
 
 def test_launcher_refuses_a_rejected_graph(caplog):

@@ -27,9 +27,19 @@ to ``FILE.memprof``. Every run starts the memory sampler
 
     python -m veles_tpu_torch serve --model <snapshot | package> ...
 
-is the serving engine (``serving/frontend.py`` ``main``). The JAX CLI's
-other modes (``sched``, ``-l``/``-m``, ``--optimize``, the ensembles)
-are not ported yet.
+is the serving engine (``serving/frontend.py`` ``main``).
+
+    python -m veles_tpu_torch -l HOST:PORT <workflow.py> [...]
+    python -m veles_tpu_torch -m HOST:PORT <workflow.py> [...]
+
+run the workflow as a master (no device: it holds the weights and
+merges the slaves' deltas) and as a slave (on the card, or the CPU with
+``-a cpu``), with the flags of ``launcher.Launcher`` (``--segment-size``,
+``--no-pipeline``, ``--exchange-dtype``, ``--auto-resume``, ...); both
+load the same file with the same ``-s`` seed, so their topology
+checksums and initial weights agree. The JAX CLI's other modes
+(``sched``, ``--optimize``, the ensembles, ``--gspmd``) are not ported
+yet.
 """
 
 import code
@@ -159,12 +169,13 @@ class Main(Logger):
 
     def _launcher_kwargs(self):
         args = self.args
-        return {"backend": args.backend, "device": args.device,
-                "testing": args.testing,
-                "listen_address": args.listen_address,
-                "master_address": args.master_address,
-                "eager": args.eager, "gspmd": args.gspmd,
-                "auto_resume": args.auto_resume}
+        return {name: getattr(args, name) for name in (
+            "backend", "device", "testing", "listen_address",
+            "master_address", "eager", "gspmd", "auto_resume",
+            "slave_death_probability", "job_timeout", "nodes", "respawn",
+            "segment_size", "pipeline", "secret_file", "max_frame_mb",
+            "exchange_dtype", "exchange_eps", "straggler_drop_s",
+            "reconnect_s")}
 
     def _load(self, WorkflowClass, **kwargs):
         """Callback handed to the workflow file's run(load, main)."""

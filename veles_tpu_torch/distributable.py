@@ -11,9 +11,11 @@ bfloat16 tensor as its 16-bit patterns), or only its shape and dtype
 for a tensor on the ``meta`` device -- and comes back as a CPU tensor,
 so a snapshot taken on the card loads on the CPU and the reverse.
 
-:class:`Distributable` keeps the five-method protocol of the JAX
-package's master/slave runtime as the no-ops it is standalone; the port
-has no master/slave runtime yet.
+:class:`Distributable` is the five-method protocol the master/slave
+runtime drives (:mod:`veles_tpu_torch.parallel.coordinator`): no-ops
+here, overridden by the units that carry distributed state (the loader,
+the decision, the gradient units), with the thread-safe ``*_locked``
+entry points the master's connection threads call.
 """
 
 import threading
@@ -22,6 +24,10 @@ import numpy
 import torch
 
 from veles_tpu_torch.logger import Logger
+
+#: seconds to wait on a unit's data lock before warning about a possible
+#: deadlock (``veles_tpu/distributable.py``)
+DEADLOCK_TIME = 4.0
 
 
 class HostTensor(object):
@@ -119,11 +125,11 @@ class Pickleable(Logger):
 
 
 class Distributable(Pickleable):
-    """The master/slave data protocol, trivially: ``has_data_for_slave``
-    and the five methods the JAX package's runtime drives
-    (``generate_data_for_master``, ``generate_data_for_slave``,
-    ``apply_data_from_master``, ``apply_data_from_slave``,
-    ``drop_slave``), each a no-op."""
+    """The master/slave data protocol: ``has_data_for_slave`` and the
+    five methods the runtime drives (``generate_data_for_master``,
+    ``generate_data_for_slave``, ``apply_data_from_master``,
+    ``apply_data_from_slave``, ``drop_slave``), no-ops by default, and
+    their ``*_locked`` entry points under the unit's data lock."""
 
     def __init__(self, **kwargs):
         super(Distributable, self).__init__(**kwargs)
@@ -131,6 +137,7 @@ class Distributable(Pickleable):
 
     def init_unpickled(self):
         super(Distributable, self).init_unpickled()
+        self._data_lock_ = threading.Lock()
         self._data_event_ = threading.Event()
         self._data_event_.set()
 
@@ -159,3 +166,21 @@ class Distributable(Pickleable):
 
     def drop_slave(self, slave=None):
         pass
+
+    def _locked(self, fn, *args):
+        if not self._data_lock_.acquire(timeout=DEADLOCK_TIME):
+            self.warning("possible deadlock in %s.%s",
+                         type(self).__name__, fn.__name__)
+            self._data_lock_.acquire()
+        try:
+            return fn(*args)
+        finally:
+            self._data_lock_.release()
+
+    # -- thread-safe entry points of the master's connection threads --------
+
+    def generate_data_for_slave_locked(self, slave=None):
+        return self._locked(self.generate_data_for_slave, slave)
+
+    def apply_data_from_slave_locked(self, data, slave=None):
+        return self._locked(self.apply_data_from_slave, data, slave)

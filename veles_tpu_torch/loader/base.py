@@ -85,6 +85,8 @@ class Loader(Unit):
         super(Loader, self).init_unpickled()
         #: the device the eager minibatches go to (``initialize``'s)
         self.device_ = None
+        #: master: slave id -> the payloads it holds, oldest first
+        self._pending_ = {}
 
     @property
     def total_samples(self):
@@ -163,6 +165,10 @@ class Loader(Unit):
         return self
 
     def run(self):
+        if self.is_slave:
+            # the minibatch came in with the job (apply_data_from_master):
+            # a slave never advances the serving order itself
+            return
         self.serve_next_minibatch()
 
     # -- the eager serving loop -------------------------------------------
@@ -239,3 +245,50 @@ class Loader(Unit):
         train_start = self.class_end_offsets[VALIDATION]
         prng.get(self.rand_name).shuffle(
             self.shuffled_indices[train_start:self.total_samples])
+
+    # -- distribution (a master serves indices only) ------------------------
+
+    def generate_data_for_slave(self, slave=None):
+        payload = self._next_payload()
+        sid = getattr(slave, "id", slave)
+        self._pending_.setdefault(sid, []).append(payload)
+        return payload
+
+    def apply_data_from_master(self, data):
+        self._apply_payload(data)
+
+    def generate_data_for_master(self):
+        return {"served": self.samples_served}
+
+    def apply_data_from_slave(self, data, slave=None):
+        sid = getattr(slave, "id", slave)
+        pending = self._pending_.get(sid)
+        # a segment update resolves several served minibatches at once
+        count = (data or {}).get("count", 1)
+        for _ in range(min(count, len(pending or ()))):
+            pending.pop(0)
+
+    def drop_slave(self, slave=None):
+        """Requeue everything a dropped slave held."""
+        sid = getattr(slave, "id", slave)
+        for job in self._pending_.pop(sid, []):
+            self.failed_minibatches.append(job)
+
+    def reset_to_epoch_start(self, epoch):
+        """Rewind the serving cursor to the start of ``epoch``, dropping
+        partial-epoch progress (pending registrations, requeues, epoch
+        flags): a restored master replays the epoch whose merge buckets
+        died with its predecessor. A cursor still short of ``epoch``
+        takes the epoch wraps it missed first, reshuffles included, so
+        the replay serves that epoch's order and the shuffle stream
+        skips no draw."""
+        epoch = int(epoch)
+        while self.epoch_number < epoch:
+            self._finish_epoch()
+        self.epoch_number = epoch
+        self._global_offset = 0
+        self.failed_minibatches = []
+        self._pending_ = {}
+        self.last_minibatch <<= False
+        self.train_ended <<= False
+        self.epoch_ended <<= False

@@ -15,8 +15,19 @@ for the snapshotter. Topology contract (mirrors Znicz MnistWorkflow):
 
 ``FusedRunner`` replays the per-minibatch bookkeeping at each epoch
 boundary through the same methods (``epoch_stats``,
-``_on_class_finished``, ``_on_epoch_finished``). The JAX package's
-master-side accounting of slave updates is not ported yet.
+``_on_class_finished``, ``_on_epoch_finished``).
+
+Master/slave, as the JAX decision: a slave's ``run`` closes the loop
+after each minibatch and only records the minibatch's stats for the
+master; the master accounts every slave's minibatches in per-epoch
+buckets, closes a class and an epoch on *sample counts* (requeued
+minibatches are exact replays), closes epochs strictly in order, drops
+the updates of epochs past a stop decision, and withholds jobs while
+the loader runs more than one epoch ahead of the oldest open epoch. A
+slave's per-minibatch stats may carry the minibatch's mean ``loss``
+(the port's slaves send it: from the trainer's sweep, or the softmax
+evaluator's in an eager job); the master then reports each class's mean
+minibatch loss beside the metric, as ``FusedRunner`` does.
 """
 
 import numpy
@@ -76,6 +87,22 @@ class DecisionBase(Unit, IResultProvider):
         klass = self.minibatch_class
         self.gd_skip <<= (klass != TRAIN) or self.testing
         metric = self.minibatch_metric()
+        if self.is_slave:
+            # one job = one minibatch: opening the end point after every
+            # pass makes Workflow.do_job() run exactly one iteration; the
+            # master does the epoch accounting from these updates
+            self.complete <<= True
+            self._pending_update_ = {
+                "klass": klass, "samples": self.minibatch_size,
+                "metric": metric, "epoch": self.epoch_number,
+                "last": bool(self.last_minibatch),
+                "epoch_ended": bool(self.epoch_ended)}
+            loss = getattr(getattr(self.workflow, "evaluator", None),
+                           "loss", None)
+            if isinstance(loss, float):
+                # the softmax evaluator's report loss, as segments send
+                self._pending_update_["loss"] = loss
+            return
         stats = self.epoch_stats[klass]
         stats["samples"] += self.minibatch_size
         stats["metric"] += metric
@@ -84,12 +111,37 @@ class DecisionBase(Unit, IResultProvider):
         if bool(self.epoch_ended):
             self._on_epoch_finished()
 
+    # -- distribution: metrics ride slave->master, the master decides ------
+
+    def drop_slave(self, slave=None):
+        # a dropped slave may have held the minibatches that keep the
+        # oldest epoch open: the loader requeues them, and serving them
+        # needs jobs, so the run-ahead throttle reopens (it re-closes on
+        # the next update if the loader is still too far ahead)
+        self.has_data_for_slave = True
+
+    def generate_data_for_slave(self, slave=None):
+        # non-None, so the slave's apply_data_from_master re-arms the
+        # loop gate the previous job closed
+        return {"reset_complete": True}
+
+    def apply_data_from_master(self, data):
+        if data.get("reset_complete"):
+            self.complete <<= False
+
+    def generate_data_for_master(self):
+        update = getattr(self, "_pending_update_", None)
+        self._pending_update_ = None
+        return update
+
     def prepare_resume(self):
         """Re-arm epoch accounting after a snapshot restore.
 
         Returns the epoch the run should resume FROM (the one after
         the last closed epoch), or ``None`` when the restored run had
-        already completed."""
+        already completed. A master's transient merge buckets died with
+        it; the next merged update re-derives the next epoch to close
+        from ``epoch_history``."""
         last_closed = max((h["epoch"] for h in self.epoch_history),
                           default=-1)
         if bool(self.complete) and self.max_epochs is not None and \
@@ -97,7 +149,82 @@ class DecisionBase(Unit, IResultProvider):
             return None
         self.complete <<= False
         self.improved <<= False
+        self._stop_epoch_ = None
+        self.has_data_for_slave = True
         return last_closed + 1
+
+    def apply_data_from_slave(self, data, slave=None):
+        """Master-side epoch accounting over every slave's minibatches,
+        in per-epoch buckets (the first minibatches of epoch e+1 can
+        return before the last one of epoch e)."""
+        if data is None:
+            return
+        if isinstance(data, list):
+            # a segment update: one stats dict a minibatch
+            for item in data:
+                self.apply_data_from_slave(item, slave)
+            return
+        stop_epoch = getattr(self, "_stop_epoch_", None)
+        if stop_epoch is not None and data.get("epoch", 0) > stop_epoch:
+            # run-ahead past the stop decision: never reopens a bucket
+            return
+        buckets = getattr(self, "_epoch_buckets_", None)
+        if buckets is None:
+            buckets = self._epoch_buckets_ = {}
+        epoch = data.get("epoch", 0)
+        bucket = buckets.setdefault(
+            epoch, [dict(samples=0, metric=0.0) for _ in range(3)])
+        klass = data["klass"]
+        stats = bucket[klass]
+        stats["samples"] += data["samples"]
+        stats["metric"] += data["metric"]
+        if "loss" in data:
+            stats["loss_sum"] = stats.get("loss_sum", 0.0) + data["loss"]
+            stats["loss_batches"] = stats.get("loss_batches", 0) + 1
+        # close on sample counts, not on the last/epoch_ended flags: a
+        # flagged minibatch can arrive while siblings are in flight
+        if stats["samples"] == self.class_lengths[klass]:
+            self._on_class_finished(klass, epoch=epoch, stats_set=bucket)
+        if sum(b["samples"] for b in bucket) == sum(self.class_lengths):
+            # epochs close strictly in order: a complete younger bucket
+            # is parked until every older epoch has closed
+            buckets.pop(epoch, None)
+            done = getattr(self, "_complete_epochs_", None)
+            if done is None:
+                done = self._complete_epochs_ = {}
+            done[epoch] = bucket
+            nxt = getattr(self, "_next_close_epoch_", None)
+            if nxt is None:
+                # snapshot resume: continue after the last closed epoch
+                nxt = max((h["epoch"] for h in self.epoch_history),
+                          default=-1) + 1
+            while nxt in done:
+                self._on_epoch_finished(epoch=nxt,
+                                        stats_set=done.pop(nxt))
+                nxt += 1
+                if getattr(self, "_stop_epoch_", None) is not None:
+                    done.clear()  # run-ahead epochs are cancelled
+            self._next_close_epoch_ = nxt
+        # bound run-ahead to one epoch past the oldest open one (the
+        # next epoch to close, once closing has begun), except while
+        # requeued minibatches wait: they belong to the oldest open
+        # epoch, and serving them is the only way it can close
+        nxt = getattr(self, "_next_close_epoch_", None)
+        if nxt is not None:
+            min_open = nxt
+        elif buckets:
+            min_open = min(buckets)
+        else:
+            min_open = None
+        loader = getattr(self.workflow, "loader", None)
+        requeued = bool(getattr(loader, "failed_minibatches", ()))
+        self.has_data_for_slave = (
+            requeued or min_open is None or
+            self.epoch_number - min_open <= 1)
+        if bool(self.complete) and self.is_master:
+            # the master's graph never runs: the stop goes straight to
+            # the job source (NoMoreJobs)
+            self.workflow.stop()
 
     def _on_class_finished(self, klass, epoch=None, stats_set=None):
         epoch = self.epoch_number if epoch is None else epoch
@@ -106,6 +233,9 @@ class DecisionBase(Unit, IResultProvider):
             return
         normalized = stats["metric"] / stats["samples"]
         stats["normalized"] = normalized
+        if stats.get("loss_batches"):
+            stats["loss"] = stats.pop("loss_sum") / stats.pop(
+                "loss_batches")
         if klass == VALIDATION or (klass == TRAIN and
                                    not self.class_lengths[VALIDATION]):
             self.improved <<= normalized < self.best_metric
@@ -145,6 +275,12 @@ class DecisionBase(Unit, IResultProvider):
             stop = True
         if stop:
             self.complete <<= True
+            self._stop_epoch_ = epoch
+            # discard run-ahead buckets of epochs the stop cancels
+            buckets = getattr(self, "_epoch_buckets_", None)
+            if buckets:
+                for run_ahead in [e for e in buckets if e > epoch]:
+                    buckets.pop(run_ahead)
         self._reset_epoch()
 
     def get_metric_values(self):

@@ -51,12 +51,27 @@ the ``meta`` device after ``initialize()``, the shapes of the minibatch
 each link carries; an eager run puts real tensors there, and a snapshot
 keeps only their shapes.
 
+Master/slave (``veles_tpu/nn/gd.py``): a gradient unit on the master
+sends its forward's parameters with every job; the slave copies them
+into the parameter tensors in place (the solver state and the trainer
+hold references to those tensors) and keeps a copy on the device as
+the job's base; after the job it returns ``new - base``, an IEEE
+float32 subtraction taken on the device before one copy to the host;
+the master adds each delta to its host tensors. The round trip is
+exact wherever the subtraction is (the weight moved by less than a
+factor of 2, Sterbenz); elsewhere -- a weight shrinking toward zero --
+``base + delta`` may round, and no float32 delta lands on ``new``. On
+the wire parameters are float32 numpy arrays in the JAX package's
+layout (HWIO convolutions), as in a snapshot.
+
 In a snapshot a forward unit keeps its parameters and a gradient unit
 its solver state as numpy arrays in the JAX package's layout
 (``convert.to_jax_layout``, ``convert.solver_state_to_jax``); both go
 back onto the device that ``initialize()`` is given. A JAX snapshot's
 units arrive the same way (``jax_snapshot.py``).
 """
+
+import warnings
 
 import numpy
 import torch
@@ -452,6 +467,38 @@ class GradientDescentBase(AcceleratedUnit):
                 params, dict(zip(params, grads)), self.opt_state,
                 self.hyper)
 
+    # -- distribution: the master's weights go out with each job, the
+    # slave's steps come back as a delta the master adds --------------------
+
+    def generate_data_for_slave(self, slave=None):
+        params = layer_params(self.forward.module)
+        return {k: _wire_array(p, copy=True)
+                for k, p in params.items()} or None
+
+    def apply_data_from_master(self, data):
+        params = layer_params(self.forward.module)
+        base = {}
+        with torch.no_grad():
+            for k, value in (data or {}).items():
+                target = params[k]
+                target.copy_(_wire_tensor(value))
+                base[k] = target.detach().clone()
+        self._job_base_params_ = base
+
+    def generate_data_for_master(self):
+        base = getattr(self, "_job_base_params_", None) or {}
+        with torch.no_grad():
+            return {k: _wire_array(p - base[k] if k in base else p,
+                                   copy=k not in base)
+                    for k, p in layer_params(
+                        self.forward.module).items()} or None
+
+    def apply_data_from_slave(self, data, slave=None):
+        params = layer_params(self.forward.module)
+        with torch.no_grad():
+            for k, delta in (data or {}).items():
+                params[k].add_(_wire_tensor(delta))
+
     def __getstate__(self):
         state = super(GradientDescentBase, self).__getstate__()
         state["opt_state"] = None
@@ -459,6 +506,29 @@ class GradientDescentBase(AcceleratedUnit):
             state["_solver_state"] = solver_state_to_jax(
                 [self.opt_state])[0]
         return state
+
+
+def _wire_array(tensor, copy):
+    """A parameter (or delta) tensor as the float32 numpy array the wire
+    carries, in the JAX layout; ``copy`` when the tensor is the host
+    parameter itself (a job must not alias live weights)."""
+    array = tensor.detach().float().cpu().numpy()
+    if array.ndim == 4:                              # OIHW -> HWIO
+        array = array.transpose(2, 3, 1, 0)
+    return numpy.array(array, order="C") if copy else \
+        numpy.ascontiguousarray(array)
+
+
+def _wire_tensor(array):
+    """Inverse of :func:`_wire_array`: a CPU tensor in the port's
+    layout over the (possibly read-only) received array, uncopied."""
+    array = numpy.asarray(array, numpy.float32)
+    if array.ndim == 4:                              # HWIO -> OIHW
+        array = array.transpose(3, 2, 0, 1)
+    with warnings.catch_warnings():
+        # decoded leaves are read-only views; they are only read here
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(array)
 
 
 def _to_device(state, device):

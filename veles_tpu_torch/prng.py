@@ -70,6 +70,10 @@ class RandomGenerator(object):
         with self._lock:
             return self.state.randint(low, high, size)
 
+    def rand(self, *shape):
+        with self._lock:
+            return self.state.rand(*shape)
+
     def uniform(self, low=0.0, high=1.0, size=None):
         with self._lock:
             return self.state.uniform(low, high, size)
@@ -101,9 +105,15 @@ class RandomGenerator(object):
         with self._lock:
             counter = self._seed_counter
             self._seed_counter += 1
-            base = (self.seed_value if self.seed_value is not None
-                    else 0xC0FFEE) & 0xFFFFFFFF
-        return _splitmix64((base << 32) | (counter & 0xFFFFFFFF))
+        return self.philox_seed_at(counter)
+
+    def philox_seed_at(self, counter):
+        """The chain's seed at ``counter``, drawing nothing: a trainer
+        draws one seed an epoch from the start, so a slave addresses
+        epoch e's dropout seed as ``philox_seed_at(e)``."""
+        base = (self.seed_value if self.seed_value is not None
+                else 0xC0FFEE) & 0xFFFFFFFF
+        return _splitmix64((base << 32) | (int(counter) & 0xFFFFFFFF))
 
     # -- state management ---------------------------------------------------
 
@@ -147,3 +157,23 @@ def get(key="default"):
             _generators[key] = gen
         return gen
 
+
+
+def dump_states():
+    """Every named generator's state as plain picklable data,
+    ``{key: (numpy_state_tuple, seed_counter, seed_value)}`` -- the
+    shape of the JAX package's ``dump_states`` (its counter counts
+    ``jax_key()`` draws, this one Philox seeds). The master ships it in
+    the mid-run join's resync, so a joining slave continues the fleet's
+    streams instead of restarting them from their seeds; it rides the
+    restricted wire codec (str, int, ndarray only)."""
+    with _registry_lock:
+        generators = dict(_generators)
+    return {key: gen.save_state() for key, gen in generators.items()}
+
+
+def restore_states(states):
+    """Inverse of :func:`dump_states`: overwrite (or create) each named
+    generator with the shipped state."""
+    for key, saved in (states or {}).items():
+        get(key).restore_state(saved)

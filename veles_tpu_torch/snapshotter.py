@@ -195,9 +195,11 @@ def wf_epoch(wf):
 
 
 def save_snapshot(workflow, directory, tag="", prefix="wf",
-                  compression="gz"):
+                  compression="gz", payload=None):
     """Atomically write one snapshot file and refresh its ``_current``
-    link; returns ``(path, payload_bytes)``."""
+    link; returns ``(path, payload_bytes)``. ``payload``, a
+    :func:`dump_workflow` blob taken by the caller (the master dumps
+    under its units' locks), skips the dump here."""
     if compression not in CODECS:
         raise ValueError("unknown compression %r (have %s)" %
                          (compression, sorted(CODECS)))
@@ -205,7 +207,8 @@ def save_snapshot(workflow, directory, tag="", prefix="wf",
     name = "%s%s.%d.pickle%s" % (prefix, tag, wf_epoch(workflow), ext)
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, name)
-    payload = dump_workflow(workflow)
+    if payload is None:
+        payload = dump_workflow(workflow)
 
     def stage(tmp):
         with CODECS[compression](tmp, "wb") as fout:

@@ -77,14 +77,17 @@ class TrainableWorkflow(AcceleratedWorkflow):
         """(seed, batch index) of the eager training minibatch's dropout
         masks, as the fused trainer draws them: one seed an epoch from
         the first dropout layer's stream, the batch's index in the TRAIN
-        class."""
+        class. A slave addresses the epoch's seed by its number (the
+        stream's seed at counter ``epoch``) instead of drawing it: which
+        slave trains which minibatch then changes no mask."""
         loader = self.loader
         epoch = loader.epoch_number
         if self._dropout_seed is None or self._dropout_seed[0] != epoch:
             first = next(f for f in self.forwards
                          if isinstance(f, units.DropoutForward))
-            self._dropout_seed = (epoch, prng.get(
-                first.rand_name).philox_seed())
+            stream = prng.get(first.rand_name)
+            self._dropout_seed = (epoch, stream.philox_seed_at(epoch)
+                                  if self.is_slave else stream.philox_seed())
         start = loader.minibatch_offset - loader.minibatch_size - \
             loader.class_end_offsets[VALIDATION]
         return self._dropout_seed[1], start // loader.max_minibatch_size

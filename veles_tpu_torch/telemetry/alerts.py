@@ -41,10 +41,11 @@ spans the window (no guessing from partial data).
 Extra rules load from the JSON file named by ``VELES_ALERT_RULES``
 (either ``{"rules": [...]}`` or a bare list).
 
-:data:`DEFAULT_RULES` are the JAX package's, as data. Rules on series
-the port does not publish (the slaves' health, the scheduler, the SPMD
-supervisor) find no series and never fire; they stay so that one rule
-file serves both packages.
+:data:`DEFAULT_RULES` are the JAX package's, as data. The slaves' rules
+(``slave_straggler``, ``slave_dead``) read the series of the master's
+health scorer and coordinator; rules on series the port does not
+publish (the scheduler, the SPMD supervisor) find none and never fire;
+they stay so that one rule file serves both packages.
 """
 
 import collections

@@ -423,7 +423,11 @@ class FusedTrainer(object):
         """Forward-only sweep of one class: (losses, metrics, confusion)
         per minibatch as device tensors, the confusion matrix summed over
         the sweep (softmax only, else None)."""
-        idx = self._segment_indices(klass, skip)
+        return self.eval_rows(self._segment_indices(klass, skip))
+
+    def eval_rows(self, idx):
+        """:meth:`eval_class` over the host index matrix ``idx`` (one
+        minibatch a row, -1 padded), resident, streamed or offloaded."""
         out = [[], [], None]
         if self.offloaded:
             self._offload_engine.eval_segment(idx, out)
@@ -450,9 +454,14 @@ class FusedTrainer(object):
         minibatch; the batches' gradient norms go to
         ``last_grad_norms``. Batch indices continue from ``skip``'s
         position in the epoch, as the JAX trainer's fold indices do."""
-        idx = self._segment_indices(TRAIN, skip)
-        seed = self._dropout_seed()
-        first = skip // self.loader.max_minibatch_size
+        return self.train_rows(self._segment_indices(TRAIN, skip),
+                               skip // self.loader.max_minibatch_size,
+                               self._dropout_seed())
+
+    def train_rows(self, idx, first, seed):
+        """:meth:`train_class` over the host index matrix ``idx``, batch
+        indices from ``first``, dropout ``seed``: the segment jobs of a
+        slave (``train/segment.py``)."""
         out = [[], [], []]
         if self.offloaded:
             self._offload_engine.train_segment(idx, first, seed, out)

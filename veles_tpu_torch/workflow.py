@@ -12,8 +12,17 @@ A unit may :meth:`Workflow.defer` work to the end of the loop iteration
 in flight: the snapshotter does, so that an eager snapshot taken on an
 epoch's last minibatch holds every gradient unit's update of that
 minibatch, not only those that ran before it in the queue. The JAX
-package's master/slave data methods, plotters and tracing spans are
-not ported yet.
+package's plotters are not ported.
+
+Master/slave (``veles_tpu/workflow.py``): the workflow aggregates its
+units' distribution protocol -- a job is every unit's payload
+(:meth:`Workflow.generate_data_for_slave`), or a *segment* of up to N
+contiguous same-class loader minibatches beside the other units'
+payloads (:meth:`Workflow.generate_segment_for_slave`, run by
+``train.segment.SegmentExecutor``); :meth:`Workflow.do_job` is the
+eager slave's one-minibatch job; a slave joining mid-run gets the live
+weights, decision state, epoch cursors and random streams in its
+handshake (:meth:`Workflow.generate_resync_for_slave`).
 """
 
 import collections
@@ -24,6 +33,10 @@ from veles_tpu_torch.mutable import Bool
 from veles_tpu_torch.plumbing import StartPoint, EndPoint, Repeater
 from veles_tpu_torch.telemetry import tracing
 from veles_tpu_torch.units import Container
+
+
+class NoMoreJobs(Exception):
+    """The master's workflow has stopped: no job to hand out."""
 
 
 class Workflow(Container):
@@ -266,6 +279,123 @@ class Workflow(Container):
         """Hook for workflows with a runner of their own. None (the
         default) lets the launcher run the standard ``FusedRunner``."""
         return None
+
+    # -- distributed protocol aggregation ---------------------------------
+
+    def _distributed_units(self):
+        return list(self.units_in_dependency_order)
+
+    def generate_initial_data_for_slave(self, slave=None):
+        return [(unit.name, unit.generate_data_for_slave_locked(slave))
+                for unit in self._distributed_units()
+                if unit.negotiates_on_connect]
+
+    def apply_initial_data_from_master(self, data):
+        """The handshake's payload: the ``negotiates_on_connect`` units'
+        list, or, from a master mid-run, ``{"units": ..., "resync":
+        ...}`` with the full-push resync."""
+        if isinstance(data, dict):
+            resync = data.get("resync")
+            if resync:
+                self.apply_resync_from_master(resync)
+            data = data.get("units")
+        for name, payload in data or []:
+            self[name].apply_data_from_master(payload)
+
+    def generate_resync_for_slave(self, slave=None):
+        """What a slave joining mid-run needs to act as a resident one
+        from its first job: every non-loader unit's payload (weights,
+        decision state), the loader's epoch cursors as numbers (its own
+        payload would advance the serving order) and the random
+        streams."""
+        from veles_tpu_torch import prng
+        loader = getattr(self, "loader", None)
+        units = [(u.name, u.generate_data_for_slave_locked(slave))
+                 for u in self._distributed_units()
+                 if u is not loader and not u.negotiates_on_connect]
+        resync = {"units": units, "random": prng.dump_states()}
+        if loader is not None:
+            resync["epoch"] = int(loader.epoch_number)
+            resync["served"] = int(loader.samples_served)
+        return resync
+
+    def apply_resync_from_master(self, resync):
+        """Slave side of :meth:`generate_resync_for_slave`."""
+        from veles_tpu_torch import prng
+        prng.restore_states(resync.get("random"))
+        for name, payload in resync.get("units") or []:
+            if payload is None:
+                continue
+            try:
+                self[name].apply_data_from_master(payload)
+            except KeyError:
+                self.warning("resync names unknown unit %r; skipped",
+                             name)
+        loader = getattr(self, "loader", None)
+        if loader is not None and "epoch" in resync:
+            loader.epoch_number = int(resync["epoch"])
+            loader.samples_served = int(resync.get("served", 0))
+
+    def generate_data_for_slave(self, slave=None):
+        """One job: every unit's payload, or None (the slave idles a
+        moment) while a unit withholds data (the decision bounding the
+        epoch run-ahead). Never blocks: the asking thread may be the one
+        whose update would release it."""
+        if bool(self.stopped):
+            raise NoMoreJobs()
+        units = self._distributed_units()
+        if not all(u.has_data_for_slave for u in units):
+            return None
+        return [(u.name, u.generate_data_for_slave_locked(slave))
+                for u in units]
+
+    def generate_segment_for_slave(self, slave=None, max_minibatches=8):
+        """A segment job: the non-loader units' payloads once, and up to
+        ``max_minibatches`` contiguous same-class loader minibatches,
+        each registered in the loader's pending set (a dropped slave's
+        minibatches requeue one by one). A requeued minibatch goes out
+        alone."""
+        if bool(self.stopped):
+            raise NoMoreJobs()
+        units = self._distributed_units()
+        if not all(u.has_data_for_slave for u in units):
+            return None
+        loader = self.loader
+        replay = bool(loader.failed_minibatches)
+        batches = [loader.generate_data_for_slave_locked(slave)]
+        while (not replay and len(batches) < max_minibatches and
+               not batches[-1]["last"] and
+               not loader.failed_minibatches):
+            batches.append(loader.generate_data_for_slave_locked(slave))
+        others = [(u.name, u.generate_data_for_slave_locked(slave))
+                  for u in units if u is not loader]
+        return {"units": others, "batches": batches}
+
+    def apply_data_from_master(self, job):
+        for name, payload in job:
+            if payload is not None:
+                self[name].apply_data_from_master(payload)
+
+    def generate_data_for_master(self):
+        return [(u.name, u.generate_data_for_master())
+                for u in self._distributed_units()]
+
+    def apply_data_from_slave(self, update, slave=None):
+        for name, payload in update or []:
+            if payload is not None:
+                self[name].apply_data_from_slave_locked(payload, slave)
+
+    def do_job(self, job):
+        """Slave side of a one-minibatch job: apply it, run the graph
+        once (the decision closes the loop after the minibatch), return
+        the update."""
+        self.apply_data_from_master(job)
+        self.run()
+        return self.generate_data_for_master()
+
+    def drop_slave(self, slave=None):
+        for unit in self._distributed_units():
+            unit.drop_slave(slave)
 
     # -- results / stats / integrity --------------------------------------
 
