@@ -284,7 +284,36 @@
    job each way. (5) Per job, the slaves' decode, compute, encode and
    shared-memory ms and their waits, the master's encode and decode ms,
    and the fleet's samples/s beside the standalone sweeps'.
-15. The line before the last is ``{"kernels": [...], "not_ported":
+15. SPMD phase: the port's ``torch.distributed`` tier on the card, every
+   world's ranks processes of their own sharing the one H100 (gloo with
+   CUDA tensors; a world of one rank NCCL), no rank loading ``jax``,
+   ``ml_dtypes`` or ``veles_tpu``. (1) ``--gspmd 1x1`` on phase 9's
+   AlexNet-227 file, 2 epochs, deterministic: NCCL, and every loss and
+   parameter bit for bit the standalone deterministic run's (a process
+   of its own too). (2) ``--gspmd 2x1`` through the multi-process flags
+   (``--jax-coordinator``, ``--jax-processes``, ``--jax-process-id``, one
+   process a rank) and (3) ``--gspmd 1x2`` (rank 0 starting rank 1
+   itself): each epoch's losses within 1e-5 relative, every parameter
+   tensor within 5e-2 of its change, and each run's control with the
+   gradient collectives skipped beyond that (both controls at once,
+   their ranks started through the flags). (4) The attention model at
+   ``bench_all.py``'s widths (2 layers, seq 256, dim 256, 8 heads, batch
+   64, lr 0.01; 640 + 128 samples) with ``use_ring`` ``ring`` and
+   ``ulysses`` at 2 ranks: the forward within 1e-5 of the unsharded
+   forward's largest value, one epoch's losses within 1e-4 relative of
+   the unsharded epoch's. (5) The moe model (8 experts, seq 128) with
+   ``use_experts`` at 8 ranks: the layer within 1e-5 of
+   ``moe_ffn_reference(n_shards=8)`` on the card, then 4 training
+   steps, finite and alike on every rank. (6) A 2-stage
+   ``pipeline_apply`` and one ``pipeline_train_step`` within 1e-5 of the
+   sequential run. Every K1, K3, K4, K6 and K7 launch of every rank at
+   a form the kernel phase checked (the phase's new forms: K1 at the
+   tensor-parallel half widths, K4 and K6 at the half batch and half
+   widths). Printed, not gated: each world's backend, start-up time and
+   collectives staged through the host, each run's samples/s and step
+   ms by CUDA events, ``veles_gspmd_step_ms`` and ``veles_reshard_ms``;
+   the whole result to ``chiprun_out/spmd.json``.
+16. The line before the last is ``{"kernels": [...], "not_ported":
    []}``; the last is ``{"ok": true, "device": {...}}``. Any failure
    raises and exits non-zero before them.
 """
@@ -429,6 +458,25 @@ SEQUENCE_GEMM_ROWS = tuple(sorted({b * seq for b in BUCKETS
 SEQUENCE_REDUCE_SHAPES = (("attention projections", 64 * 256, 256),
                           ("moe-model projections", 64 * 128, 256),
                           ("sequence head", 64, 8))
+#: phase 15's forms of K1, K4 and K6 that no earlier path launches:
+#: AlexNet-227 trained by ``--gspmd 2x1`` (each rank half the batch) and
+#: ``--gspmd 1x2`` (the column layers' half widths; fc6 the row layer,
+#: K1 without its bias). K1 and K3 at the half batch are the serving
+#: rows' M = 64, K7 draws the whole batch's mask: both checked already.
+SPMD_HALF = TRAIN_BATCH // 2
+SPMD_GEMMS = (("fc6 row", TRAIN_BATCH, 9216 // 2, 4096, False),
+              ("fc7 column", TRAIN_BATCH, 4096, 4096 // 2, True))
+SPMD_LRN_BWD_SHAPES = ((SPMD_HALF, 56, 56, 96), (SPMD_HALF, 27, 27, 256))
+SPMD_REDUCE_SHAPES = (("2x1 conv1", SPMD_HALF * 56 * 56, 96),
+                      ("2x1 conv2", SPMD_HALF * 27 * 27, 256),
+                      ("2x1 conv3/conv4", SPMD_HALF * 13 * 13, 384),
+                      ("2x1 conv5", SPMD_HALF * 13 * 13, 256),
+                      ("2x1 fc6/fc7", SPMD_HALF, 4096),
+                      ("2x1 head", SPMD_HALF, 1000),
+                      ("1x2 conv1", TRAIN_BATCH * 56 * 56, 96 // 2),
+                      ("1x2 conv3", TRAIN_BATCH * 13 * 13, 384 // 2),
+                      ("1x2 conv5", TRAIN_BATCH * 13 * 13, 256 // 2),
+                      ("1x2 fc7", TRAIN_BATCH, 4096 // 2))
 #: Philox4x32-10 per value: 10 rounds of 2 multiplies, 2 high
 #: multiplies and 4 xors per counter, 18 key additions, over 4 values;
 #: then shift, convert, scale and affine map
@@ -662,6 +710,24 @@ def gemm_phase(torch):
             "bias" % (m, k, n), x, w, b32, "linear", "float32",
             lambda x=x: torch.addmm(b32, x, w)))
     del x, w
+    # K1 on the SPMD tier's tensor-parallel half widths (phase 15)
+    for layer, m, k, n, has_bias in SPMD_GEMMS:
+        w = (torch.rand(k, n, device="cuda", generator=gen) * 2 - 1) \
+            / k ** 0.5
+        b32 = torch.rand(n, device="cuda", generator=gen) * 0.2 - 0.1
+        x = torch.rand(m, k, device="cuda", generator=gen) * 2 - 1
+        bias = b32 if has_bias else None
+        activation = "strict_relu" if has_bias else "linear"
+
+        def library(x=x, w=w, bias=bias):
+            return F.relu(torch.addmm(bias, x, w)) if bias is not None \
+                else torch.mm(x, w)
+
+        rows.append(gemm_row(
+            torch, scratch, "%s M=%d K=%d N=%d float32 %s" % (
+                layer, m, k, n, "bias" if has_bias else "no bias"),
+            x, w, bias, activation, "float32", library))
+    del x, w
     # K2 on the GEMM-disciplines path: float32, no bias, linear
     from veles_tpu_torch.ops.gemm_bench import SHAPES
     for _, (m, k, n) in SHAPES:
@@ -827,10 +893,13 @@ def lrn_bwd_phase(torch, scratch):
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(3)
     k, alpha, beta, n = 2.0, 1e-4, 0.75, 5
-    for shape in ((TRAIN_BATCH, 56, 56, 96), (TRAIN_BATCH, 27, 27, 256)):
+    for shape in ((TRAIN_BATCH, 56, 56, 96), (TRAIN_BATCH, 27, 27, 256)) \
+            + SPMD_LRN_BWD_SHAPES:
         x32 = torch.rand(*shape, device="cuda", generator=gen) * 40.0
         g32 = torch.rand(*shape, device="cuda", generator=gen) * 2 - 1
-        for dtype in ("float32", "bfloat16"):
+        # the data-parallel half batch trains float32 only
+        for dtype in ("float32",) if shape in SPMD_LRN_BWD_SHAPES else (
+                "float32", "bfloat16"):
             x, g = x32.to(getattr(torch, dtype)), g32.to(getattr(torch,
                                                                  dtype))
             variants = dict(lrn_backward.launches_by_variant)
@@ -888,7 +957,7 @@ def reduce_phase(torch, scratch):
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(4)
     for layer, r, c in (REDUCE_SHAPES + BASELINE_REDUCE_SHAPES +
-                        SEQUENCE_REDUCE_SHAPES):
+                        SEQUENCE_REDUCE_SHAPES + SPMD_REDUCE_SHAPES):
         x = torch.randn(r, c, device="cuda", generator=gen) * 1e-3
         variants = dict(column_sum.launches_by_variant)
         got = column_sum(x)
@@ -5901,6 +5970,646 @@ def _distributed_phase(torch, numpy, kernels, tmp):
     return result, all_forms
 
 
+#: phase 15: AlexNet-227 on phase 9's file through ``--gspmd``, 2 epochs
+SPMD_EPOCHS = 2
+#: the sharded runs against the deterministic standalone one: each
+#: epoch's loss within this relative distance, every parameter tensor
+#: within this share of its largest change over the run (the workflow
+#: phase's bound for runs that are not bitwise)
+SPMD_LOSS_REL_TOL = 1e-5
+SPMD_UPDATE_SHARE_TOL = WORKFLOW_UPDATE_SHARE_TOL
+#: seconds a world of ranks may take (start-up included)
+SPMD_WORLD_S = 420
+#: the sequence legs: ``scripts/bench_all.py``'s attention and moe
+#: configurations at their widths, the data cut to 640 + 128 samples
+#: (10 training batches of 64); the ring's and Ulysses's forward within
+#: this share of the unsharded forward's largest value, their epoch's
+#: losses within this relative distance of the unsharded epoch's
+SPMD_SEQUENCE_SAMPLES = (640, 128)
+SPMD_FORWARD_TOL = 1e-5
+SPMD_SEQUENCE_LOSS_REL_TOL = 1e-4
+#: the expert-parallel leg: ranks (one expert each), training steps, and
+#: its layer's forward against ``moe_ffn_reference(n_shards=8)`` within
+#: this share of the reference's largest value
+SPMD_EXPERTS = 8
+SPMD_MOE_STEPS = 4
+SPMD_MOE_TOL = 1e-5
+#: the pipeline leg: 2 stages of tanh(x @ W), microbatches, rows, width;
+#: outputs, loss and parameters within this absolute distance of the
+#: sequential run on the card
+SPMD_PIPELINE = (2, 4, 64, 1024)
+SPMD_PIPELINE_ATOL = 1e-5
+
+#: one rank of a ``--gspmd`` leg: ``python -c SPMD_DRIVER out <CLI
+#: args>`` runs ``veles_tpu_torch.__main__.Main().run(args)`` and pickles
+#: its report to ``out.rank<k>`` (k its process id, 0 without
+#: ``--jax-process-id``): the world's size, backend and start-up time,
+#: its collectives staged through the host, calls and bytes, each epoch's
+#: losses and sweep seconds, each training step's ms by CUDA events, its
+#: launch counters (read at exit: the process started with them at 0),
+#: the ``veles_gspmd_step_ms`` and ``veles_reshard_ms`` series, the
+#: modules it loaded of jax, ml_dtypes and veles_tpu; rank 0 also its
+#: parameters (``out.params.npz``), and with SMOKE_SAVE_INIT=1 the
+#: initial ones (``out.init.npz``). The ranks a rank 0 starts run this
+#: driver too (its source in SMOKE_SPMD_DRIVER). SMOKE_DETERMINISTIC=1
+#: sets the deterministic mode; SMOKE_NO_REDUCE=1 skips the gradient
+#: collectives (the control).
+SPMD_DRIVER = r"""
+import faulthandler, os, pickle, sys, time
+prefix, argv = sys.argv[1], sys.argv[2:]
+faulthandler.dump_traceback_later(120, repeat=True)
+import numpy
+import torch
+if os.environ.get("SMOKE_DETERMINISTIC") == "1":
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+import chip_smoke
+from veles_tpu_torch import launcher
+from veles_tpu_torch.__main__ import Main
+from veles_tpu_torch.convert import layer_params
+from veles_tpu_torch.parallel import collectives, mesh
+from veles_tpu_torch.parallel.dp import DataParallelTrainer
+from veles_tpu_torch.telemetry.registry import get_registry
+from veles_tpu_torch.train.step import FusedTrainer
+rank = int(argv[argv.index("--jax-process-id") + 1]) \
+    if "--jax-process-id" in argv else 0
+out = "%s.rank%d" % (prefix, rank)
+launcher.rank_command = lambda args: [
+    sys.executable, "-c", os.environ["SMOKE_SPMD_DRIVER"], prefix] + list(
+    args)
+if os.environ.get("SMOKE_NO_REDUCE") == "1":
+    init = DataParallelTrainer.__init__
+
+    def no_reduce(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self.reduce_gradients = False
+
+    DataParallelTrainer.__init__ = no_reduce
+
+
+def params_of(wf):
+    return {"%d.%s" % (i, k): p.detach().cpu().numpy()
+            for i, f in enumerate(wf.forwards)
+            for k, p in layer_params(f.module).items()}
+
+
+if os.environ.get("SMOKE_SAVE_INIT") == "1":
+    initialize = launcher.Launcher.initialize
+
+    def initialized(self, **kwargs):
+        initialize(self, **kwargs)
+        numpy.savez(prefix + ".init.npz", **params_of(self.workflow))
+        return self
+
+    launcher.Launcher.initialize = initialized
+steps = []
+train_batch = FusedTrainer.train_batch
+
+
+def timed_batch(self, *args, **kwargs):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = train_batch(self, *args, **kwargs)
+    end.record()
+    steps.append((start, end))
+    return result
+
+
+FusedTrainer.train_batch = timed_batch
+cli = Main()
+report = {"rank": rank, "rc": cli.run(argv)}
+torch.cuda.synchronize()
+report["step_ms"] = [s.elapsed_time(e) for s, e in steps]
+world = getattr(cli, "world", None)
+report["world"] = None if world is None else {
+    "size": world.size, "startup_s": world.startup_s,
+    "backend": world.backend[0], "rule": world.backend[1]}
+report["run_mode"] = cli.launcher.run_mode_used
+report["staged"] = dict(collectives.staged)
+report["calls"] = dict(collectives.calls)
+report["sent_bytes"] = dict(collectives.sent_bytes)
+runner = cli.launcher.runner
+report["losses"] = [t["loss"] for t in runner.epoch_times]
+report["times"] = [{k: t.get(k) for k in ("eval_s", "train_s", "wall_s")}
+                   for t in runner.epoch_times]
+report["counts"], report["forms"] = chip_smoke.read_counts()
+report["variants"] = {name: dict(fn.launches_by_variant) for name, fn in
+                      chip_smoke.variant_counters().items()}
+registry = get_registry()
+report["series"] = {}
+for name in ("veles_gspmd_step_ms", "veles_reshard_ms"):
+    family = registry.get(name)
+    report["series"][name] = [] if family is None else [
+        (labels, child.summary()) for labels, child in family.series()]
+report["bad_modules"] = sorted(
+    m for m in sys.modules if m in ("jax", "ml_dtypes", "veles_tpu") or
+    m.startswith(("jax.", "ml_dtypes.", "veles_tpu.")))
+if rank == 0:
+    numpy.savez(prefix + ".params.npz", **params_of(cli.workflow))
+with open(out, "wb") as f:
+    pickle.dump(report, f)
+sys.exit(report["rc"])
+"""
+
+
+class SpmdLeg(object):
+    """The rank processes of one ``--gspmd`` leg that this script starts
+    (rank 0 alone when it starts the others itself, every rank with the
+    multi-process flags), each ``SPMD_DRIVER`` with ``args``."""
+
+    def __init__(self, name, tmp, ranks, env):
+        import subprocess
+        self.name, self.tmp = name, tmp
+        self.prefix = os.path.join(tmp, name.replace(" ", "_"))
+        self.procs = []
+        self.started = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=REPO, SMOKE_SPMD_DRIVER=SPMD_DRIVER,
+                   **env)
+        for i, args in enumerate(ranks):
+            log = open("%s.%d.log" % (self.prefix, i), "w")
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-c", SPMD_DRIVER, self.prefix] + list(args),
+                env=env, cwd=tmp, stdout=log, stderr=subprocess.STDOUT))
+            log.close()
+
+    def wait(self, n):
+        """The reports of the world's ``n`` ranks; a failure, a missing
+        report or an overrun raises (after killing the processes)."""
+        import pickle
+        import subprocess
+        try:
+            for proc in self.procs:
+                proc.wait(timeout=max(1.0, SPMD_WORLD_S - (
+                    time.perf_counter() - self.started)))
+        except subprocess.TimeoutExpired:
+            raise AssertionError("%s overran %d s:\n%s" % (
+                self.name, SPMD_WORLD_S, self.logs()))
+        finally:
+            self.kill()
+        self.wall_s = time.perf_counter() - self.started
+        reports = []
+        for k in range(n):
+            path = "%s.rank%d" % (self.prefix, k)
+            if not os.path.exists(path):
+                raise AssertionError("%s: rank %d left no report:\n%s" % (
+                    self.name, k, self.logs()))
+            with open(path, "rb") as f:
+                reports.append(pickle.load(f))
+        for report in reports:
+            if report["rc"] != 0 or report["bad_modules"]:
+                raise AssertionError("%s: rank %d exited %s, loaded %s" % (
+                    self.name, report["rank"], report["rc"],
+                    report["bad_modules"]))
+        return reports
+
+    def params(self, which="params"):
+        import numpy
+        with numpy.load("%s.%s.npz" % (self.prefix, which)) as data:
+            return {k: data[k] for k in data.files}
+
+    def logs(self, tail=3000):
+        import glob
+        parts = []
+        for path in sorted(glob.glob(self.prefix + ".*.log")):
+            with open(path, errors="replace") as f:
+                parts.append("-- %s:\n%s" % (os.path.basename(path),
+                                             f.read()[-tail:]))
+        return "\n".join(parts)
+
+    def kill(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def spmd_gap(numpy, got, want, init, got_losses, want_losses):
+    """(largest relative loss gap over the epochs and classes, largest
+    share of a parameter tensor's change, values that differ)."""
+    loss_rel = max(abs(g[k] - w[k]) / abs(w[k])
+                   for g, w in zip(got_losses, want_losses) for k in w)
+    share = max(float(numpy.abs(got[k] - want[k]).max() /
+                      max(float(numpy.abs(want[k] - init[k]).max()), 1e-30))
+                for k in want)
+    differing = sum(int((got[k] != want[k]).sum()) for k in want) + sum(
+        g[k] != w[k] for g, w in zip(got_losses, want_losses) for k in w)
+    return loss_rel, share, int(differing)
+
+
+def series_summary(reports, name):
+    return {json.dumps(labels, sort_keys=True): summary
+            for report in reports[:1]
+            for labels, summary in report["series"][name]}
+
+
+def spmd_phase(torch, numpy, kernels):
+    """Phase 15 (see the module docstring). Returns (result,
+    [launches_by_form of each rank of each run])."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="veles_spmd_")
+    try:
+        return _spmd_phase(torch, numpy, kernels, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _free_address():
+    import socket
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return "127.0.0.1:%d" % probe.getsockname()[1]
+
+
+def _spmd_phase(torch, numpy, kernels, tmp):
+    from veles_tpu_torch.ops.gemm_bench import card_line
+    from veles_tpu_torch.parallel.world import run_world
+
+    # the ranks import the rank functions by this module's name, not as
+    # the script's __main__
+    import chip_smoke as me
+    card = card_line()
+    path = os.path.join(tmp, "alexnet_workflow.py")
+    with open(path, "w") as f:
+        f.write(WORKFLOW_FILE)
+    args = [path, "-s", "7", "root.smoke.epochs=%d" % SPMD_EPOCHS,
+            "root.smoke.snapshots=%r" % os.path.join(tmp, "snaps"),
+            "root.common.disable.snapshotting=True"]
+    det = {"SMOKE_DETERMINISTIC": "1"}
+    result, all_forms = {"card": card}, []
+    per_epoch = TRAIN_SAMPLES
+
+    def leg(name, ranks, env, n, run=None):
+        t0 = time.perf_counter() if run is None else run.started
+        if run is None:
+            run = SpmdLeg(name, tmp, ranks, env)
+        reports = run.wait(n)
+        for report in reports:
+            check_forms("spmd %s rank %d" % (name, report["rank"]), kernels,
+                        report["forms"])
+            check_designed("spmd %s rank %d" % (name, report["rank"]),
+                           report["variants"]["gemm_bias_act"])
+            all_forms.append(report["forms"])
+        rank0 = reports[0]
+        train_s = sum(t["train_s"] for t in rank0["times"])
+        out = {"wall_s": time.perf_counter() - t0,
+               "world": rank0["world"], "run_mode": rank0["run_mode"],
+               "staged_through_host": rank0["staged"],
+               "collective_calls": rank0["calls"],
+               "collective_bytes": rank0["sent_bytes"],
+               "losses": rank0["losses"], "times": rank0["times"],
+               "samples_per_s": SPMD_EPOCHS * per_epoch / train_s,
+               # the first epoch carries the first step's start-up
+               "samples_per_s_last_epoch":
+                   per_epoch / rank0["times"][-1]["train_s"],
+               "step_ms": statistics.median(rank0["step_ms"]),
+               "step_ms_all": rank0["step_ms"],
+               "launches": [r["counts"] for r in reports],
+               "veles_gspmd_step_ms": series_summary(
+                   reports, "veles_gspmd_step_ms"),
+               "veles_reshard_ms": series_summary(reports,
+                                                  "veles_reshard_ms")}
+        print("spmd %s (%s): world %s, staged through the host %s, "
+              "%.1f samples/s (%.1f in the last epoch), step %.2f ms (CUDA "
+              "events), %.1f s wall" % (
+                  name, card, out["world"], out["staged_through_host"],
+                  out["samples_per_s"], out["samples_per_s_last_epoch"],
+                  out["step_ms"], out["wall_s"]))
+        return run, reports, out
+
+    # the reference: the standalone deterministic run, a process of its
+    # own, its initial parameters saved
+    ref_run, ref, result["standalone"] = leg(
+        "standalone", [args], dict(det, SMOKE_SAVE_INIT="1"), 1)
+    want, init = ref_run.params(), ref_run.params("init")
+    want_losses = ref[0]["losses"]
+
+    def held(name, run, reports):
+        gap = spmd_gap(numpy, run.params(), want, init,
+                       reports[0]["losses"], want_losses)
+        for report in reports[1:]:
+            if report["losses"] != reports[0]["losses"]:
+                raise AssertionError("spmd %s: rank %d's losses differ from "
+                                     "rank 0's" % (name, report["rank"]))
+        return gap
+
+    # (1) world 1 on NCCL: bit for bit the standalone run
+    run, reports, result["1x1"] = leg("1x1", [args + ["--gspmd", "1x1"]],
+                                      det, 1)
+    if reports[0]["world"]["backend"] != "nccl":
+        raise AssertionError("spmd 1x1: backend %s, not nccl"
+                             % reports[0]["world"])
+    gap = held("1x1", run, reports)
+    result["1x1"]["values_differing"] = gap[2]
+    if gap[2]:
+        raise AssertionError("spmd 1x1: %d loss and parameter values differ "
+                             "from the standalone run" % gap[2])
+    # (2) and (3): data and tensor parallel one at a time (their times
+    # are printed), then both controls together, every rank of those
+    # started here (no rank waits for another's start-up)
+    def flags(spec):
+        address = _free_address()
+        return [args + ["--gspmd", spec, "--jax-coordinator", address,
+                        "--jax-processes", "2", "--jax-process-id", str(k)]
+                for k in range(2)]
+
+    def shapes(spawn_1x2):
+        return {"2x1": flags("2x1"),
+                "1x2": [args + ["--gspmd", "1x2"]] if spawn_1x2 else
+                flags("1x2")}
+
+    def check(label, control, run, reports, out):
+        if reports[0]["world"]["backend"] != "gloo":
+            raise AssertionError("spmd %s: backend %s, not gloo (two ranks "
+                                 "share the card)" % (label,
+                                                      reports[0]["world"]))
+        loss_rel, share, differing = held(label, run, reports)
+        out.update(loss_rel=loss_rel, update_share=share,
+                   values_differing=differing)
+        within = loss_rel <= SPMD_LOSS_REL_TOL and \
+            share <= SPMD_UPDATE_SHARE_TOL
+        if within == control:
+            raise AssertionError(
+                "spmd %s: loss gap %.3g (bound %g), parameter share %.3g "
+                "(bound %g)%s" % (label, loss_rel, SPMD_LOSS_REL_TOL, share,
+                                  SPMD_UPDATE_SHARE_TOL,
+                                  ": the control must fail" if control
+                                  else ""))
+        result[label] = out
+        print("spmd %s: loss gap %.3g, parameter share %.3g, %d values "
+              "differ" % (label, loss_rel, share, differing))
+
+    for name, ranks in sorted(shapes(True).items()):
+        check(name, False, *leg(name, ranks, det, 2))
+    started = [SpmdLeg(name + " control", tmp, ranks,
+                       dict(det, SMOKE_NO_REDUCE="1"))
+               for name, ranks in sorted(shapes(False).items())]
+    for run in started:
+        check(run.name, True, *leg(run.name, None, None, 2, run))
+    # (4) sequence parallelism, (5) expert parallelism, (6) the pipeline
+    for schedule in ("ring", "ulysses"):
+        t0 = time.perf_counter()
+        reports = run_world(me.spmd_sequence_rank, 2, (schedule,),
+                            backend="auto", timeout=SPMD_WORLD_S,
+                            workdir=world_dir(tmp, schedule))
+        out = sequence_leg(schedule, reports, kernels, all_forms)
+        out["wall_s"] = time.perf_counter() - t0
+        result["sequence " + schedule] = out
+        print("spmd sequence %s (%s): %s" % (schedule, card, json.dumps(out)))
+    t0 = time.perf_counter()
+    reports = run_world(me.spmd_moe_rank, SPMD_EXPERTS, (), backend="auto",
+                        timeout=SPMD_WORLD_S,
+                        workdir=world_dir(tmp, "experts"))
+    out = moe_leg(reports, kernels, all_forms)
+    out["wall_s"] = time.perf_counter() - t0
+    result["experts"] = out
+    print("spmd experts (%s): %s" % (card, json.dumps(out)))
+    reports = run_world(me.spmd_pipeline_rank, SPMD_PIPELINE[0], (),
+                        backend="auto", timeout=SPMD_WORLD_S,
+                        workdir=world_dir(tmp, "pipeline"))
+    result["pipeline"] = pipeline_leg(reports)
+    print("spmd pipeline (%s): %s" % (card, json.dumps(result["pipeline"])))
+    return result, all_forms
+
+
+def world_dir(tmp, name):
+    """A rank world's work directory under the phase's ``tmp``."""
+    path = os.path.join(tmp, "world_" + name)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def _sequence_trainer(moe, device):
+    """``bench_all.py``'s attention or moe configuration at its widths
+    over the cut data, seeded as the sequence phase seeds it."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models import samples
+    from veles_tpu_torch.models.build import build_training
+    n_train, n_valid = SPMD_SEQUENCE_SAMPLES
+    prng.get().seed(SEQUENCE_SEED)
+    prng.get("loader").seed(SEQUENCE_SEED + 1)
+    spec = samples.sequence_bench(moe, samples.SequenceProvider(
+        n_train=n_train, n_valid=n_valid,
+        seq=SEQUENCE_LENGTHS["moe" if moe else "attention"],
+        dim=SEQUENCE_DIM))
+    return build_training(
+        spec.layers, spec.sample_shape, spec.loader, seed=SEQUENCE_SEED,
+        device=device,
+        **dict(spec.training, learning_rate=SEQUENCE_LEARNING_RATE))
+
+
+def _stepped(torch, trainer, fn):
+    """``fn()`` with each training step timed by CUDA events: (its
+    result, [step ms])."""
+    from veles_tpu_torch.train.step import FusedTrainer
+    with timed_method(torch, FusedTrainer, "train_batch") as timed:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [s.elapsed_time(e) for s, e in timed]
+
+
+def spmd_sequence_rank(schedule):
+    """One rank of the sequence leg: the attention model with
+    ``use_ring(schedule)`` on every attention layer over a 2-rank seq
+    axis; its forward against the unsharded forward of the same weights,
+    one epoch; then (rank 0) the unsharded model's epoch."""
+    import torch
+
+    from veles_tpu_torch.nn.attention import MultiHeadAttentionForward
+    from veles_tpu_torch.parallel import collectives, mesh
+    device = mesh.world_device()
+    t = _sequence_trainer(False, device)
+    grid = mesh.build_mesh({"seq": -1})
+    layers = [m for m in t.model if isinstance(m, MultiHeadAttentionForward)]
+    x = t.loader.original_data[:64].to(device)
+    with torch.no_grad():
+        local = t._forward(x, False)
+        for m in layers:
+            m.use_ring(grid, "seq", schedule)
+        sharded = t._forward(x, False)
+    forward = float((sharded - local).abs().max() / local.abs().max())
+    reset_counts()
+    collectives.reset_counts()
+    stats, steps = _stepped(torch, t, lambda: t.run_epoch(0))
+    counts, forms = read_counts()
+    out = {"forward_share": forward, "steps_ms": steps,
+           "losses": {k: stats[k]["losses"].tolist()
+                      for k in ("validation", "train")},
+           "train_s": sum(steps) / 1e3, "forms": forms, "counts": counts,
+           "variants": gemm_variants(), "staged": dict(collectives.staged),
+           "calls": dict(collectives.calls),
+           "backend": mesh.backend_reason()}
+    if mesh.world_rank() == 0:
+        ref = _sequence_trainer(False, device)
+        stats, steps = _stepped(torch, ref, lambda: ref.run_epoch(0))
+        out["reference"] = {k: stats[k]["losses"].tolist()
+                            for k in ("validation", "train")}
+        out["reference_steps_ms"] = steps
+    return out
+
+
+def sequence_leg(schedule, reports, kernels, all_forms):
+    """The sequence leg's checks: the forward's share, the epoch's losses
+    against the unsharded one, every rank alike, the forms."""
+    first = reports[0]["value"]
+    for report in reports:
+        value = report["value"]
+        label = "spmd sequence %s rank %d" % (schedule, report["rank"])
+        check_forms(label, kernels, value["forms"])
+        check_designed(label, value["variants"])
+        all_forms.append(value["forms"])
+        if value["forward_share"] > SPMD_FORWARD_TOL:
+            raise AssertionError("%s: forward %.3g of the unsharded one's "
+                                 "largest value (bound %g)" % (
+                                     label, value["forward_share"],
+                                     SPMD_FORWARD_TOL))
+        if value["losses"] != first["losses"]:
+            raise AssertionError("%s: losses differ from rank 0's" % label)
+    rel = max(abs(g - w) / abs(w) for k in first["reference"]
+              for g, w in zip(first["losses"][k], first["reference"][k]))
+    if not rel <= SPMD_SEQUENCE_LOSS_REL_TOL:
+        raise AssertionError("spmd sequence %s: losses %.3g from the "
+                             "unsharded epoch's (bound %g)" % (
+                                 schedule, rel, SPMD_SEQUENCE_LOSS_REL_TOL))
+    n_train = SPMD_SEQUENCE_SAMPLES[0]
+    return {"backend": first["backend"], "staged_through_host":
+            first["staged"], "collective_calls": first["calls"],
+            "forward_share": max(r["value"]["forward_share"]
+                                 for r in reports),
+            "loss_rel": rel, "step_ms": statistics.median(first["steps_ms"]),
+            "samples_per_s": n_train / first["train_s"],
+            "unsharded_step_ms": statistics.median(
+                first["reference_steps_ms"]),
+            "unsharded_samples_per_s": n_train / (
+                sum(first["reference_steps_ms"]) / 1e3),
+            "rank_seconds": [r["seconds"] for r in reports]}
+
+
+def spmd_moe_rank():
+    """One rank of the expert-parallel leg: the moe model with
+    ``use_experts`` over an 8-rank expert axis; its moe layer's forward
+    on a batch against ``moe_ffn_reference(n_shards=8)`` on the card,
+    then a few training steps."""
+    import torch
+
+    from veles_tpu_torch.nn.moe import MoEForward
+    from veles_tpu_torch.parallel import collectives, mesh
+    from veles_tpu_torch.parallel.ep import moe_ffn_reference
+    from veles_tpu_torch.loader.base import TRAIN
+    device = mesh.world_device()
+    t = _sequence_trainer(True, device)
+    grid = mesh.build_mesh({"expert": -1})
+    moe = next(m for m in t.model if isinstance(m, MoEForward))
+    moe.use_experts(grid)
+    x = t.loader.original_data[:64].to(device)
+    with torch.no_grad():
+        got = moe(x)
+        tokens = x.reshape(-1, x.shape[-1])
+        want = moe_ffn_reference(tokens, moe.weights, moe.up, moe.down,
+                                 moe.n_experts, moe.capacity_factor,
+                                 n_shards=SPMD_EXPERTS).reshape(x.shape) + x
+    share = float((got - want).abs().max() / want.abs().max())
+    reset_counts()
+    collectives.reset_counts()
+    idx = t._segment_indices(TRAIN)[:SPMD_MOE_STEPS]
+    (losses, _), steps = _stepped(torch, t, lambda: t.train_rows(
+        idx, 0, t._dropout_seed()))
+    counts, forms = read_counts()
+    return {"forward_share": share, "losses": losses.tolist(),
+            "steps_ms": steps, "forms": forms, "counts": counts,
+            "variants": gemm_variants(), "staged": dict(collectives.staged),
+            "calls": dict(collectives.calls),
+            "backend": mesh.backend_reason()}
+
+
+def moe_leg(reports, kernels, all_forms):
+    first = reports[0]["value"]
+    for report in reports:
+        value = report["value"]
+        label = "spmd experts rank %d" % report["rank"]
+        check_forms(label, kernels, value["forms"])
+        check_designed(label, value["variants"])
+        all_forms.append(value["forms"])
+        if value["forward_share"] > SPMD_MOE_TOL:
+            raise AssertionError("%s: the moe layer %.3g of the reference's "
+                                 "largest value (bound %g)" % (
+                                     label, value["forward_share"],
+                                     SPMD_MOE_TOL))
+        if value["losses"] != first["losses"] or not all(
+                math.isfinite(v) for v in value["losses"]):
+            raise AssertionError("%s: losses %s (rank 0: %s)" % (
+                label, value["losses"], first["losses"]))
+    return {"backend": first["backend"], "ranks": len(reports),
+            "staged_through_host": first["staged"],
+            "collective_calls": first["calls"],
+            "forward_share": max(r["value"]["forward_share"]
+                                 for r in reports),
+            "losses": first["losses"],
+            "step_ms": statistics.median(first["steps_ms"]),
+            "rank_seconds": [r["seconds"] for r in reports]}
+
+
+def spmd_pipeline_rank():
+    """One stage of the pipeline leg: ``pipeline_apply`` and one
+    ``pipeline_train_step`` of two tanh(x @ W) stages on the card, and
+    (rank 0) the sequential run of both stages."""
+    import numpy
+    import torch
+
+    from veles_tpu_torch.parallel import collectives, mesh
+    from veles_tpu_torch.parallel.pp import (pipeline_apply,
+                                             pipeline_train_step)
+    n_stages, n_micro, mb, dim = SPMD_PIPELINE
+    device = mesh.world_device()
+    rng = numpy.random.RandomState(19)
+    stack = torch.from_numpy((rng.randn(n_stages, dim, dim) /
+                              dim ** 0.5).astype(numpy.float32)).to(device)
+    xs, ys = (torch.from_numpy(rng.randn(n_micro, mb, dim).astype(
+        numpy.float32)).to(device) for _ in range(2))
+    grid = mesh.build_mesh({"pipe": -1})
+    stage = grid.axis("pipe").index
+
+    def stage_fn(w, x):
+        return torch.tanh(torch.matmul(x, w))
+
+    def loss_fn(out, y):
+        return torch.mean(torch.square(out - y))
+
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    out = pipeline_apply(stage_fn, stack[stage], xs, grid)
+    new, loss = pipeline_train_step(stage_fn, stack[stage], xs, ys, loss_fn,
+                                    grid, learning_rate=0.1)
+    torch.cuda.synchronize()
+    result = {"stage": stage, "seconds": time.perf_counter() - t0,
+              "staged": dict(collectives.staged)}
+    params = stack.clone().requires_grad_()
+    seq = xs
+    for s in range(n_stages):
+        seq = stage_fn(params[s], seq)
+    seq_loss = torch.stack([loss_fn(seq[i], ys[i])
+                            for i in range(n_micro)]).mean()
+    grad, = torch.autograd.grad(seq_loss, params)
+    result.update(
+        out_err=float((out - seq.detach()).abs().max()),
+        loss_err=abs(float(loss) - float(seq_loss)),
+        param_err=float((new - (stack - 0.1 * grad)[stage]).abs().max()))
+    return result
+
+
+def pipeline_leg(reports):
+    worst = {k: max(r["value"][k] for r in reports)
+             for k in ("out_err", "loss_err", "param_err")}
+    if max(worst.values()) > SPMD_PIPELINE_ATOL:
+        raise AssertionError("spmd pipeline: %s beyond %g of the sequential "
+                             "run" % (worst, SPMD_PIPELINE_ATOL))
+    worst["staged_through_host"] = reports[0]["value"]["staged"]
+    worst["seconds"] = [r["value"]["seconds"] for r in reports]
+    return worst
+
+
 def main():
     # deterministic cuBLAS for the workflow and eager phases' runs: read
     # when the first cuBLAS handle is made
@@ -6011,6 +6720,17 @@ def main():
     phases.extend(forms)
     print("distributed (%s): %s" % (card, json.dumps(distributed,
                                                      default=str)))
+
+    spmd, forms = spmd_phase(torch, numpy, kernels)
+    phases.extend(forms)
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "spmd.json"), "w") as f:
+        json.dump(spmd, f, default=str)
+    print("spmd (%s): %s" % (card, json.dumps({
+        k: {kk: vv for kk, vv in v.items() if kk not in (
+            "step_ms_all", "times", "launches")} if isinstance(v, dict)
+        else v for k, v in spmd.items()}, default=str)))
 
     for row in kernels:
         form = row.pop("_form")

@@ -394,13 +394,30 @@ def test_every_layer_type_builds_and_trains():
 
 @pytest.mark.parametrize("kind", ["attention", "moe"])
 def test_attention_and_moe_name_the_later_slice(kind):
-    """Both layers build; their sharded plans (ring attention, expert
-    parallelism) raise, naming the slice that brings them."""
-    model = build_model([{"type": kind}], (4, 8), seed=0, device="cpu")
+    """Both layers build and attach their sharded plans (ring attention,
+    expert parallelism) on a grid of one rank, which computes the plan's
+    numbers: the local attention's, and the expert path's routing of the
+    batch's tokens as one shard (``moe_ffn_reference``)."""
+    from veles_tpu_torch.parallel.ep import moe_ffn_reference
+    from veles_tpu_torch.parallel.mesh import build_mesh
+    layer = {"type": kind} if kind == "attention" else {
+        "type": kind, "n_experts": 1}
+    model = build_model([layer], (4, 8), seed=0, device="cpu")
     assert tuple(model[0].output_shape()) == (4, 8)
-    method = "use_ring" if kind == "attention" else "use_experts"
-    with pytest.raises(NotImplementedError, match="parallel tier"):
-        getattr(model[0], method)(None)
+    x = torch.from_numpy(numpy.random.RandomState(2).randn(3, 4, 8).astype(
+        numpy.float32))
+    with torch.no_grad():
+        if kind == "attention":
+            want = model(x)
+            model[0].use_ring(build_mesh({"seq": 1}))
+        else:
+            unit = model[0]
+            want = moe_ffn_reference(x.reshape(-1, 8), unit.weights,
+                                     unit.up, unit.down, 1).reshape(
+                x.shape) + x
+            model[0].use_experts(build_mesh({"expert": 1}))
+        numpy.testing.assert_allclose(model(x).numpy(), want.numpy(),
+                                      atol=1e-6, rtol=0)
 
 
 def test_losses_and_truths_must_agree():

@@ -627,17 +627,22 @@ def _wait_for(predicate, timeout=60.0):
                                    ["-m", "127.0.0.1:0"], ["--gspmd"],
                                    ["--auto-resume", "snapshots"]])
 def test_cli_refuses_unported_modes(tmp_path, flags):
-    """``--gspmd`` alone raises. ``--eager``, ``-l``, ``-m`` and
-    ``--auto-resume``, once refused too, now run to the last epoch: the
-    master and the slave each through the CLI (the other side of the
-    pair through the launcher), the auto-resume master with a snapshot
-    of every closed epoch in its directory."""
+    """Every mode once refused runs to the last epoch now: ``--gspmd``
+    alone on the CPU as a world of one rank through the SPMD trainer,
+    ``--eager``, ``-l``, ``-m`` and ``--auto-resume`` (the master and the
+    slave each through the CLI, the other side of the pair through the
+    launcher, the auto-resume master with a snapshot of every closed
+    epoch in its directory)."""
     from veles_tpu_torch.__main__ import Main, main
     from veles_tpu_torch.launcher import Launcher
     path = workflow_file(tmp_path, MNIST_FILE, "veles_tpu_torch", 1, "ref")
     if flags == ["--gspmd"]:
-        with pytest.raises(NotImplementedError):
-            main([path, "-a", "cpu"] + flags)
+        from veles_tpu_torch.parallel import mesh
+        cli = Main()
+        assert cli.run([path, "-a", "cpu"] + flags) == 0
+        assert cli.launcher.run_mode_used == "gspmd"
+        assert len(cli.workflow.decision.epoch_history) == 1
+        assert not mesh.multihost_initialized()
         return
     if flags == ["--eager"]:
         cli = Main()

@@ -37,9 +37,17 @@ merges the slaves' deltas) and as a slave (on the card, or the CPU with
 ``-a cpu``), with the flags of ``launcher.Launcher`` (``--segment-size``,
 ``--no-pipeline``, ``--exchange-dtype``, ``--auto-resume``, ...); both
 load the same file with the same ``-s`` seed, so their topology
-checksums and initial weights agree. The JAX CLI's other modes
-(``sched``, ``--optimize``, the ensembles, ``--gspmd``) are not ported
-yet.
+checksums and initial weights agree.
+
+    python -m veles_tpu_torch --gspmd 2x1 <workflow.py> [...]
+
+trains through the SPMD tier: this process is rank 0 of a ``batch`` x
+``model`` world and starts the other ranks itself; with
+``--jax-coordinator HOST:PORT --jax-processes N --jax-process-id K`` on
+every process, each joins a world of N instead (``launcher.py``). Each
+rank loads the same file with the same seed; rank 0 alone writes
+``--result-file`` and snapshots. The JAX CLI's other modes (``sched``,
+``--optimize``, the ensembles) are not ported yet.
 """
 
 import code
@@ -51,6 +59,7 @@ import sys
 
 from veles_tpu_torch import cmdline, prng
 from veles_tpu_torch.config import apply_config_file, root
+from veles_tpu_torch.envknob import env_knob
 from veles_tpu_torch.launcher import Launcher
 from veles_tpu_torch.logger import Logger, setup_logging
 
@@ -177,6 +186,22 @@ class Main(Logger):
             "exchange_dtype", "exchange_eps", "straggler_drop_s",
             "reconnect_s")}
 
+    def _join_world(self, argv):
+        """The SPMD world of ``--gspmd`` and the multi-process flags,
+        joined before anything touches a device."""
+        from veles_tpu_torch.launcher import join_world
+        args = self.args
+        if args.jax_coordinator and not args.jax_processes:
+            # a coordinator with no process count would leave THIS rank
+            # standalone while its peers block at the store
+            raise SystemExit(
+                "--jax-coordinator requires --jax-processes (and "
+                "--jax-process-id) on every process")
+        return join_world(args.gspmd or env_knob("VELES_GSPMD"),
+                          args.jax_coordinator,
+                          args.jax_processes, args.jax_process_id,
+                          args.backend, args.device, argv)
+
     def _load(self, WorkflowClass, **kwargs):
         """Callback handed to the workflow file's run(load, main)."""
         self.launcher = Launcher(**self._launcher_kwargs())
@@ -253,7 +278,8 @@ class Main(Logger):
             pass
 
     def _write_results(self):
-        if not self.args.result_file:
+        from veles_tpu_torch.parallel.mesh import is_rank_zero
+        if not self.args.result_file or not is_rank_zero():
             return
         results = self.workflow.gather_results()
         with open(self.args.result_file, "w") as f:
@@ -296,6 +322,21 @@ class Main(Logger):
             root.common.engine.precision_type = self.args.precision
         # refused flags fail before anything is built
         Launcher(**self._launcher_kwargs())
+        self.world = self._join_world(argv)
+        failed = True
+        try:
+            code = self._run_in_world(overrides)
+            failed = False
+            return code
+        finally:
+            if self.world is not None:
+                self.world.close(failed=failed)
+
+    def _run_in_world(self, overrides):
+        if self.world is not None and self.world.rank and \
+                self.args.trace_out:
+            # each rank's trace beside rank 0's
+            self.args.trace_out += ".rank%d" % self.world.rank
         self._seed_random(self.args.seed)
         module = self._load_model(self.args.workflow)
         if self.args.config:

@@ -42,10 +42,26 @@ A :class:`Launcher` runs its workflow in one of three modes:
   encode, and the wait for each exchange) are in
   :attr:`Launcher.job_log`.
 
-Not in the port yet, and refused with ``NotImplementedError``:
-``--gspmd`` (the ``torch.distributed`` tier).
+``--gspmd MESH`` runs the standalone mode's training through the SPMD
+tier (:class:`~veles_tpu_torch.parallel.gspmd.GSPMDTrainer` over a
+``batch`` x ``model`` grid, ``run_mode_used == "gspmd"``): one process
+per rank over ``torch.distributed``. Without ``--jax-processes``,
+:func:`join_world` starts the other ``batch * model - 1`` ranks on this
+host itself (this process is rank 0), each this CLI with the same
+arguments and the world's coordinator; with ``--jax-coordinator
+HOST:PORT --jax-processes N --jax-process-id K`` (the JAX package's
+flag names) every process is one rank of a world of N joined at that
+store (``file://PATH`` for a file store). The backend follows
+:func:`veles_tpu_torch.parallel.mesh.choose_backend`: NCCL for a card
+per rank, gloo on the CPU and for ranks that share a card. Rank 0
+alone writes snapshots and ``--result-file``. A graph the fused path
+refuses, a workflow with its own runner, and ``--eager`` raise under
+``--gspmd``.
 """
 
+import logging
+import subprocess
+import sys
 import threading
 import time
 import uuid
@@ -60,11 +76,6 @@ from veles_tpu_torch.parallel import wire
 from veles_tpu_torch.telemetry import tracing
 from veles_tpu_torch.telemetry.registry import get_registry
 
-#: the JAX launcher's flags the port refuses, and what they wait for
-NOT_PORTED = {
-    "gspmd": "--gspmd waits for the port's torch.distributed tier",
-}
-
 #: the keyword arguments :class:`Launcher` takes
 KWARGS = frozenset([
     "listen_address", "master_address", "backend", "device", "testing",
@@ -72,7 +83,7 @@ KWARGS = frozenset([
     "heartbeat_timeout", "heartbeat_interval", "nodes", "respawn",
     "segment_size", "pipeline", "secret_file", "max_frame_mb",
     "exchange_dtype", "exchange_eps", "auto_resume", "straggler_drop_s",
-    "reconnect_s"]) | frozenset(NOT_PORTED)
+    "reconnect_s", "gspmd"])
 
 
 def _blob_nbytes(blob):
@@ -110,6 +121,98 @@ def resolve_backend(backend="auto", device=None):
     return torch.device("cuda", index if index is not None else 0)
 
 
+def rank_command(argv):
+    """The command line of a rank :func:`join_world` starts: this CLI
+    with ``argv``."""
+    return [sys.executable, "-m", "veles_tpu_torch"] + list(argv)
+
+
+class World(object):
+    """The SPMD world this process is a rank of: ``size``, ``rank``,
+    ``startup_s`` (from the first rank process started to the world's
+    check all_reduce), ``backend`` (with the rule's reason) and the rank
+    processes it started."""
+
+    def __init__(self, size, rank, startup_s, children=()):
+        from veles_tpu_torch.parallel.mesh import backend_reason
+        self.size, self.rank, self.startup_s = size, rank, startup_s
+        self.backend = backend_reason()
+        self.children = list(children)
+
+    def close(self, failed=False, timeout=None):
+        """Wait for the started ranks (killing them when this rank
+        ``failed`` or they overrun ``timeout``), then leave the world.
+        Raises when a started rank failed."""
+        from veles_tpu_torch.parallel import mesh
+        if timeout is None:
+            timeout = mesh.mesh_timeout().total_seconds()
+        codes = []
+        for child in self.children:
+            if failed:
+                child.kill()
+            try:
+                codes.append(child.wait(timeout=timeout))
+            except subprocess.TimeoutExpired:
+                child.kill()
+                codes.append(child.wait())
+        mesh.shutdown_multihost()
+        bad = [(i + 1, c) for i, c in enumerate(codes) if c != 0]
+        if bad and not failed:
+            raise RuntimeError("SPMD rank(s) exited with %s" % ", ".join(
+                "rank %d: %d" % rc for rc in bad))
+
+
+def world_ranks(gspmd):
+    """The ranks ``--gspmd``'s mesh spans: batch x model, an inferred
+    batch taking every card of this host (one rank without a card)."""
+    from veles_tpu_torch.parallel.gspmd import parse_mesh_spec
+    sizes = parse_mesh_spec(gspmd)
+    if -1 in sizes.values():
+        cards = torch.cuda.device_count() if torch.cuda.is_available() \
+            else 0
+        return parse_mesh_spec(gspmd, n=max(cards, sizes["model"], 1))
+    return sizes
+
+
+def join_world(gspmd=None, coordinator=None, processes=None,
+               process_id=None, backend="auto", device=None, argv=()):
+    """This process's SPMD world, or None standalone. With ``processes``
+    it joins that world at ``coordinator`` as ``process_id``; with
+    ``gspmd`` alone it is rank 0 of the spec's world and starts the
+    others on this host (``rank_command(argv + the world's flags)``)."""
+    from veles_tpu_torch.parallel import mesh
+    if processes:
+        t0 = time.perf_counter()
+        if not mesh.init_multihost(coordinator, processes, process_id,
+                                   backend=backend, device=device):
+            return None
+        return World(int(processes), int(process_id),
+                     time.perf_counter() - t0)
+    if not gspmd:
+        return None
+    sizes = world_ranks(gspmd)
+    n = sizes["batch"] * sizes["model"]
+    t0 = time.perf_counter()
+    store = torch.distributed.TCPStore(
+        "127.0.0.1", 0, n, True, timeout=mesh.mesh_timeout(),
+        wait_for_workers=False)
+    address = "127.0.0.1:%d" % store.port
+    children = [subprocess.Popen(rank_command(list(argv) + [
+        "--jax-coordinator", address, "--jax-processes", str(n),
+        "--jax-process-id", str(k)])) for k in range(1, n)]
+    try:
+        mesh.init_world(store, n, 0, backend, device, (address, n, 0))
+    except BaseException:
+        for child in children:
+            child.kill()
+            child.wait()
+        raise
+    logging.getLogger("Launcher").info(
+        "SPMD world of %d ranks (%s) formed in %.2f s", n, sizes,
+        time.perf_counter() - t0)
+    return World(n, 0, time.perf_counter() - t0, children)
+
+
 class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
     """Owns the mode, the device and the coordinator."""
 
@@ -119,9 +222,6 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         if unknown:
             raise TypeError("unknown Launcher argument(s) %s"
                             % ", ".join(sorted(unknown)))
-        for key in NOT_PORTED:
-            if kwargs.get(key):
-                raise NotImplementedError(NOT_PORTED[key])
         self.listen_address = kwargs.get("listen_address")
         self.master_address = kwargs.get("master_address")
         if self.listen_address and self.master_address:
@@ -169,6 +269,11 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         if reconnect_s in (None, ""):
             reconnect_s = env_knob("VELES_RECONNECT_S", 30.0, parse=float)
         self.reconnect_s = float(reconnect_s)
+        #: ``--gspmd``'s mesh spec ("auto", "2x1", "batch=2,model=1"),
+        #: VELES_GSPMD the fallback
+        self.gspmd = kwargs.get("gspmd") or env_knob("VELES_GSPMD")
+        if self.gspmd and not self.is_standalone:
+            raise ValueError("--gspmd runs standalone, not with -l or -m")
         self.id = str(uuid.uuid4())
         self.log_id = self.id[:8]
         self.workflow = None
@@ -210,7 +315,24 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
                  "trainer (a slave replays segment jobs eagerly)")
         parser.add_argument(
             "--gspmd", nargs="?", const="auto", default=None,
-            metavar="MESH", help="the GSPMD path (not in the port yet)")
+            metavar="MESH",
+            help="train through the SPMD tier, one process per rank over "
+                 "torch.distributed, on a batch x model grid: MESH like "
+                 "'2x1' or 'batch=2,model=1'; bare --gspmd puts one rank "
+                 "per card of this host on the batch axis. Without "
+                 "--jax-processes this process starts the other ranks "
+                 "(VELES_GSPMD env fallback)")
+        parser.add_argument(
+            "--jax-coordinator", default=None, metavar="HOST:PORT",
+            help="multi-process world: the rendezvous store (rank 0 serves "
+                 "a TCP store at HOST:PORT; file://PATH a file store); the "
+                 "JAX package's name for its coordinator")
+        parser.add_argument(
+            "--jax-processes", type=int, default=None,
+            help="multi-process world: the number of ranks (processes)")
+        parser.add_argument(
+            "--jax-process-id", type=int, default=None,
+            help="multi-process world: this process's rank")
         parser.add_argument(
             "--slave-death-probability", type=float, default=0.0,
             help="chaos: probability a slave dies mid-job")
@@ -328,7 +450,9 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
             if self.auto_resume:
                 self._try_auto_resume()
         else:
-            self.device = resolve_backend(self.backend, self.device_index)
+            from veles_tpu_torch.parallel.mesh import world_device
+            self.device = world_device() or resolve_backend(
+                self.backend, self.device_index)
         self.workflow.add_finished_callback(self.on_workflow_finished)
         if self.testing:
             set_testing = getattr(self.workflow, "set_testing", None)
@@ -699,23 +823,56 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
             fused_compatible
         workflow = self.workflow
         if self.eager:
+            if self.gspmd:
+                raise RuntimeError(
+                    "--gspmd and --eager are mutually exclusive: the SPMD "
+                    "tier drives the fused trainer")
             self.info("running the eager per-unit scheduler (--eager)")
             self._run_eager()
             return
         runner = workflow.make_fused_runner()
         if runner is not None:
+            if self.gspmd:
+                raise RuntimeError(
+                    "--gspmd requested but the workflow supplies its own "
+                    "fused runner (%s), which the GSPMD trainer cannot "
+                    "drive" % type(runner).__name__)
             self.run_mode_used = "custom"
         else:
             reason = fused_compatible(workflow)
             if reason is not None:
+                if self.gspmd:
+                    raise RuntimeError(
+                        "--gspmd requested but the fused path is "
+                        "unavailable: %s" % reason)
                 self.info("fused path unavailable (%s); running eager",
                           reason)
                 self._run_eager()
                 return
-            self.run_mode_used = "fused"
-            runner = FusedRunner(workflow)
+            if self.gspmd:
+                runner = self._gspmd_runner()
+            else:
+                self.run_mode_used = "fused"
+                runner = FusedRunner(workflow)
         self.runner = runner
         runner.run()
+
+    def _gspmd_runner(self):
+        """The fused runner over a :class:`GSPMDTrainer` on the world's
+        batch x model grid."""
+        from veles_tpu_torch.parallel.gspmd import (GSPMDTrainer,
+                                                    gspmd_mesh,
+                                                    parse_mesh_spec)
+        from veles_tpu_torch.parallel.mesh import (backend_reason,
+                                                   world_size)
+        from veles_tpu_torch.train.runner import FusedRunner, trainer_for
+        sizes = parse_mesh_spec(self.gspmd, n=world_size())
+        grid = gspmd_mesh(sizes["batch"], sizes["model"], self.device)
+        self.info("running the GSPMD path over mesh %s, rank %d, backend "
+                  "%s", sizes, grid.rank, backend_reason())
+        self.run_mode_used = "gspmd"
+        return FusedRunner(self.workflow, trainer=trainer_for(
+            self.workflow, GSPMDTrainer, grid=grid))
 
     def _run_eager(self):
         self.run_mode_used = "eager"

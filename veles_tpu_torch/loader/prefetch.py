@@ -547,6 +547,21 @@ def default_placer(device=None):
     return lambda host: torch.as_tensor(host).to(device)
 
 
+def sharded_placer(sharding):
+    """Host rows -> this rank's rows of ``sharding`` (the rows split
+    over its data axis), on the rank's device: the pad-and-place of the
+    data-parallel trainers (``veles_tpu/loader/prefetch.py``
+    ``sharded_placer``). The sample dimension is padded with zero rows to
+    divide the axis -- only this rank's block is cut and padded, and only
+    its rows are copied -- through the measured reshard seam
+    (``veles_reshard_ms{src="host",dst="P(<axis>)"}``)."""
+    from veles_tpu_torch.parallel import reshard
+
+    def place(host):
+        return reshard.reshard(host, sharding, pad=True)
+    return place
+
+
 def warmup_ring(slots=2, device=None):
     """A small :class:`StagingRing` (``slots`` reused slots) for staging
     a sequence of warm-up batches with a bounded device footprint."""

@@ -24,15 +24,34 @@ never cast. The products run under the trainer's and the served
 batch's ``Policy.backends()``, which hold TF32 off.
 
 The residual output ``x + attention(x)`` is the default; ``causal``
-masks later positions. ``use_ring`` (the sequence-sharded plans) comes
-with the port's parallel tier.
+masks later positions.
+
+``use_ring(grid, axis, schedule)`` attaches a sequence axis of a
+:class:`~veles_tpu_torch.parallel.mesh.RankGrid`, with the JAX unit's
+checks: the unit still takes the activations whole, as the rest of the
+model sees them, and runs the projections (K1, K6) on all of them;
+between them each rank cuts its block of the sequence from q, k and v
+(:class:`~veles_tpu_torch.parallel.collectives.ScatterToAxis`), runs
+:func:`~veles_tpu_torch.parallel.sequence.ring_attention` or
+:func:`~veles_tpu_torch.parallel.sequence.ulysses_attention` on it and
+gathers the blocks whole again
+(:class:`~veles_tpu_torch.parallel.collectives.GatherFromAxis`), so its
+outputs and gradients are the same on every rank. The grid is a
+process's runtime state: an unpickled unit has none (reattach it after
+a resume), as the JAX unit's mesh. The port's units run their forward
+on the rank's own device, so they need no re-placement hook (the JAX
+unit's ``_placement_mesh``).
 """
 
 import torch
 
 from veles_tpu_torch.nn.base import WeightedBase
 from veles_tpu_torch.ops.gemm import LinearActFunction
-from veles_tpu_torch.parallel.sequence import local_attention
+from veles_tpu_torch.parallel.collectives import (GatherFromAxis,
+                                                  ScatterToAxis)
+from veles_tpu_torch.parallel.sequence import (local_attention,
+                                               ring_attention,
+                                               ulysses_attention)
 
 
 class MultiHeadAttentionForward(WeightedBase):
@@ -52,6 +71,14 @@ class MultiHeadAttentionForward(WeightedBase):
         self.residual = bool(residual)
         super(MultiHeadAttentionForward, self).__init__(
             input_shape, policy, include_bias, device, trainable)
+        self._seq_grid = None
+        self._seq_axis = "seq"
+        self._seq_schedule = "ring"
+
+    def __getstate__(self):
+        state = super(MultiHeadAttentionForward, self).__getstate__()
+        state.update(_seq_grid=None, _seq_axis="seq", _seq_schedule="ring")
+        return state
 
     def jax_weights_shape(self):
         dim = self.input_shape[-1]
@@ -60,10 +87,36 @@ class MultiHeadAttentionForward(WeightedBase):
     def bias_shape(self):
         return (4, self.input_shape[-1])
 
-    def use_ring(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ring and Ulysses attention need a sequence mesh: they come "
-            "with the port's parallel tier (queue A item 7)")
+    def use_ring(self, grid, axis="seq", schedule="ring"):
+        """Attach the ``axis`` of ``grid``: the sharded plan
+        ``schedule`` -- ``ring`` (K/V hops with the streaming softmax)
+        or ``ulysses`` (two all_to_alls; the heads must divide the
+        axis). Returns the unit."""
+        if schedule not in ("ring", "ulysses"):
+            raise ValueError("unknown sp schedule %r" % (schedule,))
+        size = grid.shape[axis]
+        if schedule == "ulysses" and self.heads % size:
+            raise ValueError(
+                "ulysses needs heads (%d) divisible by the %r axis (%d)"
+                % (self.heads, axis, size))
+        self._seq_grid = grid
+        self._seq_axis = axis
+        self._seq_schedule = schedule
+        return self
+
+    def _attend(self, q, k, v):
+        """The attention of (B, H, S, hd) q, k, v: local, or this rank's
+        sequence block by the attached schedule, gathered whole."""
+        # snapshots from before the parallel tier have no grid attribute
+        grid = getattr(self, "_seq_grid", None)
+        if grid is None:
+            return local_attention(q, k, v, causal=self.causal)
+        seq = grid.axis(self._seq_axis)
+        blocks = [ScatterToAxis.apply(t, seq, 2) for t in (q, k, v)]
+        sharded = ulysses_attention if self._seq_schedule == "ulysses" \
+            else ring_attention
+        ctx = sharded(*blocks, grid, self._seq_axis, causal=self.causal)
+        return GatherFromAxis.apply(ctx, seq, 2)
 
     def _apply(self, x, plain):
         batch, seq, dim = x.shape
@@ -81,7 +134,7 @@ class MultiHeadAttentionForward(WeightedBase):
             return t.reshape(batch, seq, heads, dim // heads).transpose(1, 2)
 
         q, k, v = (split(proj(i, xf)) for i in range(3))
-        ctx = local_attention(q, k, v, causal=self.causal)
+        ctx = self._attend(q, k, v)
         out = proj(3, ctx.transpose(1, 2).reshape(batch, seq, dim))
         if self.residual:
             out = out + xf

@@ -19,8 +19,17 @@ there. The residual ``x + moe(x)`` is the default.
 load-balance loss of the batch's router probabilities, the per-sample
 ``valid`` mask repeated over each sample's tokens; the trainer adds it
 to the training loss when the weight is not 0 (default 0.0).
-``use_experts`` (the expert-parallel schedule) comes with the port's
-parallel tier.
+
+``use_experts(grid, axis)`` attaches an expert axis as wide as the
+expert count: the forward then routes the batch's tokens (all of them,
+flattened) with the per-shard capacity of the JAX unit's expert path,
+each rank taking its shard of the tokens
+(:class:`~veles_tpu_torch.parallel.collectives.ScatterToAxis`) and its
+expert's ``up`` and ``down`` blocks, through
+:func:`veles_tpu_torch.parallel.ep.moe_ffn`, and gathering the tokens
+whole again (:class:`~veles_tpu_torch.parallel.collectives.
+GatherFromAxis`); the experts' gradients come back whole, each block
+from its rank. The grid is runtime state: an unpickled unit has none.
 """
 
 import numpy
@@ -28,8 +37,10 @@ import torch
 from torch import nn
 
 from veles_tpu_torch.nn.base import WeightedBase
-from veles_tpu_torch.parallel.ep import (load_balance_loss, moe_ffn_dense,
-                                         router_probs)
+from veles_tpu_torch.parallel.collectives import (GatherFromAxis,
+                                                  ScatterToAxis)
+from veles_tpu_torch.parallel.ep import (load_balance_loss, moe_ffn,
+                                         moe_ffn_dense, router_probs)
 
 
 class MoEForward(WeightedBase):
@@ -55,6 +66,13 @@ class MoEForward(WeightedBase):
         self.down = nn.Parameter(
             torch.empty((self.n_experts, self.hidden, dim), device=device),
             requires_grad=trainable)
+        self._ep_grid = None
+        self._ep_axis = "expert"
+
+    def __getstate__(self):
+        state = super(MoEForward, self).__getstate__()
+        state.update(_ep_grid=None, _ep_axis="expert")
+        return state
 
     def jax_weights_shape(self):
         return (self.input_shape[-1], self.n_experts)
@@ -68,12 +86,33 @@ class MoEForward(WeightedBase):
                                        ).astype(numpy.float32)
         return params
 
-    def use_experts(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the expert-parallel schedule needs an expert mesh: it comes "
-            "with the port's parallel tier (queue A item 7)")
+    def use_experts(self, grid, axis="expert"):
+        """Attach the ``axis`` of ``grid`` (as wide as the expert count):
+        the expert-parallel schedule. Returns the unit."""
+        if grid.shape[axis] != self.n_experts:
+            raise ValueError(
+                "%d experts cannot shard over a %d-wide %r axis" %
+                (self.n_experts, grid.shape[axis], axis))
+        self._ep_grid = grid
+        self._ep_axis = axis
+        return self
+
+    def _expert_parallel(self, x):
+        experts = self._ep_grid.axis(self._ep_axis)
+        tokens = ScatterToAxis.apply(x.reshape(-1, x.shape[-1]), experts, 0)
+        up = ScatterToAxis.apply(self.up, experts, 0)[0]
+        down = ScatterToAxis.apply(self.down, experts, 0)[0]
+        y = moe_ffn(tokens, self.weights, up, down, self._ep_grid,
+                    self._ep_axis, self.capacity_factor)
+        return GatherFromAxis.apply(y, experts, 0).reshape(x.shape)
 
     def forward(self, x):
+        # snapshots from before the parallel tier have no grid attribute
+        if getattr(self, "_ep_grid", None) is not None:
+            y = self._expert_parallel(x)
+            if self.residual:
+                y = y + x
+            return y.to(x.dtype)
         per_sample = x.reshape(x.shape[0], -1, x.shape[-1])
         y = moe_ffn_dense(per_sample, self.weights, self.up, self.down,
                           self.capacity_factor).reshape(x.shape)

@@ -17,12 +17,25 @@ these einsums to XLA, so they stay ``torch.einsum`` here.
 :func:`moe_ffn_reference` is the JAX function itself, groups being its
 shards; :func:`load_balance_loss` the Switch auxiliary loss.
 
-The expert-parallel ``moe_ffn`` (``all_to_all`` over an expert mesh)
-comes with the port's parallel tier.
+:func:`moe_ffn` is the expert-parallel schedule over the ``expert``
+axis of a :class:`~veles_tpu_torch.parallel.mesh.RankGrid`, one process
+a rank, each rank one shard of the tokens and one expert: the top-1
+router with the capacity ``ceil(t * capacity_factor / E)`` of this
+rank's ``t`` tokens, the (E, C, d) dispatch buffer (a token past its
+expert's capacity is dropped: its row stays zero and its output is
+zero), one all_to_all to the experts and one back
+(:class:`~veles_tpu_torch.parallel.collectives.AllToAll`), and the
+gate's scale, which carries the router's gradient. The router enters
+through :class:`~veles_tpu_torch.parallel.collectives.CopyToAxis`, so
+its gradient is the sum of every rank's, as the JAX function's is for
+its replicated router. Its numbers are :func:`moe_ffn_reference`'s with
+``n_shards = E``.
 """
 
 import torch
 import torch.nn.functional as F
+
+from veles_tpu_torch.parallel.collectives import AllToAll, CopyToAxis
 
 
 def capacity_of(tokens, n_experts, capacity_factor):
@@ -101,3 +114,35 @@ def load_balance_loss(probs, weights=None):
         f = (assignment * w[:, None]).sum(dim=0)
         p = (probs * w[:, None]).sum(dim=0)
     return n_experts * (f * p).sum()
+
+
+def moe_ffn(x, router_w, w_up, w_down, grid, axis="expert",
+            capacity_factor=1.25, activation=torch.relu):
+    """The top-1 MoE FFN of this rank's token shard ``x`` (t, d):
+    ``router_w`` (d, E) whole, ``w_up`` (d, hidden) and ``w_down``
+    (hidden, d) this rank's expert. Returns this rank's (t, d)."""
+    experts = grid.axis(axis)
+    n_experts = experts.size
+    if router_w.shape[1] != n_experts:
+        raise ValueError("router has %d experts, mesh axis %r is %d" %
+                         (router_w.shape[1], axis, n_experts))
+    t, d = x.shape
+    capacity = capacity_of(t, n_experts, capacity_factor)
+    probs = router_probs(x, CopyToAxis.apply(router_w, experts))
+    expert = probs.argmax(dim=-1)
+    gate = probs.gather(-1, expert[:, None])[:, 0]
+    onehot = F.one_hot(expert, n_experts)
+    pos = ((onehot.cumsum(dim=0) - 1) * onehot).sum(dim=-1)
+    keep = pos < capacity
+    slot = torch.where(keep, expert * capacity + pos, 0)
+    dispatch = torch.zeros((n_experts * capacity, d), dtype=x.dtype,
+                           device=x.device).index_add(
+        0, slot, x * keep[:, None].to(x.dtype))
+    # after it: every shard's tokens for THIS rank's expert, (E, C, d)
+    inbound = AllToAll.apply(dispatch.view(n_experts, capacity, d),
+                             experts, 0, 0)
+    h = activation(torch.matmul(inbound.float(), w_up.float()).to(x.dtype))
+    out = torch.matmul(h.float(), w_down.float()).to(x.dtype)
+    outbound = AllToAll.apply(out, experts, 0, 0)
+    picked = outbound.reshape(n_experts * capacity, d).index_select(0, slot)
+    return picked * (gate * keep).to(x.dtype)[:, None]

@@ -37,6 +37,7 @@ import time
 from veles_tpu_torch import prng
 from veles_tpu_torch.config import root
 from veles_tpu_torch.mutable import Bool
+from veles_tpu_torch.parallel.mesh import is_rank_zero
 from veles_tpu_torch.result_provider import IResultProvider
 from veles_tpu_torch.units import Unit
 
@@ -91,7 +92,7 @@ class SnapshotterBase(Unit, IResultProvider):
     A snapshot is taken every ``interval`` runs, but not more often than
     every ``time_interval`` seconds, and not at all when
     ``root.common.disable.snapshotting`` is set. ``skip`` (a ``Bool``)
-    suppresses it."""
+    suppresses it. Of a world of SPMD ranks, rank 0 alone writes."""
 
     hide_from_registry = True
     view_group = "SERVICE"
@@ -116,7 +117,7 @@ class SnapshotterBase(Unit, IResultProvider):
     def run(self):
         if root.common.disable.get("snapshotting", False):
             return
-        if bool(self.skip):
+        if bool(self.skip) or not is_rank_zero():
             return
         self._skipped_counter += 1
         if self._skipped_counter < self.interval:

@@ -40,7 +40,10 @@ segment) -- and, as in the JAX engine, telemetry: the
 ``offload:h2d`` / ``offload:d2h`` span with its ``group`` and a sample of
 the cost-book row ``offload:h2d/g<k>`` / ``offload:d2h/g<k>`` (the
 group's bytes, no FLOPs). The transfer times are host times: the time
-to enqueue the copy on its stream.
+to enqueue the copy on its stream. Each upload goes through
+:func:`veles_tpu_torch.parallel.reshard.host_placer`, so it is also a
+``veles_reshard_ms{src="host",dst="committed"}`` sample, as in the JAX
+engine.
 """
 
 import threading
@@ -53,6 +56,7 @@ from torch import nn
 from veles_tpu_torch.convert import layer_params
 from veles_tpu_torch.envknob import env_knob
 from veles_tpu_torch.loader import prefetch
+from veles_tpu_torch.parallel import reshard
 from veles_tpu_torch.telemetry import profiler, tracing
 from veles_tpu_torch.telemetry.registry import get_registry
 
@@ -257,6 +261,8 @@ class OffloadEngine(object):
         self.transfers = []
         self._ring = prefetch.StagingRing(max(1, self.depth) + 2,
                                           self.device, reuse=False)
+        # every upload through the measured reshard seam
+        self._place = reshard.host_placer(self._ring)
         self._d2h = None
         #: each group's last writeback event: every segment's uploads
         #: follow it, and a segment ends with the masters complete
@@ -299,7 +305,6 @@ class OffloadEngine(object):
         backward task "B"). ``gate`` = (cond, versions, events, abort):
         task (b, g) waits until the writeback of g for minibatch b-1 was
         enqueued, and its copy follows that writeback's event."""
-        ring = self._ring
         throttle = transfer_throttle_s()
         h2d_ms = self.h2d_ms
 
@@ -318,7 +323,7 @@ class OffloadEngine(object):
             t0 = time.perf_counter()
             if throttle:
                 time.sleep(throttle)
-            staged = ring.place(self._masters(g, kind == "B"), after=after)
+            staged = self._place(self._masters(g, kind == "B"), after=after)
             elapsed = time.perf_counter() - t0
             h2d_ms.append(elapsed * 1e3)
             self._h2d_hist.observe(elapsed * 1e3)

@@ -133,12 +133,12 @@ def fused_compatible(workflow):
     return None
 
 
-def trainer_for(workflow):
-    """The port's trainer over an initialized workflow: its ``model``,
-    its loader, each layer's hyper-parameters and solver state from the
-    layer's gradient unit (the state dicts themselves: the trainer
-    updates them in place), the loss of its evaluator and its
-    ``uniform_source``."""
+def trainer_for(workflow, cls=FusedTrainer, **kwargs):
+    """The port's trainer (``cls``, given ``kwargs`` beside) over an
+    initialized workflow: its ``model``, its loader, each layer's
+    hyper-parameters and solver state from the layer's gradient unit
+    (the state dicts themselves: the trainer updates them in place), the
+    loss of its evaluator and its ``uniform_source``."""
     gd_for = {id(gd.forward): gd for gd in getattr(workflow, "gds", ())}
     gds = [gd_for.get(id(fwd)) for fwd in workflow.forwards]
     solvers = {gd.solver_name for gd in gds if gd is not None}
@@ -148,13 +148,13 @@ def trainer_for(workflow):
             % sorted(solvers))
     loss = ("softmax" if isinstance(workflow.evaluator, EvaluatorSoftmax)
             else "mse")
-    return FusedTrainer(
+    return cls(
         workflow.model, workflow.loader,
         [gd.hyper if gd is not None else {} for gd in gds],
         solver=solvers.pop() if solvers else "sgd", loss=loss,
         uniform_source=workflow.uniform_source,
         states=[gd.opt_state if gd is not None and gd.opt_state
-                else {} for gd in gds])
+                else {} for gd in gds], **kwargs)
 
 
 class FusedRunner(object):
@@ -228,7 +228,8 @@ class FusedRunner(object):
                 self._first_step_done = True
                 profiler.record_phase("first_step", elapsed)
         train = phase == "train"
-        op = "train_segment" if train else "eval_segment"
+        op = self.trainer._op_prefix + (
+            "train_segment" if train else "eval_segment")
         per_class = [stats] if train else list(stats.values())
         samples = sum(s["samples"] for s in per_class)
         if samples:
@@ -379,7 +380,8 @@ class FusedRunner(object):
         trainer updates."""
         gd_for = {id(gd.forward): gd
                   for gd in getattr(self.workflow, "gds", ())}
-        for fwd, state in zip(self.workflow.forwards, self.trainer.states):
+        for fwd, state in zip(self.workflow.forwards,
+                              self.trainer.unit_states()):
             gd = gd_for.get(id(fwd))
             if gd is not None and state:
                 gd.opt_state = state

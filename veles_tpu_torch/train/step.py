@@ -72,6 +72,20 @@ MFU of its training sweep); :meth:`sweep_cost` gives the cost book a
 sweep's analytic FLOPs and bytes
 (:func:`veles_tpu_torch.models.build.sweep_cost`).
 
+The seams a subclass overrides, as in the JAX trainer: ``_op_prefix``
+(the cost-book rows of its sweeps), :meth:`FusedTrainer._per_sample`
+(the per-sample values every cross-sample reduction reads: the loss,
+the metrics and the confusion matrix, through
+:meth:`FusedTrainer._loss_and_metrics` in training),
+:meth:`FusedTrainer._dataset_device_bytes` (the dataset bytes one device
+holds, which the residency plan compares with its budget),
+:meth:`FusedTrainer._shard_placer` (a placement of the resident dataset
+other than the loader's staged copy), :meth:`FusedTrainer._uniforms`
+(the uniforms of a dropout mask) and :meth:`FusedTrainer.
+_reduce_gradients`, the point between the backward pass and the solver
+(the data-parallel trainers all-reduce there;
+``veles_tpu_torch/parallel/dp.py``).
+
 Left out for later slices: the space-to-depth staging pack.
 """
 
@@ -114,6 +128,9 @@ class FusedTrainer(object):
     module without weights; else the solver's fresh state).
     ``plain=True`` runs every kernel's plain version instead (the
     reference the kernels are held against on the card)."""
+
+    #: prefix of the cost-book rows of this trainer's sweeps
+    _op_prefix = ""
 
     def __init__(self, model, loader, hypers, solver="sgd", loss="softmax",
                  uniform_source=None, plain=False, states=None, device=None,
@@ -171,6 +188,9 @@ class FusedTrainer(object):
         self._active_pipeline = None
         self._staging_ring = None
         self._offload_engine = None
+        #: the resident dataset as this trainer placed it (None: the
+        #: loader's staged copy)
+        self._data_args = None
         self._setup_data_residency()
         self.params = [layer_params(m) for m in self.forwards]
         self._setup_model_residency(states)
@@ -186,14 +206,20 @@ class FusedTrainer(object):
         total = (data.numel() * data.element_size() +
                  truth.numel() * truth.element_size())
         self.streaming = prefetch.plan_residency(
-            total, device=self.device, force=self.stream) == "streamed"
+            self._dataset_device_bytes(total), device=self.device,
+            force=self.stream) == "streamed"
         if self.streaming and not hasattr(loader, "host_backing"):
             _log.warning("loader %s has no host backing: cannot stream; "
                          "the dataset stays resident",
                          type(loader).__name__)
             self.streaming = False
         if not self.streaming:
-            loader.stage(self.device)
+            place = self._shard_placer()
+            if place is None:
+                loader.stage(self.device)
+            else:
+                loader.release_staged()
+                self._data_args = (place(data), place(truth))
             return
         loader.release_staged()
         mb = loader.max_minibatch_size
@@ -220,6 +246,16 @@ class FusedTrainer(object):
                   "budget; shards of %d minibatches (%.0f MB), prefetch "
                   "depth %d", total / 1e6, self._batches_per_shard,
                   self._batches_per_shard * batch_bytes / 1e6, depth)
+
+    def _dataset_device_bytes(self, total_bytes):
+        """The bytes of a ``total_bytes`` dataset that one device holds
+        resident: all of them."""
+        return total_bytes
+
+    def _shard_placer(self):
+        """``place(host tensor) -> device tensor`` for the resident
+        dataset and its truth, or None: the loader stages them whole."""
+        return None
 
     def _setup_model_residency(self, states):
         """Solver state beside the parameters, both on the device, or
@@ -315,9 +351,8 @@ class FusedTrainer(object):
                 aux.append(module.aux_loss(x, valid))
             if isinstance(module, DropoutForward):
                 if train:
-                    x = module.train_forward(x, dropout_uniforms(
-                        x.shape, seed, batch_index, i, x.device,
-                        self.uniform_source, self.plain))
+                    x = module.train_forward(x, self._uniforms(
+                        x, seed, batch_index, i))
             elif i == last and hasattr(module, "logits"):
                 x = module.logits(x, self.plain)
             elif self.plain:
@@ -325,6 +360,11 @@ class FusedTrainer(object):
             else:
                 x = module(x)
         return x
+
+    def _uniforms(self, x, seed, batch_index, i):
+        """The uniforms of layer ``i``'s dropout mask over ``x``."""
+        return dropout_uniforms(x.shape, seed, batch_index, i, x.device,
+                                self.uniform_source, self.plain)
 
     def _dropout_seed(self):
         """This epoch's dropout seed, from the first dropout layer's
@@ -338,8 +378,24 @@ class FusedTrainer(object):
         """(x, truth, valid) of one minibatch: from the staged dataset,
         or from ``data_args`` (a streamed shard) by its local indices."""
         if data_args is None:
+            if self._data_args is not None:
+                return self.loader.gather_from(self._data_args, indices)
             return self.loader.gather(indices)
         return self.loader.gather_from(data_args, indices)
+
+    def _per_sample(self, out, truth, valid):
+        """The per-sample (output, truth, valid) every cross-sample
+        reduction of a batch reads: this trainer's own."""
+        return out, truth, valid
+
+    def _loss_and_metrics(self, out, truth, valid):
+        """(loss to differentiate, report loss, metric) of a batch's
+        output, over :meth:`_per_sample`'s values."""
+        return self._loss(*self._per_sample(out, truth, valid))
+
+    def _reduce_gradients(self):
+        """Between the backward pass and the solver: the gradients are
+        this trainer's own."""
 
     def gradients(self, indices, batch_index, seed, data_args=None):
         """Loss and gradients of one minibatch (``indices`` on the
@@ -356,10 +412,12 @@ class FusedTrainer(object):
                     p.grad = None
             aux = []
             out = self._forward(x, True, batch_index, seed, aux, valid)
-            grad_loss, report, metric = self._loss(out, truth, valid)
+            grad_loss, report, metric = self._loss_and_metrics(out, truth,
+                                                               valid)
             for term in aux:
                 grad_loss = grad_loss + term
             grad_loss.backward()
+            self._reduce_gradients()
         return report, metric
 
     def grad_norm(self):
@@ -411,7 +469,8 @@ class FusedTrainer(object):
         with torch.no_grad(), self.policy.backends():
             for row in idx:
                 x, truth, valid = self._gather(row, data_args)
-                logits = self._forward(x, False)
+                logits, truth, valid = self._per_sample(
+                    self._forward(x, False), truth, valid)
                 _, report, metric = self._loss(logits, truth, valid)
                 losses.append(report)
                 metrics.append(metric)
@@ -605,8 +664,9 @@ class FusedTrainer(object):
                 "veles_train_samples_per_s",
                 "Samples served per second over the last epoch").set(
                 train_stats["samples"] / elapsed_s)
-        self.note_sweep_cost("train_segment", train_stats["samples"], True)
-        profiler.get_cost_book().record_step_mfu("train_segment", elapsed_s)
+        op = self._op_prefix + "train_segment"
+        self.note_sweep_cost(op, train_stats["samples"], True)
+        profiler.get_cost_book().record_step_mfu(op, elapsed_s)
 
     def _summarize(self, losses, metrics, klass):
         n = self.loader.class_lengths[klass]
@@ -653,6 +713,12 @@ class FusedTrainer(object):
         return self.epoch_history
 
     # -- parameter plumbing ------------------------------------------------
+
+    def unit_states(self):
+        """Each layer's solver state as the workflow's units hold it,
+        once the modules hold this trainer's parameters whole: the
+        modules are the trainer's parameters, so its own states."""
+        return self.states
 
     def pull_params(self):
         """(params, states): copies of every layer's parameters and
