@@ -292,19 +292,27 @@
    parameter bit for bit the standalone deterministic run's (a process
    of its own too). (2) ``--gspmd 2x1`` through the multi-process flags
    (``--jax-coordinator``, ``--jax-processes``, ``--jax-process-id``, one
-   process a rank) and (3) ``--gspmd 1x2`` (rank 0 starting rank 1
-   itself): each epoch's losses within 1e-5 relative, every parameter
-   tensor within 5e-2 of its change, and each run's control with the
-   gradient collectives skipped beyond that (both controls at once,
-   their ranks started through the flags). (4) The attention model at
-   ``bench_all.py``'s widths (2 layers, seq 256, dim 256, 8 heads, batch
-   64, lr 0.01; 640 + 128 samples) with ``use_ring`` ``ring`` and
-   ``ulysses`` at 2 ranks: the forward within 1e-5 of the unsharded
-   forward's largest value, one epoch's losses within 1e-4 relative of
-   the unsharded epoch's. (5) The moe model (8 experts, seq 128) with
-   ``use_experts`` at 8 ranks: the layer within 1e-5 of
-   ``moe_ffn_reference(n_shards=8)`` on the card, then 4 training
-   steps, finite and alike on every rank. (6) A 2-stage
+   process a rank, meeting at a file store) and (3) ``--gspmd 1x2``
+   (rank 0 starting rank 1 itself, at its TCP store): each epoch's
+   losses within 1e-5 relative, every parameter tensor within 5e-2 of
+   its change, and each run's control with the gradient collectives
+   skipped beyond that (both controls at once, their ranks started
+   through the flags). (4) The attention model at ``bench_all.py``'s
+   widths (2 layers, seq 256, dim 256, 8 heads, batch 64, lr 0.01; 640
+   + 128 samples) with ``use_ring`` ``ring`` and ``ulysses`` at 2 ranks:
+   the forward within 1e-5 of the unsharded forward's largest value,
+   one epoch's losses within 1e-6 relative and every parameter within
+   5e-2 of its change of the unsharded epoch's, and a control whose
+   sharded backward drops a term (the reverse ring's dK/dV carry,
+   Ulysses's other ranks' parts) beyond that. (5) The moe model (8
+   experts, seq 128) with ``use_experts`` at 8 ranks: the layer within
+   1e-5 of ``moe_ffn_reference(n_shards=8)`` on the card, then 4
+   training steps alike on every rank, their losses within 1e-5
+   relative and the parameters within 5e-2 of their change of the same
+   steps with that per-shard routing in one process, and a control
+   without the router gradient's sum over the ranks beyond that. The
+   sequence, expert and pipeline worlds run through
+   ``tests/torch_world.py``, loaded by path. (6) A 2-stage
    ``pipeline_apply`` and one ``pipeline_train_step`` within 1e-5 of the
    sequential run. Every K1, K3, K4, K6 and K7 launch of every rank at
    a form the kernel phase checked (the phase's new forms: K1 at the
@@ -5984,13 +5992,21 @@ SPMD_WORLD_S = 420
 #: configurations at their widths, the data cut to 640 + 128 samples
 #: (10 training batches of 64); the ring's and Ulysses's forward within
 #: this share of the unsharded forward's largest value, their epoch's
-#: losses within this relative distance of the unsharded epoch's
+#: losses within this relative distance of the unsharded epoch's (read:
+#: 0.0, F15z), every parameter within SPMD_UPDATE_SHARE_TOL of its
+#: tensor's largest change over the epoch; the control (a sharded
+#: backward that drops a term, ``tests/torch_seq_ranks.py``
+#: ``dropped_term``) must break one of the bounds
 SPMD_SEQUENCE_SAMPLES = (640, 128)
 SPMD_FORWARD_TOL = 1e-5
-SPMD_SEQUENCE_LOSS_REL_TOL = 1e-4
+SPMD_SEQUENCE_LOSS_REL_TOL = 1e-6
 #: the expert-parallel leg: ranks (one expert each), training steps, and
 #: its layer's forward against ``moe_ffn_reference(n_shards=8)`` within
-#: this share of the reference's largest value
+#: this share of the reference's largest value; the steps' losses within
+#: SPMD_LOSS_REL_TOL and the parameters within SPMD_UPDATE_SHARE_TOL of
+#: the same steps with that per-shard routing on one process; the
+#: control (the router's gradient not summed over the ranks) must break
+#: one of the bounds
 SPMD_EXPERTS = 8
 SPMD_MOE_STEPS = 4
 SPMD_MOE_TOL = 1e-5
@@ -6185,14 +6201,11 @@ class SpmdLeg(object):
                 proc.wait()
 
 
-def spmd_gap(numpy, got, want, init, got_losses, want_losses):
+def spmd_gap(got, want, init, got_losses, want_losses):
     """(largest relative loss gap over the epochs and classes, largest
     share of a parameter tensor's change, values that differ)."""
-    loss_rel = max(abs(g[k] - w[k]) / abs(w[k])
-                   for g, w in zip(got_losses, want_losses) for k in w)
-    share = max(float(numpy.abs(got[k] - want[k]).max() /
-                      max(float(numpy.abs(want[k] - init[k]).max()), 1e-30))
-                for k in want)
+    loss_rel = _loss_rel(got_losses, want_losses)
+    share = _update_share(got, want, init)
     differing = sum(int((got[k] != want[k]).sum()) for k in want) + sum(
         g[k] != w[k] for g, w in zip(got_losses, want_losses) for k in w)
     return loss_rel, share, int(differing)
@@ -6204,28 +6217,32 @@ def series_summary(reports, name):
             for labels, summary in report["series"][name]}
 
 
-def spmd_phase(torch, numpy, kernels):
+def spmd_phase(kernels):
     """Phase 15 (see the module docstring). Returns (result,
     [launches_by_form of each rank of each run])."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="veles_spmd_")
     try:
-        return _spmd_phase(torch, numpy, kernels, tmp)
+        return _spmd_phase(kernels, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _free_address():
-    import socket
-    with socket.socket() as probe:
-        probe.bind(("127.0.0.1", 0))
-        return "127.0.0.1:%d" % probe.getsockname()[1]
+def torch_world():
+    """``tests/torch_world.py``, the harness that runs a function on
+    every rank of a fresh world, loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_world", os.path.join(REPO, "tests", "torch_world.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
-def _spmd_phase(torch, numpy, kernels, tmp):
+def _spmd_phase(kernels, tmp):
     from veles_tpu_torch.ops.gemm_bench import card_line
-    from veles_tpu_torch.parallel.world import run_world
+    run_world = torch_world().run_world
 
     # the ranks import the rank functions by this module's name, not as
     # the script's __main__
@@ -6287,7 +6304,7 @@ def _spmd_phase(torch, numpy, kernels, tmp):
     want_losses = ref[0]["losses"]
 
     def held(name, run, reports):
-        gap = spmd_gap(numpy, run.params(), want, init,
+        gap = spmd_gap(run.params(), want, init,
                        reports[0]["losses"], want_losses)
         for report in reports[1:]:
             if report["losses"] != reports[0]["losses"]:
@@ -6308,10 +6325,15 @@ def _spmd_phase(torch, numpy, kernels, tmp):
                              "from the standalone run" % gap[2])
     # (2) and (3): data and tensor parallel one at a time (their times
     # are printed), then both controls together, every rank of those
-    # started here (no rank waits for another's start-up)
+    # started here (no rank waits for another's start-up). The worlds
+    # started here meet at a file store of their own; the one rank 0
+    # starts meets at its TCP store (HOST:PORT)
+    stores = []
+
     def flags(spec):
-        address = _free_address()
-        return [args + ["--gspmd", spec, "--jax-coordinator", address,
+        stores.append("file://" + os.path.join(tmp, "store_%s_%d" % (
+            spec, len(stores))))
+        return [args + ["--gspmd", spec, "--jax-coordinator", stores[-1],
                         "--jax-processes", "2", "--jax-process-id", str(k)]
                 for k in range(2)]
 
@@ -6328,15 +6350,8 @@ def _spmd_phase(torch, numpy, kernels, tmp):
         loss_rel, share, differing = held(label, run, reports)
         out.update(loss_rel=loss_rel, update_share=share,
                    values_differing=differing)
-        within = loss_rel <= SPMD_LOSS_REL_TOL and \
-            share <= SPMD_UPDATE_SHARE_TOL
-        if within == control:
-            raise AssertionError(
-                "spmd %s: loss gap %.3g (bound %g), parameter share %.3g "
-                "(bound %g)%s" % (label, loss_rel, SPMD_LOSS_REL_TOL, share,
-                                  SPMD_UPDATE_SHARE_TOL,
-                                  ": the control must fail" if control
-                                  else ""))
+        held_to_reference("spmd " + label, loss_rel, share,
+                          SPMD_LOSS_REL_TOL, control)
         result[label] = out
         print("spmd %s: loss gap %.3g, parameter share %.3g, %d values "
               "differ" % (label, loss_rel, share, differing))
@@ -6410,49 +6425,109 @@ def _stepped(torch, trainer, fn):
     return out, [s.elapsed_time(e) for s, e in timed]
 
 
+def _trainer_params(trainer):
+    """{name: a copy} of every parameter of ``trainer``."""
+    return {"%d.%s" % (i, k): p.detach().clone()
+            for i, layer in enumerate(trainer.params)
+            for k, p in layer.items()}
+
+
+def _update_share(got, want, init):
+    """The largest share of a parameter tensor's change over a run
+    (``want - init``) by which ``got`` misses ``want`` ({name: numpy
+    array or tensor} each)."""
+    return max(float(abs(got[k] - want[k]).max()) /
+               max(float(abs(want[k] - init[k]).max()), 1e-30)
+               for k in want)
+
+
+def _loss_rel(got, want):
+    """The largest relative distance of the losses ``got`` from
+    ``want`` (numbers in equal nests of lists and dicts)."""
+    if isinstance(want, dict):
+        return max(_loss_rel(got[k], want[k]) for k in want)
+    if isinstance(want, (list, tuple)):
+        return max(_loss_rel(g, w) for g, w in zip(got, want))
+    return abs(got - want) / abs(want)
+
+
 def spmd_sequence_rank(schedule):
     """One rank of the sequence leg: the attention model with
     ``use_ring(schedule)`` on every attention layer over a 2-rank seq
     axis; its forward against the unsharded forward of the same weights,
-    one epoch; then (rank 0) the unsharded model's epoch."""
+    one epoch, the same epoch from the same weights under the control
+    (``dropped_term``); then (rank 0) the unsharded model's epoch, and
+    both runs' losses and parameters against it."""
     import torch
+    from torch_seq_ranks import dropped_term
 
     from veles_tpu_torch.nn.attention import MultiHeadAttentionForward
     from veles_tpu_torch.parallel import collectives, mesh
     device = mesh.world_device()
-    t = _sequence_trainer(False, device)
     grid = mesh.build_mesh({"seq": -1})
-    layers = [m for m in t.model if isinstance(m, MultiHeadAttentionForward)]
+
+    def attach(trainer):
+        for m in trainer.model:
+            if isinstance(m, MultiHeadAttentionForward):
+                m.use_ring(grid, "seq", schedule)
+
+    def losses(stats):
+        return {k: stats[k]["losses"].tolist()
+                for k in ("validation", "train")}
+
+    t = _sequence_trainer(False, device)
     x = t.loader.original_data[:64].to(device)
     with torch.no_grad():
         local = t._forward(x, False)
-        for m in layers:
-            m.use_ring(grid, "seq", schedule)
+        attach(t)
         sharded = t._forward(x, False)
     forward = float((sharded - local).abs().max() / local.abs().max())
+    init = _trainer_params(t)
     reset_counts()
     collectives.reset_counts()
     stats, steps = _stepped(torch, t, lambda: t.run_epoch(0))
     counts, forms = read_counts()
     out = {"forward_share": forward, "steps_ms": steps,
-           "losses": {k: stats[k]["losses"].tolist()
-                      for k in ("validation", "train")},
+           "losses": losses(stats),
            "train_s": sum(steps) / 1e3, "forms": forms, "counts": counts,
            "variants": gemm_variants(), "staged": dict(collectives.staged),
            "calls": dict(collectives.calls),
            "backend": mesh.backend_reason()}
+    control = _sequence_trainer(False, device)
+    attach(control)
+    with dropped_term(schedule):
+        control_losses = losses(control.run_epoch(0))
     if mesh.world_rank() == 0:
         ref = _sequence_trainer(False, device)
         stats, steps = _stepped(torch, ref, lambda: ref.run_epoch(0))
-        out["reference"] = {k: stats[k]["losses"].tolist()
-                            for k in ("validation", "train")}
+        out["reference"] = losses(stats)
         out["reference_steps_ms"] = steps
+        want = _trainer_params(ref)
+        out["update_share"] = _update_share(_trainer_params(t), want, init)
+        out["control"] = {
+            "loss_rel": _loss_rel(control_losses, out["reference"]),
+            "update_share": _update_share(_trainer_params(control), want,
+                                          init)}
     return out
 
 
+def held_to_reference(label, loss_rel, share, loss_tol, control):
+    """Raise unless the losses within ``loss_tol`` and the parameters
+    within SPMD_UPDATE_SHARE_TOL of their change hold (or, for a
+    ``control``, unless one of them breaks)."""
+    within = loss_rel <= loss_tol and share <= SPMD_UPDATE_SHARE_TOL
+    if within == control:
+        raise AssertionError(
+            "%s: losses %.3g from the reference's (bound %g), parameters "
+            "%.3g of their change (bound %g)%s" % (
+                label, loss_rel, loss_tol, share, SPMD_UPDATE_SHARE_TOL,
+                ": the control must fail" if control else ""))
+
+
 def sequence_leg(schedule, reports, kernels, all_forms):
-    """The sequence leg's checks: the forward's share, the epoch's losses
-    against the unsharded one, every rank alike, the forms."""
+    """The sequence leg's checks: the forward's share, every rank alike,
+    the forms, the epoch's losses and parameters against the unsharded
+    one's, and the control."""
     first = reports[0]["value"]
     for report in reports:
         value = report["value"]
@@ -6467,18 +6542,22 @@ def sequence_leg(schedule, reports, kernels, all_forms):
                                      SPMD_FORWARD_TOL))
         if value["losses"] != first["losses"]:
             raise AssertionError("%s: losses differ from rank 0's" % label)
-    rel = max(abs(g - w) / abs(w) for k in first["reference"]
-              for g, w in zip(first["losses"][k], first["reference"][k]))
-    if not rel <= SPMD_SEQUENCE_LOSS_REL_TOL:
-        raise AssertionError("spmd sequence %s: losses %.3g from the "
-                             "unsharded epoch's (bound %g)" % (
-                                 schedule, rel, SPMD_SEQUENCE_LOSS_REL_TOL))
+    rel = _loss_rel(first["losses"], first["reference"])
+    label = "spmd sequence %s" % schedule
+    held_to_reference(label, rel, first["update_share"],
+                      SPMD_SEQUENCE_LOSS_REL_TOL, False)
+    control = first["control"]
+    held_to_reference(label + " control", control["loss_rel"],
+                      control["update_share"], SPMD_SEQUENCE_LOSS_REL_TOL,
+                      True)
     n_train = SPMD_SEQUENCE_SAMPLES[0]
     return {"backend": first["backend"], "staged_through_host":
             first["staged"], "collective_calls": first["calls"],
             "forward_share": max(r["value"]["forward_share"]
                                  for r in reports),
-            "loss_rel": rel, "step_ms": statistics.median(first["steps_ms"]),
+            "loss_rel": rel, "update_share": first["update_share"],
+            "control": control,
+            "step_ms": statistics.median(first["steps_ms"]),
             "samples_per_s": n_train / first["train_s"],
             "unsharded_step_ms": statistics.median(
                 first["reference_steps_ms"]),
@@ -6490,38 +6569,72 @@ def sequence_leg(schedule, reports, kernels, all_forms):
 def spmd_moe_rank():
     """One rank of the expert-parallel leg: the moe model with
     ``use_experts`` over an 8-rank expert axis; its moe layer's forward
-    on a batch against ``moe_ffn_reference(n_shards=8)`` on the card,
-    then a few training steps."""
+    on a batch against ``moe_ffn_reference(n_shards=8)`` on the card, a
+    few training steps, the same steps from the same weights under the
+    control (``router_unreduced``); then (rank 0) the steps with that
+    per-shard routing in one process, and both runs' losses and
+    parameters against them."""
     import torch
+    from torch_seq_ranks import router_unreduced
 
     from veles_tpu_torch.nn.moe import MoEForward
     from veles_tpu_torch.parallel import collectives, mesh
     from veles_tpu_torch.parallel.ep import moe_ffn_reference
     from veles_tpu_torch.loader.base import TRAIN
     device = mesh.world_device()
-    t = _sequence_trainer(True, device)
     grid = mesh.build_mesh({"expert": -1})
-    moe = next(m for m in t.model if isinstance(m, MoEForward))
+
+    def moe_of(trainer):
+        return next(m for m in trainer.model if isinstance(m, MoEForward))
+
+    def per_shard(moe):
+        """``moe``'s forward with the expert path's routing, unsharded."""
+        def forward(x):
+            tokens = x.reshape(-1, x.shape[-1])
+            y = moe_ffn_reference(tokens, moe.weights, moe.up, moe.down,
+                                  moe.n_experts, moe.capacity_factor,
+                                  n_shards=SPMD_EXPERTS).reshape(x.shape)
+            return (y + x if moe.residual else y).to(x.dtype)
+        return forward
+
+    t = _sequence_trainer(True, device)
+    moe = moe_of(t)
     moe.use_experts(grid)
     x = t.loader.original_data[:64].to(device)
     with torch.no_grad():
         got = moe(x)
-        tokens = x.reshape(-1, x.shape[-1])
-        want = moe_ffn_reference(tokens, moe.weights, moe.up, moe.down,
-                                 moe.n_experts, moe.capacity_factor,
-                                 n_shards=SPMD_EXPERTS).reshape(x.shape) + x
+        want = per_shard(moe)(x)
     share = float((got - want).abs().max() / want.abs().max())
+    init = _trainer_params(t)
     reset_counts()
     collectives.reset_counts()
     idx = t._segment_indices(TRAIN)[:SPMD_MOE_STEPS]
     (losses, _), steps = _stepped(torch, t, lambda: t.train_rows(
         idx, 0, t._dropout_seed()))
     counts, forms = read_counts()
-    return {"forward_share": share, "losses": losses.tolist(),
-            "steps_ms": steps, "forms": forms, "counts": counts,
-            "variants": gemm_variants(), "staged": dict(collectives.staged),
-            "calls": dict(collectives.calls),
-            "backend": mesh.backend_reason()}
+    out = {"forward_share": share, "losses": losses.tolist(),
+           "steps_ms": steps, "forms": forms, "counts": counts,
+           "variants": gemm_variants(), "staged": dict(collectives.staged),
+           "calls": dict(collectives.calls),
+           "backend": mesh.backend_reason()}
+    control = _sequence_trainer(True, device)
+    moe_of(control).use_experts(grid)
+    with router_unreduced():
+        control_losses, _ = control.train_rows(idx, 0,
+                                               control._dropout_seed())
+    if mesh.world_rank() == 0:
+        ref = _sequence_trainer(True, device)
+        ref_moe = moe_of(ref)
+        ref_moe.forward = per_shard(ref_moe)
+        ref_losses, _ = ref.train_rows(idx, 0, ref._dropout_seed())
+        out["reference"] = ref_losses.tolist()
+        want = _trainer_params(ref)
+        out["update_share"] = _update_share(_trainer_params(t), want, init)
+        out["control"] = {
+            "loss_rel": _loss_rel(control_losses.tolist(), out["reference"]),
+            "update_share": _update_share(_trainer_params(control), want,
+                                          init)}
+    return out
 
 
 def moe_leg(reports, kernels, all_forms):
@@ -6541,12 +6654,20 @@ def moe_leg(reports, kernels, all_forms):
                 math.isfinite(v) for v in value["losses"]):
             raise AssertionError("%s: losses %s (rank 0: %s)" % (
                 label, value["losses"], first["losses"]))
+    rel = _loss_rel(first["losses"], first["reference"])
+    held_to_reference("spmd experts", rel, first["update_share"],
+                      SPMD_LOSS_REL_TOL, False)
+    control = first["control"]
+    held_to_reference("spmd experts control", control["loss_rel"],
+                      control["update_share"], SPMD_LOSS_REL_TOL, True)
     return {"backend": first["backend"], "ranks": len(reports),
             "staged_through_host": first["staged"],
             "collective_calls": first["calls"],
             "forward_share": max(r["value"]["forward_share"]
                                  for r in reports),
-            "losses": first["losses"],
+            "losses": first["losses"], "reference": first["reference"],
+            "loss_rel": rel, "update_share": first["update_share"],
+            "control": control,
             "step_ms": statistics.median(first["steps_ms"]),
             "rank_seconds": [r["seconds"] for r in reports]}
 
@@ -6721,7 +6842,7 @@ def main():
     print("distributed (%s): %s" % (card, json.dumps(distributed,
                                                      default=str)))
 
-    spmd, forms = spmd_phase(torch, numpy, kernels)
+    spmd, forms = spmd_phase(kernels)
     phases.extend(forms)
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

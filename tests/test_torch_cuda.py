@@ -35,7 +35,8 @@ from veles_tpu_torch.loader.base import TRAIN  # noqa: E402
 from veles_tpu_torch.models.alexnet import (  # noqa: E402
     SyntheticImageLoader, small_alexnet_layers)
 from veles_tpu_torch.models.build import (build_model,  # noqa: E402
-                                          build_training, plain_forward)
+                                          build_training, layer_hypers,
+                                          plain_forward)
 from veles_tpu_torch.ops.gemm import (EPILOGUES,  # noqa: E402
                                       LinearActFunction, gemm, gemm_plan,
                                       kahan_gemm, kahan_matmul,
@@ -529,6 +530,30 @@ def test_training_step_through_kernels_matches_plain(card):
         for k in want:
             share = float((got[k] - want[k]).norm() / want[k].norm())
             assert share < 1e-4, (k, share)
+
+
+@pytest.mark.parametrize("kind", ["dp", "gspmd"])
+def test_spmd_trainer_without_a_grid_keeps_its_data_on_the_card(card, kind):
+    """A data-parallel or GSPMD trainer built without a grid, on a model
+    on the card: its grid, its resident dataset and its gathered rows
+    are on the card, and a training step there gives a finite loss."""
+    from veles_tpu_torch.parallel.dp import DataParallelTrainer
+    from veles_tpu_torch.parallel.gspmd import GSPMDTrainer
+    layers = small_alexnet_layers(10)
+    loader = SyntheticImageLoader(n_train=64, n_valid=0, side=32,
+                                  n_classes=10, minibatch_size=32)
+    model = build_model(layers, (32, 32, 3), seed=5, device=card,
+                        trainable=True)
+    cls = DataParallelTrainer if kind == "dp" else GSPMDTrainer
+    trainer = cls(model, loader.initialize(), layer_hypers(layers))
+    assert trainer.device.type == "cuda"
+    assert trainer.grid.device == trainer.device
+    assert trainer._data_args[0].device == trainer.device
+    idx = trainer._segment_indices(TRAIN)[:1]
+    x, _, _ = trainer._gather(torch.from_numpy(idx[0]).to(card))
+    assert x.device == trainer.device
+    losses, _ = trainer.train_rows(idx, 0, 7)
+    assert torch.isfinite(torch.as_tensor(losses)).all()
 
 
 @pytest.mark.parametrize("shape", [(5, 1000, 70), (67, 300, 129),

@@ -1,7 +1,7 @@
 """The port's GPipe pipeline against the JAX package's and against the
 sequential run, on the CPU.
 
-One world of 2 ranks (``veles_tpu_torch.parallel.world.run_world``:
+One world of 2 ranks (``tests/torch_world.py`` ``run_world``:
 gloo over a file store under the test's temporary directory, one wall
 limit of ``WORLD_S`` seconds), each rank one stage
 (``tests/torch_seq_ranks.py``); JAX runs the same inputs on a 2-device
@@ -48,7 +48,7 @@ from veles_tpu.nn.dropout import DropoutForward as JaxDropout  # noqa: E402
 from veles_tpu.parallel import pp as jax_pp  # noqa: E402
 from veles_tpu_torch.models.alexnet import small_alexnet_layers  # noqa
 from veles_tpu.parallel.mesh import build_mesh as jax_mesh  # noqa: E402
-from veles_tpu_torch.parallel.world import run_world  # noqa: E402
+from torch_world import run_world  # noqa: E402
 
 WORLD_S = 120.0
 ATOL = 1e-5

@@ -1,7 +1,7 @@
 """The port's sequence- and expert-parallel plans against the JAX
 package's, on the CPU.
 
-Two worlds of ranks (``veles_tpu_torch.parallel.world.run_world``: gloo
+Two worlds of ranks (``tests/torch_world.py`` ``run_world``: gloo
 over a file store under the test's temporary directory, one wall limit
 of ``WORLD_S`` seconds each), of 2 and of 4 ranks, run every case
 (``tests/torch_seq_ranks.py``); the JAX package runs the same inputs on
@@ -23,7 +23,13 @@ meshes of the same sizes over the 8 virtual CPU devices.
   plan, not the numbers), with ``use_experts`` (whose capacity pools per
   rank's shard of the batch's tokens) against the port's single process
   running that per-shard routing (``moe_ffn_reference``); losses within
-  ``LOSS_ATOL``, parameters within ``PARAM_ATOL``.
+  ``LOSS_ATOL``, parameters within ``PARAM_ATOL``;
+* the controls that must fail: each attention case with a sharded
+  backward that drops a term (``torch_seq_ranks.dropped_term``: the
+  reverse ring's dK/dV carry, Ulysses's other ranks' parts) must miss
+  the gradients by more than ``ATOL``, and ``moe_ffn`` without the sum
+  of the router's gradient over the ranks must miss it by more than
+  ``GRAD_SHARE``.
 """
 
 import pickle
@@ -59,7 +65,7 @@ from veles_tpu_torch.parallel import mesh  # noqa: E402
 from veles_tpu_torch.parallel.ep import moe_ffn_reference  # noqa: E402
 from veles_tpu_torch.parallel.sequence import (local_attention,  # noqa
                                                ulysses_attention)
-from veles_tpu_torch.parallel.world import run_world  # noqa: E402
+from torch_world import run_world  # noqa: E402
 
 WORLD_S = 120.0
 ATOL = 2e-5
@@ -73,6 +79,9 @@ QKV = [RNG.randn(B, H, S, D).astype(numpy.float32) for _ in range(4)]
 ATTENTION = [("%s causal=%s" % (schedule, causal),
               tuple(QKV) + (causal, schedule))
              for schedule in ("ring", "ulysses") for causal in (False, True)]
+#: the same cases with a sharded backward that drops a term
+#: (``torch_seq_ranks.dropped_term``): the controls that must fail
+CONTROLS = [(name + " control", args + (True,)) for name, args in ATTENTION]
 MOE_X = RNG.randn(32, 8).astype(numpy.float32)
 MOE_X[:, 0] = 2.0   # crowd the tokens onto few experts: some drop
 MOE_ROUTER = (RNG.randn(8, 4) * 0.5).astype(numpy.float32)
@@ -140,7 +149,8 @@ def world2(units, workflow_params, tmp_path_factory):
     workflows = [(s, (False, workflow_params[False], s))
                  for s in ("ring", "ulysses")]
     return run_world(ranks.sequence_world, 2,
-                     (ATTENTION, unit_cases, workflows), timeout=WORLD_S,
+                     (ATTENTION + CONTROLS, unit_cases, workflows),
+                     timeout=WORLD_S,
                      workdir=str(tmp_path_factory.mktemp("world2")))
 
 
@@ -152,7 +162,7 @@ def world4(units, workflow_params, tmp_path_factory):
     workflows = [("moe", (True, workflow_params[True], "ring"))]
     moe = (MOE_X, MOE_ROUTER, MOE_UP, MOE_DOWN, MOE_G, 1.0)
     return run_world(ranks.sequence_world, 4,
-                     (ATTENTION, unit_cases, workflows, moe),
+                     (ATTENTION + CONTROLS, unit_cases, workflows, moe),
                      timeout=WORLD_S,
                      workdir=str(tmp_path_factory.mktemp("world4")))
 
@@ -203,6 +213,26 @@ def test_attention_matches_jax_and_local(request, n, name):
                                           atol=ATOL, rtol=0)
             numpy.testing.assert_allclose(got, port_grad.numpy(),
                                           atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("name", [c[0] for c in ATTENTION])
+def test_attention_control_that_drops_a_term_fails(request, n, name):
+    """The reverse ring without its dK/dV carry, or Ulysses's inverse
+    all_to_all without the other ranks' parts: the forward still
+    matches, the gradients must not."""
+    q, k, v, g, causal, schedule = dict(ATTENTION)[name]
+    tq, tk, tv = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
+    local = local_attention(tq, tk, tv, causal=causal)
+    (local * torch.from_numpy(g)).sum().backward()
+    want = [t.grad.numpy() for t in (tq, tk, tv)]
+    for report in _world(request, n):
+        out, dq, dk, dv = report["value"]["attention"][name + " control"]
+        numpy.testing.assert_allclose(out, local.detach().numpy(),
+                                      atol=ATOL, rtol=0)
+        worst = max(float(numpy.abs(got - w).max())
+                    for got, w in zip((dq, dk, dv), want))
+        assert worst > ATOL, worst
 
 
 def test_ulysses_refuses_heads_that_do_not_divide_with_jax_s_message():
@@ -307,6 +337,23 @@ def test_moe_ffn_matches_jax_with_drops_and_the_router_gradient(world4):
         for got, jax_grad in zip((dx, drouter, dup, ddown), want_grads):
             _grad_close(got, jax_grad)
         assert numpy.abs(drouter).max() > 0
+
+
+def test_moe_control_without_the_router_s_sum_fails(world4):
+    """The router's gradient left as each rank's own shard's part: the
+    output still matches, the router's gradient must not."""
+    jm = jax_mesh({"expert": 4}, devices=jax.devices()[:4])
+    args = tuple(jnp.asarray(a) for a in (MOE_X, MOE_ROUTER, MOE_UP,
+                                          MOE_DOWN))
+    want, want_grads = _jax_vjp(
+        lambda *a: jax_ep.moe_ffn(*a, jm, capacity_factor=1.0), args, MOE_G)
+    want_router = numpy.asarray(want_grads[1], numpy.float64)
+    for report in world4:
+        out, _, drouter, _, _ = report["value"]["moe control"]
+        numpy.testing.assert_allclose(out, numpy.asarray(want), atol=ATOL,
+                                      rtol=0)
+        assert numpy.linalg.norm(drouter - want_router) > GRAD_SHARE * \
+            numpy.linalg.norm(want_router)
 
 
 # -- training through the plans ------------------------------------------------

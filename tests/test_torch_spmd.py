@@ -1,8 +1,8 @@
 """The port's SPMD training tier against its single-process trainer and
 the JAX package's, on the CPU.
 
-Ranks are processes of their own (``veles_tpu_torch.parallel.world.
-run_world``: gloo over a file store under the test's temporary
+Ranks are processes of their own (``tests/torch_world.py``
+``run_world``: gloo over a file store under the test's temporary
 directory, so concurrent xdist workers never share a port, and one wall
 limit of ``WORLD_S`` seconds for a whole world). One world of two ranks
 per module runs every case (``tests/torch_spmd_ranks.py``); the test
@@ -58,7 +58,7 @@ from veles_tpu_torch.parallel import mesh  # noqa: E402
 from veles_tpu_torch.parallel.gspmd import (GSPMDTrainer,  # noqa: E402
                                             gspmd_mesh, parse_mesh_spec)
 from veles_tpu_torch.parallel.tp import tp_roles  # noqa: E402
-from veles_tpu_torch.parallel.world import run_world  # noqa: E402
+from torch_world import run_world  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD_S = 120.0
@@ -428,6 +428,29 @@ def test_one_rank_equals_the_fused_trainer_bit_for_bit(setup):
             numpy.testing.assert_array_equal(g[k], w[k])
 
 
+@pytest.mark.parametrize("kind", ["dp", "gspmd"])
+def test_default_grid_is_on_the_trainer_s_device(setup, monkeypatch, kind):
+    """Built without a grid, a trainer lays its grid, and with it the
+    row-sharded dataset, on the trainer's own device: the grid is asked
+    for that device, not left to the standalone default.
+    ``tests/test_torch_cuda.py`` holds the same on the card."""
+    from veles_tpu_torch.parallel import dp, gspmd
+    asked = []
+    build = mesh.build_mesh
+
+    def spy(axes=None, device=None):
+        asked.append(device)
+        return build(axes, device)
+
+    monkeypatch.setattr(dp, "build_mesh", spy)
+    monkeypatch.setattr(gspmd, "build_mesh", spy)
+    cls = dp.DataParallelTrainer if kind == "dp" else GSPMDTrainer
+    t = ranks.trainer(TINY, setup["params"], setup["table"], cls)
+    assert asked == [t.device]
+    assert t.grid.device == t.device
+    assert t._data_args[0].device == t.device
+
+
 def test_tp_plan_matches_jax():
     """The column/row roles of the small AlexNet and of AlexNet-227's
     layer list at model=2 against JAX's ``tp_param_shardings``."""
@@ -496,6 +519,34 @@ def test_cli_gspmd_spawns_its_ranks_and_writes_one_result(tmp_path):
     got, want = (json.loads((tmp_path / n).read_text())
                  for n in ("r.json", "one.json"))
     assert abs(got["loss"] - want["loss"]) <= LOSS_REL * abs(want["loss"])
+
+
+def test_cli_multi_process_flags_join_one_world_at_a_file_store(tmp_path):
+    """One process a rank, each given ``--jax-coordinator file://PATH
+    --jax-processes 2 --jax-process-id K``: both join one gloo world,
+    train, and rank 0 alone writes the result file."""
+    wf = _workflow_file(tmp_path)
+    env = dict(os.environ, PYTHONPATH=REPO, VELES_DATASET_CACHE="0")
+    env.pop("JAX_PLATFORMS", None)
+    store = "file://" + str(tmp_path / "store")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "veles_tpu_torch", wf, "-a", "cpu", "-s", "7",
+         "--gspmd", "2x1", "--result-file", "r%d.json" % k,
+         "--jax-coordinator", store, "--jax-processes", "2",
+         "--jax-process-id", str(k)], cwd=str(tmp_path), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k in range(2)]
+    try:
+        outs = [proc.communicate(timeout=WORLD_S) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for proc, (_, err) in zip(procs, outs):
+        assert proc.returncode == 0, err[-3000:]
+        assert "backend gloo" in err
+    assert sorted(f.name for f in tmp_path.glob("*.json")) == ["r0.json"]
 
 
 SNAPSHOT_FILE = """

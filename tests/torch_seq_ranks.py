@@ -1,11 +1,15 @@
 """Rank programs of the port's sequence- and pipeline-parallel tests,
-run by ``veles_tpu_torch.parallel.world.run_world`` in processes of
+run by ``tests/torch_world.py`` ``run_world`` in processes of
 their own. Imports torch and the port only."""
+
+import contextlib
 
 import numpy
 import torch
 
 from veles_tpu_torch.parallel import mesh
+from veles_tpu_torch.parallel.collectives import (AllToAll, CopyToAxis,
+                                                  all_to_all, local_part)
 
 
 def _t(a, grad=False):
@@ -13,10 +17,74 @@ def _t(a, grad=False):
     return t.requires_grad_() if grad else t
 
 
-def attention_case(q, k, v, cotangent, causal, schedule):
+class LocalAllToAll(AllToAll):
+    """:class:`AllToAll` whose backward keeps only the part this rank
+    sent itself: an inverse all_to_all that drops the other ranks'
+    terms."""
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, split_dim, concat_dim = ctx.args
+        back = all_to_all(g, axis, concat_dim, split_dim)
+        kept = torch.zeros_like(back)
+        local_part(kept, axis, split_dim).copy_(
+            local_part(back, axis, split_dim))
+        return kept, None, None, None
+
+
+@contextlib.contextmanager
+def dropped_term(schedule):
+    """A sharded backward that drops a term, the control that must fail:
+    the ring's reverse ring without the dK/dV it carries (each K/V block
+    keeps only its last hop's contribution), Ulysses's inverse
+    all_to_alls without the other ranks' parts. The forward is
+    unchanged."""
+    from veles_tpu_torch.parallel import sequence
+    saved = sequence.ring_shift, sequence.AllToAll
+
+    def shift(tensors, axis, step=1):
+        got = saved[0](tensors, axis, step)
+        if len(tensors) == 4:   # the reverse ring's (K, V, dK, dV)
+            got[2:] = [torch.zeros_like(t) for t in got[2:]]
+        return got
+
+    if schedule == "ring":
+        sequence.ring_shift = shift
+    else:
+        sequence.AllToAll = LocalAllToAll
+    try:
+        yield
+    finally:
+        sequence.ring_shift, sequence.AllToAll = saved
+
+
+class _Unreduced(object):
+    """:class:`CopyToAxis` without its backward all_reduce."""
+
+    @staticmethod
+    def apply(x, axis):
+        return CopyToAxis.apply(x, axis, False)
+
+
+@contextlib.contextmanager
+def router_unreduced():
+    """The expert-parallel backward without the sum of the router's
+    gradient over the ranks, the control that must fail: each rank keeps
+    its own shard's part."""
+    from veles_tpu_torch.parallel import ep
+    saved = ep.CopyToAxis
+    ep.CopyToAxis = _Unreduced
+    try:
+        yield
+    finally:
+        ep.CopyToAxis = saved
+
+
+def attention_case(q, k, v, cotangent, causal, schedule, control=False):
     """This world's ring or Ulysses attention of the whole (B, H, S, D)
     q, k, v, each rank its sequence block: (output, dq, dk, dv) whole,
-    the gradients of ``sum(out * cotangent)``."""
+    the gradients of ``sum(out * cotangent)``; ``control`` under
+    :func:`dropped_term`."""
     from veles_tpu_torch.parallel.sequence import (ring_attention,
                                                    ulysses_attention)
     grid = mesh.build_mesh({"seq": -1})
@@ -26,8 +94,9 @@ def attention_case(q, k, v, cotangent, causal, schedule):
     cut = slice(me * block, (me + 1) * block)
     blocks = [_t(t[:, :, cut], grad=True) for t in (q, k, v)]
     fn = ring_attention if schedule == "ring" else ulysses_attention
-    out = fn(*blocks, grid, causal=causal)
-    (out * _t(cotangent[:, :, cut])).sum().backward()
+    with dropped_term(schedule) if control else contextlib.nullcontext():
+        out = fn(*blocks, grid, causal=causal)
+        (out * _t(cotangent[:, :, cut])).sum().backward()
     from veles_tpu_torch.parallel.collectives import all_gather
     whole = [all_gather(t.detach(), seq, 2).numpy()
              for t in [out] + [b.grad for b in blocks]]
@@ -38,10 +107,12 @@ def attention_cases(specs):
     return {name: attention_case(*args) for name, args in specs}
 
 
-def moe_case(x, router_w, w_up, w_down, cotangent, capacity_factor):
+def moe_case(x, router_w, w_up, w_down, cotangent, capacity_factor,
+             control=False):
     """This world's expert-parallel ``moe_ffn`` over the whole tokens
     ``x`` (each rank its shard, its expert): (output, dx, d router, d up,
-    d down) whole, the gradients of ``sum(out * cotangent)``."""
+    d down) whole, the gradients of ``sum(out * cotangent)``;
+    ``control`` under :func:`router_unreduced`."""
     from veles_tpu_torch.parallel.collectives import all_gather
     from veles_tpu_torch.parallel.ep import moe_ffn
     grid = mesh.build_mesh({"expert": -1})
@@ -52,8 +123,10 @@ def moe_case(x, router_w, w_up, w_down, cotangent, capacity_factor):
     rw = _t(router_w, grad=True)
     up = _t(w_up[me], grad=True)
     down = _t(w_down[me], grad=True)
-    out = moe_ffn(xs, rw, up, down, grid, capacity_factor=capacity_factor)
-    (out * _t(cotangent[me * t:(me + 1) * t])).sum().backward()
+    with router_unreduced() if control else contextlib.nullcontext():
+        out = moe_ffn(xs, rw, up, down, grid,
+                      capacity_factor=capacity_factor)
+        (out * _t(cotangent[me * t:(me + 1) * t])).sum().backward()
     return [all_gather(out.detach(), experts, 0).numpy(),
             all_gather(xs.grad, experts, 0).numpy(), rw.grad.numpy(),
             all_gather(up.grad[None], experts, 0).numpy(),
@@ -157,6 +230,7 @@ def sequence_world(attention, units, workflows, moe=None):
                          for name, args in workflows}}
     if moe is not None:
         out["moe"] = moe_case(*moe)
+        out["moe control"] = moe_case(*moe, control=True)
     return out
 
 

@@ -1,5 +1,5 @@
 """Rank programs of the port's SPMD tests, run by
-``veles_tpu_torch.parallel.world.run_world`` in processes of their own.
+``tests/torch_world.py`` ``run_world`` in processes of their own.
 
 This module imports torch and the port only: a rank loads neither jax
 nor any ``veles_tpu`` module (the tests check the ranks' reports). Each

@@ -1,4 +1,6 @@
-"""Run a function on every rank of a fresh world of processes.
+"""Run a function on every rank of a fresh world of processes: the
+harness of the port's multi-rank tests and of ``chip_smoke.py``'s
+sequence, expert and pipeline worlds (which loads this file by path).
 
 :func:`run_world` starts ``n`` Python processes, each joining one world
 at a file store under a work directory (so concurrent worlds never
@@ -23,13 +25,13 @@ import time
 import traceback
 
 #: the program of each rank
-_RANK = ("import sys; from veles_tpu_torch.parallel.world import "
-         "rank_main; sys.exit(rank_main(sys.argv[1], int(sys.argv[2])))")
+_RANK = ("import sys; from torch_world import rank_main; "
+         "sys.exit(rank_main(sys.argv[1], int(sys.argv[2])))")
 
-
-def _package_root():
-    return os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+#: this file's directory and the repository's root, both on the ranks'
+#: path
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_ROOT = os.path.dirname(_HERE)
 
 
 def rank_main(workdir, rank):
@@ -71,7 +73,7 @@ def run_world(fn, n, args=(), backend="cpu", timeout=120.0, workdir=None,
     with open(os.path.join(workdir, "task.pickle"), "wb") as fout:
         pickle.dump((fn, args, n, backend), fout)
     environ = dict(os.environ if env is None else env)
-    paths = [_package_root()]
+    paths = [_ROOT, _HERE]
     module = sys.modules.get(fn.__module__)
     if "." not in fn.__module__ and getattr(module, "__file__", None):
         # a top-level module (a test's helper): the ranks import it from

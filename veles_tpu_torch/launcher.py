@@ -145,7 +145,7 @@ class World(object):
         Raises when a started rank failed."""
         from veles_tpu_torch.parallel import mesh
         if timeout is None:
-            timeout = mesh.mesh_timeout().total_seconds()
+            timeout = mesh.MESH_TIMEOUT.total_seconds()
         codes = []
         for child in self.children:
             if failed:
@@ -194,7 +194,7 @@ def join_world(gspmd=None, coordinator=None, processes=None,
     n = sizes["batch"] * sizes["model"]
     t0 = time.perf_counter()
     store = torch.distributed.TCPStore(
-        "127.0.0.1", 0, n, True, timeout=mesh.mesh_timeout(),
+        "127.0.0.1", 0, n, True, timeout=mesh.MESH_TIMEOUT,
         wait_for_workers=False)
     address = "127.0.0.1:%d" % store.port
     children = [subprocess.Popen(rank_command(list(argv) + [

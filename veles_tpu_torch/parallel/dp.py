@@ -37,18 +37,19 @@ from veles_tpu_torch.ops.random import dropout_uniforms
 from veles_tpu_torch.parallel import collectives, reshard
 from veles_tpu_torch.parallel.mesh import (build_mesh, named_sharding,
                                            replicated)
-from veles_tpu_torch.train.step import FusedTrainer
+from veles_tpu_torch.train.step import FusedTrainer, trainer_device
 
 
 class DataParallelTrainer(FusedTrainer):
     """:class:`FusedTrainer` whose ranks split the minibatch over the
-    ``axis`` of ``grid`` (default: every rank on ``data``). The
-    minibatch size must divide over the axis. The model state stays
-    in-core on every rank."""
+    ``axis`` of ``grid`` (default: every rank on ``data``, the grid on
+    the trainer's device). The minibatch size must divide over the
+    axis. The model state stays in-core on every rank."""
 
     def __init__(self, model, loader, hypers, grid=None, axis="data",
                  **kwargs):
-        self.grid = grid if grid is not None else build_mesh()
+        self.grid = grid if grid is not None else build_mesh(
+            device=trainer_device(model, kwargs.get("device")))
         self.axis = axis
         self.batch_axis = self.grid.axis(axis)
         n_shards = self.batch_axis.size

@@ -51,6 +51,7 @@ from veles_tpu_torch.parallel.tp import (CHANNELWISE, check_supported,
 from veles_tpu_torch.nn.dropout import DropoutForward
 from veles_tpu_torch.ops.random import dropout_uniforms
 from veles_tpu_torch.telemetry.registry import get_registry
+from veles_tpu_torch.train.step import trainer_device
 
 #: the tier's axis names
 BATCH_AXIS = "batch"
@@ -96,13 +97,15 @@ def gspmd_mesh(batch=-1, model=1, device=None):
 
 class GSPMDTrainer(DataParallelTrainer):
     """The SPMD trainer over the ``batch`` x ``model`` ``grid`` (see the
-    module docstring; default: every rank on ``batch``)."""
+    module docstring; default: every rank on ``batch``, the grid on the
+    trainer's device)."""
 
     _op_prefix = "gspmd_"
 
     def __init__(self, model, loader, hypers, grid=None, **kwargs):
         if grid is None:
-            grid = gspmd_mesh()
+            grid = gspmd_mesh(device=trainer_device(model,
+                                                    kwargs.get("device")))
         for name in (BATCH_AXIS, MODEL_AXIS):
             if name not in grid.shape:
                 raise ValueError("GSPMD mesh %r has no %r axis "

@@ -23,8 +23,8 @@ served by rank 0) or ``file://PATH`` (a file store on a shared file
 system). The store dial runs through
 :func:`veles_tpu_torch.parallel.retry.retry_with_backoff`
 (``VELES_MESH_INIT_RETRY_S``, 60 s by default); the process group itself
-is made once, with a timeout (``VELES_MESH_TIMEOUT_S``, 300 s), so a
-dead peer fails a run instead of hanging it. The same spec twice is a
+is made once, with the timeout :data:`MESH_TIMEOUT`, so a dead peer
+fails a run instead of hanging it. The same spec twice is a
 no-op; another spec raises until :func:`shutdown_multihost`.
 
 The backend follows one rule, which the log states (:func:`choose_backend`):
@@ -48,6 +48,10 @@ import torch.distributed as dist
 from veles_tpu_torch.envknob import env_knob
 
 _log = logging.getLogger("mesh")
+
+#: the timeout of every rendezvous store and process group: a collective
+#: that waits this long on a dead peer fails the run
+MESH_TIMEOUT = datetime.timedelta(seconds=300)
 
 
 class Axis(object):
@@ -317,19 +321,13 @@ def init_multihost(coordinator_address=None, num_processes=None,
     from veles_tpu_torch.parallel.retry import retry_with_backoff
     store = retry_with_backoff(
         lambda: _store(coordinator_address, spec[1], spec[2],
-                       mesh_timeout()),
+                       MESH_TIMEOUT),
         retry_budget_s,
         retry_on=(RuntimeError, OSError, ConnectionError, TimeoutError),
         describe="could not reach the rendezvous store at %s (world=%s "
                  "rank=%s)" % spec)
     init_world(store, spec[1], spec[2], backend, device, spec)
     return True
-
-
-def mesh_timeout():
-    """The process group's timeout (``VELES_MESH_TIMEOUT_S``, 300 s)."""
-    return datetime.timedelta(
-        seconds=env_knob("VELES_MESH_TIMEOUT_S", 300.0, parse=float))
 
 
 def init_world(store, num_processes, process_id, backend="auto",
@@ -350,7 +348,7 @@ def init_world(store, num_processes, process_id, backend="auto",
         if chosen == "nccl":
             kwargs["device_id"] = dev
     dist.init_process_group(chosen, store=store, rank=rank, world_size=n,
-                            timeout=mesh_timeout(), **kwargs)
+                            timeout=MESH_TIMEOUT, **kwargs)
     check = torch.ones(1, device=dev)
     dist.all_reduce(check)
     if int(check.item()) != n:

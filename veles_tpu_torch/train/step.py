@@ -164,8 +164,7 @@ class FusedTrainer(object):
         self.epoch_history = []
         self.best_metric = math.inf
         self.best_epoch = -1
-        self.device = _card(device if device is not None
-                            else next(model.parameters()).device)
+        self.device = trainer_device(model, device)
         self.policy = policy_of(model)
         self.stream = stream
         self.prefetch_depth = prefetch_depth
@@ -739,9 +738,11 @@ class FusedTrainer(object):
         self.states = [_clone_state(s) for s in states]
 
 
-def _card(device):
-    """``device`` as a ``torch.device``, a card with its index."""
-    device = torch.device(device)
+def trainer_device(model, device=None):
+    """The device a trainer of ``model`` runs on: ``device``, else the
+    model's; a card with its index."""
+    device = torch.device(device if device is not None
+                          else next(model.parameters()).device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
