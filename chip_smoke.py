@@ -263,7 +263,7 @@
    process loads ``jax``, ``ml_dtypes`` or ``veles_tpu``. (1) One slave,
    ``--segment-size 8 --no-pipeline``, deterministic, 4 epochs, against
    the deterministic standalone run of the same file and seed, a
-   process of its own too: each epoch's loss within 1e-6 relative, fc7
+   process of its own too, run beside it: each epoch's loss within 1e-6 relative, fc7
    within 5e-2 of its change (the workflow phase's bound for runs that
    are not bitwise: additive deltas round where a weight shrinks toward
    zero), the values that differ printed; the master dropping fc7's
@@ -290,7 +290,8 @@
    ``ml_dtypes`` or ``veles_tpu``. (1) ``--gspmd 1x1`` on phase 9's
    AlexNet-227 file, 2 epochs, deterministic: NCCL, and every loss and
    parameter bit for bit the standalone deterministic run's (a process
-   of its own too). (2) ``--gspmd 2x1`` through the multi-process flags
+   of its own too; the two run beside each other). (2) ``--gspmd
+   2x1`` through the multi-process flags
    (``--jax-coordinator``, ``--jax-processes``, ``--jax-process-id``, one
    process a rank, meeting at a file store) and (3) ``--gspmd 1x2``
    (rank 0 starting rank 1 itself, at its TCP store): each epoch's
@@ -321,7 +322,43 @@
    collectives staged through the host, each run's samples/s and step
    ms by CUDA events, ``veles_gspmd_step_ms`` and ``veles_reshard_ms``;
    the whole result to ``chiprun_out/spmd.json``.
-16. The line before the last is ``{"kernels": [...], "not_ported":
+16. Elastic phase: the port's elastic tier (``parallel/elastic.py``) on
+   phase 9's AlexNet-227 file (``-s 7``, 2 epochs, deterministic mode),
+   every run's workers processes of their own on the card, each
+   ``ELASTIC_WORKER`` (``run_elastic_training`` on the file's workflow;
+   generations raw), the supervisors ``python -m veles_tpu_torch.
+   parallel.elastic supervise`` at an in-process ``RendezvousServer``.
+   The references: the worker alone (one rank, no supervisor) and a
+   supervised ``2x1`` world uninterrupted. (A) Rank 1 SIGKILLs itself
+   at the first epoch boundary, before that epoch's generation commits:
+   its supervisor (crash budget 0) leaves, the survivor's kills its
+   worker (out of the gloo collective its peer left), the world
+   re-forms at 1 from the generation-initial checkpoint written at
+   world 2 (``part0`` and ``part1``), and the run's history and final
+   parameters equal the one-rank run's in every value; generation >= 1,
+   world 1, a lost participant counted, and the port's
+   ``spmd_participant_lost`` alert firing. (B) Rank 1 dies at the second
+   epoch boundary, after the first epoch's generation committed: the
+   survivor restores that generation, the first epoch equals the 2x1
+   run's to the bit, and the final parameters are within 5e-2 of their
+   change of the 2x1 run's. (C) A ``1x2`` world's generation restored
+   at ``1x1`` here: every parameter the world's gathered whole to the
+   bit. Controls that must fail: a generation without its manifest and
+   one with ``part1`` truncated do not load, and ``restore_latest``
+   falls back past each; leg A's generation restored without the random
+   registry differs from the one-rank run. Every K1, K3, K4, K6 and K7
+   launch of every worker at a checked form, each kernel launched in
+   every run. Printed, not gated: each worker's generation, world,
+   start-up s, samples/s a training sweep, step ms by CUDA events, each
+   generation it cut (MiB pickled, s, MiB on disk) and what it restored;
+   the re-form (``veles_spmd_recovery_ms{reform}`` of the server),
+   respawn (the supervisors', through the rendezvous's federated view)
+   and restore (the workers') latencies; the whole result to
+   ``chiprun_out/elastic.json``.
+   Phases 14, 15 and 16 run beside each other (``beside``: a thread
+   each, waiting on its own processes), so their times are read under
+   each other's load; a line gives every phase's seconds.
+17. The line before the last is ``{"kernels": [...], "not_ported":
    []}``; the last is ``{"ok": true, "device": {...}}``. Any failure
    raises and exits non-zero before them.
 """
@@ -3675,13 +3712,15 @@ RESIDENCY_DEPTH = 2
 OFFLOAD_GROUP_MB = "150"
 OFFLOAD_GROUPS = [(0, 10), (10, 11), (11, 14), (14, 15)]
 #: a ``torch.cuda._sleep`` before each shard's first use in the ring
-#: control (~200 ms at the H100's ~1.98 GHz), so the device falls
+#: control (~600 ms at the H100's ~1.98 GHz), so the device falls
 #: behind the host and an early refill lands before the read. The
 #: host's lead is bounded by the card's launch queue (~1024 launches,
 #: ~200 a training step), so the control runs shards of one minibatch
 #: (``VELES_SHARD_MB``): at depth 2 a slot is refilled two shards after
-#: its read was enqueued, well inside that lead
-RING_SLEEP_CYCLES = 400000000
+#: its read was enqueued, well inside that lead. (At ~200 ms the
+#: unordered refill corrupted 12 values in one run and none in the next
+#: on the H100: the early refill barely overlapped the read.)
+RING_SLEEP_CYCLES = 1200000000
 RING_SHARD_MB = "40"
 #: slack of the streamed and offloaded peak-memory bounds: the
 #: allocator's 2 MiB rounding of each block and the small tensors of a
@@ -5759,10 +5798,18 @@ def _distributed_phase(torch, numpy, kernels, tmp):
     det = dict(SMOKE_DETERMINISTIC="1")
 
     # the reference: the standalone run of the same file and seed in a
-    # process of its own, deterministic, as the slaves run
+    # process of its own, deterministic, as the slaves run, beside (1)
+    # (the phase's time is its processes' start-ups)
     with dist_legs(DistLeg("standalone", tmp, path, [
-            ("standalone", quiet + ["-s", "7"], det)])) as (ref_leg,):
+            ("standalone", quiet + ["-s", "7"], det)]), DistLeg(
+                "one_slave", tmp, path, [
+                    ("master", quiet + ["-s", "7", "--segment-size", "8",
+                                        "--job-timeout", DIST_JOB_TIMEOUT],
+                     {}),
+                    ("slave", quiet + ["-s", "7", "--no-pipeline"], det)])) \
+            as (ref_leg, leg1):
         reference, _ = ref_leg.wait(deadline())
+        master, slaves = leg1.wait(deadline())
     ref_losses, ref_times = reference["losses"], reference["times"]
     ref_flat = ref_leg.params()
     ref_fc7_init = ref_leg.fc7_init()
@@ -5808,12 +5855,6 @@ def _distributed_phase(torch, numpy, kernels, tmp):
                                                          (master["staged"],)))
 
     # (1) one slave, deterministic, held to the standalone run
-    with dist_legs(DistLeg("one_slave", tmp, path, [
-            ("master", quiet + ["-s", "7", "--segment-size", "8",
-                                "--job-timeout", DIST_JOB_TIMEOUT], {}),
-            ("slave", quiet + ["-s", "7", "--no-pipeline"], det)])) \
-            as (leg1,):
-        master, slaves = leg1.wait(deadline())
     check_epochs("one slave", master, DIST_EPOCHS)
     loss_rel, share, differing = held(leg1, master)
     print("distributed one slave: losses within %.3g relative (limit %g), "
@@ -6297,9 +6338,15 @@ def _spmd_phase(kernels, tmp):
         return run, reports, out
 
     # the reference: the standalone deterministic run, a process of its
-    # own, its initial parameters saved
-    ref_run, ref, result["standalone"] = leg(
-        "standalone", [args], dict(det, SMOKE_SAVE_INIT="1"), 1)
+    # own, its initial parameters saved; (1) runs beside it (the two
+    # processes' start-ups are most of their time)
+    one = SpmdLeg("1x1", tmp, [args + ["--gspmd", "1x1"]], det)
+    try:
+        ref_run, ref, result["standalone"] = leg(
+            "standalone", [args], dict(det, SMOKE_SAVE_INIT="1"), 1)
+    except BaseException:
+        one.kill()
+        raise
     want, init = ref_run.params(), ref_run.params("init")
     want_losses = ref[0]["losses"]
 
@@ -6313,8 +6360,7 @@ def _spmd_phase(kernels, tmp):
         return gap
 
     # (1) world 1 on NCCL: bit for bit the standalone run
-    run, reports, result["1x1"] = leg("1x1", [args + ["--gspmd", "1x1"]],
-                                      det, 1)
+    run, reports, result["1x1"] = leg("1x1", None, None, 1, one)
     if reports[0]["world"]["backend"] != "nccl":
         raise AssertionError("spmd 1x1: backend %s, not nccl"
                              % reports[0]["world"])
@@ -6731,6 +6777,618 @@ def pipeline_leg(reports):
     return worst
 
 
+#: phase 16: the elastic tier on phase 9's file (``-s 7``), deterministic
+ELASTIC_EPOCHS = 2
+#: leg B: rank 1 dies at this epoch boundary (after the first epoch's
+#: generation committed); the final parameters within this share of
+#: their change of the uninterrupted 2x1 run's (the last epoch ran at
+#: world 1: the gradient sums in another order)
+ELASTIC_LATE_DEATH = 2
+ELASTIC_UPDATE_SHARE_TOL = SPMD_UPDATE_SHARE_TOL
+#: seconds one leg (its supervisors, every generation's workers) may take
+ELASTIC_LEG_S = 420
+#: the rendezvous's settle window and heartbeat silence limit
+ELASTIC_SETTLE_S = 0.5
+ELASTIC_HB_TIMEOUT_S = 10.0
+#: the generations' codec: raw, as phase 9's snapshots (gz would
+#: compress ~1.3 GB a generation on one core)
+ELASTIC_COMPRESSION = ""
+
+#: one elastic worker: ``python -c ELASTIC_WORKER prefix workflow_file
+#: [root.* overrides]`` builds phase 9's workflow file as the CLI does
+#: with ``-s 7`` and trains it through ``run_elastic_training`` (under a
+#: supervisor, or standalone without the ``VELES_ELASTIC_*`` env); its
+#: report (``prefix.g<generation>.rank<rank>``, written on a normal or a
+#: raising exit, never by a killed worker): the history, each training
+#: step's ms by CUDA events, each epoch's training sweep s, the start-up
+#: s, each generation it cut (directory, bytes it pickled, s, bytes on
+#: disk), the generation it restored, its launch counters (read at exit:
+#: it started at 0), the ``veles_spmd_recovery_ms`` series, the modules
+#: it loaded of jax, ml_dtypes and veles_tpu; rank 0 also the final
+#: parameters (``prefix.params.npz``), with SMOKE_SAVE_INIT=1 the initial
+#: ones (``prefix.init.npz``). SMOKE_GRID: the ``--gspmd`` grid;
+#: SMOKE_DROP_REGISTRY=1: the restore's random streams dropped (the
+#: control).
+ELASTIC_WORKER = r"""
+import os, pickle, sys, time
+t_start = time.perf_counter()
+prefix, workflow_file = sys.argv[1], sys.argv[2]
+import numpy
+import torch
+if os.environ.get("SMOKE_DETERMINISTIC") == "1":
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+import chip_smoke
+from veles_tpu_torch import prng, snapshotter
+from veles_tpu_torch.__main__ import Main
+from veles_tpu_torch.config import root
+from veles_tpu_torch.convert import layer_params
+from veles_tpu_torch.dummy import DummyLauncher
+from veles_tpu_torch.parallel import elastic
+from veles_tpu_torch.telemetry.registry import get_registry
+from veles_tpu_torch.train.step import FusedTrainer
+ctx = elastic.worker_context()
+gen, rank = (ctx.generation, ctx.rank) if ctx is not None else (0, 0)
+for item in sys.argv[3:]:
+    exec(item, {"root": root})
+cli = Main()
+module = cli._load_model(workflow_file)
+report = {"rank": rank, "generation": gen,
+          "world": ctx.world_size if ctx is not None else 1,
+          "gens": [], "restored": None, "train_s": [], "step_ms": []}
+
+
+def params_of(modules):
+    return {"%d.%s" % (i, k): p.detach().cpu().numpy()
+            for i, m in enumerate(modules)
+            for k, p in layer_params(m).items()}
+
+
+def build(device):
+    cli._seed_random("7")
+    made = {}
+
+    def load(cls, **kwargs):
+        made["wf"] = cls(DummyLauncher(), **kwargs)
+        return made["wf"], False
+
+    module.run(load, lambda **kwargs: None)
+    made["wf"].initialize(device=device)
+    if os.environ.get("SMOKE_SAVE_INIT") == "1":
+        numpy.savez(prefix + ".init.npz",
+                    **params_of([f.module for f in made["wf"].forwards]))
+    return made["wf"]
+
+
+restore_latest = snapshotter.restore_latest
+
+
+def restored(directory, prefix=None):
+    wf, path = restore_latest(directory, prefix)
+    report["restored"] = (os.path.basename(path),
+                          snapshotter.generation_manifest(path))
+    if os.environ.get("SMOKE_DROP_REGISTRY") == "1":
+        prng._generators.clear()
+    return wf, path
+
+
+snapshotter.restore_latest = restored
+save = elastic.save_elastic_checkpoint
+
+
+def saved(trainer, ctx, params, states, workflow, compression="gz"):
+    gen_dir, nbytes, seconds = save(trainer, ctx, params, states, workflow,
+                                    compression)
+    disk = None
+    if ctx.rank == 0:
+        disk = sum(os.path.getsize(os.path.join(gen_dir, n))
+                   for n in os.listdir(gen_dir))
+    report["gens"].append((os.path.basename(gen_dir), nbytes, seconds, disk))
+    return gen_dir, nbytes, seconds
+
+
+elastic.save_elastic_checkpoint = saved
+train, train_class, train_batch = (FusedTrainer.train,
+                                   FusedTrainer.train_class,
+                                   FusedTrainer.train_batch)
+steps = []
+
+
+def timed_train(self, *args, **kwargs):
+    report["startup_s"] = time.perf_counter() - t_start - sum(
+        g[2] for g in report["gens"])
+    return train(self, *args, **kwargs)
+
+
+def timed_class(self, *args, **kwargs):
+    t0 = time.perf_counter()
+    out = train_class(self, *args, **kwargs)
+    torch.cuda.synchronize()
+    report["train_s"].append(time.perf_counter() - t0)
+    return out
+
+
+def timed_batch(self, *args, **kwargs):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = train_batch(self, *args, **kwargs)
+    end.record()
+    steps.append((start, end))
+    return out
+
+
+FusedTrainer.train = timed_train
+FusedTrainer.train_class = timed_class
+FusedTrainer.train_batch = timed_batch
+trained = {}
+
+
+def keep(trainer, params, states):
+    trained["trainer"] = trainer
+
+
+report["rc"] = 1
+try:
+    history = elastic.run_elastic_training(
+        build, grid=os.environ.get("SMOKE_GRID") or None, on_epoch=keep,
+        compression=chip_smoke.ELASTIC_COMPRESSION)
+    report["history"] = [{k: v for k, v in e.items()} for e in history]
+    if rank == 0 and "trainer" in trained:
+        numpy.savez(prefix + ".params.npz",
+                    **params_of(trained["trainer"].forwards))
+    report["rc"] = 0
+finally:
+    torch.cuda.synchronize()
+    report["step_ms"] = [s.elapsed_time(e) for s, e in steps]
+    report["counts"], report["forms"] = chip_smoke.read_counts()
+    report["variants"] = {name: dict(fn.launches_by_variant) for name, fn
+                          in chip_smoke.variant_counters().items()}
+    family = get_registry().get("veles_spmd_recovery_ms")
+    report["recovery"] = [] if family is None else [
+        (labels, child.summary()) for labels, child in family.series()]
+    report["bad_modules"] = sorted(
+        m for m in sys.modules if m in ("jax", "ml_dtypes", "veles_tpu") or
+        m.startswith(("jax.", "ml_dtypes.", "veles_tpu.")))
+    with open("%s.g%d.rank%d" % (prefix, gen, rank), "wb") as f:
+        pickle.dump(report, f)
+"""
+
+
+class ElasticLeg(object):
+    """One run of phase 16: ``members`` supervisors (``python -m
+    veles_tpu_torch.parallel.elastic supervise``) at an in-process
+    ``RendezvousServer``, each supervising ``ELASTIC_WORKER``; or, with
+    ``members`` 0, the worker alone (standalone, or with the
+    ``VELES_ELASTIC_*`` of ``env``)."""
+
+    def __init__(self, name, tmp, workflow_file, members=2, die=None,
+                 epochs=ELASTIC_EPOCHS, env=None, snaps=None):
+        import subprocess
+        from veles_tpu_torch.parallel.elastic import (ENV_TEST_DIE,
+                                                      RendezvousServer)
+        self.name, self.tmp = name, tmp
+        self.prefix = os.path.join(tmp, name.replace(" ", "_"))
+        self.snaps = snaps or self.prefix + "_snaps"
+        self.started = time.perf_counter()
+        self.server = None
+        self.recovery = {}
+        worker = [sys.executable, "-c", ELASTIC_WORKER, self.prefix,
+                  workflow_file, "root.smoke.epochs = %d" % epochs,
+                  "root.smoke.snapshots = %r" % os.path.join(tmp, "unused"),
+                  "root.common.disable.snapshotting = True"]
+        base = dict(os.environ, PYTHONPATH=REPO, SMOKE_DETERMINISTIC="1",
+                    VELES_FLIGHT_DIR=os.path.join(tmp, "flight"),
+                    **(env or {}))
+        self.procs, self.logs = [], []
+        if not members:
+            self._start(subprocess, worker, base, "worker")
+            return
+        self.server = RendezvousServer(
+            expected=members, min_workers=1, settle_s=ELASTIC_SETTLE_S,
+            heartbeat_timeout_s=ELASTIC_HB_TIMEOUT_S).start()
+        addr = "%s:%d" % self.server.address
+        for i in range(members):
+            env_i = dict(base)
+            if die is not None and i == 1:
+                env_i[ENV_TEST_DIE] = "1:%d" % die
+            self._start(subprocess, [
+                sys.executable, "-m", "veles_tpu_torch.parallel.elastic",
+                "supervise", "--rdzv", addr, "--member", "h%d" % i,
+                "--snapshots", self.snaps, "--max-restarts",
+                "3" if i == 0 else "0", "--"] + worker, env_i, "h%d" % i)
+
+    def _start(self, subprocess, argv, env, label):
+        log = "%s.%s.log" % (self.prefix, label)
+        with open(log, "w") as f:
+            self.procs.append(subprocess.Popen(
+                argv, env=env, cwd=self.tmp, stdout=f,
+                stderr=subprocess.STDOUT, start_new_session=True))
+        self.logs.append(log)
+
+    def wait(self):
+        """The reports of every worker that exited normally or raised,
+        in (generation, rank) order; the supervisors' exit codes. An
+        overrun raises after killing every process of the leg."""
+        import glob
+        import pickle
+        try:
+            for proc in self.procs:
+                while proc.poll() is None:
+                    if time.perf_counter() - self.started > ELASTIC_LEG_S:
+                        raise AssertionError("elastic %s overran %d s:\n%s"
+                                             % (self.name, ELASTIC_LEG_S,
+                                                self.tails()))
+                    self._poll_recovery()
+                    time.sleep(0.25)
+        finally:
+            self.kill()
+        self.wall_s = time.perf_counter() - self.started
+        self.codes = [proc.returncode for proc in self.procs]
+        reports = []
+        for path in glob.glob(self.prefix + ".g*.rank*"):
+            with open(path, "rb") as f:
+                reports.append(pickle.load(f))
+        reports.sort(key=lambda r: (r["generation"], r["rank"]))
+        for report in reports:
+            if report["bad_modules"]:
+                raise AssertionError("elastic %s: generation %d rank %d "
+                                     "loaded %s" % (
+                                         self.name, report["generation"],
+                                         report["rank"],
+                                         report["bad_modules"]))
+        return reports
+
+    def _poll_recovery(self):
+        """The supervisors' ``veles_spmd_recovery_ms`` as their heartbeats
+        carry it to the rendezvous's federated view (a feed goes with its
+        member, so it is kept as last seen)."""
+        if self.server is None:
+            return
+        for sid, _, name, labels, data in \
+                self.server.federation().series_rows():
+            if name == "veles_spmd_recovery_ms":
+                self.recovery[(sid, labels.get("event"))] = data
+
+    def worker_pids(self):
+        """The workers the supervisors announced (``EVENT spmd_worker``)."""
+        import re
+        pids = []
+        for log in self.logs:
+            with open(log, errors="replace") as f:
+                pids += [int(p) for p in re.findall(
+                    r"EVENT spmd_worker t=\S+ .*pid=(\d+)", f.read())]
+        return pids
+
+    def kill(self):
+        """Kill what is left of the leg: a supervisor still running, and
+        then the workers it announced (a supervisor that exited killed
+        its own: their pids may name other processes by now)."""
+        import signal
+        alive = [proc for proc in self.procs if proc.poll() is None]
+        for proc in alive:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        if alive and self.server is not None:
+            for pid in self.worker_pids():
+                try:
+                    os.killpg(pid, signal.SIGKILL)
+                except OSError:
+                    pass  # exited with its generation
+        if self.server is not None:
+            self.server.stop()
+
+    def tails(self, tail=3000):
+        parts = []
+        for log in self.logs:
+            with open(log, errors="replace") as f:
+                parts.append("-- %s:\n%s" % (os.path.basename(log),
+                                             f.read()[-tail:]))
+        return "\n".join(parts)
+
+    def params(self, which="params"):
+        import numpy
+        with numpy.load("%s.%s.npz" % (self.prefix, which)) as data:
+            return {k: data[k] for k in data.files}
+
+
+def values_differing_tree(got, want):
+    """Values that differ between two equal nests (dicts, lists, arrays,
+    numbers; a missing key counts one)."""
+    import numpy
+    if isinstance(want, dict):
+        return sum(values_differing_tree(got[k], want[k]) if k in got
+                   else 1 for k in want) + len(set(got) - set(want))
+    if isinstance(want, (list, tuple)):
+        return sum(values_differing_tree(g, w)
+                   for g, w in zip(got, want)) + abs(len(got) - len(want))
+    g, w = numpy.asarray(got), numpy.asarray(want)
+    if g.shape != w.shape:
+        return max(g.size, w.size, 1)
+    return int((g != w).sum())
+
+
+def _elastic_row(reports, leg):
+    """Each worker's generation, world, start-up s, samples/s and step ms,
+    the generations it cut (MiB pickled, s, MiB on disk) and what it
+    restored."""
+    rows = []
+    for r in reports:
+        rows.append({
+            "generation": r["generation"], "rank": r["rank"],
+            "world": r["world"], "rc": r["rc"],
+            "startup_s": r.get("startup_s"),
+            "samples_per_s": [TRAIN_SAMPLES / s for s in r["train_s"]],
+            "step_ms": statistics.median(r["step_ms"])
+            if r["step_ms"] else None,
+            "gens": [{"dir": d, "MiB": n / 1048576.0, "s": s,
+                      "disk_MiB": None if b is None else b / 1048576.0}
+                     for d, n, s, b in r["gens"]],
+            "restored": None if r["restored"] is None else {
+                "dir": r["restored"][0],
+                "world_size": r["restored"][1].get("world_size"),
+                "parts": r["restored"][1].get("nparts")},
+            "restore_ms": [s for labels, s in r["recovery"]
+                           if labels.get("event") == "restore"]})
+    return {"workers": rows, "wall_s": leg.wall_s,
+            "supervisor_codes": leg.codes}
+
+
+def elastic_phase(kernels):
+    """Phase 16 (see the module docstring). Returns (result,
+    [launches_by_form of each worker])."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="veles_elastic_")
+    try:
+        return _elastic_phase(kernels, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _elastic_phase(kernels, tmp):
+    import shutil
+
+    import torch
+
+    from veles_tpu_torch import snapshotter
+    from veles_tpu_torch.dummy import DummyLauncher
+    from veles_tpu_torch.ops.gemm_bench import card_line
+    from veles_tpu_torch.parallel import elastic
+    from veles_tpu_torch.parallel.gspmd import GSPMDTrainer
+    from veles_tpu_torch.telemetry import alerts
+    from veles_tpu_torch.train.runner import trainer_for
+    card = card_line()
+    path = os.path.join(tmp, "alexnet_workflow.py")
+    with open(path, "w") as f:
+        f.write(WORKFLOW_FILE)
+    result, all_forms = {"card": card}, []
+    path_kernels = ("gemm_bias_act", "lrn_fwd", "lrn_bwd", "column_reduce",
+                    "uniform_fill")
+
+    def collect(leg, beside=()):
+        reports = leg.wait()
+        name = leg.name
+        total = collections.Counter()
+        for r in reports:
+            label = "elastic %s generation %d rank %d" % (
+                name, r["generation"], r["rank"])
+            check_forms(label, kernels, r["forms"])
+            if sum(r["counts"].values()):
+                check_designed(label, r["variants"]["gemm_bias_act"])
+            all_forms.append(r["forms"])
+            total.update(r["counts"])
+        idle = [k for k in path_kernels if not total[k]]
+        if idle:
+            raise AssertionError("elastic %s: no launch of %s" % (name, idle))
+        out = _elastic_row(reports, leg)
+        out.update(launches=dict(total), beside=list(beside))
+        if leg.server is not None:
+            out.update(generation=leg.server.generation,
+                       world=leg.server.world_size,
+                       lost_total=leg.server.lost_total,
+                       reform_s=leg.server.last_recovery_s,
+                       supervisors_recovery_ms={
+                           "%s %s" % k: v for k, v in leg.recovery.items()})
+        result[name] = out
+        print("elastic %s (%s): %s" % (name, card, json.dumps(out,
+                                                             default=str)))
+        return reports
+
+    def together(*legs):
+        """The reports of legs started together (each beside the others:
+        their processes' start-ups are most of their time); a failure
+        kills every one of them."""
+        names = [leg.name for leg in legs]
+        try:
+            return [collect(leg, [n for n in names if n != leg.name])
+                    for leg in legs]
+        finally:
+            for leg in legs:
+                leg.kill()
+
+    def start(name, **kwargs):
+        return ElasticLeg(name, tmp, path, **kwargs)
+
+    def final(reports):
+        done = [r for r in reports if r["rank"] == 0 and r["rc"] == 0]
+        if not done:
+            raise AssertionError("no rank 0 worker finished")
+        return done[-1]
+
+    # the references: the 2x1 world uninterrupted, and one rank alone
+    # beside it
+    two, one = start("2x1"), start("one rank", members=0,
+                                   env={"SMOKE_SAVE_INIT": "1"})
+    two_reports, one_reports = together(two, one)
+    want2, params2 = final(two_reports)["history"], two.params()
+    want1, init = final(one_reports)["history"], one.params("init")
+    params1 = one.params()
+    if two.codes != [0, 0]:
+        raise AssertionError("elastic 2x1: supervisors exited %s" % two.codes)
+
+    # the alert rule watches the lost-participant counter over 300 s
+    engine = alerts.AlertEngine(rules=[
+        r for r in alerts.DEFAULT_RULES
+        if r["name"] == "spmd_participant_lost"], min_eval_interval_s=0)
+    engine.evaluate(now=time.time() - 301.0, force=True)
+
+    # leg A, alone: rank 1 killed at the first epoch boundary, before
+    # that epoch's generation commits: world 1 from the generation-
+    # initial checkpoint (written at world 2), every value the one-rank
+    # run's
+    leg_a = start("kill A", die=1)
+    reports, = together(leg_a)
+    engine.evaluate(now=time.time(), force=True)
+    survivor = final(reports)
+    checks = {
+        "supervisor_codes": leg_a.codes == [0, 1],
+        "generation": leg_a.server.generation >= 1,
+        "world": leg_a.server.world_size == 1,
+        "lost": leg_a.server.lost_total >= 1,
+        "restored_g0.0_of_world_2": survivor["restored"] is not None and
+        survivor["restored"][0] == "wf_g0.0.shards" and
+        survivor["restored"][1]["world_size"] == 2 and
+        survivor["restored"][1]["parts"] == ["part0.pickle", "part1.pickle"],
+        "alert": "spmd_participant_lost" in engine.active()}
+    differing = {"history": values_differing_tree(survivor["history"], want1),
+                 "params": values_differing_tree(leg_a.params(), params1)}
+    result["kill A"].update(checks=checks, values_differing=differing)
+    print("elastic kill A: %s, values differing from the one-rank run %s"
+          % (checks, differing))
+    if not all(checks.values()) or any(differing.values()):
+        raise AssertionError("elastic kill A: %s, %s\n%s" % (
+            checks, differing, leg_a.tails()))
+
+    # leg B: rank 1 killed after the first epoch's generation committed
+    # (epoch 1 bit for bit the 2x1 run's, the rest at world 1), beside a
+    # 1x2 world that writes a generation and the control: leg A's
+    # generation-initial checkpoint restored without the random registry
+    control_snaps = os.path.join(tmp, "control_snaps")
+    os.makedirs(control_snaps)
+    shutil.copytree(os.path.join(leg_a.snaps, "wf_g0.0.shards"),
+                    os.path.join(control_snaps, "wf_g0.0.shards"))
+    leg_b = start("kill B", die=ELASTIC_LATE_DEATH)
+    tp = start("1x2", epochs=1, env={"SMOKE_GRID": "1x2"})
+    control = start("control", members=0, snaps=control_snaps, env={
+        elastic.ENV_WORLD: "1", elastic.ENV_GEN: "9", elastic.ENV_RANK: "0",
+        elastic.ENV_SNAPSHOTS: control_snaps, "SMOKE_DROP_REGISTRY": "1"})
+    reports, _, control_reports = together(leg_b, tp, control)
+    survivor = final(reports)
+    share = _update_share(leg_b.params(), params2, init)
+    first = values_differing_tree(survivor["history"][:1], want2[:1])
+    checks = {
+        "supervisor_codes": leg_b.codes == [0, 1],
+        "world": leg_b.server.world_size == 1,
+        "restored_g0.1_of_world_2": survivor["restored"] is not None and
+        survivor["restored"][0] == "wf_g0.%d.shards" % (
+            ELASTIC_LATE_DEATH - 1) and
+        survivor["restored"][1]["world_size"] == 2}
+    result["kill B"].update(checks=checks, first_epoch_differing=first,
+                            update_share=share)
+    print("elastic kill B: %s, first epoch values differing %d, parameters "
+          "%.3g of their change (bound %g)" % (checks, first, share,
+                                                ELASTIC_UPDATE_SHARE_TOL))
+    if not all(checks.values()) or first or \
+            share > ELASTIC_UPDATE_SHARE_TOL:
+        raise AssertionError("elastic kill B: %s\n%s" % (result["kill B"],
+                                                         leg_b.tails()))
+
+    # the reshard: a 1x2 world's generation restored at 1x1 here, every
+    # parameter the world's gathered whole to the bit
+    whole = tp.params()
+    t0 = time.perf_counter()
+    wf, gen_path = snapshotter.restore_latest(tp.snaps)
+    load_s = time.perf_counter() - t0
+    wf.workflow = DummyLauncher()
+    wf.initialize(device=torch.device("cuda"))
+    trainer = trainer_for(wf, GSPMDTrainer)
+    params, _ = trainer.pull_params()
+    trainer.shutdown()
+    got = {"%d.%s" % (i, k): v.detach().cpu().numpy()
+           for i, layer in enumerate(params) for k, v in layer.items()}
+    reshard = {"generation": os.path.basename(gen_path),
+               "mesh_axes": snapshotter.generation_manifest(
+                   gen_path)["mesh_axes"],
+               "load_s": load_s,
+               "values_differing": values_differing_tree(got, whole)}
+    result["1x2"]["reshard"] = reshard
+    print("elastic 1x2 restored at 1x1: %s" % json.dumps(reshard))
+    if reshard["values_differing"] or reshard["mesh_axes"] != {
+            "batch": 1, "model": 2}:
+        raise AssertionError("elastic reshard: %s" % reshard)
+    del wf, trainer, params
+    torch.cuda.empty_cache()
+
+    # the controls: a torn generation never restores; leg A's restore
+    # without the random registry differs from the one-rank run
+    gens = sorted(d for d in os.listdir(two.snaps) if d.endswith(".shards"))
+    newest, older = (os.path.join(two.snaps, d) for d in gens[-1:-3:-1])
+    os.unlink(os.path.join(newest, snapshotter.MANIFEST_NAME))
+    torn = {}
+    try:
+        snapshotter.load_sharded_generation(newest)
+        torn["no manifest"] = "loaded"
+    except Exception as e:  # noqa: BLE001 -- any failure is the refusal
+        torn["no manifest"] = type(e).__name__
+    torn["no manifest restores"] = os.path.basename(
+        snapshotter.restore_latest(two.snaps)[1])
+    part = os.path.join(older, "part1.pickle")
+    with open(part, "r+b") as f:
+        f.truncate(os.path.getsize(part) // 2)
+    try:
+        snapshotter.load_sharded_generation(older)
+        torn["part1 truncated"] = "loaded"
+    except Exception as e:  # noqa: BLE001
+        torn["part1 truncated"] = type(e).__name__
+    torn["part1 truncated restores"] = os.path.basename(
+        snapshotter.restore_latest(two.snaps)[1])
+    result["torn"] = torn
+    print("elastic torn generations: %s" % torn)
+    if "loaded" in (torn["no manifest"], torn["part1 truncated"]) or \
+            torn["no manifest restores"] != gens[-2] or \
+            torn["part1 truncated restores"] != gens[-3]:
+        raise AssertionError("elastic torn-generation control: %s" % torn)
+    differing = {"history": values_differing_tree(
+        final(control_reports)["history"], want1),
+                 "params": values_differing_tree(control.params(), params1)}
+    result["control"]["values_differing"] = differing
+    print("elastic control (restored without the random registry): values "
+          "differing from the one-rank run %s" % differing)
+    if not (differing["history"] and differing["params"]):
+        raise AssertionError("elastic control: the restore without the "
+                             "registry equals the one-rank run")
+    return result, all_forms
+
+
+def beside(walls, *phases):
+    """Run each ``(name, fn)`` of ``phases`` in a thread of its own, all
+    at once; their results in order, each phase's seconds in ``walls``.
+    When one raises, the first error is raised once every phase has
+    ended (each stops the processes it started)."""
+    results, errors = {}, []
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        try:
+            results[name] = fn()
+        except BaseException as e:  # noqa: BLE001 -- re-raised below
+            errors.append(e)
+        finally:
+            walls[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=run, args=phase, name=phase[0])
+               for phase in phases]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return [results[name] for name, _ in phases]
+
+
 def main():
     # deterministic cuBLAS for the workflow and eager phases' runs: read
     # when the first cuBLAS handle is made
@@ -6752,7 +7410,8 @@ def main():
     print("torch %s, CUDA %s, device %s" % (
         torch.__version__, torch.version.cuda,
         torch.cuda.get_device_name(0)))
-    t0 = time.perf_counter()
+    phase_s = {}
+    t0 = mark = time.perf_counter()
     seconds = build.build_all()
     print("build: %s (all in parallel, %.1f s wall)" % (
         ", ".join("%s %.1f s" % kv for kv in sorted(seconds.items())),
@@ -6762,6 +7421,13 @@ def main():
         if kv[0].endswith("_binding.cpp")))
     get_policy("float32").configure_backends()
 
+    def lap(name):
+        nonlocal mark
+        now = time.perf_counter()
+        phase_s[name] = round(now - mark, 1)
+        mark = now
+
+    lap("build")
     kernels = gemm_phase(torch)
     scratch = torch.empty(COLD_SCRATCH_BYTES // 4, device="cuda")
     kernels += (lrn_phase(torch, scratch) + lrn_bwd_phase(torch, scratch) +
@@ -6784,6 +7450,7 @@ def main():
     print("split sweep (%s): %s" % (card, json.dumps(split_sweep(torch))))
     print("kahan split sweep (%s): %s" % (card,
                                           json.dumps(kahan_sweep(torch))))
+    lap("kernels")
 
     model, served, serving_forms = slice_phase(torch, numpy)
     check_forms("serving", kernels, serving_forms)
@@ -6791,6 +7458,7 @@ def main():
     served.update(forward_phase(torch, model))
     print("serving (%s): %s" % (card, json.dumps(served)))
     del model
+    lap("serving")
 
     phases = [serving_forms]
     trained = []
@@ -6802,6 +7470,7 @@ def main():
         trained.append(result)
         print("training (%s): %s" % (card, json.dumps(result)))
     get_policy("float32").configure_backends()
+    lap("training")
 
     disciplines, forms = disciplines_phase(torch, numpy, card)
     check_forms("disciplines", kernels, forms)
@@ -6809,41 +7478,55 @@ def main():
     phases.append(forms)
     print("disciplines (%s): %s" % (card, json.dumps(disciplines)))
     print("device rating (%s): %s" % (card, json.dumps(rating_phase(torch))))
+    lap("disciplines")
 
     baseline, forms = baseline_phase(torch, kernels)
     phases.extend(forms)
     print("baseline (%s): %s" % (card, json.dumps(baseline, default=str)))
+    lap("baseline")
 
     sequence, forms = sequence_phase(torch, numpy, kernels)
     phases.extend(forms)
     print("sequence (%s): %s" % (card, json.dumps(sequence, default=str)))
+    lap("sequence")
 
     workflow, forms = workflow_phase(torch, numpy, kernels)
     phases.extend(forms)
     print("workflow (%s): %s" % (card, json.dumps(workflow, default=str)))
+    lap("workflow")
 
     (eager, served), forms = eager_export_phases(torch, numpy, kernels)
     phases.extend(forms)
     print("eager (%s): %s" % (card, json.dumps(eager, default=str)))
     print("export and serve (%s): %s" % (card, json.dumps(served,
                                                           default=str)))
+    lap("eager and export")
 
     residency, forms = residency_phase(torch, numpy, kernels)
     phases.extend(forms)
     print("residency (%s): %s" % (card, json.dumps(residency, default=str)))
+    lap("residency")
 
     observed, forms = observability_phase(torch, numpy, kernels)
     phases.extend(forms)
     print("observability (%s): %s" % (card, json.dumps(observed,
                                                        default=str)))
+    lap("observability")
 
-    distributed, forms = distributed_phase(torch, numpy, kernels)
-    phases.extend(forms)
+    # phases 14, 15 and 16 run beside each other: each waits on
+    # processes of its own (slaves, ranks, supervised workers) whose time
+    # is mostly their start-up (``import torch`` alone takes ~6-7 s on
+    # the card's host, P16c), and one after another the three took ~700
+    # s of the script's 1200 (F16z)
+    walls = {}
+    (distributed, forms14), (spmd, forms15), (elastic, forms16) = beside(
+        walls, ("distributed", lambda: distributed_phase(torch, numpy,
+                                                         kernels)),
+        ("spmd", lambda: spmd_phase(kernels)),
+        ("elastic", lambda: elastic_phase(kernels)))
+    phases.extend(forms14 + forms15 + forms16)
     print("distributed (%s): %s" % (card, json.dumps(distributed,
                                                      default=str)))
-
-    spmd, forms = spmd_phase(kernels)
-    phases.extend(forms)
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "spmd.json"), "w") as f:
@@ -6852,6 +7535,16 @@ def main():
         k: {kk: vv for kk, vv in v.items() if kk not in (
             "step_ms_all", "times", "launches")} if isinstance(v, dict)
         else v for k, v in spmd.items()}, default=str)))
+    with open(os.path.join(out_dir, "elastic.json"), "w") as f:
+        json.dump(elastic, f, default=str)
+    print("elastic (%s): %s" % (card, json.dumps({
+        k: v.get("checks", v.get("values_differing", "")) if isinstance(
+            v, dict) else v for k, v in elastic.items()}, default=str)))
+    lap("distributed, spmd and elastic beside each other")
+    phase_s.update(("%s (its own wall)" % k, round(v, 1))
+                   for k, v in walls.items())
+    print("phase seconds (%s): %s, %.1f in all" % (
+        card, json.dumps(phase_s), time.perf_counter() - t0))
 
     for row in kernels:
         form = row.pop("_form")

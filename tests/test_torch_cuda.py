@@ -1254,3 +1254,59 @@ def test_cache_hit_launches_no_kernel(card):
     finally:
         engine.stop()
         pool.stop()
+
+
+def test_sharded_generation_round_trips_the_cards_state(card, tmp_path):
+    """The small AlexNet trained an epoch on the card by the SPMD trainer
+    (``1x1``; K1, K3, K4, K6, K7), its parameters and SGD state cut as a
+    sharded generation, restored on the card and on the CPU: every leaf
+    equal to the bit, the restored state on the device it was asked
+    for."""
+    from veles_tpu_torch import prng, snapshotter
+    from veles_tpu_torch.dummy import DummyLauncher
+    from veles_tpu_torch.models.alexnet import AlexNetWorkflow
+    from veles_tpu_torch.parallel.elastic import (ElasticContext,
+                                                  save_elastic_checkpoint)
+    from veles_tpu_torch.parallel.gspmd import GSPMDTrainer
+    from veles_tpu_torch.train.runner import trainer_for
+    prng.get().seed(3)
+    prng.get("loader").seed(4)
+    wf = AlexNetWorkflow(
+        DummyLauncher(), layers=small_alexnet_layers(10), max_epochs=1,
+        momentum=0.9, loader_factory=lambda w: SyntheticImageLoader(
+            workflow=w, n_train=64, n_valid=16, side=32, n_classes=10,
+            minibatch_size=16))
+    wf.initialize(device=card)
+    trainer = trainer_for(wf, GSPMDTrainer)
+    trainer.train(max_epochs=1)
+    assert trainer.params[0]["weights"].device.type == card.type
+    ctx = ElasticContext(0, 1, 0, snapshot_dir=str(tmp_path))
+    save_elastic_checkpoint(trainer, ctx, trainer.params, trainer.states,
+                            wf, compression="")
+    want = trainer.pull_params()
+    trainer.shutdown()
+
+    def flat(params, states):
+        out = {}
+        for i, (layer, state) in enumerate(zip(params, states)):
+            for k, v in layer.items():
+                out["%d.%s" % (i, k)] = v
+            for k, v in (state.get("velocity") or {}).items():
+                out["%d.velocity.%s" % (i, k)] = v
+            if "step" in state:
+                out["%d.step" % i] = state["step"]
+        return out
+
+    expected = flat(*want)
+    for device in (card, torch.device("cpu")):
+        restored, path = snapshotter.restore_latest(str(tmp_path))
+        assert path.endswith("wf_g0.1.shards")
+        restored.workflow = DummyLauncher()
+        restored.initialize(device=device)
+        again = trainer_for(restored, GSPMDTrainer)
+        got = flat(*again.pull_params())
+        again.shutdown()
+        assert sorted(got) == sorted(expected)
+        for key, value in expected.items():
+            assert got[key].device.type == device.type, key
+            assert torch.equal(got[key].cpu(), value.cpu()), key

@@ -54,7 +54,10 @@ from veles_tpu.serving import cache as jax_cache  # noqa: E402
 from veles_tpu.serving import frontend as jax_frontend  # noqa: E402
 from veles_tpu.serving.model_store import \
     ServeableModel as JaxServeableModel  # noqa: E402
+from veles_tpu.telemetry import alerts as jax_alerts  # noqa: E402
+from veles_tpu.telemetry import profiler as jax_profiler  # noqa: E402
 from veles_tpu.telemetry import registry as jax_registry  # noqa: E402
+from veles_tpu.telemetry import timeseries as jax_timeseries  # noqa: E402
 from veles_tpu.telemetry import tracing as jax_tracing  # noqa: E402
 from veles_tpu_torch.serving import admission, autoscale, cache  # noqa
 from veles_tpu_torch.serving import frontend  # noqa: E402
@@ -367,9 +370,26 @@ FRONTEND_KW = dict(port=0, replicas=1, max_batch_size=4,
                                                  "qos": "interactive"}})
 
 
+def _fresh_telemetry():
+    """Both packages' process-wide telemetry state made anew: the cost
+    book, the startup phases, the alert engine and the history. A test
+    file that ran earlier in the same worker process (a JAX serving
+    test's XLA-costed ``serve_forward:b1`` row, say) must not leave state
+    in one package's singletons that the other's lacks."""
+    for module in (jax_profiler, profiler):
+        module.reset_cost_book()
+        module.reset_phases()
+    for module in (jax_alerts, alerts):
+        module.reset_engine()
+    for module in (jax_timeseries, timeseries):
+        module.reset_history()
+
+
 @pytest.fixture(scope="module")
 def frontends(jax_model, port_model):
-    """(JAX frontend, port frontend), each with routes alpha and beta."""
+    """(JAX frontend, port frontend), each with routes alpha and beta,
+    over telemetry state of their own (:func:`_fresh_telemetry`)."""
+    _fresh_telemetry()
     jfe = jax_frontend.ServingFrontend(
         {"alpha": jax_model, "beta": _jax_twin(jax_model, 0.05)},
         **FRONTEND_KW).start()
@@ -381,6 +401,7 @@ def frontends(jax_model, port_model):
     finally:
         pfe.stop()
         jfe.stop()
+        _fresh_telemetry()
 
 
 def _call(port, path, body=None, headers=None, raw=None):

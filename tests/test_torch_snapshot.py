@@ -367,16 +367,26 @@ def test_jax_standard_workflow_snapshot_continues(monkeypatch):
 
 
 def test_jax_sharded_generation_raises(tmp_path):
+    """A JAX sharded generation is read (its part 0's workflow through
+    ``jax_snapshot``): one of a workflow never initialized holds no
+    dataset, so its load raises and ``restore_latest`` finds nothing
+    loadable; the generation of the initialized workflow loads
+    (``tests/test_torch_elastic.py`` holds its leaves bit for bit)."""
     from veles_tpu.snapshotter import save_snapshot_sharded
     jax_prng.get().seed(1)
     from veles_tpu.models.mnist import MnistWorkflow as JaxMnist
     wf = JaxMnist(JaxDummyLauncher(), provider=synthetic_digits(),
                   layers=(8,), minibatch_size=60, max_epochs=1)
-    gen_dir, _ = save_snapshot_sharded(wf, str(tmp_path), [])
-    with pytest.raises(NotImplementedError, match="sharded"):
+    bare = str(tmp_path / "bare")
+    gen_dir, _ = save_snapshot_sharded(wf, bare, [])
+    with pytest.raises(ValueError, match="no dataset"):
         load_workflow(gen_dir)
     with pytest.raises(FileNotFoundError):
-        restore_latest(str(tmp_path))
+        restore_latest(bare)
+    wf.initialize(device=Device(backend="cpu"))
+    gen_dir, _ = save_snapshot_sharded(wf, str(tmp_path / "ready"), [])
+    got = load_workflow(gen_dir)
+    assert [f.name for f in got.forwards] == [f.name for f in wf.forwards]
 
 
 def _jax_graph(kind):

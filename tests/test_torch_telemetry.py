@@ -248,13 +248,16 @@ def test_disabled_span_is_the_shared_noop():
         pass
     assert len(tracing.get_buffer()) == 0 or \
         "http:/api" not in {e["name"] for e in tracing.get_buffer().events()}
+    # the least of many short batches: on a loaded machine a batch a
+    # few milliseconds long is likelier to run unpreempted than a long
+    # one, and the bound is on the span's own cost
     best = float("inf")
-    for _ in range(3):
+    for _ in range(30):
         start = time.perf_counter()
-        for _ in range(10000):
+        for _ in range(1000):
             with tracing.span("idle"):
                 pass
-        best = min(best, (time.perf_counter() - start) / 10000)
+        best = min(best, (time.perf_counter() - start) / 1000)
     assert best < 5e-6, "disabled span costs %.2f us" % (best * 1e6)
 
 

@@ -46,8 +46,16 @@ trains through the SPMD tier: this process is rank 0 of a ``batch`` x
 ``--jax-coordinator HOST:PORT --jax-processes N --jax-process-id K`` on
 every process, each joins a world of N instead (``launcher.py``). Each
 rank loads the same file with the same seed; rank 0 alone writes
-``--result-file`` and snapshots. The JAX CLI's other modes (``sched``,
-``--optimize``, the ensembles) are not ported yet.
+``--result-file`` and snapshots.
+
+    python -m veles_tpu_torch.parallel.elastic rendezvous | supervise | worker-demo
+
+is the elastic tier (``parallel/elastic.py``): a rendezvous server, a
+per-host supervisor that restarts its SPMD worker in each new membership
+generation, and a demo worker that trains from the newest complete
+sharded checkpoint generation. The JAX CLI's scheduler (``sched``), the
+genetic optimizer (``--optimize``) and the ensembles are not ported
+yet.
 """
 
 import code

@@ -32,8 +32,11 @@ padded to ``max_minibatch_size`` with index -1), sets the flags the
 decision reads, and has :meth:`Loader.fill_minibatch` put real device
 tensors in those attributes. The fused trainer reads index matrices
 instead (``train/step.py`` ``_segment_indices``). In a snapshot the
-minibatch tensors keep only their shape. The JAX loader's distribution
-hooks are not ported yet.
+minibatch tensors keep only their shape. The distribution hooks are the
+JAX loader's: a master serves index payloads, requeues what a dropped
+slave held, and rewinds to an epoch's start on a resume
+(:meth:`Loader.reset_to_epoch_start`, which the elastic tier's restore
+uses too).
 """
 
 import numpy

@@ -11,8 +11,11 @@ layout moves), ``dp.py`` and ``gspmd.py`` (the data- and tensor-parallel
 trainers of ``--gspmd``), ``tp.py`` (the column/row plan and forms),
 ``pp.py`` (the GPipe pipeline), the sharded halves of ``sequence.py``
 (ring and Ulysses attention) and ``ep.py`` (the expert-parallel MoE
-FFN), and ``world.py`` (a function run on every rank of a fresh world).
+FFN).
+
+The elastic tier: ``elastic.py`` (the rendezvous server, the per-host
+supervisor and the worker's restore-rewind-train harness over the
+snapshotter's sharded generations).
 
 The JAX package's ``compat.py`` (its ``shard_map`` API drift) has no
-counterpart; ``elastic.py`` and ``warm_pool.py`` come with a later
-slice."""
+counterpart; ``warm_pool.py`` comes with a later slice."""

@@ -28,6 +28,11 @@ partitioner inserts its ``psum``.
   its own rows.
 * :attr:`DataParallelTrainer.reduce_gradients` False skips the
   gradient all_reduce (the control that must fail).
+* A sharded checkpoint (:meth:`FusedTrainer.checkpoint_records`): each
+  rank gives the blocks it owns with their global index, a replicated
+  leaf from its first replica alone (the rank at index 0 of every axis
+  the leaf is not split over), so the ranks' part files cover every
+  leaf once (:meth:`DataParallelTrainer._record_leaf`).
 """
 
 import torch
@@ -37,7 +42,8 @@ from veles_tpu_torch.ops.random import dropout_uniforms
 from veles_tpu_torch.parallel import collectives, reshard
 from veles_tpu_torch.parallel.mesh import (build_mesh, named_sharding,
                                            replicated)
-from veles_tpu_torch.train.step import FusedTrainer, trainer_device
+from veles_tpu_torch.train.step import (FusedTrainer, jax_index,
+                                        jax_layout, trainer_device)
 
 
 class DataParallelTrainer(FusedTrainer):
@@ -161,6 +167,35 @@ class DataParallelTrainer(FusedTrainer):
         return (reshard.reshard_tree(params, repl, specs),
                 [_map_state(s, spec, lambda v, sp: reshard.reshard(
                     v, repl, sp)) for s, spec in zip(states, specs)])
+
+    def _record_leaf(self, i, name, tensor):
+        """This rank's block of one checkpoint leaf of layer ``i`` (a
+        parameter, a solver state leaf kept per parameter ``name``, or a
+        scalar, replicated) as a :class:`~veles_tpu_torch.snapshotter.
+        ShardedLeaf` in the JAX layout: the global shape, and the block
+        with its global index when this rank is the leaf's first replica
+        (no shard otherwise)."""
+        from veles_tpu_torch.snapshotter import ShardedLeaf
+        like = self.params[i].get(name)
+        sharding = self.param_specs()[i][name] \
+            if like is not None and like.shape == tensor.shape \
+            else replicated(self.grid)
+        spec = list(sharding.spec) + [None] * tensor.dim()
+        index, shape, split = [], [], set()
+        for d, n in enumerate(tensor.shape):
+            if spec[d] is None:
+                index.append(slice(None))
+                shape.append(n)
+                continue
+            axis = self.grid.axis(spec[d])
+            split.add(spec[d])
+            index.append(slice(axis.index * n, (axis.index + 1) * n))
+            shape.append(n * axis.size)
+        first = all(self.grid.coords[a] == 0 for a in self.grid.axis_names
+                    if a not in split)
+        shards = [(jax_index(tuple(index)), jax_layout(
+            tensor.detach().float().cpu().numpy()))] if first else []
+        return ShardedLeaf(jax_index(tuple(shape)), "float32", shards)
 
     def push_params(self, params, states):
         """Load whole ``params`` and ``states``: each rank keeps its

@@ -18,10 +18,25 @@ full-batch loader whose dataset sits on the device:
 * ``eval_class`` / ``train_class`` / ``run_epoch``: evaluation classes
   first (with the softmax confusion matrix summed over the sweep), then
   training, then the loader's shuffle;
-* ``train(max_epochs, fail_iterations)``: epochs until ``max_epochs`` or
-  until the decision's stop, with ``best_metric`` / ``best_epoch`` kept
-  as the JAX trainer keeps them on its decision unit;
-  ``pull_params`` / ``push_params`` as state dicts.
+* ``train(max_epochs, epoch_callback, initial_state, fail_iterations)``:
+  epochs until ``max_epochs`` or until the decision's stop, with
+  ``epoch_history``, ``best_metric`` and ``best_epoch`` kept on the
+  trainer where the JAX trainer keeps them on its decision unit (a
+  caller that drives a workflow's decision, as the elastic tier does,
+  hands the decision's history list to the trainer and copies ``best_*``
+  back: ``parallel/elastic.py``); ``pull_params`` / ``push_params`` as
+  state dicts.
+
+The elastic checkpoint seam, as in the JAX trainer: ``epoch_callback``
+(the argument, or the attribute) fires after each epoch's bookkeeping
+closes with ``(trainer, params, states)``, the trainer's live state at a
+complete step boundary, which it only reads; :meth:`FusedTrainer.
+checkpoint_records` lists that state as ``[(spec, leaf)]`` for
+``snapshotter.save_snapshot_sharded``, in the JAX trainer's order and
+specs, each leaf in the JAX layout (HWIO convolutions) so the units
+restore it as they restore a snapshot's parameters. A leaf is a host
+numpy array here; the SPMD trainers give this rank's blocks of it
+(:class:`veles_tpu_torch.snapshotter.ShardedLeaf`).
 
 Gradient norms, as the JAX trainer tracks them by default: the float32
 global norm of each training batch's gradients, over every parameter of
@@ -164,6 +179,10 @@ class FusedTrainer(object):
         self.epoch_history = []
         self.best_metric = math.inf
         self.best_epoch = -1
+        #: optional ``fn(trainer, params, states)`` fired after every
+        #: closed epoch of :meth:`train`: the elastic checkpoint seam; it
+        #: must not change the state it is given
+        self.epoch_callback = None
         self.device = trainer_device(model, device)
         self.policy = policy_of(model)
         self.stream = stream
@@ -678,13 +697,22 @@ class FusedTrainer(object):
             stats["rmse"] = math.sqrt(stats["normalized"])
         return stats
 
-    def train(self, max_epochs=None, fail_iterations=100):
+    def train(self, max_epochs=None, epoch_callback=None, initial_state=None,
+              fail_iterations=100):
         """Epochs from the loader's epoch number on, as the JAX trainer's
         ``train()`` runs them: after each, the validation metric (the
         training one without validation) updates ``best_metric`` and
-        ``best_epoch`` when it falls; the loop stops once ``max_epochs``
-        epochs are done, or when the epoch just finished is more than
-        ``fail_iterations`` past the best. Returns the history."""
+        ``best_epoch`` when it falls, then ``epoch_callback`` (or the
+        :attr:`epoch_callback` attribute) sees ``(self, params,
+        states)``; the loop stops once ``max_epochs`` epochs are done, or
+        when the epoch just finished is more than ``fail_iterations``
+        past the best. ``initial_state``, ``(params, states)`` as
+        :meth:`pull_params` gives them, is loaded first. Returns the
+        history."""
+        callback = (epoch_callback if epoch_callback is not None
+                    else self.epoch_callback)
+        if initial_state is not None:
+            self.push_params(*initial_state)
         epoch = self.loader.epoch_number
         start = time.perf_counter()
         done = 0
@@ -702,6 +730,8 @@ class FusedTrainer(object):
             _log.info("epoch %d: %s", epoch, "  ".join(
                 "%s=%.4f" % (k, v["normalized"])
                 for k, v in stats.items() if isinstance(v, dict)))
+            if callback is not None:
+                callback(self, self.params, self.states)
             epoch += 1
             if max_epochs is not None and epoch >= max_epochs:
                 break
@@ -712,6 +742,41 @@ class FusedTrainer(object):
         return self.epoch_history
 
     # -- parameter plumbing ------------------------------------------------
+
+    def checkpoint_records(self, params, states):
+        """``[(spec, leaf)]`` of the live ``params`` and ``states`` for a
+        sharded checkpoint (``snapshotter.save_snapshot_sharded``), in the
+        JAX trainer's deterministic order: forward index, then sorted
+        parameter names, then each layer's solver state by sorted key
+        paths. Specs are ``{"kind": "param", "forward": i, "name": n}``
+        and ``{"kind": "opt", "forward": i, "path": [...]}``
+        (``snapshotter._apply_record`` installs them); leaves are in the
+        JAX layout (:meth:`_record_leaf`)."""
+        records = []
+        for i, layer in enumerate(params):
+            for name in sorted(layer):
+                records.append(({"kind": "param", "forward": i,
+                                 "name": name},
+                                self._record_leaf(i, name, layer[name])))
+
+        def walk(i, node, path):
+            if isinstance(node, dict):
+                for key in sorted(node):
+                    walk(i, node[key], path + [key])
+                return
+            records.append(({"kind": "opt", "forward": i, "path": path},
+                            self._record_leaf(i, path[-1], node)))
+
+        for i, state in enumerate(states):
+            if state:
+                walk(i, state, [])
+        return records
+
+    def _record_leaf(self, i, name, tensor):
+        """One checkpoint leaf: the whole ``tensor`` (a parameter, or a
+        solver state leaf kept per parameter ``name`` of layer ``i``, or a
+        scalar) as a host array in the JAX layout."""
+        return jax_layout(tensor.detach().float().cpu().numpy())
 
     def unit_states(self):
         """Each layer's solver state as the workflow's units hold it,
@@ -746,6 +811,22 @@ def trainer_device(model, device=None):
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def jax_layout(array):
+    """A C-contiguous copy of a host array in the JAX layout: a 4-D one
+    OIHW -> HWIO, as ``convert.to_jax_layout`` lays parameters."""
+    if array.ndim == 4:
+        array = array.transpose(2, 3, 1, 0)
+    return numpy.array(array, order="C")
+
+
+def jax_index(index):
+    """A block's index (a tuple of slices of the port's layout) in the
+    JAX layout of :func:`jax_layout`."""
+    if len(index) == 4:
+        return (index[2], index[3], index[1], index[0])
+    return tuple(index)
 
 
 def _clone_state(state):
