@@ -196,10 +196,13 @@
    at most (1)'s less the dataset plus the ring's slots and a slack; a
    throttled loader (``VELES_ETL_THROTTLE_MS`` of a shard's compute)
    waits less at depth 2 than at depth 0; controls that must differ:
-   shard k fed shard k-1's rows, and a ring that refills a slot without
-   the consumer's event (a ``torch.cuda._sleep`` before each shard's
-   first use, one minibatch a shard), beside the same sleep with the
-   ring as it is (0 values). (3) Offloaded: ``VELES_OFFLOAD=1``,
+   shard k fed shard k-1's rows, and, three times, a one-slot ring that
+   refills its slot without the consumer's event while the consumer's
+   stream is held until the refill landed (``HeldRefills``: CUDA stream
+   memory operations, one minibatch a shard), so shard k computes on
+   shard k + 1's rows in every run; the ring as it is under a
+   ``torch.cuda._sleep`` before each shard's first use (0 values). (3)
+   Offloaded: ``VELES_OFFLOAD=1``,
    ``VELES_OFFLOAD_GROUP_MB=150``: the plan's 4 groups, 0 values differ
    from (1), launches as derived from the plan (the forwards of groups
    0..G-2 again in each backward walk), the peak below (1)'s less fc6's
@@ -355,10 +358,52 @@
    respawn (the supervisors', through the rendezvous's federated view)
    and restore (the workers') latencies; the whole result to
    ``chiprun_out/elastic.json``.
-   Phases 14, 15 and 16 run beside each other (``beside``: a thread
+17. Meta-workflows and the gang scheduler: every job AlexNet-227 at
+   full width, 1 epoch of 512 + 128 samples, deterministic
+   (``VELES_DETERMINISTIC=1``), on the card, in a process of its own or
+   a warm worker. The file is phase 9's with its learning rate read from
+   ``root.meta.lr`` (``Tune(0.01, 0.002, 0.05)`` in the genetics
+   config), ``publish_output`` on, the loader never reshuffling, and a
+   snapshotter only for the ensembles. (A) ``python -m veles_tpu_torch
+   --optimize 2:3 -s 7`` (4 evaluations in one warm worker): every
+   fitness finite, one worker pid, the card's allocated bytes after the
+   last job at most the first's plus 64 MiB, each job launching K1, K3,
+   K4, K6 and K7; the best chromosome re-run cold (``python -m
+   veles_tpu_torch``, its argv) equals the warm results in every value,
+   and the control (the job in a warm worker under another seed)
+   differs. (B) ``ScheduledGeneticsOptimizer`` over ``Scheduler(3,
+   preempt=False)``, each chromosome a cold job, three on the card at
+   once, from (A)'s seed and stream: the best fitness and its overrides
+   (A)'s bit for bit, every job ``DONE`` under tenant ``genetics``,
+   ``veles_sched_jobs_total`` published. (C) ``--ensemble-train 2:0.8``
+   then ``--ensemble-test``: two snapshots ``wf_m0``/``wf_m1`` in one
+   directory, each member's test pass 128 + int(0.8 x 512) rows, fc7
+   differing between members, each member's test equal to a cold ``-w
+   <snapshot> --test`` run in every value, ``EnsembleLoader`` on the
+   card stacking the members' ``Output`` to the bit, the aggregate
+   ``aggregate_metrics`` of the members. (D) ``python -m
+   veles_tpu_torch sched serve --pool 1 --state-dir``: tenant a's
+   preemptible job (phase 16's worker, 2 epochs) submitted through
+   ``sched submit``, held (SIGSTOP) once its first generation committed,
+   preempted by tenant b's interactive 1-epoch job, resumed from its
+   generation; the scheduler then killed while a's second grant runs and
+   restarted on the same state directory: it adopts a's gang (same
+   pid), a ends ``DONE``; a's history and final parameters equal phase
+   16's one-rank run of the worker in every value, its resumed worker
+   restored a generation, the journal reads submit, grant, preempt,
+   grant, ``veles_sched_preemptions_total`` is 1, ``sched status`` read
+   through the CLI. Every launch of every job at a checked form (a warm
+   worker's replies, a cold job's ``VELES_KERNEL_REPORT`` file, the
+   elastic worker's report). (A)'s cold re-run starts beside its
+   control, (C)'s cold tests beside the CLI's tests, (A) then (C) in one
+   thread beside (D) then (B). Printed, not gated: each evaluation's wall
+   and samples/s, the warm worker's start-up, each generation's wall,
+   queue waits, preempt-to-resume s, the adoption latency; the whole
+   result to ``chiprun_out/meta.json``.
+   Phases 14, 15, 16 and 17 run beside each other (``beside``: a thread
    each, waiting on its own processes), so their times are read under
    each other's load; a line gives every phase's seconds.
-17. The line before the last is ``{"kernels": [...], "not_ported":
+18. The line before the last is ``{"kernels": [...], "not_ported":
    []}``; the last is ``{"ok": true, "device": {...}}``. Any failure
    raises and exits non-zero before them.
 """
@@ -3711,17 +3756,24 @@ RESIDENCY_DEPTH = 2
 #: conv1-pool5; fc6; fc6's dropout, fc7 and fc7's dropout; the head
 OFFLOAD_GROUP_MB = "150"
 OFFLOAD_GROUPS = [(0, 10), (10, 11), (11, 14), (14, 15)]
-#: a ``torch.cuda._sleep`` before each shard's first use in the ring
-#: control (~600 ms at the H100's ~1.98 GHz), so the device falls
-#: behind the host and an early refill lands before the read. The
-#: host's lead is bounded by the card's launch queue (~1024 launches,
-#: ~200 a training step), so the control runs shards of one minibatch
-#: (``VELES_SHARD_MB``): at depth 2 a slot is refilled two shards after
-#: its read was enqueued, well inside that lead. (At ~200 ms the
-#: unordered refill corrupted 12 values in one run and none in the next
-#: on the H100: the early refill barely overlapped the read.)
+#: a ``torch.cuda._sleep`` before each shard's first use (~600 ms at the
+#: H100's ~1.98 GHz) in the check of the ring as it is, so the device
+#: falls behind the host: its ordered refills must still wait for the
+#: reads. The controls run shards of one minibatch (``VELES_SHARD_MB``):
+#: at depth 2 a slot is refilled two shards after its read was enqueued,
+#: inside the host's lead over the card (bounded by the launch queue,
+#: ~1024 launches, ~200 a training step). (The unordered refill under
+#: the sleep alone corrupted 12-14 values in three runs and none in a
+#: fourth on the H100: whether the refill landed first depended on the
+#: host's lead; :class:`HeldRefills` orders it.)
 RING_SLEEP_CYCLES = 1200000000
 RING_SHARD_MB = "40"
+#: the unordered-refill control's runs, each of which must differ from
+#: the resident run (the refill lands before the read by construction:
+#: :class:`HeldRefills`), and the seconds after which its watchdog
+#: releases a hold that no refill released (the control then fails)
+RING_CONTROL_RUNS = 3
+RING_HOLD_WATCHDOG_S = 120.0
 #: slack of the streamed and offloaded peak-memory bounds: the
 #: allocator's 2 MiB rounding of each block and the small tensors of a
 #: sweep (index matrices, losses, norms)
@@ -3868,6 +3920,128 @@ def residency_trainer(data, **residency):
     return build_training(ALEXNET_LAYERS, ALEXNET_SAMPLE_SHAPE, loader,
                           seed=42, device="cuda", **dict(ALEXNET_TRAINING,
                                                          **residency))
+
+
+class HeldRefills(object):
+    """The ring control's order, by construction: the slot's next refill
+    first, then the read of its previous occupant.
+
+    The trainer's staging ring and host ring get one slot each (so shard
+    k + 1 refills shard k's slot), and the ring's own order is taken out
+    (``StagingRing._order_refill`` a no-op). Each placement writes the
+    slot's fill count to a word of device memory on the ring's copy
+    stream after its copies (``cuStreamWriteValue32``), and the
+    consumer's stream waits, before its first use of a placement, until
+    that word says the slot was filled again (``cuStreamWaitValue32``,
+    greater or equal): shard k computes on shard k + 1's rows, every
+    time. The refill needs only shard k's release on the host, right
+    after its compute is enqueued, and allocates nothing (the one slot's
+    buffers and the one pinned set exist from the first shard on). The
+    last placement of a sweep is released when the sweep's pipeline
+    closes, from a side stream. Two watchdogs: a thread releases every
+    hold after ``RING_HOLD_WATCHDOG_S`` (the control then fails), and
+    ``faulthandler`` ends the process (no interpreter lock needed) a
+    minute later, so the card is never left waiting. ``libcuda``'s
+    stream memory operations on device memory, through ``ctypes``."""
+
+    WAIT_GEQ = 0
+
+    def __init__(self, torch, prefetch):
+        import ctypes
+        self.torch, self.prefetch = torch, prefetch
+        libcuda = ctypes.CDLL("libcuda.so.1")
+        self._wait = libcuda.cuStreamWaitValue32_v2
+        self._write = libcuda.cuStreamWriteValue32_v2
+        for fn in (self._wait, self._write):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint32,
+                           ctypes.c_uint]
+            fn.restype = ctypes.c_int
+        self.words = torch.zeros(64, dtype=torch.int32, device="cuda")
+        self.side = torch.cuda.Stream()
+        self.fills = {}
+        self.holds = 0
+        self.fired = False
+        self._lock = threading.Lock()
+        self._done = threading.Event()
+
+    def _call(self, fn, stream, slot, value, flags):
+        status = fn(stream.cuda_stream, self.words.data_ptr() + 4 * slot,
+                    value, flags)
+        if status:
+            raise RuntimeError("%s: CUresult %d" % (fn.__name__, status))
+
+    def _watchdog(self):
+        if not self._done.wait(RING_HOLD_WATCHDOG_S):
+            self.fired = True
+            self.release_all()
+
+    def release_all(self):
+        """Release every hold: each slot's word to one more fill."""
+        with self._lock:
+            for slot in sorted(self.fills):
+                self.fills[slot] += 1
+                self._call(self._write, self.side, slot, self.fills[slot], 0)
+
+    @contextlib.contextmanager
+    def installed(self):
+        prefetch, holder = self.prefetch, self
+        place, wait = prefetch.StagingRing.place, prefetch.Staged.wait
+        close = prefetch.PrefetchPipeline.close
+
+        def held_place(ring, host_tree, after=()):
+            staged = place(ring, host_tree, after)
+            if ring.reuse and ring.device.type == "cuda":
+                with holder._lock:
+                    n = holder.fills[staged.slot] = holder.fills.get(
+                        staged.slot, 0) + 1
+                    holder._call(holder._write, ring.copy_stream,
+                                 staged.slot, n, 0)
+                staged.hold_value = n + 1
+            return staged
+
+        def held_wait(staged):
+            tree = wait(staged)
+            value = getattr(staged, "hold_value", None)
+            if value is not None:
+                holder._call(holder._wait, holder.torch.cuda.current_stream(),
+                             staged.slot, value, holder.WAIT_GEQ)
+                holder.holds += 1
+            return tree
+
+        def releasing_close(pipe, *args, **kwargs):
+            try:
+                return close(pipe, *args, **kwargs)
+            finally:
+                holder.release_all()
+
+        def one_slot(init):
+            def init_one(self, slots, *args, **kwargs):
+                init(self, 1, *args, **kwargs)
+            return init_one
+
+        import faulthandler
+        faulthandler.dump_traceback_later(RING_HOLD_WATCHDOG_S + 60,
+                                          exit=True)
+        watchdog = threading.Thread(target=self._watchdog, daemon=True)
+        watchdog.start()
+        try:
+            with patched(prefetch.StagingRing, "_order_refill",
+                         lambda self, stream, event: None), \
+                    patched(prefetch.StagingRing, "__init__",
+                            one_slot(prefetch.StagingRing.__init__)), \
+                    patched(prefetch.HostRing, "__init__",
+                            one_slot(prefetch.HostRing.__init__)), \
+                    patched(prefetch.StagingRing, "place", held_place), \
+                    patched(prefetch.Staged, "wait", held_wait), \
+                    patched(prefetch.PrefetchPipeline, "close",
+                            releasing_close):
+                yield self
+        finally:
+            self.release_all()
+            self._done.set()
+            watchdog.join()
+            self.torch.cuda.synchronize()
+            faulthandler.cancel_dump_traceback_later()
 
 
 def residency_run(torch, data, epochs, **residency):
@@ -4063,10 +4237,11 @@ def _residency_phase(torch, numpy, kernels, tmp):
                                  shard_ms, RESIDENCY_DEPTH,
                                  waits[RESIDENCY_DEPTH], waits[0]))
 
-    # controls: shard k fed shard k-1's rows; a ring that refills a slot
-    # without waiting for the consumer's event (compute delayed by a
-    # sleep before each shard, so the refill lands first), beside the
-    # same sleep with the ring as it is
+    # controls: shard k fed shard k-1's rows; a one-slot ring that
+    # refills its slot without waiting for the consumer's event, the
+    # consumer held until the refill landed (:class:`HeldRefills`), three
+    # times; the ring as it is under a sleep before each shard's first
+    # use
     def shifted(real):
         prev = [None]
 
@@ -4107,20 +4282,29 @@ def _residency_phase(torch, numpy, kernels, tmp):
                 numpy, run["state"], resident["state"])
             run["trainer"].shutdown()
             del run
-            with patched(prefetch.StagingRing, "_order_refill",
-                         lambda self, stream, event: None):
+        unordered, holds = [], []
+        for _ in range(RING_CONTROL_RUNS):
+            held = HeldRefills(torch, prefetch)
+            # one producer: the one slot is claimed in shard order
+            with env_set(VELES_PREFETCH_WORKERS="1"), held.installed():
                 run = residency_run(torch, data, 1)
-            controls["sleep_refill_unordered"] = state_differing(
-                numpy, run["state"], resident["state"])
+            if held.fired:
+                raise AssertionError("residency: the held-refill control's "
+                                     "watchdog released its holds")
+            unordered.append(state_differing(numpy, run["state"],
+                                             resident["state"]))
+            holds.append(held.holds)
             run["trainer"].shutdown()
             del run
+        controls["refill_unordered_held"] = unordered
+        controls["holds"] = holds
     result["streamed"]["controls"] = controls
     print("residency: streamed controls (values differing) %s" % controls)
     if controls["sleep_ring_as_is"]:
         raise AssertionError("residency: the ring under the sleep differs "
                              "in %d values" % controls["sleep_ring_as_is"])
-    if not (controls["previous_shard_rows"] and
-            controls["sleep_refill_unordered"]):
+    if not (controls["previous_shard_rows"] and all(unordered) and
+            all(holds)):
         raise AssertionError("residency: a control passed: %s" % controls)
 
     # -- offloaded: the same model and data, resident, model state on
@@ -7135,19 +7319,34 @@ def _elastic_row(reports, leg):
             "supervisor_codes": leg.codes}
 
 
-def elastic_phase(kernels):
+def elastic_phase(kernels, one_rank=None):
     """Phase 16 (see the module docstring). Returns (result,
-    [launches_by_form of each worker])."""
+    [launches_by_form of each worker]). ``one_rank``, a
+    :class:`OneRank`, receives the one-rank reference run's history and
+    parameters (phase 17 holds its preempted job to them)."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="veles_elastic_")
     try:
-        return _elastic_phase(kernels, tmp)
+        return _elastic_phase(kernels, tmp, one_rank)
     finally:
+        if one_rank is not None:
+            one_rank.ready.set()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _elastic_phase(kernels, tmp):
+class OneRank(object):
+    """Phase 16's one-rank reference run (phase 9's file through
+    ``ELASTIC_WORKER``, 2 epochs), handed to phase 17 beside it:
+    ``history`` and ``params`` once ``ready`` is set (None if phase 16
+    failed first)."""
+
+    def __init__(self):
+        self.ready = threading.Event()
+        self.history = self.params = None
+
+
+def _elastic_phase(kernels, tmp, one_rank=None):
     import shutil
 
     import torch
@@ -7225,6 +7424,9 @@ def _elastic_phase(kernels, tmp):
     want2, params2 = final(two_reports)["history"], two.params()
     want1, init = final(one_reports)["history"], one.params("init")
     params1 = one.params()
+    if one_rank is not None:
+        one_rank.history, one_rank.params = want1, params1
+        one_rank.ready.set()
     if two.codes != [0, 0]:
         raise AssertionError("elastic 2x1: supervisors exited %s" % two.codes)
 
@@ -7360,6 +7562,781 @@ def _elastic_phase(kernels, tmp):
         raise AssertionError("elastic control: the restore without the "
                              "registry equals the one-rank run")
     return result, all_forms
+
+
+# -- phase 17: the meta-workflows and the gang scheduler -------------------
+
+#: the genetic optimizer's generations and population, the ensemble's
+#: members and train ratio
+META_GENERATIONS, META_POPULATION = 2, 3
+META_ENSEMBLE = (2, 0.8)
+#: the seed of the CLI runs (the population's stream); each job runs with
+#: the optimizer's and the ensemble's own seeds (1234, 1234 + 1000 i)
+META_SEED = "7"
+#: the card's allocated bytes after the warm worker's last job may exceed
+#: those after its first by at most this
+META_MEMORY_SLACK = 64 << 20
+#: seconds any one command of the phase may take
+META_COMMAND_S = 600
+#: what every job adds to its argv (nothing: the jobs run on the card;
+#: a rehearsal on the CPU gives ``-a cpu``), the device of the phase's
+#: own tensors, and the model's classes
+META_JOB_ARGV = ()
+META_DEVICE = "cuda"
+META_CLASSES = 1000
+#: the kernels a training job launches, and a forward-only (test) one
+META_TRAIN_KERNELS = ("gemm_bias_act", "lrn_fwd", "lrn_bwd",
+                      "column_reduce", "uniform_fill")
+META_TEST_KERNELS = ("gemm_bias_act", "lrn_fwd")
+
+#: every job's model: phase 9's file (AlexNet-227 at full width over
+#: ``SyntheticImageLoader`` 512 + 128, batch 128) with the learning rate
+#: read from ``root.meta.lr`` (a ``Tune`` in the genetics config), the
+#: evaluator's ``publish_output`` on, the loader never reshuffling (an
+#: ensemble's members test on one sample order, which ``EnsembleLoader``
+#: checks; a 1-epoch run never reshuffles anyway), 1 epoch
+#: (``root.meta.epochs``), and the snapshotter only where
+#: ``root.meta.snapshots`` names a directory (the ensembles': a genetics
+#: job keeps no 0.65 GB snapshot); a genetics job reports its
+#: ``fitness``, its last training minibatch's loss negated (its error
+#: count, the first metric, is 128 of 128 after one epoch at any rate:
+#: 1000 classes of random labels)
+META_WORKFLOW_FILE = """
+from veles_tpu_torch.config import root
+from veles_tpu_torch.models.alexnet import (ALEXNET_LAYERS,
+                                            AlexNetWorkflow,
+                                            SyntheticImageLoader)
+from veles_tpu_torch.result_provider import IResultProvider
+from veles_tpu_torch.snapshotter import SnapshotterToFile
+from veles_tpu_torch.units import Unit
+
+
+class Fitness(Unit, IResultProvider):
+    view_group = "SERVICE"
+
+    def run(self):
+        pass
+
+    def get_metric_values(self):
+        return {"fitness": -float(self.workflow.evaluator.loss)}
+
+
+def run(load, main):
+    wf, restored = load(
+        AlexNetWorkflow,
+        loader_factory=lambda wf: SyntheticImageLoader(
+            workflow=wf, n_train=%d, n_valid=%d, minibatch_size=%d,
+            shuffle_limit=0),
+        layers=ALEXNET_LAYERS, max_epochs=root.meta.get("epochs", 1),
+        learning_rate=float(root.meta.lr), momentum=0.9,
+        weights_decay=5e-4)
+    if not restored and root.meta.get("snapshots"):
+        snap = SnapshotterToFile(wf, compression="", time_interval=0,
+                                 name="snapshotter")
+        snap.link_from(wf.decision)
+        snap.gate_skip = ~wf.loader.epoch_ended
+        snap.directory = root.meta.snapshots
+    elif not restored:
+        Fitness(wf, name="fitness")
+    wf.evaluator.publish_output = True
+    main()
+""" % (TRAIN_SAMPLES, TRAIN_BATCH, TRAIN_BATCH)
+
+META_GA_CONFIG = """
+from veles_tpu_torch.genetics import Tune
+root.meta.lr = Tune(0.01, 0.002, 0.05)
+"""
+
+
+class MetaCommand(object):
+    """``python -m veles_tpu_torch argv`` started in a process of its
+    own; :meth:`wait` requires exit 0 and returns its wall seconds."""
+
+    def __init__(self, argv, env, cwd, label):
+        import subprocess
+        self.label, self.t0 = label, time.perf_counter()
+        self.log = os.path.join(cwd, "%s.log" % label.replace(" ", "_"))
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "veles_tpu_torch"] + list(argv),
+                env=env, cwd=cwd, stdout=f, stderr=subprocess.STDOUT)
+
+    def wait(self, timeout=META_COMMAND_S):
+        try:
+            code = self.proc.wait(timeout=timeout)
+        finally:
+            self.kill()
+        if code != 0:
+            with open(self.log, errors="replace") as f:
+                raise AssertionError("meta %s exited %d:\n%s" % (
+                    self.label, code, f.read()[-4000:]))
+        return time.perf_counter() - self.t0
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def meta_command(argv, env, cwd, label):
+    """:class:`MetaCommand` run to its end: its wall seconds."""
+    return MetaCommand(argv, env, cwd, label).wait()
+
+
+def reported_forms(label, kernels, report, need):
+    """Check one process's ``ops.launch_report()`` (forms as their repr):
+    every launch at a form the kernel phase checked, K1 on its designed
+    forms, K3, K4 and K6 on theirs, each kernel of ``need`` launched.
+    Returns its launches by form under the kernel phase's keys."""
+    by_repr = {}
+    for row in kernels:
+        by_repr.setdefault(row["name"], {})[repr(row["_form"])] = \
+            row["_form"]
+    forms = {}
+    for name, entry in report.items():
+        for key, n in entry["forms"]:
+            form = by_repr.get(name, {}).get(key)
+            if form is None:
+                raise AssertionError(
+                    "%s: %d %s launches at a form the kernel phase did "
+                    "not check: %s" % (label, n, name, key))
+            mine = forms.setdefault(name, {})
+            mine[form] = mine.get(form, 0) + n
+    idle = [k for k in need if not report.get(k, {}).get("launches")]
+    if idle:
+        raise AssertionError("%s: no launch of %s" % (label, idle))
+    check_designed(label, report["gemm_bias_act"]["variants"])
+    for name, designed in sorted(DESIGNED_FORMS.items()):
+        off = {v: c for v, c in report[name]["variants"].items()
+               if v not in designed and c}
+        if off:
+            raise AssertionError("%s: %s launches by form %s (all must be "
+                                 "%s)" % (label, name, off, sorted(designed)))
+    return forms
+
+
+def launch_steps(label, replies, need):
+    """The launches of each job of one warm worker, from its replies'
+    cumulative counts; each job must have launched every kernel of
+    ``need``."""
+    steps, before = [], {}
+    for i, counts in enumerate(replies):
+        step = {k: v["launches"] - before.get(k, 0)
+                for k, v in counts.items()}
+        idle = [k for k in need if not step.get(k)]
+        if idle:
+            raise AssertionError("%s: job %d launched no %s" % (label, i,
+                                                                  idle))
+        steps.append(step)
+        before = {k: v["launches"] for k, v in counts.items()}
+    return steps
+
+
+def kernel_reports(directory):
+    """The ``VELES_KERNEL_REPORT`` files of ``directory``, by pid."""
+    out = {}
+    for name in sorted(os.listdir(directory)) if os.path.isdir(
+            directory) else ():
+        with open(os.path.join(directory, name)) as f:
+            out[int(name.split(".")[0])] = json.load(f)
+    return out
+
+
+def meta_phase(kernels, one_rank=None):
+    """Phase 17 (see the module docstring). Returns (result,
+    [launches_by_form of each job process])."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="veles_meta_")
+    try:
+        return _meta_phase(kernels, tmp, one_rank)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _meta_phase(kernels, tmp, one_rank):
+    from veles_tpu_torch.ops.gemm_bench import card_line
+    card = card_line()
+    files = {"workflow": os.path.join(tmp, "meta_workflow.py"),
+             "ga_config": os.path.join(tmp, "meta_ga_config.py"),
+             "ens_config": os.path.join(tmp, "meta_ens_config.py"),
+             "b_config": os.path.join(tmp, "meta_b_config.py"),
+             "elastic": os.path.join(tmp, "alexnet_workflow.py")}
+    for key, text in (
+            ("workflow", META_WORKFLOW_FILE), ("ga_config", META_GA_CONFIG),
+            ("ens_config", "root.meta.lr = 0.01\nroot.meta.snapshots = "
+             "%r\n" % os.path.join(tmp, "ens_snaps")),
+            ("b_config", "root.meta.lr = 0.01\n"),
+            ("elastic", WORKFLOW_FILE)):
+        with open(files[key], "w") as f:
+            f.write(text)
+    env = dict(os.environ, PYTHONPATH=REPO, VELES_DETERMINISTIC="1",
+               SMOKE_DETERMINISTIC="1",
+               VELES_FLIGHT_DIR=os.path.join(tmp, "flight"))
+    result, all_forms = {"card": card}, []
+    # (A) then (C) in one thread, (D) then (B) in another: each waits on
+    # processes of its own, mostly their start-up
+    walls = {}
+    (genetics, forms_a), (scheduled, forms_b) = beside(
+        walls, ("A and C", lambda: _meta_serial(kernels, tmp, files, env,
+                                                result)),
+        ("D and B", lambda: _meta_scheduled(kernels, tmp, files, env,
+                                            one_rank, result)))
+    all_forms += forms_a + forms_b
+    # (B) against (A): the same population, the same best, bit for bit
+    checks = {"best_fitness": scheduled["best_fitness"] ==
+              genetics["best_fitness"],
+              "best_config": scheduled["best_config"] ==
+              genetics["best_config"]}
+    result["B"]["equal_to_A"] = checks
+    result["walls"] = walls
+    print("meta B against A (%s): %s" % (card, checks))
+    if not all(checks.values()):
+        raise AssertionError("meta B: %s against A's %s" % (
+            {k: scheduled[k] for k in ("best_fitness", "best_config")},
+            {k: genetics[k] for k in ("best_fitness", "best_config")}))
+    return result, all_forms
+
+
+def _meta_serial(kernels, tmp, files, env, result):
+    forms = []
+    genetics = meta_genetics_cli(kernels, tmp, files, env, result, forms)
+    meta_ensembles(kernels, tmp, files, env, result, forms)
+    return genetics, forms
+
+
+def _meta_scheduled(kernels, tmp, files, env, one_rank, result):
+    forms = []
+    meta_preemption(kernels, tmp, files, env, one_rank, result, forms)
+    scheduled = meta_genetics_scheduled(kernels, tmp, files, env, result,
+                                        forms)
+    return scheduled, forms
+
+
+def meta_genetics_cli(kernels, tmp, files, env, result, forms):
+    """(A): ``--optimize`` through the CLI with one warm worker; the best
+    chromosome re-run cold, and sent to a warm worker with another seed
+    (the control)."""
+    import math
+    from veles_tpu_torch.parallel.warm_pool import WarmPool
+    best_path = os.path.join(tmp, "ga_best.json")
+    wall = meta_command(
+        ["--optimize", "%d:%d" % (META_GENERATIONS, META_POPULATION),
+         files["workflow"], files["ga_config"], "-s", META_SEED,
+         "--result-file", best_path, "-v", "warning"] +
+        list(META_JOB_ARGV), env, tmp, "A optimize")
+    with open(best_path) as f:
+        best = json.load(f)
+    evals = best["evaluations"]
+    samples = TRAIN_SAMPLES + TRAIN_BATCH
+    out = {"wall_s": wall, "best_fitness": best["fitness"],
+           "best_config": best["config"],
+           "evaluations": [{
+               "generation": e["generation"], "overrides": e["overrides"],
+               "fitness": e["fitness"], "wall_s": e["wall_s"],
+               "samples_per_s": samples / e["wall_s"],
+               "cuda_allocated": e["cuda_allocated"], "pid": e["pid"]}
+               for e in evals],
+           "generation_s": {g: sum(e["wall_s"] for e in evals
+                                   if e["generation"] == g)
+                            for g in sorted({e["generation"]
+                                             for e in evals})}}
+    out["launches"] = launch_steps("meta A", [e["kernel_counts"]
+                                              for e in evals],
+                                   META_TRAIN_KERNELS)
+    forms.append(reported_forms("meta A warm worker", kernels,
+                                evals[-1]["kernel_counts"],
+                                META_TRAIN_KERNELS))
+    allocated = [e["cuda_allocated"] for e in evals]
+    checks = {"evaluations": len(evals) == META_POPULATION + (
+        META_GENERATIONS - 1) * (META_POPULATION - max(
+            2, META_POPULATION // 2)),
+              "finite": all(math.isfinite(e["fitness"]) for e in evals),
+              "one_worker": len({e["pid"] for e in evals}) == 1,
+              "memory": all(a is not None for a in allocated) and
+              allocated[-1] <= allocated[0] + META_MEMORY_SLACK}
+    # the best chromosome cold: a fresh process, the evaluation's argv
+    warm = next(e for e in evals if e["fitness"] == best["fitness"] and
+                e["overrides"] == best["config"])
+    reports = os.path.join(tmp, "A_reports")
+    cold_path = os.path.join(tmp, "ga_cold.json")
+    head = [files["workflow"], files["ga_config"]] + [
+        "%s=%r" % kv for kv in warm["overrides"].items()]
+    argv = head + ["--result-file", cold_path, "-s", "1234", "-v",
+                   "warning"] + list(META_JOB_ARGV)
+    cold_run = MetaCommand(argv, dict(env, VELES_KERNEL_REPORT=reports),
+                           tmp, "A cold")
+    # beside it, the control: the same job in a warm worker under another
+    # seed (a job without ``-s`` runs under the CLI's default, 1234: the
+    # evaluation's own); the worker's start-up timed by a job that fails
+    # at once
+    control_path = os.path.join(tmp, "ga_control.json")
+    t0 = time.perf_counter()
+    try:
+        with WarmPool(workers=1, env=env) as pool:
+            pool.run([os.path.join(tmp, "no_such_workflow.py")])
+            out["worker_startup_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            reply = pool.run(head + ["--result-file", control_path, "-s",
+                                     META_SEED, "-v", "warning"] +
+                             list(META_JOB_ARGV), result_file=control_path)
+        out["control_s"] = time.perf_counter() - t0
+    except BaseException:
+        cold_run.kill()
+        raise
+    out["cold_s"] = cold_run.wait()
+    with open(cold_path) as f:
+        cold = json.load(f)
+    for pid, report in kernel_reports(reports).items():
+        forms.append(reported_forms("meta A cold", kernels, report,
+                                    META_TRAIN_KERNELS))
+    checks["cold_equals_warm"] = values_differing_tree(
+        cold, warm["result"]) == 0 and set(cold) == set(warm["result"])
+    if not reply.get("ok"):
+        raise AssertionError("meta A control: %s" % reply)
+    forms.append(reported_forms("meta A control", kernels,
+                                reply["kernel_counts"], META_TRAIN_KERNELS))
+    out["control_differing"] = values_differing_tree(reply["result"],
+                                                     warm["result"])
+    checks["control_differs"] = out["control_differing"] > 0
+    out["checks"] = checks
+    result["A"] = out
+    print("meta A (%s): %s" % (result["card"], json.dumps(out,
+                                                              default=str)))
+    if not all(checks.values()):
+        raise AssertionError("meta A: %s" % checks)
+    return out
+
+
+def meta_genetics_scheduled(kernels, tmp, files, env, result, forms):
+    """(B): ``ScheduledGeneticsOptimizer`` over ``Scheduler(3,
+    preempt=False)``: each chromosome a cold job, three on the card at
+    once, from (A)'s seed and stream."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.genetics import Tune
+    from veles_tpu_torch.sched import (DONE, ScheduledGeneticsOptimizer,
+                                       Scheduler)
+    from veles_tpu_torch.telemetry.registry import get_registry
+    reports = os.path.join(tmp, "B_reports")
+    job_env = dict(env, VELES_KERNEL_REPORT=reports)
+
+    class EnvScheduler(Scheduler):
+        def submit(self, spec, now=None):
+            spec.env.update(job_env)
+            return super(EnvScheduler, self).submit(spec, now)
+
+    # the CLI's ``-s 7`` seeds the default stream, then draws the loader's
+    # and the chaos stream's seeds from it, before the population draws
+    rand = prng.RandomGenerator("meta").seed(int(META_SEED))
+    rand.randint(1 << 31)
+    rand.randint(1 << 31)
+    root.meta.lr = Tune(0.01, 0.002, 0.05)
+    sched = EnvScheduler(3, tick_s=0.1, preempt=False,
+                         log_dir=os.path.join(tmp, "B_logs"))
+    t0 = time.perf_counter()
+    sched.start()
+    try:
+        optimizer = ScheduledGeneticsOptimizer(
+            scheduler=sched, job_timeout_s=META_COMMAND_S,
+            workflow_file=files["workflow"], config_file=files["ga_config"],
+            generations=META_GENERATIONS, population_size=META_POPULATION,
+            extra_argv=list(META_JOB_ARGV), rand=rand)
+        best = optimizer.run()
+    finally:
+        sched.stop()
+        del root.__dict__["meta"]
+    jobs = sched.jobs()
+    out = {"wall_s": time.perf_counter() - t0, "best_fitness": best.fitness,
+           "best_config": optimizer.overrides_for(best),
+           "jobs": [{"id": j.id, "name": j.spec.name, "state": j.state,
+                     "queue_wait_s": j.queue_wait_s,
+                     "run_s": j.finished_t - j.started_t} for j in jobs],
+           "generation_s": {}}
+    for gen in sorted({j.spec.name for j in jobs}):
+        mine = [j for j in jobs if j.spec.name == gen]
+        out["generation_s"][gen] = max(j.finished_t for j in mine) - min(
+            j.submitted_t for j in mine)
+    found = kernel_reports(reports)
+    for pid, report in found.items():
+        forms.append(reported_forms("meta B job %d" % pid, kernels, report,
+                                    META_TRAIN_KERNELS))
+    family = get_registry().get("veles_sched_jobs_total")
+    done = family.labels(tenant="genetics", state=DONE).value \
+        if family is not None else 0
+    checks = {"jobs_done": all(j.state == DONE for j in jobs),
+              "tenant": {j.spec.tenant for j in jobs} == {"genetics"},
+              "reports": len(found) == len(jobs),
+              "veles_sched_jobs_total": done >= len(jobs)}
+    out["checks"] = checks
+    result["B"] = out
+    print("meta B (%s): %s" % (result["card"], json.dumps(
+        out, default=str)))
+    if not all(checks.values()):
+        raise AssertionError("meta B: %s" % checks)
+    return out
+
+
+def meta_ensembles(kernels, tmp, files, env, result, forms):
+    """(C): ``--ensemble-train 2:0.8`` then ``--ensemble-test`` through the
+    CLI; each member's test against a cold ``-w <snapshot> --test`` run;
+    ``EnsembleLoader`` on the card; the aggregate recomputed."""
+    import numpy
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.dummy import DummyWorkflow
+    from veles_tpu_torch.ensemble import EnsembleTester, aggregate_metrics
+    from veles_tpu_torch.loader.ensemble import EnsembleLoader
+    from veles_tpu_torch.snapshotter import load_workflow
+    size, ratio = META_ENSEMBLE
+    train_path = os.path.join(tmp, "ensemble.json")
+    test_path = os.path.join(tmp, "ensemble_test.json")
+    out = {"train_s": meta_command(
+        ["--ensemble-train", "%d:%s" % (size, ratio), files["workflow"],
+         files["ens_config"], "-s", META_SEED, "--result-file", train_path,
+         "-v", "warning"] + list(META_JOB_ARGV), env, tmp, "C train")}
+    # each member's test cold (its argv), beside the CLI's tests
+    tester = EnsembleTester(workflow_file=files["workflow"],
+                            config_file=files["ens_config"],
+                            results_file=train_path,
+                            extra_argv=list(META_JOB_ARGV))
+    reports = os.path.join(tmp, "C_reports")
+    paths = [os.path.join(tmp, "cold_test%d.json" % i) for i in range(size)]
+    colds = [MetaCommand(tester.model_argv(i, path),
+                         dict(env, VELES_KERNEL_REPORT=reports), tmp,
+                         "C cold %d" % i) for i, path in enumerate(paths)]
+    try:
+        out["test_s"] = meta_command(
+            ["--ensemble-test", train_path, files["workflow"],
+             files["ens_config"], "-s", META_SEED, "--result-file",
+             test_path, "-v", "warning"] + list(META_JOB_ARGV), env, tmp,
+            "C test")
+    except BaseException:
+        for cold in colds:
+            cold.kill()
+        raise
+    out["cold_tests_s"] = max(cold.wait() for cold in colds)
+    with open(train_path) as f:
+        trained = json.load(f)
+    with open(test_path) as f:
+        tested = json.load(f)
+    for name, data, need in (("train", trained, META_TRAIN_KERNELS),
+                             ("test", tested, META_TEST_KERNELS)):
+        evals = data["evaluations"]
+        out[name + "_launches"] = launch_steps(
+            "meta C " + name, [e["kernel_counts"] for e in evals], need)
+        forms.append(reported_forms("meta C %s warm worker" % name, kernels,
+                                    evals[-1]["kernel_counts"], need))
+        out[name + "_evaluations"] = [
+            {k: e[k] for k in ("index", "pid", "wall_s", "cuda_allocated")}
+            for e in evals]
+    snaps = [m["Snapshot"] for m in trained["models"]]
+    outputs = [numpy.asarray(m["Output"], numpy.float32)
+               for m in tested["models"]]
+    rows = TRAIN_BATCH + int(ratio * TRAIN_SAMPLES)
+    checks = {
+        "snapshots": [os.path.basename(p).split(".")[0] for p in snaps] ==
+        ["wf_m%d" % i for i in range(size)] and
+        len({os.path.dirname(p) for p in snaps}) == 1 and
+        all(os.path.exists(p) for p in snaps),
+        # the test pass serves validation and the cut train class
+        "trained_on": [o.shape for o in outputs] ==
+        [(rows, META_CLASSES)] * size}
+    # each member's test against its cold run
+    differing = []
+    for i, path in enumerate(paths):
+        with open(path) as f:
+            differing.append(values_differing_tree(json.load(f),
+                                                   tested["models"][i]))
+    out["cold_differing"] = differing
+    checks["cold_equals_warm"] = not any(differing)
+    for pid, report in kernel_reports(reports).items():
+        forms.append(reported_forms("meta C cold test", kernels, report,
+                                    META_TEST_KERNELS))
+    # the members' fc7 (each snapshot read here, the random registry put
+    # back after: other phases run in this process)
+    saved = dict(prng._generators)
+    fc7 = []
+    try:
+        for path in snaps:
+            wf = load_workflow(path)
+            fc7.append(numpy.asarray([
+                f for f in wf.forwards if type(f).__name__ ==
+                "All2AllStrictRELU"][-1]._params["weights"]))
+            del wf
+    finally:
+        prng._generators.clear()
+        prng._generators.update(saved)
+    out["fc7_differing"] = int((fc7[0] != fc7[1]).sum())
+    checks["fc7_differ"] = out["fc7_differing"] > 0
+    # the stacking loader on the card
+    loader = EnsembleLoader(workflow=DummyWorkflow(), file=test_path)
+    loader.initialize(device=torch.device(META_DEVICE))
+    staged, _ = loader.stage(torch.device(META_DEVICE))
+    got = staged.cpu().numpy()
+    out["stacked_shape"] = list(got.shape)
+    out["stacked_differing"] = int((got != numpy.stack(outputs, 1)).sum())
+    checks["stacked"] = tuple(got.shape) == (rows, size, META_CLASSES) and \
+        out["stacked_differing"] == 0
+    del loader, staged
+    checks["aggregate"] = tested["aggregate"] == json.loads(json.dumps(
+        aggregate_metrics(tested["models"])))
+    out["checks"] = checks
+    result["C"] = out
+    print("meta C (%s): %s" % (result["card"], json.dumps(
+        out, default=str)))
+    if not all(checks.values()):
+        raise AssertionError("meta C: %s" % checks)
+
+
+def sched_cli(args, env, cwd, timeout=120):
+    """``python -m veles_tpu_torch sched args`` (exit 0): its stdout."""
+    import subprocess
+    proc = subprocess.run([sys.executable, "-m", "veles_tpu_torch",
+                           "sched"] + list(args), env=env, cwd=cwd,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError("sched %s exited %d:\n%s" % (
+            args[0], proc.returncode, proc.stderr[-3000:]))
+    return proc.stdout
+
+
+def journal_events(state):
+    """(event, job id, pids) of every line of the scheduler's journal."""
+    path = os.path.join(state, "journal.jsonl")
+    events = []
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                try:
+                    e = json.loads(line)
+                except ValueError:
+                    break
+                events.append((e["ev"], e["job"]["id"],
+                               tuple(e["job"]["pids"])))
+    return events
+
+
+def http_json(addr, path, timeout=5.0):
+    import urllib.request
+    with urllib.request.urlopen("http://%s%s" % (addr, path),
+                                timeout=timeout) as resp:
+        body = resp.read().decode()
+    return body if path.startswith("/metrics") and \
+        not path.endswith(".json") else json.loads(body)
+
+
+def meta_poll(predicate, what, timeout_s=META_COMMAND_S, poll_s=0.2):
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        value = predicate()
+        if value:
+            return value
+        time.sleep(poll_s)
+    raise AssertionError("meta D: %s not reached in %d s" % (what,
+                                                             timeout_s))
+
+
+def metric_value(text, name, **labels):
+    import re
+    want = ",".join('%s="%s"' % kv for kv in sorted(labels.items()))
+    for line in text.splitlines():
+        m = re.match(r"^%s(\{[^}]*\})? (\S+)$" % name, line)
+        if m and (m.group(1) or "{}")[1:-1] == want:
+            return float(m.group(2))
+    return 0.0
+
+
+def meta_preemption(kernels, tmp, files, env, one_rank, result, forms):
+    """(D): ``sched serve --pool 1`` as a process; tenant a's preemptible
+    job (phase 16's worker, 2 epochs) preempted by tenant b's interactive
+    one once a's first generation committed (a held by SIGSTOP from then,
+    so the preemption lands before it could finish), a resumed from it;
+    ``sched serve`` killed while a's second grant runs and restarted on
+    the same state directory: it adopts a's gang. Against phase 16's
+    one-rank reference run (``one_rank``, a :class:`OneRank`), or, with
+    none (phase 17 alone), the same run started here beside."""
+    import glob
+    import pickle
+    import signal
+    import subprocess
+    from veles_tpu_torch.parallel.elastic import _free_port
+    from veles_tpu_torch.sched.journal import JobJournal
+    state = os.path.join(tmp, "sched_state")
+    snaps = os.path.join(tmp, "a_snaps")
+    reports = os.path.join(tmp, "D_reports")
+    addr = "127.0.0.1:%d" % _free_port()
+    serve_env = dict(env, VELES_KERNEL_REPORT=reports)
+    a_prefix = os.path.join(tmp, "sched_a")
+    worker = [sys.executable, "-c", ELASTIC_WORKER, a_prefix,
+              files["elastic"], "root.smoke.epochs = %d" % ELASTIC_EPOCHS,
+              "root.smoke.snapshots = %r" % os.path.join(tmp, "unused"),
+              "root.common.disable.snapshotting = True"]
+    reference = None if one_rank is not None else ElasticLeg(
+        "meta reference", tmp, files["elastic"], members=0)
+    serves = []
+
+    def serve():
+        log = open(os.path.join(tmp, "serve%d.log" % len(serves)), "w")
+        serves.append(subprocess.Popen(
+            [sys.executable, "-m", "veles_tpu_torch", "sched", "serve",
+             "--pool", "1", "--addr", addr, "--state-dir", state,
+             "--log-dir", os.path.join(tmp, "D_logs"), "--min-run-s", "0",
+             "--tick-s", "0.1"], env=serve_env, cwd=tmp, stdout=log,
+            stderr=subprocess.STDOUT, start_new_session=True))
+        log.close()
+        t0 = time.perf_counter()
+
+        def ready():
+            try:
+                return http_json(addr, "/status")
+            except OSError:   # not listening yet, or 503 while recovering
+                return None
+
+        meta_poll(ready, "sched serve answering")
+        return time.perf_counter() - t0
+
+    def jobs():
+        return {j["name"]: j for j in http_json(addr, "/jobs.json")["jobs"]}
+
+    out = {}
+    try:
+        out["serve_start_s"] = serve()
+        t_submit = time.perf_counter()
+        a_id = sched_cli(["submit", "--addr", addr, "--name", "a-train",
+                          "--tenant", "a", "--snapshots", snaps, "--"] +
+                         worker, env, tmp).split()[0]
+        meta_poll(lambda: glob.glob(os.path.join(snaps, "*",
+                                                 "MANIFEST.json")),
+                  "a's first generation")
+        out["a_first_generation_s"] = time.perf_counter() - t_submit
+        first = [p for ev, job, p in journal_events(state)
+                 if ev == "grant" and job == a_id][-1]
+        for pid in first:
+            os.killpg(pid, signal.SIGSTOP)
+        t_b = time.perf_counter()
+        sched_cli(["submit", "--addr", addr, "--name", "b-train",
+                   "--tenant", "b", "--qos", "interactive", "--",
+                   sys.executable, "-m", "veles_tpu_torch",
+                   files["workflow"], files["b_config"], "--result-file",
+                   os.path.join(tmp, "b.json"), "-v", "warning"] +
+                  list(META_JOB_ARGV), env, tmp)
+        meta_poll(lambda: jobs()["a-train"]["state"] == "preempted",
+                  "a preempted")
+        out["b_submit_to_preempt_s"] = time.perf_counter() - t_b
+        meta_poll(lambda: jobs()["b-train"]["state"] == "done" and
+                  jobs()["a-train"]["state"] == "running", "a resumed")
+        metrics = http_json(addr, "/metrics")
+        out["preemptions_total"] = metric_value(
+            metrics, "veles_sched_preemptions_total", tenant="a")
+        before_kill = [ev for ev, job, _ in journal_events(state)
+                       if job == a_id]
+        second = [p for ev, job, p in journal_events(state)
+                  if ev == "grant" and job == a_id][-1]
+        rows = jobs()
+        out["b"] = {k: rows["b-train"][k] for k in (
+            "queue_wait_s", "started_t", "finished_t", "preemptions")}
+        # the scheduler dies while a's second grant runs
+        os.killpg(serves[-1].pid, signal.SIGKILL)
+        serves[-1].wait()
+        alive = all(os.path.exists("/proc/%d" % pid) for pid in second)
+        out["adoption_s"] = serve()
+        metrics = http_json(addr, "/metrics")
+        out["adopted_total"] = metric_value(
+            metrics, "veles_sched_gangs_adopted_total")
+        out["recovery_ms"] = {m: metric_value(
+            metrics, "veles_sched_recovery_ms_sum", phase=m)
+            for m in ("replay", "probe", "adopt")}
+        meta_poll(lambda: jobs()["a-train"]["state"] in ("done", "failed"),
+                  "a done")
+        rows = jobs()
+        out["a"] = {k: rows["a-train"][k] for k in (
+            "state", "preemptions", "preempt_resume_s", "queue_wait_s")}
+        status = json.loads(sched_cli(["status", "--addr", addr, "--json"],
+                                      env, tmp))
+        out["status"] = {"pool": status["status"]["pool"],
+                         "jobs": {j["name"]: j["state"]
+                                  for j in status["jobs"]}}
+        if reference is not None:
+            want = reference.wait()
+    finally:
+        if reference is not None:
+            reference.kill()
+        for proc in serves:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGINT)
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+    if reference is not None:
+        for r in want:
+            check_forms("meta D reference", kernels, r["forms"])
+            forms.append(r["forms"])
+        want = [r for r in want if r["rc"] == 0][-1]
+        want = {"history": want["history"], "params": reference.params()}
+    else:
+        one_rank.ready.wait(META_COMMAND_S)
+        if one_rank.history is None:
+            raise AssertionError("meta D: no one-rank reference from "
+                                 "phase 16")
+        want = {"history": one_rank.history, "params": one_rank.params}
+    # the image the restarted scheduler compacted (a adopted, running),
+    # then every event since
+    image, events = JobJournal(state).replay()
+    adopted = [j for j in image["jobs"] if j["id"] == a_id][-1]
+    record = ([e["job"] for e in events if e["job"]["id"] == a_id] or
+              [adopted])[-1]
+    mine = []
+    for path in glob.glob(a_prefix + ".g*.rank0"):
+        with open(path, "rb") as f:
+            mine.append(pickle.load(f))
+    done = [r for r in mine if r["rc"] == 0]
+    checks = {
+        "journal": before_kill == ["submit", "grant", "preempt", "grant"],
+        "history": [s for _, s in record["history"]] == [
+            "pending", "running", "preempted", "running", "done"],
+        "preemptions_total": out["preemptions_total"] == 1,
+        "adopted_same_pid": alive and out["adopted_total"] == 1 and
+        adopted["state"] == "running" and tuple(adopted["pids"]) == second,
+        "status_cli": out["status"]["jobs"] == {"a-train": "done",
+                                                "b-train": "done"},
+        "a_done": out["a"]["state"] == "done" and len(done) == 1,
+        "restored": bool(done) and done[0]["restored"] is not None}
+    if done:
+        a = done[0]
+        out["a_worker"] = {"generation": a["generation"],
+                           "restored": a["restored"][0],
+                           "startup_s": a.get("startup_s")}
+        out["values_differing"] = {
+            "history": values_differing_tree(a["history"], want["history"]),
+            "params": values_differing_tree(
+                dict(numpy_load(a_prefix + ".params.npz")),
+                want["params"])}
+        checks["equal_to_reference"] = not any(
+            out["values_differing"].values())
+        forms.append(a["forms"])
+        check_forms("meta D a", kernels, a["forms"])
+        check_designed("meta D a", a["variants"]["gemm_bias_act"])
+        idle = [k for k in META_TRAIN_KERNELS if not a["counts"][k]]
+        if idle:
+            raise AssertionError("meta D a: no launch of %s" % idle)
+    for pid, report in kernel_reports(reports).items():
+        forms.append(reported_forms("meta D b", kernels, report,
+                                    META_TRAIN_KERNELS))
+    out["checks"] = checks
+    result["D"] = out
+    print("meta D (%s): %s" % (result["card"], json.dumps(
+        out, default=str)))
+    if not all(checks.values()):
+        raise AssertionError("meta D: %s" % checks)
+
+
+def numpy_load(path):
+    import numpy
+    with numpy.load(path) as data:
+        return {k: data[k] for k in data.files}
 
 
 def beside(walls, *phases):
@@ -7513,18 +8490,22 @@ def main():
                                                        default=str)))
     lap("observability")
 
-    # phases 14, 15 and 16 run beside each other: each waits on
-    # processes of its own (slaves, ranks, supervised workers) whose time
-    # is mostly their start-up (``import torch`` alone takes ~6-7 s on
-    # the card's host, P16c), and one after another the three took ~700
-    # s of the script's 1200 (F16z)
+    # phases 14, 15, 16 and 17 run beside each other: each waits on
+    # processes of its own (slaves, ranks, supervised workers, jobs) whose
+    # time is mostly their start-up (``import torch`` alone takes ~6-7 s
+    # on the card's host, P16c), and one after another 14-16 took ~700 s
+    # of the script's 1200 (F16z); phase 17 holds its preempted job to
+    # phase 16's one-rank run
     walls = {}
-    (distributed, forms14), (spmd, forms15), (elastic, forms16) = beside(
-        walls, ("distributed", lambda: distributed_phase(torch, numpy,
-                                                         kernels)),
-        ("spmd", lambda: spmd_phase(kernels)),
-        ("elastic", lambda: elastic_phase(kernels)))
-    phases.extend(forms14 + forms15 + forms16)
+    one_rank = OneRank()
+    (distributed, forms14), (spmd, forms15), (elastic, forms16), \
+        (meta, forms17) = beside(
+            walls, ("distributed", lambda: distributed_phase(torch, numpy,
+                                                             kernels)),
+            ("spmd", lambda: spmd_phase(kernels)),
+            ("elastic", lambda: elastic_phase(kernels, one_rank)),
+            ("meta", lambda: meta_phase(kernels, one_rank)))
+    phases.extend(forms14 + forms15 + forms16 + forms17)
     print("distributed (%s): %s" % (card, json.dumps(distributed,
                                                      default=str)))
     out_dir = os.path.join(REPO, "chiprun_out")
@@ -7540,7 +8521,12 @@ def main():
     print("elastic (%s): %s" % (card, json.dumps({
         k: v.get("checks", v.get("values_differing", "")) if isinstance(
             v, dict) else v for k, v in elastic.items()}, default=str)))
-    lap("distributed, spmd and elastic beside each other")
+    with open(os.path.join(out_dir, "meta.json"), "w") as f:
+        json.dump(meta, f, default=str)
+    print("meta (%s): %s" % (card, json.dumps({
+        k: v.get("checks", "") if isinstance(v, dict) else v
+        for k, v in meta.items()}, default=str)))
+    lap("distributed, spmd, elastic and meta beside each other")
     phase_s.update(("%s (its own wall)" % k, round(v, 1))
                    for k, v in walls.items())
     print("phase seconds (%s): %s, %.1f in all" % (

@@ -1310,3 +1310,52 @@ def test_sharded_generation_round_trips_the_cards_state(card, tmp_path):
         for key, value in expected.items():
             assert got[key].device.type == device.type, key
             assert torch.equal(got[key].cpu(), value.cpu()), key
+
+
+#: the warm worker's card memory after its second job may exceed that
+#: after its first by at most this (a job's workflow, trainer and
+#: tensors are released, the allocator's idle blocks emptied)
+WARM_MEMORY_SLACK = 16 << 20
+
+
+def test_warm_worker_releases_the_card_and_builds_once(card, tmp_path):
+    """Two jobs of the small AlexNet in one warm evaluator process
+    (``parallel/warm_pool.py``) on the card: the second's allocated
+    bytes after it no more than the first's (plus a slack), the kernel
+    libraries built before it untouched by it (no rebuild), K1, K6 and
+    K7 launched by each job."""
+    import os
+    import sys
+    from veles_tpu_torch.parallel.warm_pool import WarmPool
+    path = tmp_path / "small_alexnet.py"
+    path.write_text("SNAPS = %r\n" % str(tmp_path / "snaps") +
+                    SMALL_ALEXNET_FILE)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))] +
+        sys.path))
+
+    def libraries():
+        if not os.path.isdir(build.BUILD_DIR):
+            return {}
+        return {n: os.stat(os.path.join(build.BUILD_DIR, n)).st_mtime_ns
+                for n in os.listdir(build.BUILD_DIR) if n.endswith(".so")}
+
+    replies, built = [], []
+    with WarmPool(workers=1, env=env) as pool:
+        for seed in (7, 8):
+            result = str(tmp_path / ("r%d.json" % seed))
+            reply = pool.run([str(path), "-s", str(seed), "--result-file",
+                              result, "-v", "warning"], result_file=result)
+            assert reply["ok"], reply
+            replies.append(reply)
+            built.append(libraries())
+    assert replies[0]["pid"] == replies[1]["pid"]
+    assert built[1] == built[0] and built[0]
+    first, second = (r["cuda_allocated"] for r in replies)
+    assert second <= first + WARM_MEMORY_SLACK, (first, second)
+    before = {}
+    for reply in replies:
+        counts = reply["kernel_counts"]
+        for name in ("gemm_bias_act", "column_reduce", "uniform_fill"):
+            assert counts[name]["launches"] > before.get(name, 0), name
+        before = {k: v["launches"] for k, v in counts.items()}

@@ -451,6 +451,42 @@ def test_default_grid_is_on_the_trainer_s_device(setup, monkeypatch, kind):
     assert t._data_args[0].device == t.device
 
 
+#: offloaded against resident data parallelism: every loss and parameter
+#: bit for bit (the bound ``tests/test_torch_offload.py`` holds an
+#: offloaded run to against the resident one); groups of 0.02 MB cut the
+#: small net into several
+DP_OFFLOAD_GROUP_MB = 0.02
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_offloaded_data_parallel_equals_resident(setup, tmp_path, n):
+    """The ``DataParallelTrainer`` with the model state offloaded in
+    layer groups (each group's gradients summed over the axis before its
+    update) trains as the resident one does, at one and two ranks: every
+    loss and every parameter bit for bit."""
+    reports = run_world(
+        ranks.dp_offload_case, n,
+        (TINY, setup["params"], setup["table"], DP_OFFLOAD_GROUP_MB),
+        timeout=WORLD_S, workdir=str(tmp_path))
+    for report in reports:
+        assert report["bad_modules"] == []
+        got = report["value"]["offloaded"]
+        want = report["value"]["resident"]
+        assert got["offloaded"] and got["groups"] > 1
+        assert not want["offloaded"]
+        for g, w in zip(got["train"] + got["validation"],
+                        want["train"] + want["validation"]):
+            numpy.testing.assert_array_equal(g, w)
+        for g, w in zip(got["params"], want["params"]):
+            for k in w:
+                numpy.testing.assert_array_equal(g[k], w[k])
+
+
+def test_gspmd_refuses_an_offloaded_model():
+    with pytest.raises(ValueError, match="in-core"):
+        GSPMDTrainer(None, None, None, offload=True)
+
+
 def test_tp_plan_matches_jax():
     """The column/row roles of the small AlexNet and of AlexNet-227's
     layer list at model=2 against JAX's ``tp_param_shardings``."""

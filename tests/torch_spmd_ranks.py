@@ -203,3 +203,24 @@ def dead_peer_case():
     if grid.rank == 1:
         os._exit(3)
     collectives.all_reduce(torch.ones(4), grid.axis("data"))
+
+
+def dp_offload_case(layers, params, table, group_mb, epochs=2):
+    """``epochs`` of the ``DataParallelTrainer`` over every rank of the
+    world, the model state resident, then offloaded in layer groups of
+    ``group_mb`` MB: the two run states."""
+    import os
+    from veles_tpu_torch.parallel.dp import DataParallelTrainer
+    os.environ["VELES_OFFLOAD_GROUP_MB"] = str(group_mb)
+    out = {}
+    for name, offload in (("resident", False), ("offloaded", True)):
+        grid = mesh.build_mesh({"data": mesh.world_size()})
+        t = trainer(layers, params, table, DataParallelTrainer, grid=grid,
+                    axis="data", offload=offload)
+        state = run_state(t, t.train(max_epochs=epochs))
+        state["offloaded"] = t.offloaded
+        state["groups"] = t._offload_engine.plan.n_groups \
+            if t.offloaded else 0
+        t.shutdown()
+        out[name] = state
+    return out

@@ -53,9 +53,37 @@ rank loads the same file with the same seed; rank 0 alone writes
 is the elastic tier (``parallel/elastic.py``): a rendezvous server, a
 per-host supervisor that restarts its SPMD worker in each new membership
 generation, and a demo worker that trains from the newest complete
-sharded checkpoint generation. The JAX CLI's scheduler (``sched``), the
-genetic optimizer (``--optimize``) and the ensembles are not ported
-yet.
+sharded checkpoint generation.
+
+    python -m veles_tpu_torch --optimize GENS:POP <workflow.py> <config.py>
+
+evolves the config's ``Tune`` leaves (``genetics/``): each chromosome's
+fitness is a training run in one warm evaluator process
+(``parallel/warm_pool.py``) with the chromosome's values as ``root.``
+overrides, the best written to ``--result-file`` with every evaluation.
+
+    python -m veles_tpu_torch --ensemble-train N[:RATIO] <workflow.py> [...]
+    python -m veles_tpu_torch --ensemble-test RESULTS <workflow.py> [...]
+
+train N members (seeds ``1234 + 1000 i``, each on ``RATIO`` of the train
+set, default 0.8, each snapshotting under its own ``_m<i>`` tag) into
+``--result-file`` (default ``ensemble.json``), and test each member from
+its snapshot (``--test``) with the metrics aggregated (default
+``ensemble_test.json``). ``--train-ratio R`` cuts a plain run's train
+set the same way.
+
+    python -m veles_tpu_torch sched serve | submit | status
+
+is the gang scheduler (``sched/cli.py``): ``serve`` runs the scheduler
+and its HTTP control endpoint, ``submit`` and ``status`` talk to it.
+
+Two environment knobs serve runs that must be compared or accounted:
+``VELES_DETERMINISTIC=1`` runs the card's libraries in their
+deterministic modes (cuDNN deterministic with its autotuner off,
+``torch.use_deterministic_algorithms``; cuBLAS's workspace is fixed by
+``CUBLAS_WORKSPACE_CONFIG``, set before the process starts), and
+``VELES_KERNEL_REPORT=DIR`` writes this process's kernel launch counts
+(``ops.launch_report``) to ``DIR/<pid>.json`` when a run ends.
 """
 
 import code
@@ -67,7 +95,7 @@ import sys
 
 from veles_tpu_torch import cmdline, prng
 from veles_tpu_torch.config import apply_config_file, root
-from veles_tpu_torch.envknob import env_knob
+from veles_tpu_torch.envknob import env_flag, env_knob
 from veles_tpu_torch.launcher import Launcher
 from veles_tpu_torch.logger import Logger, setup_logging
 
@@ -122,6 +150,19 @@ class Main(Logger):
                                  "buffer (Chrome trace-event JSON, open "
                                  "in Perfetto) to FILE at exit, and the "
                                  "card's memory profile to FILE.memprof")
+        parser.add_argument("--optimize", default=None, metavar="GENS:POP",
+                            help="run the genetic hyperparameter optimizer")
+        parser.add_argument("--ensemble-train", default=None,
+                            metavar="N:RATIO",
+                            help="train an ensemble of N models on "
+                                 "RATIO-subsampled data")
+        parser.add_argument("--ensemble-test", default=None,
+                            metavar="RESULTS",
+                            help="evaluate the trained ensemble of the "
+                                 "RESULTS file")
+        parser.add_argument("--train-ratio", type=float, default=None,
+                            help="fraction of the train set to use "
+                                 "(root.common.ensemble.train_ratio)")
         return parser
 
     # -- seeding -----------------------------------------------------------
@@ -303,6 +344,60 @@ class Main(Logger):
             self._main()
         return self.EXIT_SUCCESS
 
+    def _run_optimize(self):
+        from veles_tpu_torch.genetics import GeneticsOptimizer
+        gens, _, pop = self.args.optimize.partition(":")
+        GeneticsOptimizer(
+            workflow_file=self.args.workflow,
+            config_file=self.args.config,
+            generations=int(gens or 10),
+            population_size=int(pop or 20),
+            result_file=self.args.result_file,
+            extra_argv=self._device_argv()).run()
+        return self.EXIT_SUCCESS
+
+    def _run_ensemble_train(self):
+        from veles_tpu_torch.ensemble import EnsembleTrainer
+        n, _, ratio = self.args.ensemble_train.partition(":")
+        EnsembleTrainer(
+            workflow_file=self.args.workflow,
+            config_file=self.args.config,
+            size=int(n), train_ratio=float(ratio or 0.8),
+            result_file=self.args.result_file or "ensemble.json",
+            extra_argv=self._device_argv()).run()
+        return self.EXIT_SUCCESS
+
+    def _run_ensemble_test(self):
+        from veles_tpu_torch.ensemble import EnsembleTester
+        EnsembleTester(
+            workflow_file=self.args.workflow,
+            config_file=self.args.config,
+            results_file=self.args.ensemble_test,
+            result_file=self.args.result_file or "ensemble_test.json",
+            extra_argv=self._device_argv()).run()
+        return self.EXIT_SUCCESS
+
+    def _device_argv(self):
+        """This run's ``-a``/``-d``, passed on to each job of a meta run
+        (each job runs on the card unless they ask for the CPU)."""
+        argv = []
+        if self.args.backend not in (None, "auto"):
+            argv += ["-a", self.args.backend]
+        if self.args.device not in (None, ""):
+            argv += ["-d", str(self.args.device)]
+        return argv
+
+    def _meta_run(self):
+        """The run of ``--optimize``, ``--ensemble-train`` or
+        ``--ensemble-test``, or None for a plain run."""
+        if self.args.optimize:
+            return self._run_optimize
+        if self.args.ensemble_train:
+            return self._run_ensemble_train
+        if self.args.ensemble_test:
+            return self._run_ensemble_test
+        return None
+
     def run(self, argv=None):
         if argv is None:
             argv = sys.argv[1:]
@@ -310,6 +405,10 @@ class Main(Logger):
             # the serving engine has its own flags and no workflow loop
             from veles_tpu_torch.serving.frontend import main as serve_main
             return serve_main(argv[1:])
+        if argv and argv[0] == "sched":
+            # so has the gang scheduler's serve/submit/status
+            from veles_tpu_torch.sched.cli import sched_main
+            return sched_main(argv[1:])
         self._ran = False
         self._run_error = None
         parser = self.init_parser()
@@ -328,6 +427,10 @@ class Main(Logger):
             self.args.config = guess if os.path.exists(guess) else None
         if self.args.precision:
             root.common.engine.precision_type = self.args.precision
+        if self.args.train_ratio is not None:
+            root.common.ensemble.train_ratio = self.args.train_ratio
+        if env_flag("VELES_DETERMINISTIC"):
+            _deterministic()
         # refused flags fail before anything is built
         Launcher(**self._launcher_kwargs())
         self.world = self._join_world(argv)
@@ -339,6 +442,7 @@ class Main(Logger):
         finally:
             if self.world is not None:
                 self.world.close(failed=failed)
+            _report_kernels()
 
     def _run_in_world(self, overrides):
         if self.world is not None and self.world.rank and \
@@ -354,7 +458,10 @@ class Main(Logger):
         if self.args.trace_out:
             profiler.start_trace(self.args.trace_out)
         profiler.start_memory_sampler()
+        meta_run = self._meta_run()
         try:
+            if meta_run is not None:
+                return meta_run()
             return self._run_regular(module)
         except KeyboardInterrupt:
             self.warning("interrupted")
@@ -364,6 +471,29 @@ class Main(Logger):
                 profiler.dump_trace(self.args.trace_out, getattr(
                     getattr(self, "launcher", None), "mode", None) or
                     "veles_tpu_torch")
+
+
+def _deterministic():
+    """PyTorch's deterministic algorithms (a warning where an op has
+    none) and cuDNN deterministic with its autotuner off."""
+    import torch
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+
+def _report_kernels():
+    """``VELES_KERNEL_REPORT=DIR``: this process's kernel launch counts
+    so far to ``DIR/<pid>.json`` (rewritten at each run's end)."""
+    directory = env_knob("VELES_KERNEL_REPORT")
+    if not directory or "veles_tpu_torch.ops" not in sys.modules:
+        return
+    from veles_tpu_torch.ops import launch_report
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, "%d.json" % os.getpid())
+    with open(path + ".tmp", "w") as f:
+        json.dump(launch_report(), f)
+    os.replace(path + ".tmp", path)
 
 
 def main(argv=None):

@@ -157,6 +157,10 @@ def _init_defaults():
         "timings": False,
         "exceptions": {"run_after_stop": True},
         "disable": {"snapshotting": False},
+        # the ensemble member a run is (``ensemble/``): its index, the
+        # ensemble's size (0 outside an ensemble) and the share of the
+        # train set it trains on (``loader/base.py``)
+        "ensemble": {"model_index": 0, "size": 0, "train_ratio": 1.0},
     })
 
 

@@ -124,6 +124,19 @@ class Pickleable(Logger):
         self.stripped_pickle_ = bool(value)
 
 
+class IDistributable(object):
+    """Marker and documentation of the distribution protocol
+    (``veles_tpu/distributable.py``):
+
+    * ``generate_data_for_master()``: the payload a slave sends its
+      master after a job;
+    * ``generate_data_for_slave(slave)``: the job a master sends a slave;
+    * ``apply_data_from_master(data)``: a slave applies a job;
+    * ``apply_data_from_slave(data, slave)``: the master merges an update;
+    * ``drop_slave(slave)``: requeue the work a dead slave held.
+    """
+
+
 class Distributable(Pickleable):
     """The master/slave data protocol: ``has_data_for_slave`` and the
     five methods the runtime drives (``generate_data_for_master``,

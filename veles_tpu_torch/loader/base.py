@@ -14,6 +14,11 @@ kept as the JAX package has it:
   so the same seed gives the JAX package's permutations, bit for bit;
 * ``max_minibatch_size``, cut to the largest class, and
   ``shuffle_limit``, the last epoch after which a shuffle happens;
+* ``train_ratio`` (default ``root.common.ensemble.train_ratio``, which
+  the ensembles and ``--train-ratio`` set): the TRAIN class is cut to
+  ``max(1, int(ratio * length))`` of its original length, the first
+  samples of the segment, then shuffled as a whole one; a resumed
+  loader cuts the original length again, never its cut one;
 * the epoch state: ``epoch_number``, ``epoch_ended``,
   ``last_minibatch`` and ``train_ended`` (shared ``Bool`` cells the
   decision and the services gate on), ``minibatch_class``,
@@ -43,6 +48,7 @@ import numpy
 import torch
 
 from veles_tpu_torch import prng
+from veles_tpu_torch.config import root
 from veles_tpu_torch.mutable import Bool
 from veles_tpu_torch.units import Unit
 
@@ -63,9 +69,12 @@ class Loader(Unit):
                         "minibatch_indices")
 
     def __init__(self, minibatch_size=100, shuffle_limit=numpy.inf,
-                 rand="loader", workflow=None, **kwargs):
+                 rand="loader", workflow=None, train_ratio=None, **kwargs):
         super(Loader, self).__init__(workflow, **kwargs)
         self.max_minibatch_size = int(minibatch_size)
+        self.train_ratio = float(
+            root.common.ensemble.get("train_ratio", 1.0)
+            if train_ratio is None else train_ratio)
         self.shuffle_limit = shuffle_limit
         self.rand_name = rand
         self.class_lengths = [0, 0, 0]
@@ -147,6 +156,12 @@ class Loader(Unit):
         if self.total_samples == 0:
             raise ValueError("%s loaded an empty dataset"
                              % type(self).__name__)
+        ratio = getattr(self, "train_ratio", 1.0)
+        if ratio < 1.0 and self.class_lengths[TRAIN]:
+            if getattr(self, "_full_train_length", None) is None:
+                self._full_train_length = self.class_lengths[TRAIN]
+            self.class_lengths[TRAIN] = max(1, int(
+                self._full_train_length * ratio))
         self.max_minibatch_size = min(self.max_minibatch_size, max(
             length for length in self.class_lengths if length))
         if self.shuffled_indices is None:

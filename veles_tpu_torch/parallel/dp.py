@@ -50,7 +50,10 @@ class DataParallelTrainer(FusedTrainer):
     """:class:`FusedTrainer` whose ranks split the minibatch over the
     ``axis`` of ``grid`` (default: every rank on ``data``, the grid on
     the trainer's device). The minibatch size must divide over the
-    axis. The model state stays in-core on every rank."""
+    axis. Every rank holds the whole model state, in-core or offloaded
+    (``offload``, as the JAX trainer passes its kwargs on): an offloaded
+    layer group's gradients are summed over the axis before its
+    update."""
 
     def __init__(self, model, loader, hypers, grid=None, axis="data",
                  **kwargs):
@@ -66,10 +69,6 @@ class DataParallelTrainer(FusedTrainer):
                 "(%d shards); pick a minibatch the pod's every reachable "
                 "world size divides, or a smaller mesh"
                 % (mb, axis, n_shards))
-        if kwargs.get("offload"):
-            raise ValueError("the SPMD trainers keep the model state "
-                             "in-core on every rank")
-        kwargs["offload"] = False
         self.reduce_gradients = True
         self._data_spec = named_sharding(self.grid, axis)
         self._rows_per_rank = -(-loader.original_data.shape[0] // n_shards)
@@ -141,9 +140,15 @@ class DataParallelTrainer(FusedTrainer):
     def _reduce_gradients(self):
         """The sum of the ranks' gradients over the axis, one all_reduce
         of all of them."""
-        if not self.reduce_gradients or self.batch_axis.size == 1:
+        self._reduce_gradient_list(
+            [p.grad for params in self.params for p in params.values()])
+
+    def _reduce_gradient_list(self, grads):
+        """The sum of the ranks' ``grads`` over the axis, in place, one
+        all_reduce of all of them."""
+        if not self.reduce_gradients or self.batch_axis.size == 1 or \
+                not grads:
             return
-        grads = [p.grad for params in self.params for p in params.values()]
         flat = torch.cat([g.reshape(-1) for g in grads])
         collectives.all_reduce(flat, self.batch_axis)
         offset = 0

@@ -103,6 +103,12 @@ class GSPMDTrainer(DataParallelTrainer):
     _op_prefix = "gspmd_"
 
     def __init__(self, model, loader, hypers, grid=None, **kwargs):
+        if kwargs.get("offload"):
+            # the offload engine walks whole layers; a rank of the model
+            # axis holds its blocks of them
+            raise ValueError("the GSPMD trainer keeps the model state "
+                             "in-core on every rank")
+        kwargs["offload"] = False
         if grid is None:
             grid = gspmd_mesh(device=trainer_device(model,
                                                     kwargs.get("device")))

@@ -182,9 +182,16 @@ class SnapshotterToFile(SnapshotterBase):
     def export(self):
         t0 = time.perf_counter()
         suffix = ("_" + self.suffix) if self.suffix else ""
+        # ensemble members run the same workflow file at once, from the
+        # same directory: each writes snapshots (and a "_current" link)
+        # of its own, tagged with its index
+        member_tag = ""
+        if root.common.ensemble.get("size", 0):
+            member_tag = "_m%d" % root.common.ensemble.get("model_index", 0)
         path, nbytes = save_snapshot(
-            self.workflow, self.directory, tag=suffix, prefix=self.prefix,
-            compression=self.compression)
+            self.workflow, self.directory, tag=suffix + member_tag,
+            prefix=self.prefix, compression=self.compression,
+            link_tag=member_tag)
         seconds = time.perf_counter() - t0
         self.destination = path
         self.exports.append((seconds, nbytes))
@@ -222,11 +229,12 @@ def wf_epoch(wf):
 
 
 def save_snapshot(workflow, directory, tag="", prefix="wf",
-                  compression="gz", payload=None):
-    """Atomically write one snapshot file and refresh its ``_current``
-    link; returns ``(path, payload_bytes)``. ``payload``, a
-    :func:`dump_workflow` blob taken by the caller (the master dumps
-    under its units' locks), skips the dump here."""
+                  compression="gz", payload=None, link_tag=""):
+    """Atomically write one snapshot file and refresh its
+    ``<prefix><link_tag>_current`` link; returns ``(path,
+    payload_bytes)``. ``payload``, a :func:`dump_workflow` blob taken by
+    the caller (the master dumps under its units' locks), skips the dump
+    here."""
     if compression not in CODECS:
         raise ValueError("unknown compression %r (have %s)" %
                          (compression, sorted(CODECS)))
@@ -242,8 +250,8 @@ def save_snapshot(workflow, directory, tag="", prefix="wf",
             fout.write(payload)
 
     _atomic_write(directory, name, stage)
-    link_path = os.path.join(directory,
-                             "%s_current.pickle%s" % (prefix, ext))
+    link_path = os.path.join(directory, "%s%s_current.pickle%s" % (
+        prefix, link_tag, ext))
     try:
         if os.path.islink(link_path) or os.path.exists(link_path):
             os.unlink(link_path)

@@ -454,7 +454,7 @@ class OffloadEngine(object):
         trainer = self.trainer
         n_groups = self.plan.n_groups
         head = n_groups - 1
-        x, truth, valid = trainer.loader.gather(row)
+        x, truth, valid = trainer._gather(row)
         inputs = [x]
         with torch.no_grad():
             for g in range(head):
@@ -479,8 +479,8 @@ class OffloadEngine(object):
                                seed, aux, valid)
             wrt = leaves + ([x_in] if g else [])
             if g == head:
-                grad_loss, report, metric = trainer._loss(out_g, truth,
-                                                          valid)
+                grad_loss, report, metric = trainer._loss_and_metrics(
+                    out_g, truth, valid)
                 for term in aux:
                     grad_loss = grad_loss + term
                 grads = torch.autograd.grad(grad_loss, wrt) if wrt else []
@@ -499,6 +499,7 @@ class OffloadEngine(object):
             if g:
                 cot = grads[-1]
             grads = grads[:len(leaves)]
+            trainer._reduce_gradient_list(grads)
             norms[g] = list(torch._foreach_norm(grads)) if grads else []
             self._update(g, params_group, states_group, grads)
             del grads
@@ -531,13 +532,14 @@ class OffloadEngine(object):
         try:
             with torch.no_grad(), trainer.policy.backends():
                 for b in range(idx.shape[0]):
-                    x, truth, valid = trainer.loader.gather(rows[b])
+                    x, truth, valid = trainer._gather(rows[b])
                     for g in range(n_groups):
                         staged = pipe.get()[0]
                         (params_group,) = staged.wait()
                         x = self._call(g, params_group, x, False, 0, 0,
                                        None, valid)
                         self._ring.release(staged)
+                    x, truth, valid = trainer._per_sample(x, truth, valid)
                     _, report, metric = trainer._loss(x, truth, valid)
                     out[0].append(report)
                     out[1].append(metric)

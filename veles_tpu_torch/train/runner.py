@@ -96,6 +96,10 @@ def fused_compatible(workflow):
     evaluator = workflow.evaluator
     if not isinstance(evaluator, (EvaluatorSoftmax, EvaluatorMSE)):
         return "evaluator %s is not softmax/mse" % type(evaluator).__name__
+    if getattr(evaluator, "publish_output", False) and evaluator.testing:
+        # the evaluator's run records each minibatch's output: the
+        # ensembles' test runs read it from the results
+        return "the evaluator publishes its output in testing mode"
     loader = workflow.loader
     for attr in ("original_data", "shuffled_indices", "class_lengths",
                  "max_minibatch_size"):

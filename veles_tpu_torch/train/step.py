@@ -99,7 +99,11 @@ other than the loader's staged copy), :meth:`FusedTrainer._uniforms`
 (the uniforms of a dropout mask) and :meth:`FusedTrainer.
 _reduce_gradients`, the point between the backward pass and the solver
 (the data-parallel trainers all-reduce there;
-``veles_tpu_torch/parallel/dp.py``).
+``veles_tpu_torch/parallel/dp.py``), with :meth:`FusedTrainer.
+_reduce_gradient_list`, the same over one offloaded layer group's
+gradients. The offload engine gathers, reduces the loss and the metrics
+through the same seams, so an offloaded model trains under data
+parallelism too.
 
 Left out for later slices: the space-to-depth staging pack.
 """
@@ -414,6 +418,11 @@ class FusedTrainer(object):
     def _reduce_gradients(self):
         """Between the backward pass and the solver: the gradients are
         this trainer's own."""
+
+    def _reduce_gradient_list(self, grads):
+        """:meth:`_reduce_gradients` over ``grads``, a list of gradient
+        tensors (an offloaded layer group's, reduced in place before its
+        update): this trainer's own."""
 
     def gradients(self, indices, batch_index, seed, data_args=None):
         """Loss and gradients of one minibatch (``indices`` on the
