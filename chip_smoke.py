@@ -359,10 +359,10 @@
    and restore (the workers') latencies; the whole result to
    ``chiprun_out/elastic.json``.
 17. Meta-workflows and the gang scheduler: every job AlexNet-227 at
-   full width, 1 epoch of 512 + 128 samples, deterministic
-   (``VELES_DETERMINISTIC=1``), on the card, in a process of its own or
-   a warm worker. The file is phase 9's with its learning rate read from
-   ``root.meta.lr`` (``Tune(0.01, 0.002, 0.05)`` in the genetics
+   full width, 1 epoch of 512 + 128 samples, deterministic (the job's
+   workflow file switches the modes on under ``SMOKE_DETERMINISTIC=1``),
+   on the card, in a process of its own or a warm worker. The file is
+   phase 9's with its learning rate read from ``root.meta.lr`` (``Tune(0.01, 0.002, 0.05)`` in the genetics
    config), ``publish_output`` on, the loader never reshuffling, and a
    snapshotter only for the ensembles. (A) ``python -m veles_tpu_torch
    --optimize 2:3 -s 7`` (4 evaluations in one warm worker): every
@@ -393,7 +393,8 @@
    restored a generation, the journal reads submit, grant, preempt,
    grant, ``veles_sched_preemptions_total`` is 1, ``sched status`` read
    through the CLI. Every launch of every job at a checked form (a warm
-   worker's replies, a cold job's ``VELES_KERNEL_REPORT`` file, the
+   worker's replies, the file a cold job's workflow file writes under
+   ``SMOKE_KERNEL_REPORT``, the
    elastic worker's report). (A)'s cold re-run starts beside its
    control, (C)'s cold tests beside the CLI's tests, (A) then (C) in one
    thread beside (D) then (B). Printed, not gated: each evaluation's wall
@@ -7600,8 +7601,17 @@ META_TEST_KERNELS = ("gemm_bias_act", "lrn_fwd")
 #: job keeps no 0.65 GB snapshot); a genetics job reports its
 #: ``fitness``, its last training minibatch's loss negated (its error
 #: count, the first metric, is 128 of 128 after one epoch at any rate:
-#: 1000 classes of random labels)
+#: 1000 classes of random labels). Under SMOKE_DETERMINISTIC=1 it runs
+#: the card's libraries deterministically (as phase 9's runs); under
+#: SMOKE_KERNEL_REPORT=DIR a run that ends writes its process's kernel
+#: launches (``ops.launch_report()``) to DIR/<pid>.json (a cold job's
+#: account; a warm worker's replies carry them)
 META_WORKFLOW_FILE = """
+import json
+import os
+
+import torch
+
 from veles_tpu_torch.config import root
 from veles_tpu_torch.models.alexnet import (ALEXNET_LAYERS,
                                             AlexNetWorkflow,
@@ -7619,6 +7629,12 @@ class Fitness(Unit, IResultProvider):
 
     def get_metric_values(self):
         return {"fitness": -float(self.workflow.evaluator.loss)}
+
+
+if os.environ.get("SMOKE_DETERMINISTIC") == "1":
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
 
 
 def run(load, main):
@@ -7640,6 +7656,13 @@ def run(load, main):
         Fitness(wf, name="fitness")
     wf.evaluator.publish_output = True
     main()
+    reports = os.environ.get("SMOKE_KERNEL_REPORT")
+    if reports:
+        from veles_tpu_torch.ops import launch_report
+        os.makedirs(reports, exist_ok=True)
+        with open(os.path.join(reports, "%%d.json" %% os.getpid()),
+                  "w") as f:
+            json.dump(launch_report(), f)
 """ % (TRAIN_SAMPLES, TRAIN_BATCH, TRAIN_BATCH)
 
 META_GA_CONFIG = """
@@ -7733,7 +7756,7 @@ def launch_steps(label, replies, need):
 
 
 def kernel_reports(directory):
-    """The ``VELES_KERNEL_REPORT`` files of ``directory``, by pid."""
+    """The ``SMOKE_KERNEL_REPORT`` files of ``directory``, by pid."""
     out = {}
     for name in sorted(os.listdir(directory)) if os.path.isdir(
             directory) else ():
@@ -7770,8 +7793,7 @@ def _meta_phase(kernels, tmp, one_rank):
             ("elastic", WORKFLOW_FILE)):
         with open(files[key], "w") as f:
             f.write(text)
-    env = dict(os.environ, PYTHONPATH=REPO, VELES_DETERMINISTIC="1",
-               SMOKE_DETERMINISTIC="1",
+    env = dict(os.environ, PYTHONPATH=REPO, SMOKE_DETERMINISTIC="1",
                VELES_FLIGHT_DIR=os.path.join(tmp, "flight"))
     result, all_forms = {"card": card}, []
     # (A) then (C) in one thread, (D) then (B) in another: each waits on
@@ -7864,7 +7886,7 @@ def meta_genetics_cli(kernels, tmp, files, env, result, forms):
         "%s=%r" % kv for kv in warm["overrides"].items()]
     argv = head + ["--result-file", cold_path, "-s", "1234", "-v",
                    "warning"] + list(META_JOB_ARGV)
-    cold_run = MetaCommand(argv, dict(env, VELES_KERNEL_REPORT=reports),
+    cold_run = MetaCommand(argv, dict(env, SMOKE_KERNEL_REPORT=reports),
                            tmp, "A cold")
     # beside it, the control: the same job in a warm worker under another
     # seed (a job without ``-s`` runs under the CLI's default, 1234: the
@@ -7919,7 +7941,7 @@ def meta_genetics_scheduled(kernels, tmp, files, env, result, forms):
                                        Scheduler)
     from veles_tpu_torch.telemetry.registry import get_registry
     reports = os.path.join(tmp, "B_reports")
-    job_env = dict(env, VELES_KERNEL_REPORT=reports)
+    job_env = dict(env, SMOKE_KERNEL_REPORT=reports)
 
     class EnvScheduler(Scheduler):
         def submit(self, spec, now=None):
@@ -8003,7 +8025,7 @@ def meta_ensembles(kernels, tmp, files, env, result, forms):
     reports = os.path.join(tmp, "C_reports")
     paths = [os.path.join(tmp, "cold_test%d.json" % i) for i in range(size)]
     colds = [MetaCommand(tester.model_argv(i, path),
-                         dict(env, VELES_KERNEL_REPORT=reports), tmp,
+                         dict(env, SMOKE_KERNEL_REPORT=reports), tmp,
                          "C cold %d" % i) for i, path in enumerate(paths)]
     try:
         out["test_s"] = meta_command(
@@ -8166,7 +8188,7 @@ def meta_preemption(kernels, tmp, files, env, one_rank, result, forms):
     snaps = os.path.join(tmp, "a_snaps")
     reports = os.path.join(tmp, "D_reports")
     addr = "127.0.0.1:%d" % _free_port()
-    serve_env = dict(env, VELES_KERNEL_REPORT=reports)
+    serve_env = dict(env, SMOKE_KERNEL_REPORT=reports)
     a_prefix = os.path.join(tmp, "sched_a")
     worker = [sys.executable, "-c", ELASTIC_WORKER, a_prefix,
               files["elastic"], "root.smoke.epochs = %d" % ELASTIC_EPOCHS,

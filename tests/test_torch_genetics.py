@@ -21,7 +21,7 @@ on the CPU.
   worker alive, a job that asks for the card on a host without one
   fails in its reply (no fallback to the CPU), and the reply carries the
   card's allocated bytes (None here) and the kernel launch counts.
-* ``VELES_DETERMINISTIC`` and ``VELES_KERNEL_REPORT`` in a subprocess.
+* ``ops.launch_report()``, the launch counts a warm worker replies with.
 * A subprocess that imports the new modules loads neither ``jax`` nor
   any ``veles_tpu`` module.
 """
@@ -406,38 +406,26 @@ def test_warm_pool_replaces_a_dead_worker(tmp_path):
         assert not reply["ok"] and reply["pid"] == pool.pids[0]
 
 
-KNOBS = """
-import json, sys, torch
-from veles_tpu_torch.__main__ import main
-assert main(sys.argv[1:]) == 0
-print(json.dumps([torch.are_deterministic_algorithms_enabled(),
-                  torch.backends.cudnn.deterministic,
-                  torch.backends.cudnn.benchmark]))
-"""
-
-
-def test_deterministic_and_kernel_report_knobs(tmp_path):
-    """``VELES_DETERMINISTIC=1`` switches the deterministic modes on;
-    ``VELES_KERNEL_REPORT=DIR`` leaves the run's launch counts in
-    ``DIR/<pid>.json`` (every kernel named; none launched on the
-    CPU)."""
-    wf, cfg = _files(tmp_path, "veles_tpu_torch")
-    reports = tmp_path / "reports"
-    proc = subprocess.run(
-        [sys.executable, "-c", KNOBS, wf, cfg, "-a", "cpu", "-v",
-         "warning"], env=_env(VELES_DETERMINISTIC="1",
-                              VELES_KERNEL_REPORT=str(reports)),
-        capture_output=True, timeout=PROC_S)
-    assert proc.returncode == 0, proc.stderr.decode()[-3000:]
-    assert json.loads(proc.stdout.decode().splitlines()[-1]) == [
-        True, True, False]
-    (report,) = os.listdir(str(reports))
-    with open(str(reports / report)) as f:
-        counts = json.load(f)
-    assert sorted(counts) == ["column_reduce", "gemm_bias_act",
+def test_launch_report_reads_every_wrapper_counter(monkeypatch):
+    """``ops.launch_report()`` (a warm worker's ``kernel_counts``) names
+    every hand-written kernel, reads each wrapper's counters and is
+    JSON-ready."""
+    import collections
+    from veles_tpu_torch.ops import launch_report
+    from veles_tpu_torch.ops.gemm import linear_act
+    form = (128, 9216, 4096, torch.float32, True)
+    monkeypatch.setattr(linear_act, "launches", 3)
+    monkeypatch.setattr(linear_act, "launches_by_form",
+                        collections.Counter({form: 3}))
+    monkeypatch.setattr(linear_act, "launches_by_variant",
+                        collections.Counter({"tma_ws": 3}))
+    report = json.loads(json.dumps(launch_report()))
+    assert sorted(report) == ["column_reduce", "gemm_bias_act",
                               "kahan_gemm", "lrn_bwd", "lrn_fwd",
                               "uniform_fill"]
-    assert all(c["launches"] == 0 for c in counts.values())
+    assert report["gemm_bias_act"] == {"launches": 3,
+                                       "forms": [[repr(form), 3]],
+                                       "variants": {"tma_ws": 3}}
 
 
 NO_JAX = """

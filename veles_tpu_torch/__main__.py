@@ -76,14 +76,6 @@ set the same way.
 
 is the gang scheduler (``sched/cli.py``): ``serve`` runs the scheduler
 and its HTTP control endpoint, ``submit`` and ``status`` talk to it.
-
-Two environment knobs serve runs that must be compared or accounted:
-``VELES_DETERMINISTIC=1`` runs the card's libraries in their
-deterministic modes (cuDNN deterministic with its autotuner off,
-``torch.use_deterministic_algorithms``; cuBLAS's workspace is fixed by
-``CUBLAS_WORKSPACE_CONFIG``, set before the process starts), and
-``VELES_KERNEL_REPORT=DIR`` writes this process's kernel launch counts
-(``ops.launch_report``) to ``DIR/<pid>.json`` when a run ends.
 """
 
 import code
@@ -95,7 +87,7 @@ import sys
 
 from veles_tpu_torch import cmdline, prng
 from veles_tpu_torch.config import apply_config_file, root
-from veles_tpu_torch.envknob import env_flag, env_knob
+from veles_tpu_torch.envknob import env_knob
 from veles_tpu_torch.launcher import Launcher
 from veles_tpu_torch.logger import Logger, setup_logging
 
@@ -429,8 +421,6 @@ class Main(Logger):
             root.common.engine.precision_type = self.args.precision
         if self.args.train_ratio is not None:
             root.common.ensemble.train_ratio = self.args.train_ratio
-        if env_flag("VELES_DETERMINISTIC"):
-            _deterministic()
         # refused flags fail before anything is built
         Launcher(**self._launcher_kwargs())
         self.world = self._join_world(argv)
@@ -442,7 +432,6 @@ class Main(Logger):
         finally:
             if self.world is not None:
                 self.world.close(failed=failed)
-            _report_kernels()
 
     def _run_in_world(self, overrides):
         if self.world is not None and self.world.rank and \
@@ -471,29 +460,6 @@ class Main(Logger):
                 profiler.dump_trace(self.args.trace_out, getattr(
                     getattr(self, "launcher", None), "mode", None) or
                     "veles_tpu_torch")
-
-
-def _deterministic():
-    """PyTorch's deterministic algorithms (a warning where an op has
-    none) and cuDNN deterministic with its autotuner off."""
-    import torch
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.use_deterministic_algorithms(True, warn_only=True)
-
-
-def _report_kernels():
-    """``VELES_KERNEL_REPORT=DIR``: this process's kernel launch counts
-    so far to ``DIR/<pid>.json`` (rewritten at each run's end)."""
-    directory = env_knob("VELES_KERNEL_REPORT")
-    if not directory or "veles_tpu_torch.ops" not in sys.modules:
-        return
-    from veles_tpu_torch.ops import launch_report
-    os.makedirs(directory, exist_ok=True)
-    path = os.path.join(directory, "%d.json" % os.getpid())
-    with open(path + ".tmp", "w") as f:
-        json.dump(launch_report(), f)
-    os.replace(path + ".tmp", path)
 
 
 def main(argv=None):
