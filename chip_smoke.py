@@ -404,7 +404,42 @@
    Phases 14, 15, 16 and 17 run beside each other (``beside``: a thread
    each, waiting on its own processes), so their times are read under
    each other's load; a line gives every phase's seconds.
-18. The line before the last is ``{"kernels": [...], "not_ported":
+18. Service phase: queue-fed serving, the URI snapshot stores and the
+   autotuner, after 14-17 (serially, so the timing is quiet). At the
+   script's start the autotuner is pointed at a fresh empty cache
+   (``VELES_AUTOTUNE=cache``), so every phase and process before this
+   one plans by default; a line checks that every K1/K2 and K5 launch
+   so far (the split sweeps' left out) ran at its plan's own split
+   count. (1) ``python -m veles_tpu_torch.ops.gemm_bench --autotune``
+   in a process of its own into a cache of the phase
+   (``VELES_AUTOTUNE_BUDGET_S`` 0.5 a key): K1 at the served fc6/fc7
+   (M = 1 and 16), K1/K2 and K5 at the flagship products of batch 128;
+   its table printed beside the split sweeps' times of the shapes both
+   measured; every entry's split count on the card held to the plain
+   version at the kernel phase's tolerances; a fresh read of the file
+   in ``cache`` mode gives every plan as persisted with 0 searches.
+   (2) Phase 9's file cut to 128 + 64 samples through the CLI (``-s 7``,
+   one epoch, the default cache), its ``SnapshotterToFile`` export and
+   a ``SnapshotterToDB`` export (raw), restored through ``import_``
+   from ``sqlite://db#key``, ``sqlite://db`` (the newest row) and
+   ``http://`` off a local ``http.server``: 0 parameter values differ
+   each time; a missing key and a body cut to half its Content-Length
+   must fail; the MiB, each export's and restore's seconds and
+   ``SQLITE_LIMIT_LENGTH`` printed. (3) The restored forward units
+   behind ``RestfulLoader`` -> ``RESTfulAPI`` on the card, the phase's
+   cache in ``cache`` mode: ``minibatch_size`` 1 and 16 (``batch_size``
+   linked), each 2 rounds of 16 concurrent single requests (list codec,
+   then base64), every reply held to the plain forward by the
+   centred-logit check with a swapped pair and a zeroed fc7 as the
+   controls; K1 and K3 twice a forward, every K1 launch at its cache
+   entry's split count; a hand-written entry for fc7 at M = 1 at a
+   count neither the default nor the tuned one: 4 requests launch at
+   it and pass the check. p50 / p95 and forwards per round printed.
+   (4) The same units behind ``SocketFedLoader``: a producer sends 8
+   samples and one of the wrong shape (an error ack), then ``finish``,
+   which ends the workflow; the rows held to the plain forward. The
+   whole result to ``chiprun_out/service.json``.
+19. The line before the last is ``{"kernels": [...], "not_ported":
    []}``; the last is ``{"ok": true, "device": {...}}``. Any failure
    raises and exits non-zero before them.
 """
@@ -8355,6 +8390,678 @@ def meta_preemption(kernels, tmp, files, env, one_rank, result, forms):
         raise AssertionError("meta D: %s" % checks)
 
 
+# -- phase 18: queue-fed serving, the URI snapshot stores, the autotuner ----
+
+#: the autotune leg: seconds a key may search (the baseline always runs)
+#: and launches a candidate is timed over, back to back
+SERVICE_BUDGET_S = "0.5"
+SERVICE_ITERS = "10"
+SERVICE_AUTOTUNE_S = 300
+#: the phase's run of phase 9's file: training and validation samples
+#: (cut from 512 + 128 for time), one epoch
+SERVICE_SAMPLES = (128, 64)
+#: the REST legs: rounds of concurrent single requests, clients a round
+#: (list codec, then base64); the hand-written entry's control leg; the
+#: socket feed's samples
+SERVICE_ROUNDS = 2
+SERVICE_CLIENTS = 16
+SERVICE_CONTROL_REQUESTS = 4
+SERVICE_SOCKET_SAMPLES = 8
+SERVICE_DEVICE = "cuda"
+SERVICE_CLI_ARGS = ()
+SERVICE_AUTOTUNE_ARGS = ()
+SERVICE_WAIT_S = 300
+
+
+def split_launches():
+    """{kernel: Counter of launches by (M, K, N, dtype, [block depth,]
+    form, splits)} of K1/K2 and K5 in this process so far."""
+    from veles_tpu_torch.ops.gemm import kahan_gemm, linear_act
+    return {"gemm_bias_act": collections.Counter(
+                linear_act.launches_by_splits),
+            "kahan_gemm": collections.Counter(
+                kahan_gemm.launches_by_splits)}
+
+
+def splits_since(before):
+    """The launches of :func:`split_launches` since ``before``."""
+    now = split_launches()
+    return {name: now[name] - before.get(name, collections.Counter())
+            for name in now}
+
+
+def default_splits(name, key):
+    """The split count the plan gives a launch key of
+    :func:`split_launches` with no override (the general forms: 1)."""
+    from veles_tpu_torch.ops.gemm import gemm_plan, kahan_plan
+    if name == "kahan_gemm":
+        m, k, n, dtype, bk, form, _ = key
+        return 1 if form == "general" else \
+            kahan_plan(m, n, k, bk, dtype).splits
+    m, k, n, dtype, form, _ = key
+    return 1 if form == "general" else gemm_plan(m, n, k, dtype).splits
+
+
+def check_default_splits(label, launches):
+    """Every K1/K2 and K5 launch of ``launches`` ran at its plan's own
+    split count (no tuned count reached it); returns the totals."""
+    off = {name: {repr(key): n for key, n in counter.items()
+                  if key[-1] != default_splits(name, key)}
+           for name, counter in launches.items()}
+    off = {name: keys for name, keys in off.items() if keys}
+    totals = {name: sum(counter.values())
+              for name, counter in launches.items()}
+    if off:
+        raise AssertionError("%s: launches at a non-default split count: %s"
+                             % (label, off))
+    print("%s: every K1/K2 and K5 launch at its plan's own split count "
+          "(%s)" % (label, ", ".join("%s %d" % kv
+                                     for kv in sorted(totals.items()))))
+    return totals
+
+
+def parse_key(key):
+    """``op|k=v|...`` (``autotune._key``) -> (op, {field: text})."""
+    op, *fields = key.split("|")
+    return op, dict(field.split("=", 1) for field in fields)
+
+
+def tuned_split_count(torch, op, fields, config):
+    """The split count a cache entry's plan launches at."""
+    from veles_tpu_torch.ops.gemm import gemm_plan, kahan_plan
+    m, n, k = (int(fields[f]) for f in ("m", "n", "k"))
+    dtype = getattr(torch, fields["dtype"])
+    splits = (config or {}).get("splits")
+    if op == "gemm_kahan":
+        return kahan_plan(m, n, k, int(fields["bk"]), dtype, True,
+                          splits).splits
+    return gemm_plan(m, n, k, dtype, True, splits).splits
+
+
+def check_entries(torch, entries):
+    """Every entry of the tuned cache against the plain version on the
+    card, at the kernel phase's tolerances: K1/K2 ``linear_act`` at the
+    entry's split count against ``linear_act_plain``, K5 ``kahan_gemm``
+    against ``kahan_matmul_plain``. Returns {key: max |err|}."""
+    from veles_tpu_torch.ops.gemm import (kahan_gemm, kahan_matmul_plain,
+                                          linear_act, linear_act_plain)
+    gen = torch.Generator(device=SERVICE_DEVICE).manual_seed(18)
+    errors = {}
+    for key, entry in sorted(entries.items()):
+        op, fields = parse_key(key)
+        m, n, k = (int(fields[f]) for f in ("m", "n", "k"))
+        dt = getattr(torch, fields["dtype"])
+        splits = (entry.get("config") or {}).get("splits")
+        a = (torch.rand(m, k, device=SERVICE_DEVICE, generator=gen) * 2 -
+             1).to(dt)
+        b = ((torch.rand(k, n, device=SERVICE_DEVICE, generator=gen) * 2 -
+              1) / k ** 0.5).to(dt)
+        if op == "gemm_kahan":
+            bk = int(fields["bk"])
+            got = kahan_gemm(a, b, bk, splits=splits)
+            want = kahan_matmul_plain(a, b, bk)
+            tol = GEMM_TOL["float32"]
+        else:
+            bias = (torch.rand(n, device=SERVICE_DEVICE, generator=gen) *
+                    0.2 - 0.1) if fields["bias"] == "1" else None
+            got = linear_act(a, b, bias, fields["act"],
+                             getattr(torch, fields["out"]), splits=splits)
+            want = linear_act_plain(a, b, bias, fields["act"],
+                                    getattr(torch, fields["out"]))
+            tol = GEMM_TOL[fields["dtype"]]
+        errors[key] = check_close("tuned %s x%s" % (key, splits), got, want,
+                                  *tol)
+        del a, b, got, want
+    print("autotune entries: %d held to their plain versions, max |err| "
+          "%.3g" % (len(errors), max(errors.values(), default=0.0)))
+    return errors
+
+
+def autotune_leg(torch, tmp, card):
+    """``python -m veles_tpu_torch.ops.gemm_bench --autotune`` into a
+    phase-owned cache, its table printed beside the split sweeps' times
+    of the shared shapes; every entry held to the plain version; a fresh
+    read of the file giving the same plans with no search. Returns
+    (result, cache path, entries)."""
+    import subprocess
+    from veles_tpu_torch.ops import autotune
+    path = os.path.join(tmp, "tuned.json")
+    env = dict(os.environ, PYTHONPATH=REPO, VELES_AUTOTUNE="search",
+               VELES_AUTOTUNE_CACHE=path,
+               VELES_AUTOTUNE_BUDGET_S=SERVICE_BUDGET_S,
+               VELES_AUTOTUNE_ITERS=SERVICE_ITERS)
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "veles_tpu_torch.ops.gemm_bench",
+         "--autotune"] + list(SERVICE_AUTOTUNE_ARGS), env=env, cwd=tmp,
+        capture_output=True, text=True, timeout=SERVICE_AUTOTUNE_S)
+    wall = time.perf_counter() - t
+    if out.returncode != 0:
+        raise AssertionError("gemm_bench --autotune exited %d: %s%s" % (
+            out.returncode, out.stdout[-4000:], out.stderr[-4000:]))
+    print(out.stdout.strip())
+    print("autotune leg (%s): %.1f s in a process of its own" % (card, wall))
+    entries = dict(autotune.AutotuneCache(path).items())
+    if not entries:
+        raise AssertionError("gemm_bench --autotune persisted nothing")
+    errors = check_entries(torch, entries)
+    # a fresh read of the file, in cache mode: the same plans, no search
+    with env_set(VELES_AUTOTUNE="cache", VELES_AUTOTUNE_CACHE=path):
+        autotune.reset()
+        before = autotune.summary()
+        for key, entry in sorted(entries.items()):
+            op, fields = parse_key(key)
+            m, n, k = (int(fields[f]) for f in ("m", "n", "k"))
+            dt = getattr(torch, fields["dtype"])
+            if op == "gemm_kahan":
+                got = autotune.gemm_plan(m, n, k, dt, level=1,
+                                         bk=int(fields["bk"]),
+                                         device=SERVICE_DEVICE)
+            else:
+                got = autotune.linear_plan(
+                    m, n, k, dt, fields["act"], getattr(torch, fields["out"]),
+                    fields["bias"] == "1", SERVICE_DEVICE)
+            if got != (entry["impl"], entry.get("config")):
+                raise AssertionError("fresh read of %s: %s, the file holds "
+                                     "%s" % (key, got, entry))
+        after = autotune.summary()
+    autotune.reset()
+    searches = after["searches"] - before["searches"]
+    hits = after["hits"] - before["hits"]
+    if searches or hits != len(entries):
+        raise AssertionError("fresh read: %d searches, %d hits of %d "
+                             "entries" % (searches, hits, len(entries)))
+    print("autotune fresh read: %d plans as persisted, 0 searches" % hits)
+    # the split sweeps' times of the shapes both measured
+    beside = []
+    for key, entry in sorted(entries.items()):
+        op, fields = parse_key(key)
+        shape = (int(fields["m"]), int(fields["k"]), int(fields["n"]),
+                 fields["dtype"])
+        sweeps = SWEPT.get(("kahan" if op == "gemm_kahan" else "k1",) +
+                           shape)
+        if sweeps:
+            beside.append({"key": key, "tuned_ms": entry.get("candidate_ms"),
+                           "sweep_ms": sweeps})
+    for row in beside:
+        print("autotune beside the sweep (%s): %s" % (card, json.dumps(row)))
+    rows = {key: {"config": e.get("config"), "best_ms": e.get("best_ms"),
+                  "baseline_ms": e.get("baseline_ms"),
+                  "candidates": e.get("candidates"),
+                  "split_count": tuned_split_count(
+                      torch, parse_key(key)[0], parse_key(key)[1],
+                      e.get("config")),
+                  "default_split_count": tuned_split_count(
+                      torch, parse_key(key)[0], parse_key(key)[1], None),
+                  "max_abs_err": errors[key]}
+            for key, e in entries.items()}
+    return {"wall_s": wall, "entries": rows, "beside_sweeps": beside,
+            "fresh_read_hits": hits}, path, entries
+
+
+#: {("k1" | "kahan", M, K, N, dtype): {splits: ms}} of the kernel phase's
+#: split sweeps, for the autotune leg's table
+SWEPT = {}
+
+
+def remember_sweeps(sweep, kahan):
+    for kind, rows, shapes in (("k1", sweep, SWEEP_SHAPES),
+                               ("kahan", kahan, KAHAN_SWEEP_SHAPES)):
+        for row, (_, m, k, n, dtype) in zip(rows, shapes):
+            SWEPT[(kind, m, k, n, dtype)] = row["ms"]
+
+
+class FileServer(object):
+    """A local ``http.server`` over ``directory`` on a thread; a request
+    for ``cut`` gets half its body under the full Content-Length."""
+
+    def __init__(self, directory, cut=None):
+        import functools
+        import http.server
+
+        class Handler(http.server.SimpleHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_GET(self):
+                if cut is None or not self.path.endswith("/" + cut):
+                    return super(Handler, self).do_GET()
+                size = os.path.getsize(os.path.join(directory, cut))
+                self.send_response(200)
+                self.send_header("Content-Length", str(size))
+                self.end_headers()
+                with open(os.path.join(directory, cut), "rb") as f:
+                    self.wfile.write(f.read(size // 2))
+                self.close_connection = True
+
+        self.server = http.server.ThreadingHTTPServer(
+            ("127.0.0.1", 0), functools.partial(Handler,
+                                                directory=directory))
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+
+    def url(self, name):
+        return "http://127.0.0.1:%d/%s" % (self.server.server_address[1],
+                                           name)
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def params_differing(numpy, forwards, want):
+    """Values of the restored (not initialized) forwards' parameters,
+    in the JAX layout, that differ from ``want``'s."""
+    n = 0
+    for fwd, params in zip(forwards, want):
+        got = fwd.__dict__.get("_params") or {}
+        if sorted(got) != sorted(params):
+            raise AssertionError("%s restored %s, expected %s" % (
+                fwd.name, sorted(got), sorted(params)))
+        n += sum(int((numpy.asarray(got[k]) != params[k]).sum())
+                 for k in params)
+    return n
+
+
+def snapshot_stores(torch, numpy, tmp, card):
+    """Phase 9's AlexNet-227 file through the CLI (``-s 7``, one epoch of
+    :data:`SERVICE_SAMPLES`), its ``SnapshotterToFile`` export and a
+    ``SnapshotterToDB`` export, then restores through ``SnapshotterToFile.
+    import_`` from ``sqlite://db#key``, ``sqlite://db`` and a local
+    ``http://`` server: 0 parameter values differing each; a missing key
+    and a body cut short must fail. Returns (result, a restored workflow,
+    launches_by_form of the run)."""
+    import sqlite3
+
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.convert import layer_params, to_jax_layout
+    from veles_tpu_torch.snapshotter import (SnapshotterToDB,
+                                             SnapshotterToFile)
+    source = WORKFLOW_FILE.replace(
+        "n_train=%d, n_valid=%d" % (TRAIN_SAMPLES, TRAIN_BATCH),
+        "n_train=%d, n_valid=%d" % SERVICE_SAMPLES)
+    if source == WORKFLOW_FILE:
+        raise AssertionError("phase 9's file has no sample counts to cut")
+    path = os.path.join(tmp, "alexnet_service.py")
+    with open(path, "w") as f:
+        f.write(source)
+    snaps = os.path.join(tmp, "snapshots")
+    prng._generators.clear()
+    reset_counts()
+    t = time.perf_counter()
+    main = workflow_cli(path, "-s", "7", "--precision", "float32",
+                        "root.smoke.epochs=1", "root.smoke.momentum=0.9",
+                        "root.smoke.snapshots=%r" % snaps,
+                        *SERVICE_CLI_ARGS)
+    run_s = time.perf_counter() - t
+    forms = read_counts()[1]
+    wf = main.workflow
+    want = [to_jax_layout(layer_params(f.module)) for f in wf.forwards]
+    (to_file,) = [u for u in wf if isinstance(u, SnapshotterToFile)]
+    file_s, nbytes = to_file.exports[-1]
+    name = os.path.basename(to_file.destination)
+    database = os.path.join(tmp, "snapshots.db")
+    to_db = SnapshotterToDB(wf, database=database, compression="",
+                            name="db_snapshotter")
+    to_db.export()
+    wf.del_ref(to_db)
+    db_s, db_bytes = to_db.exports[-1]
+    conn = sqlite3.connect(database)
+    try:
+        limit = conn.getlimit(sqlite3.SQLITE_LIMIT_LENGTH)
+    finally:
+        conn.close()
+    key = to_db.destination.split("#", 1)[1]
+    del main, wf, to_file
+    torch.cuda.empty_cache()
+    result = {"cli_run_s": run_s, "snapshot_mib": nbytes / 1048576.0,
+              "file_export_s": file_s, "db_export_s": db_s,
+              "db_payload_bytes": db_bytes,
+              "sqlite_limit_length": limit, "restores": {}}
+    print("service snapshot (%s): %.1f MiB; SnapshotterToFile %.3f s, "
+          "SnapshotterToDB %.3f s (%d bytes a row; SQLITE_LIMIT_LENGTH %d)"
+          % (card, result["snapshot_mib"], file_s, db_s, db_bytes, limit))
+    files = FileServer(snaps)
+    cut = FileServer(snaps, cut=name)
+    restored = None
+    try:
+        for label, uri in (("sqlite_key", "sqlite://%s#%s" % (database,
+                                                               key)),
+                           ("sqlite_newest", "sqlite://%s" % database),
+                           ("http", files.url(name))):
+            prng._generators.clear()
+            t = time.perf_counter()
+            wf = SnapshotterToFile.import_(uri)
+            seconds = time.perf_counter() - t
+            differing = params_differing(numpy, wf.forwards, want)
+            result["restores"][label] = {"s": seconds,
+                                         "differing": differing}
+            print("service restore %s (%s): %.3f s, %d parameter values "
+                  "differ" % (uri, card, seconds, differing))
+            if differing:
+                raise AssertionError("restore from %s differs" % uri)
+            restored = wf
+        for label, uri in (("missing key", "sqlite://%s#%s.none" % (
+                database, key)), ("cut body", cut.url(name))):
+            try:
+                SnapshotterToFile.import_(uri)
+            except Exception as e:  # noqa: BLE001 -- the control's point
+                result["control_" + label.replace(" ", "_")] = \
+                    type(e).__name__
+                print("service restore control %s: %s (%s)" % (
+                    label, type(e).__name__, str(e)[:120]))
+            else:
+                raise AssertionError("the %s control restored a workflow"
+                                     % label)
+    finally:
+        files.close()
+        cut.close()
+    return result, restored, forms
+
+
+def service_graph(torch, forwards, make_loader, make_tail):
+    """A fresh service workflow: Repeater -> ``make_loader(wf)`` ->
+    ``forwards`` (moved out of wherever they were) -> ``make_tail(wf,
+    loader)`` -> the repeater, initialized on the card. Returns
+    (workflow, loader, tail)."""
+    from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
+    from veles_tpu_torch.plumbing import Repeater
+    wf = AcceleratedWorkflow(name="service")
+    repeater = Repeater(wf)
+    repeater.link_from(wf.start_point)
+    loader = make_loader(wf)
+    loader.link_from(repeater)
+    prev, attr = loader, "minibatch_data"
+    for fwd in forwards:
+        fwd.unlink_all()
+        fwd.workflow = wf
+        fwd.link_from(prev)
+        fwd.link_attrs(prev, ("input", attr))
+        prev, attr = fwd, "output"
+    tail = make_tail(wf, loader)
+    tail.link_from(prev)
+    tail.link_attrs(prev, ("input", "output"))
+    repeater.link_from(tail)
+    wf.initialize(device=SERVICE_DEVICE)
+    return wf, loader, tail
+
+
+def check_tuned_splits(torch, label, launches, tuned):
+    """Every K1 launch of ``launches`` ran at the split count of its
+    shape's entry in ``tuned`` ({key: entry}), and it launched; returns
+    {repr(launch key): n}."""
+    from veles_tpu_torch.ops import autotune
+    k1 = launches["gemm_bias_act"]
+    if not sum(k1.values()) or sum(launches["kahan_gemm"].values()):
+        raise AssertionError("%s: K1 launches %s, K5 %s" % (
+            label, dict(k1), dict(launches["kahan_gemm"])))
+    for (m, k, n, dtype, form, splits), count in k1.items():
+        key = autotune._key("linear", m=m, n=n, k=k,
+                            dtype=autotune._dtype_name(dtype),
+                            act="strict_relu",
+                            out=autotune._dtype_name(dtype), bias=1)
+        if key not in tuned:
+            raise AssertionError("%s: %d K1 launches at %s, which the "
+                                 "tuner holds no entry for" % (
+                                     label, count, key))
+        want = tuned_split_count(torch, "linear", parse_key(key)[1],
+                                 tuned[key].get("config"))
+        if splits != want:
+            raise AssertionError("%s: %d K1 launches of %s at x%d, its "
+                                 "entry x%d" % (label, count, key, splits,
+                                                want))
+    print("%s: every K1 launch at its cache entry's split count: %s" % (
+        label, ", ".join("%dx%dx%d %s x%d: %d" % (m, k, n, form, s, c)
+                         for (m, k, n, _, form, s), c in sorted(
+                             k1.items(), key=repr))))
+    return {repr(key): n for key, n in k1.items()}
+
+
+def rest_leg(torch, numpy, forwards, label, minibatch, rounds, clients,
+             tuned, seed):
+    """``forwards`` behind ``RestfulLoader`` and ``RESTfulAPI`` (``batch
+    size`` linked to the loader's when ``minibatch`` > 1): ``rounds`` of
+    ``clients`` concurrent single requests, the list codec then base64;
+    the replies held to the plain forward by :func:`check_replies` with a
+    swapped pair and a zeroed fc7 as controls; K1 and K3 twice a
+    forward, no other kernel, every K1 launch at its tuned split count.
+    Returns (result, launches_by_form)."""
+    from veles_tpu_torch.loader.restful import RestfulLoader
+    from veles_tpu_torch.models.alexnet import ALEXNET_SAMPLE_SHAPE
+    from veles_tpu_torch.models.build import plain_forward
+    from veles_tpu_torch.restful_api import RESTfulAPI
+    shape = tuple(ALEXNET_SAMPLE_SHAPE)
+
+    def make_api(wf, loader):
+        api = RESTfulAPI(wf, port=0, host="127.0.0.1",
+                         response_timeout=SERVICE_WAIT_S)
+        api.feed = loader.feed
+        if minibatch > 1:
+            api.link_attrs(loader, ("batch_size", "minibatch_size"))
+        return api
+
+    wf, loader, api = service_graph(
+        torch, forwards, lambda wf: RestfulLoader(
+            workflow=wf, sample_shape=shape, feed_timeout=SERVICE_WAIT_S,
+            minibatch_size=minibatch), make_api)
+    rng = numpy.random.RandomState(seed)
+    samples = rng.uniform(-1, 1, (rounds, clients) + shape).astype(
+        numpy.float32)
+    bodies = [[(json.dumps({"input": s.tolist(), "codec": "list",
+                            "id": i}).encode() if r % 2 == 0 else
+                b64_body(s, id=i)) for i, s in enumerate(samples[r])]
+              for r in range(rounds)]
+    before = split_launches()
+    reset_counts()
+    calls0 = forwards[0].run_calls
+    thread = threading.Thread(target=wf.run, daemon=True)
+    thread.start()
+    latencies, served, walls, per_round = [], [], [], []
+    try:
+        for r in range(rounds):
+            c0 = forwards[0].run_calls
+            got, lat, wall = concurrent_posts(api.port, bodies[r])
+            for i, reply in enumerate(got):
+                if reply.get("id") != i:
+                    raise AssertionError("%s: reply %d echoes id %s" % (
+                        label, i, reply.get("id")))
+            served += [reply["result"] for reply in got]
+            latencies += lat
+            walls.append(wall)
+            per_round.append(forwards[0].run_calls - c0)
+    finally:
+        loader.finish()
+        thread.join(timeout=SERVICE_WAIT_S)
+        api.stop()
+    if thread.is_alive():
+        raise AssertionError("%s: the service workflow did not end" % label)
+    forwards_run = forwards[0].run_calls - calls0
+    counts, by_form = read_counts()
+    expected = dict.fromkeys(kernel_counters(), 0)
+    expected.update(gemm_bias_act=2 * forwards_run, lrn_fwd=2 * forwards_run)
+    if counts != expected:
+        raise AssertionError("%s: launch counts %s over %d forwards, "
+                             "expected %s" % (label, counts, forwards_run,
+                                              expected))
+    splits = check_tuned_splits(torch, label, splits_since(before), tuned)
+    model = torch.nn.Sequential(*[f.module for f in forwards])
+    inputs = samples.reshape((-1,) + shape)
+    want = forward_rows(torch, numpy, lambda x: plain_forward(model, x),
+                        inputs)
+    served = numpy.array(served, numpy.float64)
+    swapped = served.copy()
+    swapped[[0, 1]] = served[[1, 0]]
+    fc7 = max(i for i, f in enumerate(forwards)
+              if type(f).__name__ == "All2AllStrictRELU")
+    zeroed = forward_rows(torch, numpy, lambda x: forward_zeroing(
+        model, x, fc7), inputs)
+    err, spread, controls = check_replies(
+        numpy, label, served, want, (("swapped", swapped),
+                                     ("fc7_zeroed", zeroed)))
+    lat = sorted(latencies)
+    result = {"minibatch": minibatch, "requests": len(lat),
+              "p50_ms": 1e3 * statistics.median(lat),
+              "p95_ms": 1e3 * lat[min(len(lat) - 1, int(0.95 * len(lat)))],
+              "rounds_s": walls, "forwards_per_round": per_round,
+              "forwards": forwards_run, "launches_by_splits": splits,
+              "centred_logit_err": err, "spread": spread,
+              "controls": controls}
+    print("%s: p50 %.1f ms, p95 %.1f ms, forwards per round %s" % (
+        label, result["p50_ms"], result["p95_ms"], per_round))
+    del wf, loader, api
+    return result, by_form
+
+
+def socket_leg(torch, numpy, forwards, tuned):
+    """``forwards`` behind ``SocketFedLoader``: a producer sends
+    :data:`SERVICE_SOCKET_SAMPLES` samples and one of the wrong shape
+    over TCP (that one acked with an error), then ``finish``, which ends
+    the workflow; the rows a tail unit collected held to the plain
+    forward. Returns (result, launches_by_form)."""
+    import socket
+
+    from veles_tpu_torch.models.alexnet import ALEXNET_SAMPLE_SHAPE
+    from veles_tpu_torch.models.build import plain_forward
+    from veles_tpu_torch.units import Unit
+    from veles_tpu_torch.zmq_loader import SocketFedLoader
+    shape = tuple(ALEXNET_SAMPLE_SHAPE)
+
+    class Rows(Unit):
+        """Collects the valid rows of each forward."""
+
+        def __init__(self, workflow, **kwargs):
+            super(Rows, self).__init__(workflow, **kwargs)
+            self.input = None
+            self.size = 0
+            self.rows = []
+            self.demand("input")
+
+        def run(self):
+            self.rows.extend(self.input[:int(self.size)].float().cpu()
+                             .numpy())
+
+    def make_tail(wf, loader):
+        rows = Rows(wf, name="rows")
+        rows.link_attrs(loader, ("size", "minibatch_size"))
+        return rows
+
+    wf, loader, rows = service_graph(
+        torch, forwards, lambda wf: SocketFedLoader(
+            workflow=wf, sample_shape=shape, feed_timeout=SERVICE_WAIT_S),
+        make_tail)
+    samples = numpy.random.RandomState(20).uniform(
+        -1, 1, (SERVICE_SOCKET_SAMPLES,) + shape).astype(numpy.float32)
+    lines = [json.dumps({"data": s.tolist()}).encode() for s in samples]
+    lines.insert(3, json.dumps({"data": [1.0, 2.0]}).encode())
+    lines.append(b'{"cmd": "finish"}')
+    before = split_launches()
+    reset_counts()
+    thread = threading.Thread(target=wf.run, daemon=True)
+    thread.start()
+    acks = []
+    try:
+        with socket.create_connection(tuple(loader.address),
+                                      timeout=SERVICE_WAIT_S) as sock:
+            f = sock.makefile("rwb")
+            for line in lines:
+                f.write(line + b"\n")
+                f.flush()
+                acks.append(json.loads(f.readline()))
+        thread.join(timeout=SERVICE_WAIT_S)
+    finally:
+        loader.stop_serving()
+    if thread.is_alive():
+        raise AssertionError("socket feed: finish did not end the workflow")
+    bad = [i for i, a in enumerate(acks) if "error" in a]
+    if bad != [3] or acks[-1] != {"ok": True, "finished": True} or \
+            len(acks) != len(lines):
+        raise AssertionError("socket feed acks %s" % acks)
+    counts, by_form = read_counts()
+    splits = check_tuned_splits(torch, "socket feed", splits_since(before),
+                                tuned)
+    if counts["gemm_bias_act"] != 2 * len(samples):
+        raise AssertionError("socket feed: K1 launched %d times for %d "
+                             "samples" % (counts["gemm_bias_act"],
+                                          len(samples)))
+    model = torch.nn.Sequential(*[f.module for f in forwards])
+    want = forward_rows(torch, numpy, lambda x: plain_forward(model, x),
+                        samples)
+    served = numpy.array(rows.rows, numpy.float64)
+    swapped = served.copy()
+    swapped[[0, 1]] = served[[1, 0]]
+    err, spread, controls = check_replies(
+        numpy, "socket feed", served, want, (("swapped", swapped),))
+    return {"samples": len(samples), "error_acks": bad,
+            "launches_by_splits": splits, "centred_logit_err": err,
+            "spread": spread, "controls": controls}, by_form
+
+
+def service_phase(torch, numpy, kernels, card, outside):
+    """Phase 18: the autotune leg, the snapshot stores, the REST service
+    and the socket feed (see the module's docstring). ``outside``: the
+    K1/K5 launches by split count of the script so far, the sweeps'
+    left out. Returns (result, [launches_by_form])."""
+    import shutil
+    import tempfile
+    from veles_tpu_torch.ops import autotune
+    tmp = tempfile.mkdtemp(prefix="veles-service-")
+    try:
+        result = {"outside_phase_18": check_default_splits(
+            "before phase 18", outside)}
+        result["autotune"], tuned_path, tuned = autotune_leg(torch, tmp,
+                                                             card)
+        result["stores"], restored, forms_run = snapshot_stores(
+            torch, numpy, tmp, card)
+        check_forms("service snapshot run", kernels, forms_run)
+        forwards = list(restored.forwards)
+        del restored
+        all_forms = [forms_run]
+        with env_set(VELES_AUTOTUNE="cache",
+                     VELES_AUTOTUNE_CACHE=tuned_path):
+            autotune.reset()
+            try:
+                for name, minibatch, seed in (("rest_mb1", 1, 181),
+                                              ("rest_mb16", 16, 182)):
+                    result[name], forms = rest_leg(
+                        torch, numpy, forwards, "service " + name,
+                        minibatch, SERVICE_ROUNDS, SERVICE_CLIENTS, tuned,
+                        seed)
+                    all_forms.append(forms)
+                # the control: a hand-written entry at a valid count that
+                # is neither the default nor the tuned one must be the
+                # count the launches run at
+                key = autotune._key("linear", m=1, n=4096, k=4096,
+                                    dtype="float32", act="strict_relu",
+                                    out="float32", bias=1)
+                fields = parse_key(key)[1]
+                taken = {tuned_split_count(torch, "linear", fields, None),
+                         tuned_split_count(torch, "linear", fields,
+                                           tuned[key].get("config"))}
+                hand = next(s for s in autotune.SPLIT_LADDER
+                            if tuned_split_count(torch, "linear", fields, {
+                                "splits": s}) not in taken)
+                control = dict(tuned, **{key: {"impl": "kernel",
+                                               "config": {"splits": hand}}})
+                autotune.get_cache().put(key, control[key])
+                result["hand_entry"], forms = rest_leg(
+                    torch, numpy, forwards, "service hand-written entry",
+                    1, 1, SERVICE_CONTROL_REQUESTS, control, 183)
+                result["hand_entry"]["splits"] = hand
+                all_forms.append(forms)
+                result["socket"], forms = socket_leg(torch, numpy,
+                                                     forwards, control)
+                all_forms.append(forms)
+            finally:
+                autotune.reset()
+        for forms in all_forms[1:]:
+            check_forms("service", kernels, forms)
+        del forwards
+        torch.cuda.empty_cache()
+        return result, all_forms
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def numpy_load(path):
     import numpy
     with numpy.load(path) as data:
@@ -8399,6 +9106,17 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # the autotuner reads a fresh empty cache: every phase and every
+    # process it starts plans by default, whatever cache the machine
+    # holds; phase 18 tunes into a cache of its own
+    import atexit
+    import shutil
+    import tempfile
+    tune_dir = tempfile.mkdtemp(prefix="veles-autotune-")
+    atexit.register(shutil.rmtree, tune_dir, True)
+    os.environ["VELES_AUTOTUNE_CACHE"] = os.path.join(tune_dir,
+                                                      "autotune.json")
+    os.environ["VELES_AUTOTUNE"] = "cache"
     import veles_tpu_torch  # noqa: F401  (fails outside a checkout)
     from veles_tpu_torch.nn.precision import get_policy
     from veles_tpu_torch.ops import build
@@ -8446,9 +9164,12 @@ def main():
                       row["ms_cold"], row["library_ms_cold"],
                       row["host_us"])))
 
-    print("split sweep (%s): %s" % (card, json.dumps(split_sweep(torch))))
-    print("kahan split sweep (%s): %s" % (card,
-                                          json.dumps(kahan_sweep(torch))))
+    before_sweeps = split_launches()
+    sweep, ksweep = split_sweep(torch), kahan_sweep(torch)
+    swept = splits_since(before_sweeps)
+    remember_sweeps(sweep, ksweep)
+    print("split sweep (%s): %s" % (card, json.dumps(sweep)))
+    print("kahan split sweep (%s): %s" % (card, json.dumps(ksweep)))
     lap("kernels")
 
     model, served, serving_forms = slice_phase(torch, numpy)
@@ -8549,6 +9270,18 @@ def main():
         k: v.get("checks", "") if isinstance(v, dict) else v
         for k, v in meta.items()}, default=str)))
     lap("distributed, spmd, elastic and meta beside each other")
+
+    now = split_launches()
+    service, forms = service_phase(torch, numpy, kernels, card, {
+        name: now[name] - swept[name] for name in now})
+    phases.extend(forms)
+    with open(os.path.join(out_dir, "service.json"), "w") as f:
+        json.dump(service, f, default=str)
+    print("service (%s): %s" % (card, json.dumps({
+        k: {kk: vv for kk, vv in v.items() if kk != "entries"}
+        if isinstance(v, dict) else v for k, v in service.items()},
+        default=str)))
+    lap("service")
     phase_s.update(("%s (its own wall)" % k, round(v, 1))
                    for k, v in walls.items())
     print("phase seconds (%s): %s, %.1f in all" % (

@@ -144,6 +144,65 @@ def test_chaos_death_requeues_job():
         server.stop()
 
 
+@pytest.mark.parametrize("closed", [True, False])
+def test_overrun_of_a_closed_connection_is_a_death(closed):
+    """The reaper's race: a killed slave's job overruns the adaptive
+    limit before its connection's handler thread reads the EOF. Holding
+    the server's lock keeps the handler from dropping it first, every
+    time; the reaper must then drop it as ``dead``. A live slave that
+    overruns stays a ``timeout``."""
+    requeued = get_registry().counter(
+        "veles_jobs_requeued_total",
+        "In-flight jobs requeued after a slave was dropped",
+        labels=("reason",))
+    before = {r: requeued.labels(reason=r).value
+              for r in ("dead", "timeout")}
+    server = CoordinatorServer(checksum="c", heartbeat_timeout=60.0,
+                               job_timeout=0.001)
+    held, release = threading.Event(), threading.Event()
+
+    def handler(job):
+        if job == 2:
+            held.set()
+            release.wait(30)
+        return job
+
+    client = CoordinatorClient(server.address, checksum="c",
+                               pipeline=False).connect()
+
+    def serve():
+        try:
+            client.serve_forever(handler, max_idle=3)
+        except (ConnectionError, OSError, ValueError):
+            pass  # its connection closed under it
+
+    thread = threading.Thread(target=serve, daemon=True)
+    try:
+        server.submit(*range(4))
+        thread.start()
+        assert held.wait(30), "the third job never started"
+        with server._lock:
+            [slave] = server.slaves.values()
+            assert slave.jobs_done >= server.WARMUP_JOBS
+            if closed:
+                client.proto.close()
+                _until(lambda: coord._peer_closed(slave.sock),
+                       what="the master's socket never read the EOF")
+            payload, _ = slave.jobs_in_flight[0]
+            slave.jobs_in_flight[0] = (payload, time.time() - 1.0)
+            server._reap_dead()
+            assert not server.slaves
+        reason = "dead" if closed else "timeout"
+        assert requeued.labels(reason=reason).value == before[reason] + 1
+        other = "timeout" if closed else "dead"
+        assert requeued.labels(reason=other).value == before[other]
+    finally:
+        release.set()
+        client.close()
+        server.stop()
+        thread.join(timeout=30)
+
+
 def test_slave_registry_and_power():
     server = CoordinatorServer(checksum="c")
     try:

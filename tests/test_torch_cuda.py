@@ -1359,3 +1359,39 @@ def test_warm_worker_releases_the_card_and_builds_once(card, tmp_path):
         for name in ("gemm_bias_act", "column_reduce", "uniform_fill"):
             assert counts[name]["launches"] > before.get(name, 0), name
         before = {k: v["launches"] for k, v in counts.items()}
+
+
+def test_autotune_search_at_fc7_m16_matches_the_plain_version(
+        card, tmp_path, monkeypatch):
+    """A ``search`` of K1's split counts at the served fc7 (16 rows,
+    4096 -> 4096, strict relu): the winner is persisted, ``linear_act``
+    then launches at its split count, and its output is the plain
+    version's (1e-4)."""
+    from veles_tpu_torch.ops import autotune
+    monkeypatch.setenv("VELES_AUTOTUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("VELES_AUTOTUNE", "search")
+    monkeypatch.setenv("VELES_AUTOTUNE_BUDGET_S", "5")
+    autotune.reset()
+    try:
+        impl, cfg = autotune.linear_plan(16, 4096, 4096, torch.float32,
+                                         "strict_relu", torch.float32, True,
+                                         "cuda")
+        assert impl == "kernel" and autotune.summary()["entries"]
+        want_splits = gemm_plan(16, 4096, 4096, torch.float32, True,
+                                cfg["splits"]).splits
+        rng = numpy.random.RandomState(5)
+        x = torch.from_numpy(rng.rand(16, 4096).astype("f") - 0.5).cuda()
+        w = torch.from_numpy(rng.rand(4096, 4096).astype("f") - 0.5).cuda()
+        b = torch.from_numpy(rng.rand(4096).astype("f") - 0.5).cuda()
+        before = dict(linear_act.launches_by_splits)
+        got = linear_act(x, w, b, "strict_relu")
+        grown = {key: n - before.get(key, 0) for key, n in
+                 linear_act.launches_by_splits.items()
+                 if n != before.get(key, 0)}
+        assert grown == {(16, 4096, 4096, torch.float32, "stream",
+                          want_splits): 1}
+        torch.testing.assert_close(
+            got, linear_act_plain(x, w, b, "strict_relu"), atol=1e-4,
+            rtol=1e-4)
+    finally:
+        autotune.reset()

@@ -13,7 +13,11 @@ the other. ``InputJoiner`` and ``MeanDispNormalizer`` are held to the
 JAX units' outputs (float32, exactly: the same operations), and
 ``ChannelsWorkflow`` trains two fused epochs against the JAX workflow's
 fused trainer (losses within 1e-5, parameters within 1e-6, the
-tolerances of ``tests/test_torch_train.py``).
+tolerances of ``tests/test_torch_train.py``). The queue-fed loaders
+(``QueueFedLoader``, ``InteractiveLoader``, ``SocketFedLoader``) take
+the same feeds as the JAX package's and hold the same rows (exactly),
+valid counts and classes; their EOF handling and the socket's acks are
+the same.
 """
 
 import os
@@ -384,3 +388,162 @@ def test_channels_workflow_two_epochs_match_jax(channels):
     for g, w in zip(_port_weights(port_wf), _jax_weights(jax_wf)):
         for k in w:
             numpy.testing.assert_allclose(g[k], w[k], atol=1e-6, rtol=0)
+
+
+# -- the queue-fed loaders (``tests/test_loaders.py``'s cases) ---------------
+
+
+def _fed_pair(kind, **kwargs):
+    """The JAX loader and the port's of ``kind`` (``interactive``,
+    ``queue`` or ``socket``), each initialized on the CPU."""
+    from veles_tpu.loader.interactive import (InteractiveLoader as JaxIL,
+                                              QueueFedLoader as JaxQ)
+    from veles_tpu.zmq_loader import SocketFedLoader as JaxS
+    from veles_tpu_torch.dummy import DummyWorkflow as PortWorkflow
+    from veles_tpu_torch.loader.interactive import (InteractiveLoader,
+                                                    QueueFedLoader)
+    from veles_tpu_torch.zmq_loader import SocketFedLoader
+    jax_cls, port_cls = {"interactive": (JaxIL, InteractiveLoader),
+                         "queue": (JaxQ, QueueFedLoader),
+                         "socket": (JaxS, SocketFedLoader)}[kind]
+    jax_wf, port_wf = DummyWorkflow(), PortWorkflow()
+    jax_loader = jax_cls(jax_wf, **kwargs)
+    jax_loader.initialize(device=None)
+    port_loader = port_cls(workflow=port_wf, **kwargs)
+    port_loader.initialize(device="cpu")
+    return jax_loader, port_loader
+
+
+def _same_fill(jax_loader, port_loader):
+    """Both loaders hold the same minibatch: rows (float32, exactly),
+    valid count and class."""
+    got = port_loader.minibatch_data.numpy()
+    want = numpy.asarray(jax_loader.minibatch_data.mem)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    numpy.testing.assert_array_equal(got, want)
+    assert port_loader.minibatch_size == jax_loader.minibatch_size
+    assert port_loader.minibatch_class == jax_loader.minibatch_class
+    return got
+
+
+def test_interactive_loader_feeds():
+    from veles_tpu_torch.loader.base import TEST
+    jax_loader, port_loader = _fed_pair("interactive", sample_shape=(3,))
+    for loader in (jax_loader, port_loader):
+        loader.feed([1.0, 2.0, 3.0])
+        loader.run()
+    got = _same_fill(jax_loader, port_loader)
+    assert numpy.allclose(got[0], [1, 2, 3])
+    assert port_loader.minibatch_class == TEST
+
+
+def test_queue_fed_loader_batches_queued_samples():
+    """One fill drains what is queued (up to the cap), zeroes the rest
+    and carries the valid count in ``minibatch_size``."""
+    jax_loader, port_loader = _fed_pair("queue", sample_shape=(3,),
+                                        minibatch_size=4)
+    assert tuple(port_loader.minibatch_data.shape) == (4, 3)
+    # dirty buffers make the zeroed rows meaningful
+    jax_loader.minibatch_data.mem[...] = 7.0
+    port_loader.minibatch_data.fill_(7.0)
+    for loader in (jax_loader, port_loader):
+        for i in range(3):
+            loader.feed([float(i)] * 3)
+        loader.run()
+    got = _same_fill(jax_loader, port_loader)
+    assert port_loader.minibatch_size == 3
+    assert numpy.allclose(got[3], 0.0)
+
+
+def test_queue_fed_loader_caps_at_minibatch_size():
+    jax_loader, port_loader = _fed_pair("queue", sample_shape=(2,),
+                                        minibatch_size=2)
+    for loader in (jax_loader, port_loader):
+        for i in range(5):
+            loader.feed([float(i)] * 2)
+    for first in (0.0, 2.0):
+        for loader in (jax_loader, port_loader):
+            loader.run()
+        got = _same_fill(jax_loader, port_loader)
+        assert port_loader.minibatch_size == 2
+        assert numpy.allclose(got[0], first)
+        assert numpy.allclose(got[1], first + 1.0)
+
+
+def test_queue_fed_loader_eof_mid_drain_serves_batch_then_stops():
+    """An EOF met while draining ends the stream after the batch
+    collected so far is served: no fed sample is dropped."""
+    jax_loader, port_loader = _fed_pair("queue", sample_shape=(2,),
+                                        minibatch_size=4)
+    for loader in (jax_loader, port_loader):
+        loader.feed([1.0, 1.0])
+        loader.feed([2.0, 2.0])
+        loader.finish()
+        loader.run()
+    got = _same_fill(jax_loader, port_loader)
+    assert port_loader.minibatch_size == 2
+    assert numpy.allclose(got[1], 2.0)
+    for loader in (jax_loader, port_loader):
+        stopped = []
+        loader.workflow.stop = lambda stopped=stopped: stopped.append(True)
+        loader.run()  # the requeued EOF stops the workflow now
+        assert stopped and loader.minibatch_size == 0
+
+
+def _exchange(address, lines):
+    """The replies of one producer connection to ``lines`` (bytes)."""
+    import json as json_mod
+    import socket
+    replies = []
+    with socket.create_connection(address, timeout=5) as sock:
+        f = sock.makefile("rwb")
+        for line in lines:
+            f.write(line + b"\n")
+            f.flush()
+            replies.append(json_mod.loads(f.readline()))
+    return replies
+
+
+def test_socket_fed_loader():
+    jax_loader, port_loader = _fed_pair("socket", sample_shape=(2,))
+    try:
+        acks = [_exchange(loader.address, [b'{"data": [4.0, 5.0]}'])
+                for loader in (jax_loader, port_loader)]
+        assert acks[0] == acks[1] == [{"ok": True}]
+        for loader in (jax_loader, port_loader):
+            loader.run()
+        got = _same_fill(jax_loader, port_loader)
+        assert numpy.allclose(got[0], [4, 5])
+    finally:
+        for loader in (jax_loader, port_loader):
+            loader.stop_serving()
+
+
+def test_socket_fed_loader_bad_items_get_error_replies():
+    """A bad item gets an error ack and the connection survives; the
+    acks are the JAX loader's; ``finish`` ends the stream."""
+    jax_loader, port_loader = _fed_pair("socket", sample_shape=(2,))
+    lines = [b'{"cmd": "ping"}', b'{"data": [[1], [2, 3]]}',
+             b'not json at all', b'{"data": [1, 2, 3]}',
+             b'{"data": [7.0, 8.0]}']
+    try:
+        acks = [_exchange(loader.address, lines)
+                for loader in (jax_loader, port_loader)]
+        assert acks[0] == acks[1]
+        assert all("error" in reply for reply in acks[1][:4])
+        assert acks[1][4] == {"ok": True}
+        for loader in (jax_loader, port_loader):
+            loader.run()
+        got = _same_fill(jax_loader, port_loader)
+        assert numpy.allclose(got[0], [7, 8])
+        finishes = [_exchange(loader.address, [b'{"cmd": "finish"}'])
+                    for loader in (jax_loader, port_loader)]
+        assert finishes[0] == finishes[1] == [{"ok": True,
+                                               "finished": True}]
+        stopped = []
+        port_loader.workflow.stop = lambda: stopped.append(True)
+        port_loader.run()
+        assert stopped and port_loader.minibatch_size == 0
+    finally:
+        for loader in (jax_loader, port_loader):
+            loader.stop_serving()

@@ -25,9 +25,20 @@ the CPU.
   parameters within 1e-6); a JAX snapshot written by its own
   ``SnapshotterToFile`` (gz) comes over with its snapshotter; a sharded
   generation and a workflow class the port does not read both raise.
+* The URI stores: a port snapshot and a JAX snapshot restored through
+  ``SnapshotterToFile.import_`` from ``sqlite://<db>#key``, from
+  ``sqlite://<db>`` (the newest row) and from ``http://`` off a local
+  ``http.server`` (raw and gz), equal to the source (the port's bit for
+  bit; the JAX run's weights, velocity and history exactly); one
+  database holds rows of both packages under one schema (the JAX
+  package's, column for column); a missing key raises ``KeyError``, a
+  missing database ``FileNotFoundError`` (and is not created), and a
+  body cut short by the server never yields a workflow.
 * A subprocess guard: a CLI run, the load of a port and of a JAX
-  snapshot and a served forward import neither ``jax`` nor any
-  ``veles_tpu`` module.
+  snapshot, a ``sqlite://`` export and restore served through
+  ``ModelStore.load``, a served forward and the imports of the service
+  units, the fed loaders and the autotuner import neither ``jax`` nor
+  any ``veles_tpu`` module.
 """
 
 import os
@@ -427,6 +438,13 @@ out = model(numpy.zeros((2, 36), numpy.float32))
 assert out.shape == (2, 10)
 jax_wf = load_workflow(jax_snapshot)
 jax_wf.initialize(device="cpu")
+import veles_tpu_torch.loader, veles_tpu_torch.ops.autotune  # noqa
+import veles_tpu_torch.restful_api, veles_tpu_torch.zmq_loader  # noqa
+from veles_tpu_torch.snapshotter import SnapshotterToDB
+db = SnapshotterToDB(jax_wf, database=snaps + ".db", compression="")
+db.export()
+model = store.load("sqlite://" + snaps + ".db", device="cpu")
+assert model(numpy.zeros((2, 36), numpy.float32)).shape == (2, 10)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "veles_tpu" or m.startswith("veles_tpu."))
 print("LOADED", bad)
@@ -541,3 +559,170 @@ def test_jax_snapshot_written_by_its_snapshotter(tmp_path):
         jax_wf.decision.epoch_history[1]
     assert sorted(os.listdir(str(tmp_path / "port"))) == [
         "mnist.1.pickle.gz", "mnist_current.pickle.gz"]
+
+
+# -- the URI stores: sqlite:// and http:// ------------------------------------
+
+def _jax_mnist_run():
+    """A small JAX ``MnistWorkflow`` after one fused epoch."""
+    from veles_tpu.models.mnist import MnistWorkflow as JaxMnist
+    from veles_tpu.train import FusedRunner as JaxFusedRunner
+    jax_prng.get().seed(5)
+    jax_prng.get("loader").seed(6)
+    jax_wf = JaxMnist(JaxDummyLauncher(), provider=synthetic_digits(),
+                      layers=(8,), minibatch_size=60, max_epochs=1)
+    jax_wf.initialize(device=Device(backend="cpu"))
+    JaxFusedRunner(jax_wf).run()
+    return jax_wf
+
+
+def _same_as_jax(wf, jax_wf):
+    """A port restore of a JAX run: history, weights and velocity."""
+    wf.workflow = DummyLauncher()
+    wf.initialize(device="cpu")
+    assert wf.decision.epoch_history == jax_wf.decision.epoch_history
+    for g, w in zip(_port_weights(wf), _jax_weights(jax_wf)):
+        for k in w:
+            numpy.testing.assert_array_equal(g[k], w[k])
+    jax_gds = {gd.name: gd for gd in jax_wf.gds}
+    for gd in wf.gds:
+        got = solver_state_to_jax([gd.opt_state])[0]
+        for k, v in jax_gds[gd.name].opt_state["velocity"].items():
+            numpy.testing.assert_array_equal(got["velocity"][k],
+                                             numpy.asarray(v))
+
+
+class _Files(object):
+    """A local ``http.server`` over a directory, on a thread; ``cut``
+    names a file whose body is sent short of its Content-Length."""
+
+    def __init__(self, directory, cut=None):
+        import functools
+        import http.server
+        import threading
+
+        class Handler(http.server.SimpleHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_GET(self):
+                if cut is None or not self.path.endswith(cut):
+                    return super(Handler, self).do_GET()
+                with open(os.path.join(directory, cut), "rb") as f:
+                    body = f.read()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body[:len(body) // 2])
+                self.close_connection = True
+
+        self.server = http.server.ThreadingHTTPServer(
+            ("127.0.0.1", 0), functools.partial(Handler,
+                                                directory=directory))
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+
+    def url(self, name):
+        return "http://127.0.0.1:%d/%s" % (self.server.server_address[1],
+                                           name)
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def _schema(database):
+    import sqlite3
+    conn = sqlite3.connect(database)
+    try:
+        return conn.execute("PRAGMA table_info(snapshots)").fetchall()
+    finally:
+        conn.close()
+
+
+def test_sqlite_store_round_trips_a_port_snapshot(tmp_path, uninterrupted):
+    from veles_tpu_torch.snapshotter import SnapshotterToDB
+    full, _ = uninterrupted
+    database = str(tmp_path / "snaps.db")
+    for codec, suffix in (("gz", "old"), ("", "new")):
+        unit = SnapshotterToDB(full, database=database, compression=codec,
+                               name="db_" + suffix)
+        unit.suffix = suffix
+        unit.export()
+        full.del_ref(unit)
+        assert unit.destination == "sqlite://%s#wf_%s.3" % (database,
+                                                            suffix)
+        assert unit.exports and unit.exports[-1][1] > 0
+    for uri in ("sqlite://%s#wf_old.3" % database,
+                "sqlite://%s#wf_new.3" % database,
+                "sqlite://%s" % database):
+        prng._generators.clear()
+        wf = SnapshotterToFile.import_(uri)
+        wf.workflow = DummyLauncher()
+        wf.initialize(device="cpu")
+        _assert_same(wf, full)
+    with pytest.raises(KeyError):
+        SnapshotterToFile.import_("sqlite://%s#wf_none.3" % database)
+    missing = str(tmp_path / "missing.db")
+    with pytest.raises(FileNotFoundError):
+        SnapshotterToFile.import_("sqlite://%s#wf_new.3" % missing)
+    assert not os.path.exists(missing)
+
+
+def test_http_restores_a_port_snapshot_and_refuses_a_cut_body(
+        tmp_path, uninterrupted):
+    full, directory = uninterrupted
+    save_snapshot(full, str(tmp_path), tag="_gz", compression="gz")
+    files = _Files(str(directory), cut="wf.2.pickle")
+    gz = _Files(str(tmp_path))
+    try:
+        for uri in (files.url("wf.3.pickle"), gz.url("wf_gz.3.pickle.gz")):
+            prng._generators.clear()
+            wf = SnapshotterToFile.import_(uri)
+            wf.workflow = DummyLauncher()
+            wf.initialize(device="cpu")
+            _assert_same(wf, full)
+        with pytest.raises(Exception) as cut:
+            SnapshotterToFile.import_(files.url("wf.2.pickle"))
+        assert not isinstance(cut.value, AssertionError)
+    finally:
+        files.close()
+        gz.close()
+
+
+def test_jax_snapshot_restores_from_sqlite_and_http(tmp_path):
+    """A JAX run's snapshot, written by the JAX package into a sqlite
+    store and as a file, restores through the port's ``import_``; the
+    port's own rows go into the same database, whose schema is the JAX
+    package's either way."""
+    from veles_tpu.snapshotter import SnapshotterToDB as JaxDB
+    from veles_tpu.snapshotter import save_snapshot as jax_save
+    from veles_tpu_torch.snapshotter import SnapshotterToDB
+    jax_wf = _jax_mnist_run()
+    database = str(tmp_path / "both.db")
+    JaxDB(jax_wf, database=database).export()
+    jax_save(jax_wf, str(tmp_path), tag="_jax")
+    files = _Files(str(tmp_path))
+    try:
+        for uri in ("sqlite://%s#wf_snap.0" % database,
+                    files.url("wf_jax.0.pickle.gz")):
+            prng._generators.clear()
+            _same_as_jax(SnapshotterToFile.import_(uri), jax_wf)
+    finally:
+        files.close()
+    port_db = str(tmp_path / "port.db")
+    prng._generators.clear()
+    wf = SnapshotterToFile.import_("sqlite://%s" % database)
+    # the JAX run's own SnapshotterToDB comes over with its settings
+    (carried,) = [u for u in wf if isinstance(u, SnapshotterToDB)]
+    assert (carried.database, carried.prefix) == (database, "wf")
+    for target in (database, port_db):
+        unit = SnapshotterToDB(wf, database=target, prefix="port",
+                               name="db")
+        unit.export()
+        wf.del_ref(unit)
+    assert _schema(port_db) == _schema(database)
+    for uri in ("sqlite://%s#port_snap.0" % database,
+                "sqlite://%s#wf_snap.0" % database):
+        prng._generators.clear()
+        _same_as_jax(SnapshotterToFile.import_(uri), jax_wf)

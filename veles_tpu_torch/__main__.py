@@ -10,7 +10,8 @@ package), applies the config file and the ``root.`` overrides,
 initializes the workflow on the card (``-a cpu`` for the CPU) and runs
 it through ``FusedRunner`` (the eager per-unit scheduler with
 ``--eager``, or when the fused path refuses the graph). ``-w
-<snapshot>`` resumes a snapshot (the port's or the JAX package's),
+<snapshot>`` resumes a snapshot (the port's or the JAX package's: a
+file, a snapshot directory, ``http(s)://...`` or ``sqlite://<db>[#key]``),
 ``--test`` runs one forward-only epoch, ``--result-file`` writes the
 gathered metrics as JSON, ``--workflow-graph`` the DOT graph,
 ``--dry-run exec|init`` stops after building or initializing,
@@ -25,7 +26,7 @@ on the card, the caching allocator's snapshot, recorded from the start,
 to ``FILE.memprof``. Every run starts the memory sampler
 (``VELES_MEMORY_SAMPLE_S``; 0 turns it off).
 
-    python -m veles_tpu_torch serve --model <snapshot | package> ...
+    python -m veles_tpu_torch serve --model <snapshot | URI | package> ...
 
 is the serving engine (``serving/frontend.py`` ``main``).
 
@@ -118,7 +119,8 @@ class Main(Logger):
                                  "comma-separated list applied to prng "
                                  "keys default,loader,chaos")
         parser.add_argument("-w", "--snapshot", default=None,
-                            help="resume from a snapshot file")
+                            help="resume from a snapshot: a file, "
+                                 "http(s)://... or sqlite://<db>[#key]")
         parser.add_argument("-i", "--interactive", action="store_true",
                             help="initialize the workflow, then drop "
                                  "into a console with it in scope; "

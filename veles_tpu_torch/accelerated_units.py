@@ -32,6 +32,11 @@ class AcceleratedUnit(Unit):
 
     def initialize(self, device=None, **kwargs):
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # the card's autotune cache read once, before the first
+            # launch consults it (``ops/autotune.py``)
+            from veles_tpu_torch.ops import autotune
+            autotune.warm()
         return None
 
     @property

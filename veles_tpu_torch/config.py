@@ -153,10 +153,15 @@ def _init_defaults():
             # the precision policy the workflow's layers are built under
             # (``nn/precision.py``: float32, bfloat16_mixed, bfloat16)
             "precision_type": env_knob("VELES_PRECISION", "float32"),
+            # the kernel autotuner's mode (``ops/autotune.py``): off,
+            # cache or search; ``VELES_AUTOTUNE`` wins over it
+            "autotune": "cache",
         },
         "timings": False,
         "exceptions": {"run_after_stop": True},
         "disable": {"snapshotting": False},
+        # where ``restful_api.RESTfulAPI`` listens by default
+        "api": {"host": "localhost", "port": 8180, "path": "/api"},
         # the ensemble member a run is (``ensemble/``): its index, the
         # ensemble's size (0 outside an ensemble) and the share of the
         # train set it trains on (``loader/base.py``)

@@ -27,7 +27,8 @@ counter becoming the Philox seed chain's counter.
 
 Workflow classes read: ``StandardWorkflow`` and its subclasses (the JAX
 package's, and a user's class with the same graph), and
-``MnistWorkflow``, with their ``SnapshotterToFile`` units. Any other
+``MnistWorkflow``, with their ``SnapshotterToFile`` and
+``SnapshotterToDB`` units. Any other
 class, and any other unit in the graph, raises: it needs the eager
 compute units, which the port does not have yet.
 """
@@ -288,7 +289,7 @@ def translate(record):
         decision, loader_rec, evaluator, record.get("repeater"),
         record.get("start_point"), record.get("end_point")]}
     for unit in record.get("_units") or ():
-        if id(unit) not in covered and unit.qualname != "SnapshotterToFile":
+        if id(unit) not in covered and unit.qualname not in _SNAPSHOTTERS:
             raise NotImplementedError(
                 "unit %s (%s.%s) of the JAX snapshot has no port yet"
                 % (unit.get("name"), unit.module, unit.qualname))
@@ -445,20 +446,26 @@ def _copy_decision(decision, rec):
         getattr(decision, key).value = _bool(rec.get(key))
 
 
+#: the JAX snapshotter units a snapshot carries over
+_SNAPSHOTTERS = ("SnapshotterToFile", "SnapshotterToDB")
+
+
 def _copy_snapshotters(workflow, record):
-    """The record's ``SnapshotterToFile`` units with their settings,
-    wired as a training workflow wires one: after the decision, skipped
-    until the epoch ends."""
-    from veles_tpu_torch.snapshotter import SnapshotterToFile
+    """The record's ``SnapshotterToFile`` and ``SnapshotterToDB`` units
+    with their settings, wired as a training workflow wires one: after
+    the decision, skipped until the epoch ends."""
+    from veles_tpu_torch import snapshotter
     for unit in record.get("_units") or ():
-        if unit.qualname != "SnapshotterToFile":
+        if unit.qualname not in _SNAPSHOTTERS:
             continue
-        snap = SnapshotterToFile(
-            workflow, directory=unit.get("directory"),
-            prefix=unit.get("prefix", "wf"),
+        target = ({"directory": unit.get("directory")}
+                  if unit.qualname == "SnapshotterToFile" else
+                  {"database": unit.get("database")})
+        snap = getattr(snapshotter, unit.qualname)(
+            workflow, prefix=unit.get("prefix", "wf"),
             interval=unit.get("interval", 1),
             time_interval=unit.get("time_interval", 15.0),
             compression=unit.get("compression", "gz"),
-            name=unit.get("name"))
+            name=unit.get("name"), **target)
         snap.link_from(workflow.decision)
         snap.gate_skip = ~workflow.loader.epoch_ended

@@ -17,7 +17,8 @@ JAX package            this package
 ``ops.normalize``      :mod:`.normalize`
 ``ops.join``           :mod:`.join`
 ``ops.benchmark``      :mod:`.benchmark`
-``ops.autotune``       not ported
+``ops.autotune``       :mod:`.autotune` (K1/K2 and K5 split counts,
+                       level 2's parts; a per-card JSON cache)
 =====================  ===============================================
 """
 

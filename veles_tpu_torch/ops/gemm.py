@@ -5,13 +5,19 @@ layer of fc6 and fc7 (``veles_tpu/ops/gemm.py``).
 the JAX package, at three precision levels:
 
 * 0 -- :func:`_planned_dot`, one float32 ``torch.matmul`` (XLA's dot in
-  JAX; the port has no autotuner);
+  JAX; the autotuner, ``ops/autotune.py``, chooses only among a
+  kernel's own configurations, so it leaves this product alone);
 * 1 -- :func:`kahan_matmul`: K summed in blocks joined by Kahan
   compensation. On a CUDA tensor it launches the hand-written kernel
   ``csrc/kahan_gemm.cu`` through :func:`kahan_gemm` (the port of
   ``pallas_kahan_gemm``); on a CPU tensor it runs
   :func:`kahan_matmul_plain`, the port of ``_kahan_matmul_loop``;
 * 2 -- :func:`pairwise_matmul`: K split into partials reduced pairwise.
+
+Where a caller gives no split count, :func:`linear_act` (K1, K2),
+:func:`kahan_gemm` (K5) and a level-2 product on a CUDA tensor take it
+from the autotuner's cache (``ops/autotune.py``: a per-key memoized
+lookup; the plan's own choice on a miss, or with ``VELES_AUTOTUNE=off``).
 
 Every float32 product here is full float32 whatever
 ``torch.backends.cuda.matmul.allow_tf32`` says: :func:`full_float32`
@@ -52,7 +58,7 @@ import torch.nn.functional as F
 
 from veles_tpu_torch.nn.activation import ACTIVATIONS
 from veles_tpu_torch.nn.precision import full_float32
-from veles_tpu_torch.ops import build
+from veles_tpu_torch.ops import autotune, build
 from veles_tpu_torch.ops.reduce import column_sum, column_sum_plain
 
 #: the kernel's epilogue codes
@@ -114,11 +120,16 @@ def pairwise_matmul(a, b, parts=None):
     """PRECISION_LEVEL 2: split-K partial products reduced pairwise.
 
     ``parts`` defaults to the smallest power of two whose square is at
-    least K (at most K), halved until it divides K. The tree is JAX's:
+    least K (at most K), halved until it divides K (``0`` takes that
+    default without asking the autotuner, which None does on a CUDA
+    tensor). The tree is JAX's:
     with an odd count the last two partials are added first, then
     adjacent pairs."""
     k = a.shape[-1]
-    if parts is None:
+    if parts is None and a.device.type == "cuda":
+        parts = autotune.pairwise_parts(a.shape[0], b.shape[1], k,
+                                        a.dtype, a.device)
+    if not parts:
         parts = 1
         while parts * parts < k:
             parts *= 2
@@ -291,7 +302,12 @@ def kahan_gemm(a, b, bk=KAHAN_BK, out_dtype=torch.float32, splits=None):
     :func:`kahan_matmul_plain`. Counts each launch in
     ``kahan_gemm.launches``, in ``kahan_gemm.launches_by_form`` under
     ``(M, K, N, dtype, block depth)`` and in
-    ``kahan_gemm.launches_by_variant`` under the plan's form."""
+    ``kahan_gemm.launches_by_variant`` under the plan's form, and in
+    ``kahan_gemm.launches_by_splits`` under ``(M, K, N, dtype, block
+    depth, form, splits)``. Without ``splits`` the count is the
+    autotuner's for the shape (``ops/autotune.py`` ``kahan_splits``), or
+    the plan's own; ``splits=0`` is the plan's own without asking the
+    autotuner."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError("kahan_gemm needs a (M, K) and b (K, N), got %s "
                          "and %s" % (tuple(a.shape), tuple(b.shape)))
@@ -320,6 +336,8 @@ def kahan_gemm(a, b, bk=KAHAN_BK, out_dtype=torch.float32, splits=None):
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out.to(out_dtype)
+    if splits is None:
+        splits = autotune.kahan_splits(m, n, k, bk, a.dtype, a.device)
     plan = kahan_plan(m, n, k, bk, a.dtype, _aligned(a, b), splits)
     ws = None
     if plan.workspace_bytes:
@@ -336,12 +354,15 @@ def kahan_gemm(a, b, bk=KAHAN_BK, out_dtype=torch.float32, splits=None):
         kahan_gemm.launches += 1
         kahan_gemm.launches_by_form[(m, k, n, a.dtype, bk)] += 1
         kahan_gemm.launches_by_variant[plan.form] += 1
+        kahan_gemm.launches_by_splits[
+            (m, k, n, a.dtype, bk, plan.form, plan.splits)] += 1
     return out if out_dtype == torch.float32 else out.to(out_dtype)
 
 
 kahan_gemm.launches = 0
 kahan_gemm.launches_by_form = collections.Counter()
 kahan_gemm.launches_by_variant = collections.Counter()
+kahan_gemm.launches_by_splits = collections.Counter()
 #: ``veles_kahan_gemm``'s C arguments: a, b, out, ws, m, n, k, bk,
 #: in_bf16, form, splits, blocks a split, stream
 _KAHAN_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
@@ -539,11 +560,15 @@ def linear_act(x, w, bias=None, activation="linear", out_dtype=None,
     Any M, N, K: :func:`gemm_plan` picks the kernel's variant by shape,
     dtype and alignment, and one C call launches it and, with K split,
     the pass that sums the splits (``splits`` overrides the count, for
-    tuning sweeps). ``out_dtype`` defaults to ``x.dtype``.
+    tuning sweeps; without it the count is the autotuner's for the
+    shape, ``ops/autotune.py`` ``linear_splits``, or the plan's own;
+    ``splits=0`` is the plan's own without asking the autotuner).
+    ``out_dtype`` defaults to ``x.dtype``.
     Counts each call in ``linear_act.launches``, in
     ``linear_act.launches_by_form`` under ``(M, K, N, x.dtype,
-    has_bias)`` and in ``linear_act.launches_by_variant`` under the
-    plan's form."""
+    has_bias)``, in ``linear_act.launches_by_variant`` under the
+    plan's form and in ``linear_act.launches_by_splits`` under ``(M, K,
+    N, x.dtype, form, splits)``."""
     _check(x, w, bias, activation)
     out_dtype = out_dtype or x.dtype
     if out_dtype not in _DTYPES:
@@ -563,6 +588,10 @@ def linear_act(x, w, bias=None, activation="linear", out_dtype=None,
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
+    if splits is None:
+        splits = autotune.linear_splits(m, n, k, x.dtype, activation,
+                                        out_dtype, bias is not None,
+                                        x.device)
     plan = gemm_plan(m, n, k, x.dtype, _aligned(x, w, bias), splits)
     ws = None
     if plan.workspace_bytes:
@@ -583,12 +612,15 @@ def linear_act(x, w, bias=None, activation="linear", out_dtype=None,
         linear_act.launches_by_form[
             (m, k, n, x.dtype, bias is not None)] += 1
         linear_act.launches_by_variant[plan.form] += 1
+        linear_act.launches_by_splits[
+            (m, k, n, x.dtype, plan.form, plan.splits)] += 1
     return out
 
 
 linear_act.launches = 0
 linear_act.launches_by_form = collections.Counter()
 linear_act.launches_by_variant = collections.Counter()
+linear_act.launches_by_splits = collections.Counter()
 
 
 _GEMM_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [

@@ -17,11 +17,21 @@ CUDA events over back-to-back calls; on the CPU they are the host
 clock. It prints a Markdown table with the card's name and power limit.
 ``--small`` divides every dimension by 16 (rounded up), for the CPU.
 
-The JAX bench's ``--autotune`` is not ported: the port has no
-autotuner.
+    python -m veles_tpu_torch.ops.gemm_bench --autotune [--dtype float32]
+
+is the port of the JAX bench's ``autotune_main``: in ``search`` mode
+(unless ``VELES_AUTOTUNE`` says otherwise) it searches the split counts
+of K1 at AlexNet's served fc6/fc7 (M = 1 and 16, strict relu, bias) and
+of K1/K2 (``linear_plan``) and K5 (``gemm_plan`` level 1) at the
+flagship products of batch 128 (fc6/fc7 forward, weight gradient and
+input gradient), persists each winner in the card's autotune cache
+(``VELES_AUTOTUNE_CACHE``) and prints a table: the default split count
+and its ms, the best and its ms, by shape. Searching needs the card.
 """
 
 import argparse
+import json
+import os
 import statistics
 import subprocess
 import sys
@@ -170,13 +180,132 @@ def format_table(rows, where):
     return "\n".join(lines)
 
 
+def flagship_shapes(batch=128, served=(1, 16)):
+    """``(label, kernel, activation, bias, (M, K, N))`` of the searched
+    products: the served fc6/fc7 forward at each ``served`` row count
+    (K1: strict relu, bias), then fc6/fc7 at ``batch`` rows: forward
+    (K1 and K5), weight gradient and input gradient (K2 and K5)."""
+    fcs = (("fc6", 9216, 4096), ("fc7", 4096, 4096))
+    out = [("%s served M=%d" % (name, m), "k1", "strict_relu", True,
+            (m, fin, fout)) for m in served for name, fin, fout in fcs]
+    for name, fin, fout in fcs:
+        for label, shape in (("fwd", (batch, fin, fout)),
+                             ("wgrad", (fin, batch, fout)),
+                             ("dgrad", (batch, fout, fin))):
+            if label == "fwd":
+                out.append(("%s %s" % (name, label), "k1", "strict_relu",
+                            True, shape))
+            else:
+                out.append(("%s %s" % (name, label), "k2", "linear", False,
+                            shape))
+            out.append(("%s %s" % (name, label), "k5", None, False, shape))
+    return out
+
+
+def autotune_rows(dtype=torch.float32, batch=128, device=None):
+    """Search :func:`flagship_shapes` (see the module's docstring);
+    one row a distinct key: {"label", "kernel", "shape": (M, K, N),
+    "key", "default_splits", "default_ms", "best_splits", "best_ms",
+    "config", "seconds"}."""
+    from veles_tpu_torch.ops import autotune
+    device = resolve_device(device)
+    gemm_mod = sys.modules["veles_tpu_torch.ops.gemm"]
+    rows, seen = [], set()
+    for label, kernel, act, bias, (m, k, n) in flagship_shapes(batch):
+        if kernel == "k5":
+            bk = max(1, min(gemm_mod.KAHAN_BK, k))
+            key = autotune._key("gemm_kahan", m=m, n=n, k=k, ta=0, tb=0,
+                                bk=bk, dtype=autotune._dtype_name(dtype))
+        else:
+            key = autotune._key(
+                "linear", m=m, n=n, k=k, dtype=autotune._dtype_name(dtype),
+                act=act, out=autotune._dtype_name(dtype), bias=int(bias))
+        if key in seen:
+            continue
+        seen.add(key)
+        t0 = time.perf_counter()
+        if kernel == "k5":
+            impl, cfg = autotune.gemm_plan(m, n, k, dtype, level=1, bk=bk,
+                                           device=device)
+            default = gemm_mod.kahan_plan(m, n, k, bk, dtype).splits
+            best = gemm_mod.kahan_plan(m, n, k, bk, dtype, True, (
+                cfg or {}).get("splits")).splits
+        else:
+            impl, cfg = autotune.linear_plan(m, n, k, dtype, act, dtype,
+                                             bias, device)
+            default = gemm_mod.gemm_plan(m, n, k, dtype).splits
+            best = gemm_mod.gemm_plan(m, n, k, dtype, True, (
+                cfg or {}).get("splits")).splits
+        entry = autotune.get_cache().get(key) or {}
+        rows.append({"label": label, "kernel": kernel, "shape": (m, k, n),
+                     "key": key, "impl": impl, "config": cfg,
+                     "default_splits": default,
+                     "default_ms": entry.get("baseline_ms"),
+                     "best_splits": best, "best_ms": entry.get("best_ms"),
+                     "candidates": entry.get("candidates"),
+                     "seconds": time.perf_counter() - t0})
+        print("autotune %s %s: %s %s (%.1f s)" % (
+            label, kernel, impl, cfg, rows[-1]["seconds"]),
+            file=sys.stderr, flush=True)
+    return rows
+
+
+def format_autotune(rows, where):
+    """The per-shape table of :func:`autotune_rows`."""
+    def ms(value):
+        return "-" if value is None else "%.4f" % value
+
+    lines = ["K split counts searched on %s" % where,
+             "| shape | kernel | M x K x N | default splits (ms) | "
+             "best splits (ms) | candidates |",
+             "|---|---|---|---|---|---|"]
+    for row in rows:
+        lines.append("| %s | %s | %dx%dx%d | x%d (%s) | x%d (%s) | %s |" % (
+            row["label"], row["kernel"].upper(), row["shape"][0],
+            row["shape"][1], row["shape"][2], row["default_splits"],
+            ms(row["default_ms"]), row["best_splits"], ms(row["best_ms"]),
+            row["candidates"] or "-"))
+    return "\n".join(lines)
+
+
+def autotune_main(dtype="float32", batch=128, device=None):
+    """``--autotune``: search, print the table and the tuner's summary."""
+    os.environ.setdefault("VELES_AUTOTUNE", "search")
+    from veles_tpu_torch.ops import autotune
+    device = resolve_device(device)
+    print("autotune: mode=%s device=%s cache=%s" % (
+        autotune.mode(), autotune.device_kind(), autotune.cache_path()),
+        file=sys.stderr, flush=True)
+    rows = autotune_rows(getattr(torch, dtype), batch, device)
+    print(format_autotune(rows, "%s, times by CUDA events" % card_line()
+                          if device.type == "cuda" else
+                          "the CPU: nothing measured (searching needs "
+                          "the card)"))
+    summary = autotune.summary()
+    print("autotune summary: %s" % json.dumps({
+        k: summary[k] for k in ("path", "mode", "device", "searches",
+                                "hits", "misses")}))
+    return 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
     parser.add_argument("--small", action="store_true",
                         help="every dimension divided by 16, for the CPU")
+    parser.add_argument("--autotune", action="store_true",
+                        help="search the K split counts of K1/K2 and K5 "
+                             "at the flagship shapes and persist the "
+                             "winners in the card's autotune cache")
+    parser.add_argument("--dtype", default="float32",
+                        choices=("float32", "bfloat16"),
+                        help="operand dtype for --autotune")
+    parser.add_argument("--batch", type=int, default=128,
+                        help="batch rows of the --autotune products")
     cli = parser.parse_args(argv)
+    if cli.autotune:
+        return autotune_main(cli.dtype, cli.batch, cli.device)
     device = resolve_device(cli.device)
     rows = gemm_bench(device, small_shapes() if cli.small else SHAPES)
     where = ("%s, times by CUDA events" % card_line()

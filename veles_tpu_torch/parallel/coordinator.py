@@ -27,6 +27,7 @@ import hmac
 import json
 import os
 import secrets
+import select
 import socket
 import threading
 import time
@@ -482,6 +483,23 @@ def _answer_same_host(proto, challenge):
     return {"cmd": "shm_proof", "proof": proof}
 
 
+def _peer_closed(sock):
+    """Whether the peer of ``sock`` has closed it (EOF or reset), read
+    without blocking and without taking a byte off the stream."""
+    if sock is None:
+        return False
+    try:
+        # readable now, or it is open with nothing to read; the peek
+        # then cannot wait, whatever timeout the socket carries
+        if not select.select([sock], [], [], 0)[0]:
+            return False
+        return sock.recv(1, socket.MSG_PEEK | socket.MSG_DONTWAIT) == b""
+    except (BlockingIOError, InterruptedError):
+        return False
+    except (OSError, ValueError):
+        return True  # reset, or already closed on this side
+
+
 class SlaveDescription(object):
     """Master-side view of one slave (``veles/server.py:494-511``)."""
 
@@ -507,6 +525,8 @@ class SlaveDescription(object):
         # connection dying WITHOUT either mid-run is a crash
         self.done_sent = False
         self.said_bye = False
+        #: the main connection's socket (the reaper peeks it for EOF)
+        self.sock = None
 
     @property
     def current_job(self):
@@ -736,6 +756,11 @@ class CoordinatorServer(Logger):
                 slave_timeout = max(slave_timeout, self.WARMUP_TIMEOUT)
             overrun = (slave_timeout is not None and slave.current_job and
                        now - slave.current_job[1] > slave_timeout)
+            if overrun and not dead:
+                # a killed slave's job overruns too: when its socket
+                # already reads EOF, the handler thread just has not
+                # seen it yet, and the drop is a death
+                dead = _peer_closed(slave.sock)
             if dead or overrun:
                 self._drop_faulted(sid, "dead" if dead else "timeout")
         if self.straggler_drop_s is None:
@@ -879,6 +904,7 @@ class CoordinatorServer(Logger):
                     sid, hello.get("power", 1.0), hello.get("mid"),
                     hello.get("pid"))
                 slave_desc = self.slaves[sid]
+                slave_desc.sock = sock
             # same machine → job/update blobs ride shared memory, only
             # the refs cross the socket (endpoint-by-locality, the
             # reference's server.py:721-732 inproc/ipc/tcp choice).

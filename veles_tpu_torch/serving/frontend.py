@@ -1,6 +1,7 @@
 """HTTP frontend of the serving engine (the port of
-``veles_tpu/serving/frontend.py``), with the same request contract
-(``veles_tpu/restful_api.py``):
+``veles_tpu/serving/frontend.py``), with the request contract of
+:mod:`veles_tpu_torch.restful_api` (``parse_payload``,
+``respond_json``, imported from there):
 
 * ``POST <path>`` with ``{"input": ..., "codec": "list"|"base64"[,
   "shape", "type", "id"]}`` -> ``{"result": [...][, "id"]}``;
@@ -42,7 +43,8 @@ client logs. Every route, endpoint, metric and JSON key is the JAX
 package's.
 
 :func:`main` is ``python -m veles_tpu_torch serve --model [name=]<snapshot
-file or directory | export package> ...`` with every flag of the JAX
+file or directory | snapshot URI | export package> ...`` (a URI:
+``http(s)://...`` or ``sqlite://<db>[#key]``) with every flag of the JAX
 command -- ``--model`` repeated with ``name=`` prefixes, ``--name``,
 ``--host``, ``--port``, ``--path``, ``--replicas``, ``--min-replicas``,
 ``--max-replicas`` (the autoscaler), ``--max-batch-size``,
@@ -60,8 +62,6 @@ on the card, the caching allocator's snapshot beside it
 """
 
 import argparse
-import base64
-import binascii
 import concurrent.futures
 import json
 import logging
@@ -73,6 +73,8 @@ from urllib.parse import parse_qs, urlsplit
 
 import numpy
 
+from veles_tpu_torch.restful_api import (_NumpyJSONEncoder, parse_payload,
+                                         respond_json)
 from veles_tpu_torch.serving.admission import (QOS_MULTIPLIER,
                                                AdmissionController)
 from veles_tpu_torch.serving.autoscale import Autoscaler
@@ -90,87 +92,6 @@ from veles_tpu_torch.telemetry.timeseries import get_history
 _log = logging.getLogger(__name__)
 
 
-# -- the request contract (copied from veles_tpu/restful_api.py) -----------
-
-class _NumpyJSONEncoder(json.JSONEncoder):
-    """Serializes numpy scalars and arrays."""
-
-    def default(self, obj):
-        if isinstance(obj, numpy.ndarray):
-            return obj.tolist()
-        if isinstance(obj, numpy.integer):
-            return int(obj)
-        if isinstance(obj, numpy.floating):
-            return float(obj)
-        return super(_NumpyJSONEncoder, self).default(obj)
-
-
-def respond_json(handler, code, payload, headers=None):
-    """Write one JSON response with Content-Length and extra headers."""
-    body = json.dumps(payload, cls=_NumpyJSONEncoder).encode("utf-8")
-    handler.send_response(code)
-    handler.send_header("Content-Type", "application/json")
-    handler.send_header("Content-Length", str(len(body)))
-    for key, value in (headers or {}).items():
-        handler.send_header(key, value)
-    handler.end_headers()
-    handler.wfile.write(body)
-
-
-def decode_base64_payload(request):
-    """The base64 codec: needs "shape" and "type" attributes. Returns
-    ``(array, None)`` or ``(None, error_message)``."""
-    if "shape" not in request:
-        return None, ("There is no \"shape\" attribute which "
-                      "defines the input array shape")
-    shape = request["shape"]
-    if not isinstance(shape, list) or len(shape) < 1:
-        return None, "\"shape\" must be a non-trivial array"
-    if request.get("type") is None:
-        return None, ("There is no \"type\" attribute which "
-                      "defines the array data type (e.g., "
-                      "\"float32\" or \"uint8\", see numpy.dtype)")
-    dtype_name = request["type"]
-    if not isinstance(dtype_name, str):
-        return None, "\"type\" must be a string dtype name"
-    byte_order = None
-    if dtype_name and dtype_name[-1] in "<=>":
-        byte_order = dtype_name[-1]
-        dtype_name = dtype_name[:-1]
-    try:
-        dtype = numpy.dtype(dtype_name)
-    except TypeError:
-        return None, ("Invalid \"type\" value. For the list of "
-                      "supported values, see numpy.dtype.")
-    if byte_order is not None:
-        dtype = dtype.newbyteorder(byte_order)
-    try:
-        buf = base64.b64decode(request["input"])
-    except (binascii.Error, TypeError) as e:
-        return None, "Failed to decode base64: %s." % e
-    try:
-        return numpy.frombuffer(buf, dtype).reshape(shape), None
-    except Exception as e:
-        return None, "Failed to create the numpy array: %s." % e
-
-
-def parse_payload(request):
-    """Validate and decode one ``{"input":..., "codec":...}`` request.
-    Returns ``(array, None)`` or ``(None, error_message)``."""
-    if not isinstance(request, dict) or "input" not in request \
-            or "codec" not in request:
-        return None, ("Invalid input format: there must be "
-                      "\"input\" and \"codec\" attributes")
-    codec = request["codec"]
-    if codec not in ("list", "base64"):
-        return None, ("Invalid codec value: must be either "
-                      "\"list\" or \"base64\"")
-    if codec == "list":
-        try:
-            return numpy.array(request["input"], numpy.float32), None
-        except (TypeError, ValueError):
-            return None, "Invalid input array format"
-    return decode_base64_payload(request)
 
 
 # -- the server --------------------------------------------------------------
@@ -805,7 +726,8 @@ def _parse_models(specs):
     models = {}
     for spec in specs:
         name, sep, path = spec.partition("=")
-        if not sep:
+        if not sep or "://" in name:
+            # no name, or the "=" is inside a URI's query
             name, path = None, spec
         if name in models:
             # dict insertion would silently drop one artifact
@@ -833,9 +755,10 @@ def _parser():
         prog="veles_tpu_torch serve",
         description="dynamic-batching inference server on the card")
     parser.add_argument("--model", required=True, action="append",
-                        help="snapshot file or directory, or export "
-                             "package; repeat with name=path to serve "
-                             "several models from one process")
+                        help="snapshot file or directory, snapshot URI "
+                             "(http(s)://..., sqlite://<db>[#key]), or "
+                             "export package; repeat with name=path to "
+                             "serve several models from one process")
     parser.add_argument("--name", default=None,
                         help="model name in the store (default: the "
                              "artifact's; single --model only)")

@@ -157,10 +157,12 @@ class ServeableModel(object):
 
     @classmethod
     def from_snapshot(cls, path, name=None, version=1, device=None):
-        """Serve the model of a snapshot file (the port's or the JAX
-        package's), put on ``device`` (the card by default)."""
-        from veles_tpu_torch.snapshotter import load_workflow
-        workflow = load_workflow(path)
+        """Serve the model of a snapshot (the port's or the JAX
+        package's): a file, or whatever ``SnapshotterToFile.import_``
+        takes (``http(s)://``, ``sqlite://<db>[#key]``), put on
+        ``device`` (the card by default)."""
+        from veles_tpu_torch.snapshotter import SnapshotterToFile
+        workflow = SnapshotterToFile.import_(path)
         workflow.initialize(device=device)
         return cls.from_workflow(workflow, name=name, version=version,
                                  source=str(path))
@@ -226,7 +228,8 @@ class ModelStore(object):
         self.keep_last = int(keep_last) if keep_last else None
 
     def load(self, source, name=None, version=None, device=None):
-        """Load an export package, a snapshot file, or the newest
+        """Load an export package, a snapshot file or URI
+        (``http(s)://``, ``sqlite://<db>[#key]``), or the newest
         loadable snapshot of a snapshot directory, and register it;
         returns the model."""
         path = str(source)

@@ -38,8 +38,12 @@ loads too (its part 0's workflow through
 :mod:`veles_tpu_torch.jax_snapshot`). Part files are read by an
 unpickler that resolves numpy's array constructors and builtins only.
 
-Not ported yet: the ``http(s)://`` and ``sqlite://`` restores and
-``SnapshotterToDB``.
+:meth:`SnapshotterToFile.import_` (behind the CLI's ``-w`` and ``serve
+--model``) also restores from ``http(s)://`` (the body fetched to
+memory) and from ``sqlite://<db>[#key]``, the store of
+:class:`SnapshotterToDB`: one ``snapshots`` table of the JAX package's
+schema, so one database file holds either package's rows and a JAX row
+restores here (through :mod:`veles_tpu_torch.jax_snapshot`).
 """
 
 import bz2
@@ -83,6 +87,29 @@ MAGIC = ((b"\x1f\x8b", gzip.open), (b"BZh", bz2.open),
 #: writes last, the generation's completeness mark
 SHARDED_SUFFIX = ".shards"
 MANIFEST_NAME = "MANIFEST.json"
+
+
+def _maybe_decompress(payload):
+    """The pickle bytes of an in-memory snapshot payload, its codec
+    sniffed from the magic bytes (the http and sqlite restores)."""
+    for magic, opener in MAGIC:
+        if payload.startswith(magic):
+            with opener(io.BytesIO(payload), "rb") as fin:
+                return fin.read()
+    return payload
+
+
+def _compress(payload, compression):
+    """Compress a snapshot payload in memory ("" or None: raw)."""
+    if not compression:
+        return payload
+    if compression not in CODECS:
+        raise ValueError("unknown compression %r (have %s)" %
+                         (compression, sorted(k for k in CODECS if k)))
+    buf = io.BytesIO()
+    with CODECS[compression](buf, "wb") as fout:
+        fout.write(payload)
+    return buf.getvalue()
 
 
 def _atomic_write(directory, name, write_fn):
@@ -200,21 +227,103 @@ class SnapshotterToFile(SnapshotterBase):
 
     @staticmethod
     def import_(uri):
-        """Load a snapshot from a file path (see :func:`load_workflow`)."""
-        if isinstance(uri, str) and uri.startswith(
-                ("http://", "https://", "sqlite://")):
-            raise NotImplementedError(
-                "restoring from %s is not ported yet: give a snapshot "
-                "file or directory" % uri.split(":", 1)[0])
+        """Load a snapshot from a file path or directory (see
+        :func:`load_workflow`), an ``http(s)://`` URI (fetched to
+        memory) or ``sqlite://<db>[#key]`` (:meth:`SnapshotterToDB.
+        import_`). Returns the workflow with the ``prng`` registry
+        restored."""
+        if isinstance(uri, str) and uri.startswith(("http://", "https://")):
+            # unpickling a snapshot runs code from it: restore only from
+            # servers you trust; over plain http a man in the middle
+            # gets that too
+            if uri.startswith("http://"):
+                _log.warning(
+                    "restoring over plaintext http: a man-in-the-middle "
+                    "can inject a pickle that executes arbitrary code -- "
+                    "use https or a local file (%s)", uri)
+            else:
+                _log.warning("remote snapshot restore runs pickled code "
+                             "from %s -- make sure you trust this server",
+                             uri)
+            import urllib.request
+            with urllib.request.urlopen(uri, timeout=60) as resp:
+                payload = resp.read()
+            return load_workflow(_maybe_decompress(payload))
+        if isinstance(uri, str) and uri.startswith("sqlite://"):
+            return SnapshotterToDB.import_(uri)
         return load_workflow(uri)
 
 
 class SnapshotterToDB(SnapshotterBase):
-    """The JAX package's sqlite target: not ported yet."""
+    """Snapshots into a sqlite database (the JAX package's realization
+    of the reference's ODBC target): a row ``(key, checksum, epoch,
+    created, payload)`` of the ``snapshots`` table an export, keyed
+    ``<prefix>_<suffix or "snap">.<epoch>``. Restore from
+    ``sqlite://<path.db>#<key>``, or ``sqlite://<path.db>`` for the
+    newest row."""
+
+    hide_from_registry = False
 
     def __init__(self, workflow, **kwargs):
-        raise NotImplementedError(
-            "SnapshotterToDB is not ported yet: use SnapshotterToFile")
+        self.database = kwargs.pop("database", None)
+        super(SnapshotterToDB, self).__init__(workflow, **kwargs)
+        if not self.database:
+            raise ValueError("SnapshotterToDB needs database=path.db")
+
+    @staticmethod
+    def _ensure_schema(conn):
+        conn.execute(
+            "CREATE TABLE IF NOT EXISTS snapshots ("
+            " key TEXT PRIMARY KEY, checksum TEXT, epoch INTEGER,"
+            " created REAL, payload BLOB)")
+
+    def export(self):
+        import sqlite3
+        t0 = time.perf_counter()
+        wf = self.workflow
+        payload = _compress(dump_workflow(wf), self.compression)
+        epoch = wf_epoch(wf)
+        key = "%s_%s.%d" % (self.prefix, self.suffix or "snap", epoch)
+        with sqlite3.connect(self.database) as conn:
+            self._ensure_schema(conn)
+            conn.execute(
+                "INSERT OR REPLACE INTO snapshots VALUES (?, ?, ?, ?, ?)",
+                (key, wf.checksum, epoch, time.time(),
+                 sqlite3.Binary(payload)))
+        conn.close()
+        seconds = time.perf_counter() - t0
+        self.destination = "sqlite://%s#%s" % (self.database, key)
+        self.exports.append((seconds, len(payload)))
+        self.info("snapshotted to %s (%.1f MiB in %.2f s)",
+                  self.destination, len(payload) / 1048576.0, seconds)
+
+    @staticmethod
+    def import_(uri):
+        """The workflow of ``sqlite://<db>#<key>`` (the newest row
+        without a key). A missing database raises
+        ``FileNotFoundError`` (a restore never creates one), a missing
+        key ``KeyError``."""
+        import sqlite3
+        database, _, key = uri[len("sqlite://"):].partition("#")
+        if not os.path.exists(database):
+            raise FileNotFoundError("no snapshot database: %s" % database)
+        conn = sqlite3.connect(database)
+        try:
+            if not key:
+                # the newest row's key first: sorting rows that carry
+                # their payloads would copy every payload
+                newest = conn.execute(
+                    "SELECT key FROM snapshots ORDER BY created DESC "
+                    "LIMIT 1").fetchone()
+                key = newest[0] if newest else ""
+            row = conn.execute(
+                "SELECT payload FROM snapshots WHERE key = ?",
+                (key,)).fetchone()
+        finally:
+            conn.close()
+        if row is None:
+            raise KeyError("no snapshot %r in %s" % (key, database))
+        return load_workflow(_maybe_decompress(bytes(row[0])))
 
 
 def wf_epoch(wf):
