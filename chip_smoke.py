@@ -5629,6 +5629,30 @@ def observability_phase(torch, numpy, kernels):
     return result, forms
 
 
+def stack_watch(period_s):
+    """The source a driver run in a process of its own starts with, so
+    that a process which stalls or crashes shows where: every thread's
+    stack each ``period_s`` seconds, and every thread's stack on a fatal
+    signal. A Python thread takes the periodic dumps, under the
+    interpreter lock: ``faulthandler.dump_traceback_later`` walks the
+    other threads' frames from a C thread that holds no lock, and a
+    frame chunk that the running thread frees meanwhile ends the process
+    with SIGSEGV (a slave of phase 14 died so, its main thread's stack
+    cut after two frames)."""
+    return (
+        "import faulthandler as _fh, sys as _sys, threading as _th, "
+        "time as _t\n"
+        "_fh.enable(all_threads=True)\n"
+        "def _stack_watch():\n"
+        "    while True:\n"
+        "        _t.sleep(%r)\n"
+        "        _sys.stderr.write('every thread\\'s stack:\\n')\n"
+        "        _sys.stderr.flush()\n"
+        "        _fh.dump_traceback(all_threads=True)\n"
+        "_th.Thread(target=_stack_watch, daemon=True, "
+        "name='stack-watch').start()\n" % (period_s,))
+
+
 #: phase 14: master/slave training on the workflow phase's file. Epochs
 #: of the one-slave run (1) and the two-slave run (2); of the kill leg
 #: (3) and the bf16 leg (4)
@@ -5667,11 +5691,9 @@ DIST_JOB_TIMEOUT = "900"
 #: deterministic mode, SMOKE_DROP_DELTA=1 makes a master drop fc7's
 #: deltas (the control), SMOKE_GATE=<file> holds a slave before it dials
 #: until the file exists.
-DIST_DRIVER = r"""
-import faulthandler, os, pickle, sys, time
+DIST_DRIVER = stack_watch(60) + r"""
+import os, pickle, sys, time
 role, out, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
-# a leg that stalls shows where: every thread's stack each minute
-faulthandler.dump_traceback_later(60, repeat=True)
 import numpy
 import torch
 if os.environ.get("SMOKE_DETERMINISTIC") == "1":
@@ -6291,10 +6313,9 @@ SPMD_PIPELINE_ATOL = 1e-5
 #: driver too (its source in SMOKE_SPMD_DRIVER). SMOKE_DETERMINISTIC=1
 #: sets the deterministic mode; SMOKE_NO_REDUCE=1 skips the gradient
 #: collectives (the control).
-SPMD_DRIVER = r"""
-import faulthandler, os, pickle, sys, time
+SPMD_DRIVER = stack_watch(120) + r"""
+import os, pickle, sys, time
 prefix, argv = sys.argv[1], sys.argv[2:]
-faulthandler.dump_traceback_later(120, repeat=True)
 import numpy
 import torch
 if os.environ.get("SMOKE_DETERMINISTIC") == "1":
