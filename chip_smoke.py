@@ -439,7 +439,50 @@
    samples and one of the wrong shape (an error ack), then ``finish``,
    which ends the workflow; the rows held to the plain forward. The
    whole result to ``chiprun_out/service.json``.
-19. The line before the last is ``{"kernels": [...], "not_ported":
+19. Observers phase: the run's observers watch a full-width AlexNet-227
+   CLI run, after phase 18 (serially). A ``web_status`` dashboard in
+   this process; ``python -m veles_tpu_torch <file> -s 7 --web-status
+   --result-file R`` in a process of its own on phase 9's AlexNet-227
+   cut to 128 training samples and no validation class (so the
+   confusion comes from ``FusedTrainer.confusion_segment``), 2 epochs,
+   deterministic, a raw snapshot each epoch, ``add_plotters()``, a
+   ``Publisher`` after the plots (markdown where jinja2 imports, pdf
+   where matplotlib does), ``root.common.disable.plotting=False`` and
+   the dashboard's address as overrides. The script subscribes to the
+   run's graphics server (the run writes its endpoint and waits for its
+   renderers; a ``graphics_client --mode png`` too where matplotlib
+   imports; a line says which legs run only in the CPU tests). (a) Every
+   epoch-curve snapshot on the wire holds the result file's history, 0
+   values differing. (b) The last confusion snapshot sums to 128 and
+   equals, 0 cells differing, the confusion recomputed here from the
+   last snapshot through ``confusion_segment`` on the card
+   (deterministic); with the truth shifted by one row (each label + 1)
+   it must differ, and with fc8's classes rolled by one (weight rows and
+   bias) it must differ too and come back with the weights restored.
+   (c) That sweep equals numpy's matrix of the same forward's argmaxes,
+   every row's top-two logit gap above 0; the classes predicted are
+   printed (one under the filler's flat softmax: (b) then holds one
+   column).
+   (d) Those logits through K1 and K3 pass the centred-logit check
+   against the plain versions, a swap and a zeroed fc7 failing it. The
+   dashboard lists the run (mode ``standalone``, the unit count of
+   ``graph_description()`` of the same file built here), its session's
+   logs hold the publisher's record and its events the workflow's
+   ``run`` begin and end; the last snapshot served through
+   ``ServingFrontend`` with ``report_to`` the dashboard answers 8 single
+   requests that pass the centred-logit check, and the dashboard's
+   serving block counts them (its QPS over the metrics' window). The
+   markdown report holds every value of the result file (where
+   matplotlib imports: each plotter's PNG and the PDF are not empty);
+   ``compare_snapshots``'s ``main()`` reads 0 for the last snapshot
+   against itself and a nonzero change for every trained layer of epoch
+   2 against epoch 1. The run's launches (its ``SMOKE_KERNEL_REPORT``)
+   and the sweep's and the serving's at checked forms. Printed, not
+   gated: the run's wall and start-up, each epoch's wall, train,
+   confusion and services seconds, the graphics server's snapshots sent
+   and dropped and each one's bytes, the dashboard's requests, the
+   report's bytes; the whole result to ``chiprun_out/observers.json``.
+20. The line before the last is ``{"kernels": [...], "not_ported":
    []}``; the last is ``{"ok": true, "device": {...}}``. Any failure
    raises and exits non-zero before them.
 """
@@ -9083,6 +9126,599 @@ def service_phase(torch, numpy, kernels, card, outside):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: phase 19: the observed run. AlexNet-227 at full width through the CLI
+#: (``-s 7``), 128 training samples and no validation class (the
+#: confusion comes from ``FusedTrainer.confusion_segment``), 2 epochs
+OBSERVE_SAMPLES = 128
+OBSERVE_EPOCHS = 2
+#: single requests served from the last snapshot
+OBSERVE_REQUESTS = 8
+#: AlexNet's layers with weights: 5 convolutions, 3 fully connected
+OBSERVE_TRAINED_LAYERS = 8
+#: seconds the CLI run may take, and its start-up until the graphics
+#: endpoint is written
+OBSERVE_RUN_S = 600
+#: what the run adds to its argv (nothing on the card; a rehearsal on the
+#: CPU gives ``-a cpu``) and the device of the script's own tensors
+OBSERVE_CLI_ARGS = ()
+OBSERVE_DEVICE = "cuda"
+
+#: phase 19's workflow file: phase 9's AlexNet-227 cut to
+#: ``OBSERVE_SAMPLES`` training samples and no validation class, a raw
+#: snapshot every epoch into ``root.obs.dir``, ``add_plotters()``, a
+#: ``Publisher`` after the plot chain with the backends ``root.obs.
+#: backends`` names, and ``Observed``: at ``initialize()`` it writes the
+#: graphics endpoint and the launcher's ids to ``root.obs.dir`` and holds
+#: the run until ``root.obs.subscribers`` renderers subscribed; its
+#: results carry the epoch history. Deterministic under
+#: SMOKE_DETERMINISTIC=1; after the run it writes the runner's epoch
+#: times, the graphics server's counts and, under SMOKE_KERNEL_REPORT,
+#: the process's kernel launches
+OBSERVE_WORKFLOW_FILE = """
+import json
+import os
+
+import torch
+
+from veles_tpu_torch.config import root
+from veles_tpu_torch.models.alexnet import (ALEXNET_LAYERS,
+                                            AlexNetWorkflow,
+                                            SyntheticImageLoader)
+from veles_tpu_torch.publishing import Publisher
+from veles_tpu_torch.result_provider import IResultProvider
+from veles_tpu_torch.snapshotter import SnapshotterToFile
+from veles_tpu_torch.units import Unit
+
+
+class Observed(Unit, IResultProvider):
+    view_group = "SERVICE"
+
+    def initialize(self, **kwargs):
+        launcher = self.launcher
+        if not hasattr(launcher, "plots_endpoints"):
+            return      # restored outside a run
+        server = launcher._graphics_server
+        # written whole, then renamed: a reader sees all of it or nothing
+        path = os.path.join(root.obs.dir, "endpoint.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump({"endpoints": server.endpoints if server else None,
+                       "id": launcher.id, "log_id": launcher.log_id}, f)
+        os.replace(path + ".tmp", path)
+        if server is not None and not server.wait_for_subscribers(
+                root.obs.subscribers, 300):
+            raise RuntimeError("no renderer subscribed")
+
+    def run(self):
+        pass
+
+    def get_metric_values(self):
+        return {"epoch_history": [
+            {k: v["normalized"] for k, v in h.items()
+             if isinstance(v, dict) and "normalized" in v}
+            for h in self.workflow.decision.epoch_history]}
+
+
+if os.environ.get("SMOKE_DETERMINISTIC") == "1":
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+
+def run(load, main):
+    wf, restored = load(
+        AlexNetWorkflow,
+        loader_factory=lambda wf: SyntheticImageLoader(
+            workflow=wf, n_train=%d, n_valid=0, minibatch_size=%d),
+        layers=ALEXNET_LAYERS, max_epochs=%d, learning_rate=0.01,
+        momentum=0.9, weights_decay=5e-4)
+    snap = SnapshotterToFile(wf, compression="", time_interval=0,
+                             name="snapshotter")
+    snap.link_from(wf.decision)
+    snap.gate_skip = ~wf.loader.epoch_ended
+    snap.directory = root.obs.dir
+    wf.add_plotters()
+    pub = Publisher(wf, backends={
+        name: {"file": os.path.join(root.obs.dir, "report." + ext)}
+        for name, ext in (("markdown", "md"), ("pdf", "pdf"))
+        if name in root.obs.backends})
+    pub.link_from(wf.plotters[-1])
+    pub.gate_block = ~wf.decision.complete
+    Observed(wf, name="observed")
+    main()
+    launcher = wf.workflow
+    if launcher.runner is None:
+        return      # a dry run
+    server = launcher._graphics_server
+    with open(os.path.join(root.obs.dir, "run.json"), "w") as f:
+        json.dump({"epoch_times": launcher.runner.epoch_times,
+                   "graphics": server.stats() if server else None,
+                   "snapshot_bytes": list(server.snapshot_bytes)
+                   if server else []}, f, default=str)
+    reports = os.environ.get("SMOKE_KERNEL_REPORT")
+    if reports:
+        from veles_tpu_torch.ops import launch_report
+        os.makedirs(reports, exist_ok=True)
+        with open(os.path.join(reports, "%%d.json" %% os.getpid()),
+                  "w") as f:
+            json.dump(launch_report(), f)
+""" % (OBSERVE_SAMPLES, TRAIN_BATCH, OBSERVE_EPOCHS)
+
+
+def importable(name):
+    import importlib.util
+    return importlib.util.find_spec(name) is not None
+
+
+def observed_overrides(tmp, dashboard, subscribers, backends):
+    return ["root.obs.dir=%r" % tmp, "root.obs.subscribers=%d" % subscribers,
+            "root.obs.backends=%r" % (backends,),
+            "root.common.disable.plotting=False",
+            "root.common.web.host='127.0.0.1'",
+            "root.common.web.port=%d" % dashboard.port,
+            "root.common.web.notification_interval=0.2"]
+
+
+def observed_run(tmp, dashboard, renderers):
+    """The CLI run of phase 19 in a process of its own, watched: the
+    script subscribes to its graphics server (and a ``graphics_client``
+    renders PNGs where matplotlib imports). Returns (snapshots received,
+    the endpoint file, wall s, start-up s, the run's log path)."""
+    import pickle
+    import subprocess
+    import zlib
+    from veles_tpu_torch.graphics_server import TOPIC_END, Subscription
+    path = os.path.join(tmp, "observed.py")
+    with open(path, "w") as f:
+        f.write(OBSERVE_WORKFLOW_FILE)
+    backends = [name for name, module in (("markdown", "jinja2"),
+                                          ("pdf", "matplotlib"))
+                if renderers[module]]
+    subscribers = 2 if renderers["matplotlib"] else 1
+    argv = [sys.executable, "-m", "veles_tpu_torch", path, "-s", "7",
+            "--web-status", "--result-file",
+            os.path.join(tmp, "results.json")] + list(OBSERVE_CLI_ARGS) + \
+        observed_overrides(tmp, dashboard, subscribers, backends)
+    env = dict(os.environ, PYTHONPATH=REPO, SMOKE_DETERMINISTIC="1",
+               SMOKE_KERNEL_REPORT=os.path.join(tmp, "kernels"))
+    log = os.path.join(tmp, "observed.log")
+    endpoint_file = os.path.join(tmp, "endpoint.json")
+    t0 = time.perf_counter()
+    client = None
+    with open(log, "w") as out:
+        proc = subprocess.Popen(argv, env=env, cwd=tmp, stdout=out,
+                                stderr=subprocess.STDOUT)
+    try:
+        while not os.path.exists(endpoint_file):
+            if proc.poll() is not None or \
+                    time.perf_counter() - t0 > OBSERVE_RUN_S:
+                raise AssertionError("observed run: no endpoint (exit %s)"
+                                     % proc.poll())
+            time.sleep(0.05)
+        startup_s = time.perf_counter() - t0
+        with open(endpoint_file) as f:
+            endpoint = json.load(f)
+        tcp = endpoint["endpoints"]["tcp"]
+        subscription = Subscription(tcp)
+        if renderers["matplotlib"]:
+            client = subprocess.Popen(
+                [sys.executable, "-m", "veles_tpu_torch.graphics_client",
+                 "--endpoint", tcp, "--mode", "png", "--out",
+                 os.path.join(tmp, "png")],
+                env=dict(os.environ, PYTHONPATH=REPO,
+                         CUDA_VISIBLE_DEVICES=""), cwd=tmp)
+            os.makedirs(os.path.join(tmp, "png"), exist_ok=True)
+        snapshots = []
+        while True:
+            message = subscription.get(OBSERVE_RUN_S)
+            if message is None:
+                raise AssertionError("observed run: no snapshot for %d s"
+                                     % OBSERVE_RUN_S)
+            topic, payload = message
+            if topic == TOPIC_END:
+                break
+            snapshots.append(pickle.loads(zlib.decompress(payload)))
+        subscription.close()
+        code = proc.wait(timeout=OBSERVE_RUN_S)
+        wall_s = time.perf_counter() - t0
+        if client is not None and client.wait(timeout=60) != 0:
+            raise AssertionError("graphics_client exited %d"
+                                 % client.returncode)
+    finally:
+        for p in (proc, client):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+    if code != 0:
+        with open(log, errors="replace") as f:
+            raise AssertionError("observed run exited %d:\n%s"
+                                 % (code, f.read()[-4000:]))
+    return snapshots, endpoint, wall_s, startup_s, log
+
+
+def dashboard_checks(dashboard, endpoint, units):
+    """(3): the run listed (its id, mode ``standalone``, ``units`` units),
+    its publisher's record among its session's logs, its workflow's
+    ``run`` begin and end among its events."""
+    got = dashboard.receive_request({
+        "request": "workflows", "args": ["mode", "units", "name"]})
+    entry = got["result"].get(endpoint["id"])
+    logs = dashboard.receive_request({
+        "request": "logs", "find": {"session": endpoint["log_id"]}})
+    published = [r["message"] for r in logs["result"]
+                 if r["message"].startswith("publishing the results")]
+    events = dashboard.receive_request({
+        "request": "events", "find": {"session": endpoint["log_id"],
+                                      "name": "run"}})["result"]
+    run_events = [e["type"] for e in events
+                  if e["instance"].startswith("AlexNetWorkflow@")]
+    checks = {"listed": entry == {"mode": "standalone", "units": units,
+                                  "name": "AlexNetWorkflow"},
+              "publisher_logged": len(published) == 1,
+              "run_begin_end": run_events == ["begin", "end"]}
+    result = {"entry": entry, "logs": len(logs["result"]),
+              "published": published, "run_events": run_events,
+              "checks": checks}
+    print("observers dashboard: %s" % json.dumps(result))
+    if not all(checks.values()):
+        raise AssertionError("observers dashboard: %s" % result)
+    return result
+
+
+def curve_checks(snapshots, history):
+    """(2a): every epoch-curve snapshot holds the result file's history
+    up to its epoch; returns the values differing (0)."""
+    seen, differing = {}, 0
+    for snap in snapshots:
+        if type(snap).__name__ != "EpochMetricPlotter":
+            continue
+        i = seen[snap.name] = seen.get(snap.name, -1) + 1
+        want = [h[snap.klass] for h in history[:i + 1] if snap.klass in h]
+        differing += sum(1 for g, w in zip(snap.values, want) if g != w)
+        differing += abs(len(snap.values) - len(want))
+    if seen.get("train n_err_pt") != OBSERVE_EPOCHS - 1 or differing:
+        raise AssertionError("observers curves: %s snapshots, %d values "
+                             "differ" % (seen, differing))
+    return {"curve_snapshots": {k: v + 1 for k, v in seen.items()},
+            "curve_values_differing": differing}
+
+
+def confusion_checks(torch, numpy, snapshot, matrix):
+    """(2b-d): the last snapshot restored in this process; the confusion
+    recomputed by ``confusion_segment`` on the card (deterministic, as
+    the run) against the run's last plotted ``matrix``, with the truth
+    shifted by one row as the control of the truth, and with fc8's
+    classes rolled by one as the control of the forward (the matrix must
+    move; with the weights restored it must come back); the same sweep
+    against numpy's matrix of the forward's argmaxes, every row's
+    top-two logit gap above 0 (no tie for the argmax to break), and the
+    count of classes predicted printed: under the filler's flat softmax
+    every argmax may land on one class, and then (b) holds one column;
+    those logits held to the plain versions by the centred-logit check.
+    Returns (result, the launches by form of the sweeps)."""
+    from veles_tpu_torch.dummy import DummyLauncher
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.nn.all2all import All2AllSoftmax
+    from veles_tpu_torch.snapshotter import SnapshotterToFile
+    from veles_tpu_torch.train.runner import trainer_for
+    warned = []
+    wf = SnapshotterToFile.import_(snapshot)
+    wf.workflow = DummyLauncher()
+    with deterministic(torch, warned):
+        wf.initialize(device=torch.device(OBSERVE_DEVICE))
+        trainer = trainer_for(wf)
+        idx = trainer._segment_indices(TRAIN)
+        reset_counts()
+        conf = trainer.confusion_segment(None, idx).cpu().numpy()
+        counts, forms = read_counts()
+        kernel, plain, zeroed, truth = [], [], [], []
+        k1 = [i for i, m in enumerate(trainer.forwards)
+              if type(m).__name__.startswith("All2All") and
+              not isinstance(m, All2AllSoftmax)]
+        with torch.no_grad():
+            for row in idx:
+                x, labels, valid = trainer._gather(
+                    torch.from_numpy(row).to(trainer.device))
+                kernel.append(trainer._forward(x, False)[valid])
+                trainer.plain = True
+                plain.append(trainer._forward(x, False)[valid])
+                trainer.plain = False
+                zeroed.append(forward_zeroing(trainer.forwards, x,
+                                              k1[-1])[valid])
+                truth.append(labels[valid])
+        forms = read_counts()[1]
+        # the forward's control: fc8's classes rolled by one (its weight
+        # rows and bias) move every argmax one column, so the matrix must
+        # move with them; then the weights go back and the sweep again
+        # gives the run's matrix
+        params = trainer.pull_params()[0]
+        rolled = [dict(layer) for layer in params]
+        bias = rolled[-1]["bias"]
+        rolled[-1] = {k: torch.roll(v, 1, dims=[
+            d for d, n in enumerate(v.shape) if n == bias.shape[0]][0])
+            for k, v in rolled[-1].items()}
+        fc8_rolled = trainer.confusion_segment(rolled, idx).cpu().numpy()
+        restored = trainer.confusion_segment(params, idx).cpu().numpy()
+        # the truth's control: shifted by one row of the matrix (each
+        # sample's label + 1; rolling the samples' labels instead would
+        # leave the matrix alone when every argmax is one class)
+        loader = wf.loader
+        loader.original_labels = torch.remainder(
+            loader.original_labels + 1, conf.shape[0]).to(
+            loader.original_labels.dtype)
+        loader.release_staged()
+        shifted = trainer_for(wf).confusion_segment(None, idx).cpu().numpy()
+    logits = torch.cat(kernel).float().cpu().numpy()
+    truth = torch.cat(truth).cpu().numpy()
+    argmax = numpy.zeros(conf.shape, numpy.int32)
+    numpy.add.at(argmax, (truth, logits.argmax(axis=1)), 1)
+    # each row's top-two gap: (c) means something only where the argmax
+    # is not a tie; the classes predicted say how many columns (b) holds
+    top2 = numpy.sort(logits, axis=1)[:, -2:]
+    gaps = top2[:, 1] - top2[:, 0]
+    spreads = logits.max(axis=1) - logits.min(axis=1)
+
+    def probs(t):
+        return torch.softmax(t.float(), dim=1).cpu().numpy()
+
+    kernel_p, plain_p = probs(torch.cat(kernel)), probs(torch.cat(plain))
+    swapped = kernel_p.copy()
+    swapped[[0, 1]] = kernel_p[[1, 0]]
+    err, spread, shares = check_replies(
+        numpy, "observers confusion logits", kernel_p, plain_p,
+        [("swapped", swapped),
+         ("fc7_zeroed", torch.cat(zeroed).float().cpu().numpy())])
+    result = {
+        "matrix_sum": int(matrix.sum()),
+        "recomputed_cells_differing": int((conf != matrix).sum()),
+        "shifted_truth_cells_differing": int((shifted != matrix).sum()),
+        "fc8_rolled_cells_differing": int((fc8_rolled != matrix).sum()),
+        "fc8_rolled_is_columns_rolled": bool(
+            (fc8_rolled == numpy.roll(conf, 1, axis=1)).all()),
+        "restored_cells_differing": int((restored != conf).sum()),
+        "argmax_cells_differing": int((argmax != conf).sum()),
+        "predicted_classes": int(len(numpy.unique(logits.argmax(axis=1)))),
+        "top2_gap_min": float(gaps.min()),
+        "top2_gap_median": float(numpy.median(gaps)),
+        "logit_spread_median": float(numpy.median(spreads)),
+        "sweep_launches": counts, "centred_logit_err": err,
+        "centred_logit_spread": spread, "control_shares": shares,
+        "nondeterministic_ops": warned}
+    print("observers confusion: %s" % json.dumps(result))
+    if result["matrix_sum"] != OBSERVE_SAMPLES or \
+            result["recomputed_cells_differing"] or \
+            not result["shifted_truth_cells_differing"] or \
+            not result["fc8_rolled_cells_differing"] or \
+            result["restored_cells_differing"] or \
+            result["argmax_cells_differing"] or \
+            not result["top2_gap_min"] > 0 or \
+            not counts.get("gemm_bias_act") or not counts.get("lrn_fwd"):
+        raise AssertionError("observers confusion: %s" % result)
+    del wf, trainer
+    return result, forms
+
+
+def observed_serving(torch, numpy, dashboard, snapshot):
+    """(3): the last snapshot behind ``ServingFrontend`` reporting to the
+    dashboard; ``OBSERVE_REQUESTS`` single requests, their replies held
+    to the plain forward by the centred-logit check with its controls;
+    the dashboard's serving block counts them (its queries a second over
+    the metrics' window). Returns (result, launches by form)."""
+    from veles_tpu_torch.models.build import plain_forward
+    from veles_tpu_torch.nn.all2all import All2AllSoftmax
+    from veles_tpu_torch.serving.frontend import ServingFrontend
+    from veles_tpu_torch.serving.model_store import ModelStore
+    model = ModelStore().load(snapshot, device=OBSERVE_DEVICE)
+    frontend = ServingFrontend(model, host="127.0.0.1", port=0,
+                               replicas=1, max_batch_size=8,
+                               batch_timeout_ms=5.0, max_queue=64,
+                               response_timeout=300.0).start()
+    reporter = frontend.report_to("127.0.0.1:%d" % dashboard.port,
+                                  interval=0.2, name="observed serving")
+    window = frontend.metrics._qps_window
+    rng = numpy.random.RandomState(19)
+    inputs = rng.uniform(-1, 1, (OBSERVE_REQUESTS,) + tuple(
+        model.sample_shape)).astype(numpy.float32)
+    bodies = [json.dumps({"input": x.tolist(), "codec": "list",
+                          "id": i}).encode() for i, x in enumerate(inputs)]
+    try:
+        reset_counts()
+        replies, latencies, wall = concurrent_posts(frontend.port, bodies)
+        counts, forms = read_counts()
+        block, deadline = None, time.time() + 30
+        while time.time() < deadline:
+            entry = dashboard.receive_request({
+                "request": "workflows",
+                "args": ["serving"]})["result"].get(reporter.id)
+            block = (entry or {}).get("serving")
+            if block and round(block["qps"] * window) == OBSERVE_REQUESTS:
+                break
+            time.sleep(0.1)
+    finally:
+        frontend.stop()
+    served = numpy.array([replies[i]["result"]
+                          for i in range(OBSERVE_REQUESTS)])
+    k1 = [i for i, m in enumerate(model.module)
+          if type(m).__name__.startswith("All2All") and
+          not isinstance(m, All2AllSoftmax)]
+    want = forward_rows(torch, numpy, lambda x: plain_forward(
+        model.module, x), inputs)
+    swapped = served.copy()
+    swapped[[0, 1]] = served[[1, 0]]
+    zeroed = forward_rows(torch, numpy, lambda x: forward_zeroing(
+        model.module, x, k1[-1]), inputs)
+    err, spread, shares = check_replies(
+        numpy, "observers serving", served, want,
+        [("swapped", swapped), ("fc7_zeroed", zeroed)])
+    counted = None if not block else round(block["qps"] * window)
+    result = {"requests": OBSERVE_REQUESTS, "dashboard_counted": counted,
+              "dashboard_block": block, "launches": counts,
+              "p50_ms": 1e3 * statistics.median(latencies), "wall_s": wall,
+              "centred_logit_err": err, "control_shares": shares}
+    print("observers serving: %s" % json.dumps(result))
+    if counted != OBSERVE_REQUESTS or not counts.get("gemm_bias_act"):
+        raise AssertionError("observers serving: %s" % result)
+    del model
+    return result, forms
+
+
+def snapshot_diffs(tmp):
+    """(4): ``compare_snapshots.main()`` of the last snapshot against
+    itself (every max diff 0) and of epoch 2 against epoch 1 (every
+    trained layer's weights moved)."""
+    import io
+    from contextlib import redirect_stdout
+    from veles_tpu_torch.scripts import compare_snapshots
+
+    def table(first, second):
+        out = io.StringIO()
+        with redirect_stdout(out):
+            if compare_snapshots.main(["-q", first, second]) != 0:
+                raise AssertionError("compare_snapshots failed")
+        rows = {}
+        for line in out.getvalue().splitlines()[3:-1]:
+            cells = [c.strip() for c in line.strip("|").split("|")]
+            rows[(cells[0], cells[1])] = float(cells[4])
+        return rows
+
+    first, last = (os.path.join(tmp, "wf.%d.pickle" % e)
+                   for e in (OBSERVE_EPOCHS - 2, OBSERVE_EPOCHS - 1))
+    same = table(last, last)
+    moved = table(first, last)
+    weights = {unit: v for (unit, attr), v in moved.items()
+               if attr == "weights"}
+    result = {"self_max_diff": max(same.values()), "rows": len(same),
+              "trained_layers": len(weights),
+              "unmoved_layers": sorted(k for k, v in weights.items()
+                                       if not v > 0),
+              "weights_max_diff": weights}
+    print("observers compare_snapshots: %s" % json.dumps(result))
+    if result["self_max_diff"] != 0 or \
+            len(weights) != OBSERVE_TRAINED_LAYERS or \
+            result["unmoved_layers"]:
+        raise AssertionError("observers compare_snapshots: %s" % result)
+    return result
+
+
+def report_checks(tmp, results, renderers):
+    """(4): the report holds every value of the result file (the
+    publisher's ``gather_info()`` results, as the markdown template
+    prints them), and where matplotlib renders, each plotter's PNG and
+    the PDF exist and are not empty. Returns the report's bytes by
+    file."""
+    out = {}
+    if renderers["jinja2"]:
+        with open(os.path.join(tmp, "report.md")) as f:
+            text = f.read()
+        section = text.split("## Results", 1)[1].split("\n## ", 1)[0]
+        rows = dict(line.strip("|").split(" | ", 1) for line in
+                    section.strip().splitlines()[2:])
+        rows = {k.strip(): v.strip() for k, v in rows.items()}
+        missing = {k: (rows.get(k), str(v)) for k, v in results.items()
+                   if rows.get(k) != str(v)}
+        if missing or len(rows) != len(results):
+            raise AssertionError("observers report: rows differ from the "
+                                 "result file: %s" % missing)
+        out["report.md"] = len(text.encode())
+    if renderers["matplotlib"]:
+        for name in ("train_n_err_pt", "validation_n_err_pt", "confusion"):
+            out["png/%s.png" % name] = os.path.getsize(
+                os.path.join(tmp, "png", name + ".png"))
+        out["report.pdf"] = os.path.getsize(os.path.join(tmp,
+                                                         "report.pdf"))
+        if not all(out.values()):
+            raise AssertionError("observers renders: %s" % out)
+    return out
+
+
+def observers_phase(torch, numpy, kernels, card):
+    """Phase 19 (see the module docstring). Returns (result,
+    [launches_by_form])."""
+    import shutil
+    import tempfile
+    from veles_tpu_torch.__main__ import Main
+    from veles_tpu_torch.telemetry.registry import get_registry
+    from veles_tpu_torch.web_status import WebStatusServer
+    renderers = {m: importable(m) for m in ("matplotlib", "jinja2")}
+    absent = [m for m, ok in renderers.items() if not ok]
+    if absent:
+        print("observers: %s does not import here: %s run only in the CPU "
+              "tests (tests/test_torch_plotting.py, tests/test_torch_"
+              "publisher.py, tests/test_torch_observers.py)" % (
+                  " and ".join(absent), ", ".join(
+                      {"matplotlib": "the graphics client, the PNGs and the "
+                                     "PDF report",
+                       "jinja2": "the markdown report"}[m]
+                      for m in absent)))
+    tmp = tempfile.mkdtemp(prefix="veles-observers-")
+    t0 = time.perf_counter()
+    dashboard = WebStatusServer(host="127.0.0.1", port=0).start()
+    requests = get_registry().get("veles_webstatus_http_requests_total")
+    before = {d["path"]: c.value for d, c in requests.series()}
+    try:
+        snapshots, endpoint, wall_s, startup_s, log = observed_run(
+            tmp, dashboard, renderers)
+        with open(os.path.join(tmp, "results.json")) as f:
+            results = json.load(f)
+        with open(os.path.join(tmp, "run.json")) as f:
+            run = json.load(f)
+        # the same file built here (not run) for its unit count
+        main = Main()
+        if main.run([os.path.join(tmp, "observed.py"), "-s", "7",
+                     "--dry-run", "exec"] + observed_overrides(
+                         tmp, dashboard, 0, [])) != 0:
+            raise AssertionError("observers: the dry run failed")
+        units = len(main.workflow.graph_description()["nodes"])
+        del main
+        result = {"run_wall_s": wall_s, "startup_s": startup_s,
+                  "epochs": [{k: t.get(k) for k in (
+                      "wall_s", "train_s", "confusion_s", "services_s")}
+                      for t in run["epoch_times"]],
+                  "graphics": run["graphics"],
+                  "snapshot_bytes": run["snapshot_bytes"],
+                  "renderers": renderers,
+                  "dashboard": dashboard_checks(dashboard, endpoint, units)}
+        result.update(curve_checks(snapshots, results["epoch_history"]))
+        matrix = [s for s in snapshots
+                  if type(s).__name__ == "MatrixPlotter"][-1].matrix
+        last = os.path.join(tmp, "wf.%d.pickle" % (OBSERVE_EPOCHS - 1))
+        result["confusion"], sweep_forms = confusion_checks(
+            torch, numpy, last, matrix)
+        result["report_bytes"] = report_checks(tmp, results, renderers)
+        result["compare_snapshots"] = snapshot_diffs(tmp)
+        torch.cuda.empty_cache()
+        result["serving"], serve_forms = observed_serving(
+            torch, numpy, dashboard, last)
+        reports = kernel_reports(os.path.join(tmp, "kernels"))
+        if len(reports) != 1:
+            raise AssertionError("observers: %d kernel reports"
+                                 % len(reports))
+        run_forms = reported_forms("observed run", kernels,
+                                   list(reports.values())[0],
+                                   META_TRAIN_KERNELS)
+        result["run_launches"] = {k: v["launches"] for k, v in
+                                  list(reports.values())[0].items()}
+        for label, forms in (("observers sweep", sweep_forms),
+                             ("observers serving", serve_forms)):
+            check_forms(label, kernels, forms)
+        after = {d["path"]: c.value for d, c in requests.series()}
+        result["dashboard_requests"] = {
+            k: v - before.get(k, 0) for k, v in after.items()
+            if v - before.get(k, 0)}
+        result["phase_s"] = time.perf_counter() - t0
+        print("observers: run %.1f s (start-up %.1f s), epochs %s, "
+              "graphics %s, snapshot bytes %s, dashboard requests %s, "
+              "report bytes %s" % (
+                  wall_s, startup_s, json.dumps(result["epochs"]),
+                  json.dumps(run["graphics"]),
+                  json.dumps(run["snapshot_bytes"]),
+                  json.dumps(result["dashboard_requests"]),
+                  json.dumps(result["report_bytes"])))
+        return result, [run_forms, sweep_forms, serve_forms]
+    finally:
+        dashboard.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def numpy_load(path):
     import numpy
     with numpy.load(path) as data:
@@ -9149,6 +9785,10 @@ def main():
         torch.__version__, torch.version.cuda,
         torch.cuda.get_device_name(0)))
     phase_s = {}
+    # the launches each phase counted (all forms), by the phase's name:
+    # phases 14-17 run beside each other, and how many jobs, steps and
+    # requests their legs take depends on timing
+    phases, launches_by_phase, counted = [], {}, 0
     t0 = mark = time.perf_counter()
     seconds = build.build_all()
     print("build: %s (all in parallel, %.1f s wall)" % (
@@ -9159,11 +9799,17 @@ def main():
         if kv[0].endswith("_binding.cpp")))
     get_policy("float32").configure_backends()
 
-    def lap(name):
-        nonlocal mark
+    def lap(name, legs=None):
+        nonlocal mark, counted
         now = time.perf_counter()
         phase_s[name] = round(now - mark, 1)
         mark = now
+        for leg, forms in legs or ((name, phases[counted:]),):
+            if forms:
+                launches_by_phase[leg] = {
+                    k: sum(v.values())
+                    for k, v in sorted(merge_forms(*forms).items())}
+        counted = len(phases)
 
     lap("build")
     kernels = gemm_phase(torch)
@@ -9201,7 +9847,7 @@ def main():
     del model
     lap("serving")
 
-    phases = [serving_forms]
+    phases.append(serving_forms)
     trained = []
     for policy, check in (("float32", True), ("bfloat16", False)):
         result, forms = training_phase(torch, policy, check)
@@ -9290,7 +9936,9 @@ def main():
     print("meta (%s): %s" % (card, json.dumps({
         k: v.get("checks", "") if isinstance(v, dict) else v
         for k, v in meta.items()}, default=str)))
-    lap("distributed, spmd, elastic and meta beside each other")
+    lap("distributed, spmd, elastic and meta beside each other", (
+        ("distributed", forms14), ("spmd", forms15),
+        ("elastic", forms16), ("meta", forms17)))
 
     now = split_launches()
     service, forms = service_phase(torch, numpy, kernels, card, {
@@ -9303,10 +9951,18 @@ def main():
         if isinstance(v, dict) else v for k, v in service.items()},
         default=str)))
     lap("service")
+
+    observers, forms = observers_phase(torch, numpy, kernels, card)
+    phases.extend(forms)
+    with open(os.path.join(out_dir, "observers.json"), "w") as f:
+        json.dump(observers, f, default=str)
+    lap("observers")
     phase_s.update(("%s (its own wall)" % k, round(v, 1))
                    for k, v in walls.items())
     print("phase seconds (%s): %s, %.1f in all" % (
         card, json.dumps(phase_s), time.perf_counter() - t0))
+    print("launches by phase (%s): %s" % (card,
+                                          json.dumps(launches_by_phase)))
 
     for row in kernels:
         form = row.pop("_form")

@@ -1395,3 +1395,39 @@ def test_autotune_search_at_fc7_m16_matches_the_plain_version(
             rtol=1e-4)
     finally:
         autotune.reset()
+
+
+def test_confusion_segment_on_the_card_equals_the_argmax_matrix(card):
+    """The train-class confusion sweep through K1 and K3 on the card
+    equals the matrix numpy builds from the argmax of the same forward's
+    logits (the scatter-add held), and a confusion plotter's snapshot
+    holds host arrays only."""
+    import pickle
+    from veles_tpu_torch.dummy import DummyWorkflow
+    from veles_tpu_torch.plotting_units import MatrixPlotter
+    trainer = _small_trainer(card)
+    idx = trainer._segment_indices(TRAIN)
+    conf = trainer.confusion_segment(None, idx)
+    assert conf.device.type == "cuda" and conf.dtype == torch.int32
+    logits, truth = [], []
+    with torch.no_grad():
+        for row in idx:
+            x, labels, valid = trainer._gather(
+                torch.from_numpy(row).to(card))
+            out = trainer._forward(x, False).reshape(len(row), -1)
+            logits.append(out[valid].cpu().numpy())
+            truth.append(labels[valid].cpu().numpy())
+    logits, truth = numpy.concatenate(logits), numpy.concatenate(truth)
+    want = numpy.zeros(conf.shape, numpy.int32)
+    numpy.add.at(want, (truth, logits.argmax(axis=1)), 1)
+    assert int(conf.sum()) == trainer.loader.class_lengths[TRAIN]
+    assert int((conf.cpu().numpy() != want).sum()) == 0
+    plotter = MatrixPlotter(DummyWorkflow(), name="confusion")
+    plotter.input = conf
+    plotter.fill()
+    plotter.stripped_pickle = True
+    clone = pickle.loads(pickle.dumps(plotter))
+    assert isinstance(clone.matrix, numpy.ndarray)
+    numpy.testing.assert_array_equal(clone.matrix, want)
+    assert not [k for k, v in vars(clone).items()
+                if isinstance(v, torch.Tensor) and v.device.type == "cuda"]

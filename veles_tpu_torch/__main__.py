@@ -24,7 +24,12 @@ span tracing (removing a stale FILE first) and, at exit, writes the
 trace buffer there (Chrome trace-event JSON: open it in Perfetto) and,
 on the card, the caching allocator's snapshot, recorded from the start,
 to ``FILE.memprof``. Every run starts the memory sampler
-(``VELES_MEMORY_SAMPLE_S``; 0 turns it off).
+(``VELES_MEMORY_SAMPLE_S``; 0 turns it off). ``--web-status`` posts the
+run's status, logs and events to the dashboard at ``root.common.web``
+(``python -m veles_tpu_torch.web_status``); with plotting on
+(``root.common.disable.plotting=False`` where there is no display) the
+launcher starts the graphics server that the workflow's plotters send
+to, unless ``--no-graphics``.
 
     python -m veles_tpu_torch serve --model <snapshot | URI | package> ...
 
@@ -227,7 +232,7 @@ class Main(Logger):
             "slave_death_probability", "job_timeout", "nodes", "respawn",
             "segment_size", "pipeline", "secret_file", "max_frame_mb",
             "exchange_dtype", "exchange_eps", "straggler_drop_s",
-            "reconnect_s")}
+            "reconnect_s", "graphics", "web_status")}
 
     def _join_world(self, argv):
         """The SPMD world of ``--gspmd`` and the multi-process flags,

@@ -11,6 +11,7 @@ files: its configuration comes from the command line, the config file
 and the workflow file alone.
 """
 
+import os
 import runpy
 import threading
 
@@ -159,7 +160,13 @@ def _init_defaults():
         },
         "timings": False,
         "exceptions": {"run_after_stop": True},
-        "disable": {"snapshotting": False},
+        # plotting is off without a display (the JAX package's default:
+        # a run on a headless host turns it on with an override)
+        "disable": {"plotting": "DISPLAY" not in os.environ,
+                    "publishing": False, "snapshotting": False},
+        # the web_status dashboard a ``--web-status`` run posts to
+        "web": {"host": "localhost", "port": 8090,
+                "notification_interval": 1.0},
         # where ``restful_api.RESTfulAPI`` listens by default
         "api": {"host": "localhost", "port": 8180, "path": "/api"},
         # the ensemble member a run is (``ensemble/``): its index, the

@@ -42,6 +42,17 @@ A :class:`Launcher` runs its workflow in one of three modes:
   encode, and the wait for each exchange) are in
   :attr:`Launcher.job_log`.
 
+The run's observers (``veles_tpu/launcher.py``): unless ``--no-graphics``
+or ``root.common.disable.plotting`` (on by default without a display),
+``initialize`` starts the graphics server (:mod:`veles_tpu_torch.
+graphics_server`; its endpoint in ``plots_endpoints``), which the
+workflow's plotters send their snapshots to; a master with one drives the
+``SlaveStats`` chart from a ticker of its own (it never runs its graph).
+``--web-status`` posts :meth:`Launcher.status` to the dashboard at
+``root.common.web`` (:mod:`veles_tpu_torch.web_status`) every
+``notification_interval`` seconds and sends it the run's log records
+and events. ``stop()`` ends all of them.
+
 ``--gspmd MESH`` runs the standalone mode's training through the SPMD
 tier (:class:`~veles_tpu_torch.parallel.gspmd.GSPMDTrainer` over a
 ``batch`` x ``model`` grid, ``run_mode_used == "gspmd"``): one process
@@ -69,6 +80,7 @@ import uuid
 import torch
 
 from veles_tpu_torch.cmdline import CommandLineArgumentsRegistry
+from veles_tpu_torch.config import root
 from veles_tpu_torch.envknob import env_knob
 from veles_tpu_torch.loader.base import TRAIN
 from veles_tpu_torch.logger import Logger
@@ -83,7 +95,7 @@ KWARGS = frozenset([
     "heartbeat_timeout", "heartbeat_interval", "nodes", "respawn",
     "segment_size", "pipeline", "secret_file", "max_frame_mb",
     "exchange_dtype", "exchange_eps", "auto_resume", "straggler_drop_s",
-    "reconnect_s", "gspmd"])
+    "reconnect_s", "gspmd", "graphics", "web_status"])
 
 
 def _blob_nbytes(blob):
@@ -274,6 +286,10 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         self.gspmd = kwargs.get("gspmd") or env_knob("VELES_GSPMD")
         if self.gspmd and not self.is_standalone:
             raise ValueError("--gspmd runs standalone, not with -l or -m")
+        #: start the graphics server (unless plotting is disabled), and
+        #: post status, logs and events to the web_status dashboard
+        self.graphics = kwargs.get("graphics", True)
+        self.web_status = kwargs.get("web_status", False)
         self.id = str(uuid.uuid4())
         self.log_id = self.id[:8]
         self.workflow = None
@@ -296,6 +312,13 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         self._executor = None
         self._node_launcher = None
         self._flight_listener = None
+        self._graphics_server = None
+        self.plots_endpoints = ()
+        self._slave_stats_plotter = None
+        self._status_thread = None
+        self._web_log_handler = None
+        self._web_event_sink = None
+        self._graph_cache = None
         self._finished = threading.Event()
 
     @staticmethod
@@ -333,6 +356,13 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         parser.add_argument(
             "--jax-process-id", type=int, default=None,
             help="multi-process world: this process's rank")
+        parser.add_argument(
+            "--no-graphics", dest="graphics", action="store_false",
+            help="do not start the graphics server (plots)")
+        parser.add_argument(
+            "--web-status", action="store_true",
+            help="post status, logs and events to the web_status "
+                 "dashboard at root.common.web")
         parser.add_argument(
             "--slave-death-probability", type=float, default=0.0,
             help="chaos: probability a slave dies mid-job")
@@ -444,6 +474,8 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         if self.workflow is None:
             raise RuntimeError("no workflow attached to this launcher")
         self.start_time = time.time()
+        if self.graphics and not root.common.disable.get("plotting", True):
+            self._launch_graphics()
         if self.is_master:
             # masters do no compute: the weights live on the host
             self.device = torch.device("cpu")
@@ -473,6 +505,9 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
             self._start_master()
         elif self.is_slave:
             self._connect_slave()
+        if self.web_status:
+            self._start_status_notifier()
+            self._attach_dashboard_sinks()
         return self
 
     def _try_auto_resume(self):
@@ -684,6 +719,42 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         self.info("master listening on %s:%d", *self._server.address)
         if self.nodes:
             self._spawn_nodes()
+        self._start_slave_stats()
+
+    def _launch_graphics(self):
+        from veles_tpu_torch.graphics_server import GraphicsServer
+        self._graphics_server = GraphicsServer()
+        self.plots_endpoints = self._graphics_server.endpoints
+        self.info("graphics server on %s", self.plots_endpoints["tcp"])
+
+    def _start_slave_stats(self, interval=2.0):
+        """The master's driver of the per-slave load chart: a master
+        never runs its graph (jobs run on the slaves, and plotters are
+        off there), so the ``SlaveStats`` plotter ticks on a timer of its
+        own over the coordinator's registry. Only with a graphics server
+        to send to."""
+        if self._graphics_server is None or self._server is None:
+            return
+        from veles_tpu_torch.plotting_units import SlaveStats
+        plotter = SlaveStats(self.workflow, name="slave stats",
+                             server=self._server)
+        self._slave_stats_plotter = plotter
+
+        def tick():
+            warned = False
+            while not self._finished.wait(interval):
+                try:
+                    plotter.run()
+                    warned = False
+                except Exception:  # a chart must never kill the master
+                    if not warned:
+                        warned = True
+                        self.warning("SlaveStats plotter failing; chart "
+                                     "stale until it recovers",
+                                     exc_info=True)
+
+        threading.Thread(target=tick, daemon=True,
+                         name="slave-stats").start()
 
     def _spawn_nodes(self):
         import socket as socket_mod
@@ -798,6 +869,101 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         for entry, waits in zip(self.job_log, self._client.job_log):
             entry.update(waits)
 
+    # -- the dashboard -----------------------------------------------------
+
+    def _start_status_notifier(self):
+        """POST :meth:`status` to the dashboard's ``/update`` every
+        ``root.common.web.notification_interval`` seconds until the run
+        finishes."""
+        import json
+        import urllib.request
+
+        def notify():
+            interval = root.common.web.get("notification_interval", 1.0)
+            url = "http://%s:%d/update" % (root.common.web.host,
+                                           root.common.web.port)
+            while not self._finished.wait(interval):
+                try:
+                    req = urllib.request.Request(
+                        url, data=json.dumps(self.status()).encode(),
+                        headers={"Content-Type": "application/json"})
+                    urllib.request.urlopen(req, timeout=2.0).close()
+                except Exception:  # the dashboard being down is no fault
+                    pass
+
+        self._status_thread = threading.Thread(
+            target=notify, daemon=True, name="status-notifier")
+        self._status_thread.start()
+
+    def _attach_dashboard_sinks(self):
+        """Feed the dashboard's logs page and event timeline live."""
+        from veles_tpu_torch import logger as logger_mod
+        from veles_tpu_torch.web_status import (WebStatusEventSink,
+                                                WebStatusLogHandler)
+        self._web_log_handler = WebStatusLogHandler(
+            session=self.log_id, node=self.mode)
+        logging.getLogger().addHandler(self._web_log_handler)
+        self._web_event_sink = logger_mod.add_event_sink(
+            WebStatusEventSink(session_id=self.log_id))
+
+    def _detach_dashboard_sinks(self):
+        from veles_tpu_torch import logger as logger_mod
+        handler = self._web_log_handler
+        if handler is not None:
+            logging.getLogger().removeHandler(handler)
+            handler.close()
+            self._web_log_handler = None
+        sink = self._web_event_sink
+        if sink is not None:
+            logger_mod.remove_event_sink(sink)
+            sink.close()
+            self._web_event_sink = None
+
+    def status(self):
+        """The status JSON the dashboard's ``/update`` takes: identity,
+        mode, the slaves (a master's), the workflow's unit count and
+        graph, ``perf`` (``veles_step_mfu`` and the flight recorder's
+        last record) and a master's cluster health table."""
+        wf = self.workflow
+        slaves = {}
+        if self._server is not None:
+            slaves = {s.id: {"power": s.power, "state": s.state,
+                             "jobs_done": s.jobs_done,
+                             "in_flight": len(s.jobs_in_flight),
+                             "age": round(time.time() - s.last_seen, 1)}
+                      for s in self._server.snapshot_slaves()}
+        if wf is not None and self._graph_cache is None:
+            try:
+                self._graph_cache = wf.graph_description()
+            except Exception:
+                # a unit changing under the read: the next tick retries
+                self._graph_cache = None
+        perf = {}
+        from veles_tpu_torch.telemetry import flight
+        mfu = get_registry().get("veles_step_mfu")
+        if mfu is not None:
+            perf["mfu"] = mfu.value
+        record = flight.last_record_path()
+        if record:
+            perf["flight_record"] = record
+        cluster = None
+        if self._server is not None:
+            from veles_tpu_torch.telemetry import federation
+            cluster = federation.cluster_report()
+        return {
+            "id": self.id, "log_id": self.log_id, "mode": self.mode,
+            "name": wf.name if wf is not None else None,
+            "master": self.listen_address or "",
+            "time": time.time() - (self.start_time or time.time()),
+            "slaves": slaves,
+            "units": len(wf) if wf is not None else 0,
+            "stopped": self.stopped,
+            "resumed_from": self._resumed_from,
+            "perf": perf,
+            "cluster": cluster,
+            "graph": self._graph_cache,
+        }
+
     # -- run ---------------------------------------------------------------
 
     def run(self):
@@ -895,6 +1061,11 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
             self._node_launcher.stop()
         if self._server is not None:
             self._server.stop()
+        if self._graphics_server is not None:
+            self._graphics_server.stop()
+        if self._status_thread is not None:
+            self._status_thread.join(timeout=5.0)
+        self._detach_dashboard_sinks()
 
     def __repr__(self):
         return "<Launcher %s mode=%s on %s>" % (self.log_id, self.mode,

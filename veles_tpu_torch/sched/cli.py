@@ -3,8 +3,8 @@
 
 ``serve`` runs the scheduler and its loopback control endpoint and,
 given ``--status-url``, posts a status blob to that dashboard's
-``/update`` every 2 s (the JAX package's ``web_status`` renders it as
-its jobs table; the port's dashboard is not ported yet). ``submit`` and
+``/update`` every 2 s (``veles_tpu_torch.web_status`` serves its jobs as
+``/jobs.json`` and renders them as its jobs table). ``submit`` and
 ``status`` are thin HTTP clients of a running ``serve``.
 
 Knobs (all resolvable per-invocation by flags; the env knobs are the

@@ -25,12 +25,19 @@ than one solver); the launcher then runs the eager per-unit scheduler
 
 Each epoch's wall time is split in :attr:`FusedRunner.epoch_times`:
 the evaluation and training sweeps (each ends in a host read of its
-metrics, which waits for the device), the decision's bookkeeping and
-the services; each class's mean minibatch loss rides beside. A streamed
+metrics, which waits for the device), the train-class confusion sweep
+where one runs, the decision's bookkeeping and the services; each class's mean minibatch loss rides beside. A streamed
 run adds the epoch's input wait and its starvation fraction (wait over
 the sweeps' wall), an offloaded one its upload wait and the overlap
 fraction (1 - wait over wall), as ``veles_tpu/train/runner.py``
-publishes them; each is logged once an epoch. The run ends with
+publishes them; each is logged once an epoch. A softmax workflow with
+no validation class whose services hold a ``MatrixPlotter`` that is
+enabled, or one that a ``Publisher`` renders, gets its confusion matrix
+from a forward sweep of the TRAIN class after each epoch's training
+(``FusedTrainer.confusion_segment``; the JAX runner's
+``confusion_from_train``): the evaluation sweeps never see that class
+outside testing. A headless run whose plotters are disabled pays no
+sweep. The run ends with
 ``trainer.shutdown()``, so no pipeline thread outlives it.
 
 Telemetry, as the JAX runner's (``veles_tpu/train/runner.py``): each
@@ -350,7 +357,18 @@ class FusedRunner(object):
             for nxt in dst.links_to:
                 signals.append((nxt, dst))
 
-    def _resume_partial_epoch(self, offset):
+    def _feed_confusion_from_train(self):
+        """The evaluator's confusion matrix from a forward sweep of the
+        TRAIN class (no validation set: the evaluation sweeps never see
+        that class outside testing)."""
+        trainer = self.trainer
+        if not trainer.loader.class_lengths[TRAIN]:
+            return
+        conf = trainer.confusion_segment(
+            None, trainer._segment_indices(TRAIN))
+        self.workflow.evaluator.confusion_matrix = conf.cpu().numpy()
+
+    def _resume_partial_epoch(self, offset, confusion_from_train=False):
         """Finish the epoch a mid-epoch snapshot interrupted: the
         remaining samples of each class through the same sweeps, then
         :meth:`_close_epoch` accumulates onto the snapshot's partial
@@ -372,6 +390,9 @@ class FusedRunner(object):
             stats[TRAIN], _ = self._timed_step("train", self._train_class,
                                                skip=train_skip)
             self._observe_grad_norms()
+        if confusion_from_train and not testing:
+            # the plotters must not render the snapshot's stale matrix
+            self._feed_confusion_from_train()
         _log.info("resumed mid-epoch snapshot at offset %d: served the "
                   "remaining %d samples", offset,
                   sum(s["samples"] for s in stats.values()))
@@ -448,6 +469,20 @@ class FusedRunner(object):
         covered = _covered_units(workflow)
         services = [u for u in workflow.units_in_dependency_order
                     if u not in covered]
+        # with a validation class the confusion rides its sweep; without
+        # one it costs a forward sweep of the TRAIN class, run only when
+        # something reads it: a MatrixPlotter that is enabled, or one a
+        # Publisher renders into its report
+        from veles_tpu_torch.plotting_units import MatrixPlotter
+        from veles_tpu_torch.publishing.publisher import Publisher
+        matrix_plotters = [u for u in services
+                           if isinstance(u, MatrixPlotter)]
+        confusion_from_train = bool(
+            self.trainer.loss_kind == "softmax" and
+            not loader.class_lengths[VALIDATION] and matrix_plotters and
+            (any(u.enabled for u in matrix_plotters) or
+             any(isinstance(u, Publisher) and u.include_plots
+                 for u in services)))
         workflow.event("run", "begin")
         workflow.stopped <<= False
         workflow.is_running = True
@@ -458,7 +493,8 @@ class FusedRunner(object):
             if 0 < offset < loader.total_samples and not (
                     bool(decision.complete) or bool(workflow.stopped)):
                 t0 = time.perf_counter()
-                stats = self._resume_partial_epoch(offset)
+                stats = self._resume_partial_epoch(
+                    offset, confusion_from_train=confusion_from_train)
                 self._epoch_end(services, stats, {
                     "epoch": loader.epoch_number, "resumed": True,
                     "sweeps_s": time.perf_counter() - t0}, t0)
@@ -483,6 +519,10 @@ class FusedRunner(object):
                     stats[TRAIN], times["train_s"] = self._timed_step(
                         "train", self._train_class)
                     self._observe_grad_norms()
+                if confusion_from_train and not testing:
+                    t = time.perf_counter()
+                    self._feed_confusion_from_train()
+                    times["confusion_s"] = time.perf_counter() - t
                 self._residency_times(times, waits)
                 t = time.perf_counter()
                 self._close_epoch(stats)

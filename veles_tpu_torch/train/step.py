@@ -17,7 +17,9 @@ full-batch loader whose dataset sits on the device:
   whatever the caller switched on);
 * ``eval_class`` / ``train_class`` / ``run_epoch``: evaluation classes
   first (with the softmax confusion matrix summed over the sweep), then
-  training, then the loader's shuffle;
+  training, then the loader's shuffle; ``confusion_segment``: the
+  confusion alone of a forward sweep over any index matrix (the TRAIN
+  class's, for a workflow without a validation class);
 * ``train(max_epochs, epoch_callback, initial_state, fail_iterations)``:
   epochs until ``max_epochs`` or until the decision's stop, with
   ``epoch_history``, ``best_metric`` and ``best_epoch`` kept on the
@@ -523,6 +525,24 @@ class FusedTrainer(object):
         else:
             self._eval_rows(torch.from_numpy(idx).to(self.device), out)
         return torch.stack(out[0]), torch.stack(out[1]), out[2]
+
+    def confusion_segment(self, params, idx):
+        """The confusion matrix (int32, true label x argmax) summed over
+        a forward-only sweep of the host index matrix ``idx``, resident,
+        streamed or offloaded (``veles_tpu/train/step.py``
+        ``confusion_segment``). ``params``: None for the model's live
+        parameters, or a list as :meth:`pull_params` gives it, loaded
+        into the model first. A workflow without a validation class gets
+        its confusion this way from the TRAIN class (the runner's
+        ``confusion_from_train``)."""
+        if self.loss_kind != "softmax":
+            raise TypeError("confusion requires a softmax evaluator")
+        if params is not None:
+            with torch.no_grad():
+                for layer, values in zip(self.params, params):
+                    for k, p in layer.items():
+                        p.copy_(values[k])
+        return self.eval_rows(idx)[2]
 
     def _train_rows(self, idx, first, seed, out, data_args=None):
         """:meth:`train_batch` over the rows of the device index matrix

@@ -11,8 +11,12 @@ the same units at epoch boundaries.
 A unit may :meth:`Workflow.defer` work to the end of the loop iteration
 in flight: the snapshotter does, so that an eager snapshot taken on an
 epoch's last minibatch holds every gradient unit's update of that
-minibatch, not only those that ran before it in the queue. The JAX
-package's plotters are not ported.
+minibatch, not only those that ran before it in the queue.
+
+:meth:`Workflow.add_plotters` wires the standard plot set
+(``plotting_units.py``) after the decision, gated to epoch boundaries,
+and :meth:`Workflow.graph_description` is the control-flow graph as the
+web_status dashboard draws it.
 
 Master/slave (``veles_tpu/workflow.py``): the workflow aggregates its
 units' distribution protocol -- a job is every unit's payload
@@ -449,6 +453,56 @@ class Workflow(Container):
                     lines.append("  %s -> %s;" % (ids[unit], ids[dst]))
         lines.append("}")
         return "\n".join(lines)
+
+    def graph_description(self):
+        """The JSON-able control-flow graph the web_status dashboard
+        draws: ``{"nodes": [{id, name, type, group}], "edges": [[src,
+        dst]]}``."""
+        units = list(dict.fromkeys(
+            [self.start_point, self.end_point] + self._units))
+        ids = {unit: i for i, unit in enumerate(units)}
+        nodes = [{"id": ids[u], "name": u.name,
+                  "type": type(u).__name__,
+                  "group": u.view_group} for u in units]
+        edges = [[ids[src], ids[dst]] for src in units
+                 for dst in src.links_to if dst in ids]
+        return {"nodes": nodes, "edges": edges}
+
+    def add_plotters(self, klasses=("train", "validation"),
+                     confusion=True):
+        """Wire the standard plot set: one epoch-metric curve a sample
+        class, and the confusion heatmap when the evaluator has a
+        confusion matrix, chained after ``self.decision`` and run only
+        at epoch boundaries (``~loader.epoch_ended`` skips them), so
+        they never sit on the training path. Plotters added to an
+        initialized workflow initialize here. A master's ``SlaveStats``
+        chart is the launcher's (``Launcher._start_slave_stats``): a
+        master never runs its graph."""
+        from veles_tpu_torch.plotting_units import (EpochMetricPlotter,
+                                                    MatrixPlotter)
+        self.plotters = []
+        prev = self.decision
+        for klass in klasses:
+            plotter = EpochMetricPlotter(
+                self, name="%s %s" % (klass, self.decision.METRIC_NAME),
+                klass=klass)
+            plotter.link_from(prev)
+            plotter.link_attrs(self.decision, ("input", "epoch_history"))
+            plotter.gate_skip = ~self.loader.epoch_ended
+            self.plotters.append(plotter)
+            prev = plotter
+        evaluator = getattr(self, "evaluator", None)
+        if confusion and evaluator is not None and \
+                hasattr(evaluator, "confusion_matrix"):
+            plotter = MatrixPlotter(self, name="confusion")
+            plotter.link_from(prev)
+            plotter.link_attrs(evaluator, ("input", "confusion_matrix"))
+            plotter.gate_skip = ~self.loader.epoch_ended
+            self.plotters.append(plotter)
+        for plotter in self.plotters:
+            if not plotter.is_initialized:
+                plotter._initialize_wrapped()
+        return self.plotters
 
     def package_export(self, path, precision="float32"):
         """Write the inference package of the forward chain
