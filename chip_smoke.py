@@ -482,7 +482,47 @@
    confusion and services seconds, the graphics server's snapshots sent
    and dropped and each one's bytes, the dashboard's requests, the
    report's bytes; the whole result to ``chiprun_out/observers.json``.
-20. The line before the last is ``{"kernels": [...], "not_ported":
+20. Services phase: the services' remainder on a full-width AlexNet-227
+   CLI run, after phase 19, in this process (``Main().run``), -s 7,
+   deterministic. The class files are ``SyntheticImageLoader``'s
+   generator pickled (128 training and 64 validation samples of
+   227x227x3, minibatch 64, 2 epochs). Run H reads them through
+   ``HDFSLoader`` from a WebHDFS stub on loopback and carries an
+   ``Avatar`` (SERVICE, after the decision) of fc7's weights and bias and
+   the loader's epoch number, its ``AvatarServer``, a ``RemoteAvatar``
+   service pulling after it each epoch, a ``Shell`` (no ``-i``: a no-op)
+   and a ``Manhole``; ``install_stack_dump_handler()`` is installed. Run
+   D reads them through a ``Downloader`` of a ``.tar`` over ``http://``
+   ahead of ``PicklesLoader``. (a) H and D: 0 values differing in their
+   histories and final parameters; controls: a changed training label
+   in the stub moves one loaded label, an archive without a promised
+   file raises ``FileNotFoundError``, an unreachable namenode and none
+   raise the gated ``RuntimeError``. (b) Every pull equals the Avatar's
+   copy of its epoch, the last the final fc7 (0 values), revisions one
+   apart, epoch 1's pull differing from the final fc7 (the control), a
+   second ``RemoteAvatar`` after the run at the last revision. (c) Run H
+   exported with a manifest (``alexnet227`` 1.0), uploaded by
+   ``update_forge`` to a ``ForgeServer`` with a token, 1.1 through
+   ``forge.client.main``; list and details show both; 1.0 fetched
+   byte-equal, served (``ServeableModel.from_package(..., full=True)``
+   behind ``ServingFrontend``): 8 singles and a 64-row batch pass the
+   centred-logit check against the plain forward of run H's weights,
+   a swap and a zeroed fc7 failing it; refused: an upload without the
+   token (nothing stored), the same version again, a delete through GET;
+   after a delete, ``/fetch`` answers 404. (d) A Manhole client reads
+   fc7's bias sum on the card equal to the script's own; ``SIGUSR1``
+   prints a dump naming ``MainThread``; ``debug_deadlocks()`` is empty;
+   a ``-i`` launcher is interactive. (e) ``KohonenWorkflow.run()``
+   (eager, on the card) and its ``make_fused_runner()`` from the same
+   seeds over ``som_run``'s digits and 8x8 map, 2 epochs: 0 codebook
+   values differ, the quantization error falls below the untrained
+   codebook's, no kernel launched. (f) Runs H and D launch K1, K3, K4,
+   K6 and K7 at exactly the fused run's counts, the serving K1 and K3,
+   every launch at a checked form. Printed, not gated: the runs' walls,
+   the forge's upload, fetch and load seconds, the package's MiB, the
+   Avatar's publish ms and bytes, p50 / p95 of the 8 requests, whether
+   IPython imports; the whole result to ``chiprun_out/services.json``.
+21. The line before the last is ``{"kernels": [...], "not_ported":
    []}``; the last is ``{"ok": true, "device": {...}}``. Any failure
    raises and exits non-zero before them.
 """
@@ -1181,51 +1221,57 @@ def launched_variants(wrapper, before):
 
 def uniform_phase(torch, scratch):
     """K7 bit for bit against its plain version at the dropout masks'
-    shape, through its CPython binding (:func:`check_binding`), timed
-    back-to-back (``ms``, which reads the host when ``host_us`` exceeds
-    the device time), one call at a time (``ms_cold``, the device's
-    time) and on the host, beside ``torch.rand``'s same three."""
+    shapes (the training batch's and phase 20's), through its CPython
+    binding (:func:`check_binding`), timed back-to-back (``ms``, which
+    reads the host when ``host_us`` exceeds the device time), one call at
+    a time (``ms_cold``, the device's time) and on the host, beside
+    ``torch.rand``'s same three."""
     from veles_tpu_torch.ops.random import (dropout_offset, uniform_fill,
                                             uniform_fill_plain)
-    shape = (TRAIN_BATCH, 4096)
-    seed, offset = 0x243F6A8885A308D3, dropout_offset(3, 11)
-    got = uniform_fill(shape, seed, offset, device="cuda")
-    want = uniform_fill_plain(shape, seed, offset, device="cuda")
-    torch.cuda.synchronize()
-    name = "%dx%d float32" % shape
+    rows = []
+    for shape in ((TRAIN_BATCH, 4096), (SERVICES_BATCH, 4096)):
+        seed, offset = 0x243F6A8885A308D3, dropout_offset(3, 11)
+        got = uniform_fill(shape, seed, offset, device="cuda")
+        want = uniform_fill_plain(shape, seed, offset, device="cuda")
+        torch.cuda.synchronize()
+        name = "%dx%d float32" % shape
+        if not torch.equal(got, want):
+            raise AssertionError("uniform_fill %s: %d values differ from "
+                                 "the plain version's bits" % (
+                                     name, int((got != want).sum())))
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        values = shape[0] * shape[1]
+        bms, by = bound(4 * values, values * UNIFORM_OPS_PER_VALUE,
+                        "float32")
+
+        # as the trainer calls it: with a tensor's device, card index and
+        # all
+        device = torch.empty(0, device="cuda").device
+
+        def kernel():
+            return uniform_fill(shape, seed, offset, device=device)
+
+        def library():
+            return torch.rand(shape, device="cuda", generator=gen)
+
+        rows.append({
+            "name": "uniform_fill", "shape": name, "route": "cuda",
+            "_form": shape, "source": UNIFORM_SOURCE,
+            "replaces": UNIFORM_TPU, "call": "binding " + UNIFORM_BINDING,
+            "values_differ": 0,
+            "max_abs_err": float((got - want).abs().max()),
+            "tolerance": "bit-exact",
+            "ms": device_ms(torch, kernel),
+            "ms_cold": cold_ms(torch, kernel, scratch),
+            "host_us": host_us(torch, kernel),
+            "plain_ms": device_ms(torch, lambda: uniform_fill_plain(
+                shape, seed, offset, device="cuda")),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": device_ms(torch, library),
+            "library_ms_cold": cold_ms(torch, library, scratch),
+            "library_host_us": host_us(torch, library)})
     check_binding("uniform_fill", "veles_uniform_fill")
-    if not torch.equal(got, want):
-        raise AssertionError("uniform_fill %s: %d values differ from the "
-                             "plain version's bits" % (
-                                 name, int((got != want).sum())))
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    values = shape[0] * shape[1]
-    bms, by = bound(4 * values, values * UNIFORM_OPS_PER_VALUE, "float32")
-
-    # as the trainer calls it: with a tensor's device, card index and all
-    device = torch.empty(0, device="cuda").device
-
-    def kernel():
-        return uniform_fill(shape, seed, offset, device=device)
-
-    def library():
-        return torch.rand(shape, device="cuda", generator=gen)
-
-    return [{
-        "name": "uniform_fill", "shape": name, "route": "cuda",
-        "_form": shape, "source": UNIFORM_SOURCE, "replaces": UNIFORM_TPU,
-        "call": "binding " + UNIFORM_BINDING, "values_differ": 0,
-        "max_abs_err": float((got - want).abs().max()),
-        "tolerance": "bit-exact",
-        "ms": device_ms(torch, kernel),
-        "ms_cold": cold_ms(torch, kernel, scratch),
-        "host_us": host_us(torch, kernel),
-        "plain_ms": device_ms(torch, lambda: uniform_fill_plain(
-            shape, seed, offset, device="cuda")),
-        "bound_ms": bms, "bound_by": by,
-        "library_ms": device_ms(torch, library),
-        "library_ms_cold": cold_ms(torch, library, scratch),
-        "library_host_us": host_us(torch, library)}]
+    return rows
 
 
 def kahan_bound(m, k, n, bk, element_size):
@@ -2453,12 +2499,12 @@ def som_run(torch, digits):
     kernel of the port is launched (its two products are plain)."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.models.mnist import MnistLoader
-    from veles_tpu_torch.nn.kohonen import KohonenTrainer, som_quality
+    from veles_tpu_torch.nn.kohonen import SOMCodebook, som_quality
     from veles_tpu_torch.train.som import SOMRunner
     prng.get().seed(BASELINE_SEED)
     prng.get("loader").seed(BASELINE_SEED + 1)
     loader = MnistLoader(provider=digits, minibatch_size=SOM_MINIBATCH)
-    trainer = KohonenTrainer(784, SOM_SIDE, SOM_SIDE, device="cuda")
+    trainer = SOMCodebook(784, SOM_SIDE, SOM_SIDE, device="cuda")
     runner = SOMRunner(trainer, loader)
     train = loader._staged_[0][loader.class_lengths[1]:]
     before = som_quality(trainer.weights, SOM_SIDE, SOM_SIDE, train)
@@ -9719,6 +9765,739 @@ def observers_phase(torch, numpy, kernels, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: phase 20: the services' workflow. AlexNet-227 at full width through the
+#: CLI (``-s 7``, deterministic) over pickled class files of
+#: ``SyntheticImageLoader``'s generator, 128 training and 64 validation
+#: samples in minibatches of 64, 2 epochs; run H reads the files through
+#: ``HDFSLoader`` from a WebHDFS stub, run D through a ``Downloader``
+#: ahead of ``PicklesLoader``
+SERVICES_SAMPLES = (128, 64)
+SERVICES_BATCH = 64
+SERVICES_EPOCHS = 2
+SERVICES_SIDE = 227
+SERVICES_CLASSES = 1000
+#: the layers the workflow file builds (a rehearsal on the CPU gives
+#: ``small_alexnet_layers(10)``), the run's extra argv (``-a cpu`` there)
+#: and the device of the script's own tensors
+SERVICES_LAYERS = "ALEXNET_LAYERS"
+SERVICES_CLI_ARGS = ()
+SERVICES_DEVICE = "cuda"
+#: single requests to the package served from the forge, beside one
+#: 64-row batch
+SERVICES_REQUESTS = 8
+#: the SOM of (e): 2 epochs of ``som_run``'s 8x8 map over its digits
+SERVICES_SOM_EPOCHS = 2
+
+#: phase 20's workflow file. ``root.svc.mode`` "hdfs": ``HDFSLoader`` at
+#: ``root.svc.namenode``, with an ``Avatar`` (SERVICE) after the decision
+#: mirroring fc7's weights and bias and the loader's epoch number, an
+#: ``AvatarServer``, ``Kept`` (a ``RemoteAvatar`` pulling after the
+#: Avatar each epoch, keeping each pull beside the Avatar's own copy), a
+#: ``Shell`` and a ``Manhole`` over ``{"workflow": workflow}``;
+#: "download": a ``Downloader`` of ``root.svc.url`` into ``root.svc.data``
+#: linked from the start point (initialized before the loader) ahead of
+#: ``PicklesLoader`` over the files it promises
+SERVICES_WORKFLOW_FILE = """
+import os
+
+from veles_tpu_torch.avatar import Avatar, AvatarServer, RemoteAvatar
+from veles_tpu_torch.config import root
+from veles_tpu_torch.downloader import Downloader
+from veles_tpu_torch.interaction import Manhole, Shell
+from veles_tpu_torch.loader.hdfs import HDFSLoader
+from veles_tpu_torch.loader.pickles import PicklesLoader
+from veles_tpu_torch.models.alexnet import (ALEXNET_LAYERS,
+                                            AlexNetWorkflow,
+                                            small_alexnet_layers)
+from veles_tpu_torch.nn.units import All2AllStrictRELU
+
+FILES = ("train.pickle", "valid.pickle")
+
+
+class Watched(object):
+    def __init__(self, fc7, loader):
+        self.fc7, self.loader = fc7, loader
+
+    @property
+    def weights(self):
+        return self.fc7.weights
+
+    @property
+    def bias(self):
+        return self.fc7.bias
+
+    @property
+    def epoch_number(self):
+        return self.loader.epoch_number
+
+
+class Kept(RemoteAvatar):
+    hide_from_registry = True
+
+    def init_unpickled(self):
+        super(Kept, self).init_unpickled()
+        self.kept_ = []
+
+    def pull(self):
+        super(Kept, self).pull()
+        own = {a: getattr(self.avatar_, a) for a in self.attrs}
+        self.kept_.append((
+            self.rev, {a: getattr(self, a) for a in self.attrs},
+            {a: v.cpu() if hasattr(v, "cpu") else v for a, v in own.items()}))
+
+
+def run(load, main):
+    svc = root.svc
+    if svc.mode == "hdfs":
+        def factory(wf):
+            return HDFSLoader(
+                workflow=wf, namenode=svc.namenode,
+                train_path="/data/" + FILES[0],
+                validation_path="/data/" + FILES[1], minibatch_size=%d)
+    else:
+        def factory(wf):
+            return PicklesLoader(
+                workflow=wf, train_path=os.path.join(svc.data, FILES[0]),
+                validation_path=os.path.join(svc.data, FILES[1]),
+                minibatch_size=%d)
+    wf, _ = load(AlexNetWorkflow, loader_factory=factory, layers=%s,
+                 max_epochs=%d, learning_rate=0.01, momentum=0.9,
+                 weights_decay=5e-4)
+    if svc.mode == "download":
+        fetch = Downloader(wf, url=svc.url, directory=svc.data, files=FILES,
+                           name="downloader")
+        fetch.link_from(wf.start_point)
+    else:
+        fc7 = [f for f in wf.forwards if isinstance(f, All2AllStrictRELU)][-1]
+        avatar = Avatar(wf, source=Watched(fc7, wf.loader),
+                        attrs=("weights", "bias", "epoch_number"),
+                        view_group="SERVICE", name="avatar")
+        avatar.link_from(wf.decision)
+        wf.avatar_server_ = AvatarServer(avatar)
+        kept = Kept(wf, address=wf.avatar_server_.address,
+                    attrs=avatar.attrs, view_group="SERVICE", name="kept")
+        kept.avatar_ = avatar
+        kept.link_from(avatar)
+        Shell(wf, name="shell").link_from(wf.decision)
+        wf.manhole_ = Manhole(locals={"workflow": wf}).start()
+    main()
+"""
+
+
+class WebHDFSStub(object):
+    """A WebHDFS namenode stub on 127.0.0.1 over ``blobs`` ({path:
+    bytes}): ``OPEN`` and ``GETFILESTATUS`` under ``/webhdfs/v1``."""
+
+    def __init__(self, blobs):
+        import http.server
+        import urllib.parse
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_GET(self):
+                parsed = urllib.parse.urlparse(self.path)
+                blob = blobs.get(parsed.path[len("/webhdfs/v1"):])
+                code = 200
+                if not parsed.path.startswith("/webhdfs/v1/") or \
+                        blob is None:
+                    code, blob = 404, b'{"RemoteException": {}}'
+                elif "op=GETFILESTATUS" in parsed.query:
+                    blob = json.dumps({"FileStatus": {
+                        "length": len(blob), "type": "FILE"}}).encode()
+                elif "op=OPEN" not in parsed.query:
+                    code, blob = 400, b"{}"
+                self.send_response(code)
+                self.send_header("Content-Length", str(len(blob)))
+                self.end_headers()
+                self.wfile.write(blob)
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.server.daemon_threads = True
+        self.namenode = "127.0.0.1:%d" % self.server.server_address[1]
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def services_data():
+    """The class files: ``SyntheticImageLoader``'s generator at the
+    phase's sizes, pickled as (data, labels): {file name: bytes}."""
+    import pickle
+    from veles_tpu_torch.models.alexnet import SyntheticImageLoader
+    n_train, n_valid = SERVICES_SAMPLES
+    arrays = SyntheticImageLoader(
+        n_train=n_train, n_valid=n_valid, side=SERVICES_SIDE,
+        n_classes=SERVICES_CLASSES)._generate()
+    data, labels = arrays["data"].numpy(), arrays["labels"].numpy()
+    # the generator's layout: validation first, then training
+    return {"valid.pickle": pickle.dumps((data[:n_valid], labels[:n_valid]),
+                                         protocol=4),
+            "train.pickle": pickle.dumps((data[n_valid:], labels[n_valid:]),
+                                         protocol=4)}
+
+
+def write_tar(path, members):
+    """A tar at ``path`` of ``members`` ({name: bytes})."""
+    import io
+    import tarfile
+    with tarfile.open(path, "w") as tar:
+        for name, blob in sorted(members.items()):
+            info = tarfile.TarInfo(name)
+            info.size = len(blob)
+            tar.addfile(info, io.BytesIO(blob))
+
+
+def expected_launches(trainer, epochs):
+    """{kernel: launches} of ``epochs`` fused epochs of ``trainer``'s
+    workflow: K1 and K3 a forward, K4 a step for each LRN, K6 a step for
+    each bias, K7 a step for each dropout."""
+    from veles_tpu_torch.loader.base import TRAIN, VALIDATION
+    steps = epochs * len(trainer._segment_indices(TRAIN))
+    forwards = steps + epochs * len(trainer._segment_indices(VALIDATION))
+    kinds = [type(m).__name__ for m in trainer.forwards]
+    n_lrn = kinds.count("LRNormalizerForward")
+    return {"gemm_bias_act": kinds.count("All2AllStrictRELU") * forwards,
+            "lrn_fwd": n_lrn * forwards, "lrn_bwd": n_lrn * steps,
+            "column_reduce": sum("bias" in p for p in trainer.params) * steps,
+            "uniform_fill": kinds.count("DropoutForward") * steps,
+            "kahan_gemm": 0}
+
+
+def services_runs(torch, tmp, blobs, warned):
+    """Runs H and D (see the module docstring, phase 20 (a)): returns
+    {"H": (Main, wall s, launches, forms), "D": ...}."""
+    from veles_tpu_torch import prng
+    www = os.path.join(tmp, "www")
+    os.makedirs(www)
+    write_tar(os.path.join(www, "services.tar"), blobs)
+    stub = WebHDFSStub({"/data/" + k: v for k, v in blobs.items()})
+    host = FileServer(www)
+    path = os.path.join(tmp, "services.py")
+    with open(path, "w") as f:
+        f.write(SERVICES_WORKFLOW_FILE % (
+            SERVICES_BATCH, SERVICES_BATCH, SERVICES_LAYERS,
+            SERVICES_EPOCHS))
+    runs = {}
+    try:
+        for key, mode in (("H", "hdfs"), ("D", "download")):
+            data = os.path.join(tmp, "data-" + key)
+            prng._generators.clear()
+            reset_counts()
+            t = time.perf_counter()
+            with deterministic(torch, warned):
+                main = workflow_cli(
+                    path, "-s", "7", *(list(SERVICES_CLI_ARGS) + [
+                        "root.svc.mode=%r" % mode,
+                        "root.svc.namenode=%r" % stub.namenode,
+                        "root.svc.url=%r" % host.url("services.tar"),
+                        "root.svc.data=%r" % data]))
+                if SERVICES_DEVICE == "cuda":
+                    torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts, forms = read_counts()
+            want = expected_launches(main.launcher.runner.trainer,
+                                     SERVICES_EPOCHS)
+            if SERVICES_DEVICE == "cuda" and counts != want:
+                raise AssertionError("services run %s: launches %s, expected "
+                                     "%s" % (key, counts, want))
+            if key == "D" and sorted(os.listdir(data)) != sorted(blobs):
+                raise AssertionError("services run D: the download left %s"
+                                     % sorted(os.listdir(data)))
+            runs[key] = (main, wall, counts, forms)
+            print("services run %s (%s): %.1f s, losses %s, launches %s" % (
+                key, mode, wall, json.dumps([t["loss"] for t in
+                                             main.launcher.runner.epoch_times]),
+                json.dumps(counts)))
+    finally:
+        stub.close()
+        host.close()
+    return runs
+
+
+def services_data_checks(runs, blobs, tmp):
+    """(a): runs H and D equal in every value of their histories and
+    final parameters; the controls: a changed training label in the stub
+    changes the loaded labels, an archive without a promised file raises
+    ``FileNotFoundError``, an unreachable namenode the gated
+    ``RuntimeError``."""
+    import pickle
+    import socket
+    from veles_tpu_torch.downloader import Downloader
+    from veles_tpu_torch.dummy import DummyWorkflow
+    from veles_tpu_torch.loader.hdfs import HDFSLoader
+    states, histories = {}, {}
+    for key, (main, _, _, _) in runs.items():
+        wf = main.workflow
+        states[key] = run_state(wf, [t["loss"] for t in
+                                     main.launcher.runner.epoch_times])
+        histories[key] = json.dumps(wf.decision.epoch_history, default=str,
+                                    sort_keys=True)
+    differing = values_differing(states["H"], states["D"])
+    if differing or histories["H"] != histories["D"]:
+        raise AssertionError("services: runs H and D differ in %d values, "
+                             "histories equal %s" % (
+                                 differing, histories["H"] == histories["D"]))
+    data, labels = pickle.loads(blobs["train.pickle"])
+    labels = labels.copy()
+    labels[0] = (labels[0] + 1) % SERVICES_CLASSES
+    changed = dict(blobs, **{"train.pickle": pickle.dumps((data, labels),
+                                                          protocol=4)})
+    del data
+    stub = WebHDFSStub({"/data/" + k: v for k, v in changed.items()})
+    try:
+        loader = HDFSLoader(namenode=stub.namenode,
+                            train_path="/data/train.pickle",
+                            validation_path="/data/valid.pickle",
+                            minibatch_size=SERVICES_BATCH)
+        loader.load_dataset()
+    finally:
+        stub.close()
+    label_moved = int((loader.original_labels != runs["H"][0].workflow.
+                       loader.original_labels).sum())
+    del loader
+    if label_moved != 1:
+        raise AssertionError("services control: the changed label moved %d "
+                             "loaded labels" % label_moved)
+    www = os.path.join(tmp, "www")
+    write_tar(os.path.join(www, "partial.tar"),
+              {"valid.pickle": blobs["valid.pickle"]})
+    host = FileServer(www)
+    try:
+        Downloader(DummyWorkflow(), url=host.url("partial.tar"),
+                   directory=os.path.join(tmp, "partial"),
+                   files=("train.pickle", "valid.pickle")).initialize()
+        missing = None
+    except FileNotFoundError as e:
+        missing = str(e)
+    finally:
+        host.close()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        closed = s.getsockname()[1]
+    try:
+        HDFSLoader(namenode="127.0.0.1:%d" % closed,
+                   train_path="/data/train.pickle").load_dataset()
+        unreachable = None
+    except RuntimeError as e:
+        unreachable = str(e)
+    try:
+        HDFSLoader(train_path="/data/train.pickle").load_dataset()
+        gated = None
+    except RuntimeError as e:
+        gated = str(e)
+    if missing is None or unreachable is None or "cannot fetch" not in \
+            unreachable or gated is None or "namenode" not in gated:
+        raise AssertionError("services controls: missing file %r, "
+                             "unreachable %r, no namenode %r" % (
+                                 missing, unreachable, gated))
+    print("services (a): runs H and D 0 values differing; controls: the "
+          "changed label moved %d, %s, %s" % (label_moved, missing,
+                                              unreachable[:80]))
+    return {"values_differing": differing, "label_control_moved": label_moved,
+            "archive_control": missing, "unreachable_control": unreachable,
+            "gated_control": gated}
+
+
+def avatar_checks(wf):
+    """(b): every pull of ``Kept`` equals the Avatar's copy of that epoch,
+    the last one the final fc7, revisions one apart; epoch 1's pull
+    differs from the final fc7 (the control); a second ``RemoteAvatar``
+    after the run reads the last revision. Stops the server."""
+    from veles_tpu_torch.avatar import RemoteAvatar
+    from veles_tpu_torch.dummy import DummyWorkflow
+    from veles_tpu_torch.nn.units import All2AllStrictRELU
+    server = wf.avatar_server_
+    kept = wf["kept"]
+    fc7 = [f for f in wf.forwards if isinstance(f, All2AllStrictRELU)][-1]
+    final = {"weights": fc7.weights.detach().cpu(),
+             "bias": fc7.bias.detach().cpu()}
+    pulls = kept.kept_
+    revs = [rev for rev, _, _ in pulls]
+    per_epoch = [sum(int((pulled[a] != own[a]).sum()) for a in final)
+                 for _, pulled, own in pulls]
+    last = sum(int((pulls[-1][1][a] != final[a]).sum()) for a in final)
+    control = sum(int((pulls[1][1][a] != final[a]).sum()) for a in final)
+    epochs = [pulled["epoch_number"] for _, pulled, _ in pulls]
+    second = RemoteAvatar(DummyWorkflow(), address=server.address)
+    try:
+        second.initialize()
+        second_rev = second.rev
+        second_differing = sum(int((second.__dict__[a] != final[a]).sum())
+                               for a in final)
+    finally:
+        second.close()
+        kept.close()
+        server.stop()
+    result = {"pulls": len(pulls), "revs": revs, "epoch_numbers": epochs,
+              "pull_vs_own_differing": per_epoch,
+              "last_vs_final_differing": last,
+              "epoch1_vs_final_differing": control,
+              "second_rev": second_rev,
+              "second_differing": second_differing,
+              "publish_ms": server.publish_ms,
+              "published_bytes": server.published_bytes}
+    print("services (b) avatar: %s" % json.dumps(result))
+    if len(pulls) != SERVICES_EPOCHS + 1 or \
+            revs != list(range(revs[0], revs[0] + len(pulls))) or \
+            any(per_epoch) or last or not control or \
+            second_rev != revs[-1] or second_differing:
+        raise AssertionError("services avatar: %s" % result)
+    return result
+
+
+def manhole_reading(wf):
+    """(d): a client of the run's Manhole evaluates fc7's bias sum (and its
+    device); the reply must equal this script's own reading."""
+    import socket
+    from veles_tpu_torch.nn.units import All2AllStrictRELU
+    manhole = wf.manhole_
+    expr = ("(lambda b: (float(b.detach().sum()), b.device.type))([f for f "
+            "in workflow.forwards if type(f).__name__ == "
+            "'All2AllStrictRELU'][-1].bias)")
+    try:
+        with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as sock:
+            sock.settimeout(60)
+            sock.connect(manhole.path)
+            f = sock.makefile("rw")
+            banner = f.readline()
+            f.read(4)
+            f.write(expr + "\n")
+            f.flush()
+            reply = f.readline().strip()
+            f.write("exit\n")
+            f.flush()
+    finally:
+        manhole.stop()
+    fc7 = [u for u in wf.forwards if isinstance(u, All2AllStrictRELU)][-1]
+    mine = repr((float(fc7.bias.detach().sum()), fc7.bias.device.type))
+    if "manhole" not in banner or reply != mine:
+        raise AssertionError("services manhole: %r against %r (banner %r)"
+                             % (reply, mine, banner))
+    return reply
+
+
+def interaction_checks():
+    """(d): ``SIGUSR1`` prints a dump naming ``MainThread`` (the handler
+    installed by the phase), ``debug_deadlocks()`` finds no thread, and a
+    ``-i`` launcher answers ``is_interactive``."""
+    import io
+    import signal
+    from veles_tpu_torch.interaction import debug_deadlocks
+    from veles_tpu_torch.launcher import Launcher
+    captured, saved = io.StringIO(), sys.stderr
+    sys.stderr = captured
+    try:
+        os.kill(os.getpid(), signal.SIGUSR1)
+        for _ in range(200):
+            if "MainThread" in captured.getvalue():
+                break
+            time.sleep(0.01)
+    finally:
+        sys.stderr = saved
+    dump = captured.getvalue()
+    suspects = debug_deadlocks(file=io.StringIO())
+    interactive = (Launcher(interactive=True).is_interactive,
+                   Launcher().is_interactive)
+    result = {"dump_names_main_thread": "MainThread" in dump,
+              "dump_bytes": len(dump),
+              "suspects": [t.name for t in suspects],
+              "is_interactive": interactive}
+    if not result["dump_names_main_thread"] or suspects or \
+            interactive != (True, False):
+        raise AssertionError("services interaction: %s" % result)
+    return result
+
+
+def forge_leg(torch, numpy, kernels, wf, tmp):
+    """(c): the trained run H exported with a manifest, uploaded by
+    ``update_forge`` to a ``ForgeServer`` that holds a token, a second
+    version through ``forge.client.main``; list and details; version 1.0
+    fetched byte-equal; served from the fetched package on the card; the
+    refusals. Returns (result, launches_by_form)."""
+    import shutil
+    from veles_tpu_torch.export.package import export_workflow
+    from veles_tpu_torch.forge import ForgeClient, ForgeServer
+    from veles_tpu_torch.forge import client as forge_client
+    from veles_tpu_torch.scripts import update_forge
+    token = "phase-20-token"
+    scan = os.path.join(tmp, "packages")
+    pkg = os.path.join(scan, "alexnet227")
+    t = time.perf_counter()
+    export_workflow(wf, pkg)
+    manifest = {"name": "alexnet227", "version": "1.0", "author": "smoke",
+                "short_description": "AlexNet-227 trained by phase 20",
+                "export": "contents.json"}
+    with open(os.path.join(pkg, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    export_s = time.perf_counter() - t
+    exported = {n: open(os.path.join(pkg, n), "rb").read()
+                for n in sorted(os.listdir(pkg))}
+    mib = sum(len(b) for b in exported.values()) / 1048576.0
+    second = os.path.join(tmp, "second")
+    os.makedirs(second)
+    for name in exported:
+        if name != "manifest.json":
+            os.link(os.path.join(pkg, name), os.path.join(second, name))
+    with open(os.path.join(second, "manifest.json"), "w") as f:
+        json.dump(dict(manifest, version="1.1"), f)
+    server = ForgeServer(os.path.join(tmp, "storage"), port=0,
+                         token=token).start()
+    address = "127.0.0.1:%d" % server.port
+    result = {"package_mib": mib, "export_s": export_s}
+    try:
+        t = time.perf_counter()
+        if update_forge.main([scan, "--server", address, "--token",
+                              token]) != 0:
+            raise AssertionError("services forge: update_forge failed")
+        result["upload_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        forge_client.main(["upload", "-s", address, "-d", second, "--token",
+                           token])
+        result["client_upload_s"] = time.perf_counter() - t
+        client = ForgeClient(address)
+        listed = client.list()
+        versions = [v["version"] for v in
+                    client.details("alexnet227")["versions"]]
+        if [m["name"] for m in listed] != ["alexnet227"] or \
+                listed[0]["version"] != "1.1" or versions != ["1.0", "1.1"]:
+            raise AssertionError("services forge: list %s, versions %s"
+                                 % (listed, versions))
+        fetched = os.path.join(tmp, "fetched")
+        t = time.perf_counter()
+        got = client.fetch("alexnet227", fetched, version="1.0")
+        result["fetch_s"] = time.perf_counter() - t
+        unequal = sorted(n for n in set(exported) | set(os.listdir(fetched))
+                         if not os.path.exists(os.path.join(fetched, n)) or
+                         open(os.path.join(fetched, n), "rb").read() !=
+                         exported.get(n))
+        del exported
+        if got != "1.0" or unequal:
+            raise AssertionError("services forge: fetched %s, files that "
+                                 "differ %s" % (got, unequal))
+        result["serving"], forms = forge_serving(torch, numpy, wf, fetched)
+        result["refusals"] = forge_refusals(client, address, token, pkg)
+    finally:
+        server.stop()
+        shutil.rmtree(scan, ignore_errors=True)
+    check_forms("services forge serving", kernels, forms)
+    print("services (c) forge: %s" % json.dumps(result, default=str))
+    return result, forms
+
+
+def forge_refusals(client, address, token, pkg):
+    """An upload without the token (nothing stored), the same version
+    again, a delete through GET: refused; after a delete, fetch is 404."""
+    import urllib.error
+    from veles_tpu_torch.forge import ForgeClient
+    refused = {}
+    for label, uploader in (("no token", ForgeClient(address)),
+                            ("same version", ForgeClient(address,
+                                                         token=token))):
+        try:
+            uploader.upload(pkg)
+            refused[label] = None
+        except RuntimeError as e:
+            refused[label] = str(e)
+    try:
+        urllib.request.urlopen("http://%s/forge?query=delete&name="
+                               "alexnet227" % address, timeout=30)
+        refused["GET delete"] = None
+    except urllib.error.HTTPError as e:
+        refused["GET delete"] = e.code
+    versions = [v["version"] for v in
+                client.details("alexnet227")["versions"]]
+    ForgeClient(address, token=token).delete("alexnet227", version="1.1")
+    try:
+        urllib.request.urlopen("http://%s/fetch?name=alexnet227&version=1.1"
+                               % address, timeout=30)
+        refused["fetch after delete"] = 200
+    except urllib.error.HTTPError as e:
+        refused["fetch after delete"] = e.code
+    if None in refused.values() or "token" not in refused["no token"] or \
+            "already exists" not in refused["same version"] or \
+            versions != ["1.0", "1.1"] or \
+            refused["fetch after delete"] != 404:
+        raise AssertionError("services forge refusals: %s, versions %s"
+                             % (refused, versions))
+    return refused
+
+
+def forge_serving(torch, numpy, wf, fetched):
+    """The fetched package (``ServeableModel.from_package(...,
+    full=True)``) behind ``ServingFrontend`` on the card: 8 single
+    requests and one 64-row batch, held by the centred-logit check to the
+    plain forward of run H's final weights, a reply swap and a zeroed fc7
+    as the controls; K1 and K3 launched. Returns (result, forms)."""
+    from veles_tpu_torch.models.build import plain_forward
+    from veles_tpu_torch.nn.all2all import All2AllSoftmax
+    from veles_tpu_torch.serving.model_store import ServeableModel
+    t = time.perf_counter()
+    model = ServeableModel.from_package(fetched, device=SERVICES_DEVICE,
+                                        full=True)
+    load_s = time.perf_counter() - t
+    trained = ServeableModel.from_workflow(wf).module
+    rng = numpy.random.RandomState(20)
+    inputs = rng.uniform(-1, 1, (64,) + tuple(model.sample_shape)).astype(
+        numpy.float32)
+    bodies = [json.dumps({"input": x.tolist(), "codec": "list",
+                          "id": i}).encode()
+              for i, x in enumerate(inputs[:SERVICES_REQUESTS])]
+    with serving(model) as frontend:
+        reset_counts()
+        replies, latencies, wall = concurrent_posts(frontend.port, bodies)
+        t = time.perf_counter()
+        batch = post(frontend.port, "/api/batch", b64_body(inputs))
+        batch_s = time.perf_counter() - t
+        counts, forms = read_counts()
+    singles = numpy.array([r["result"] for r in replies])
+    batched = numpy.array(batch["results"])
+    want = forward_rows(torch, numpy, lambda x: plain_forward(trained, x),
+                        inputs)
+    k1 = [i for i, m in enumerate(model.module)
+          if type(m).__name__.startswith("All2All") and
+          not isinstance(m, All2AllSoftmax)]
+    zeroed = forward_rows(torch, numpy, lambda x: forward_zeroing(
+        model.module, x, k1[-1]), inputs)
+    shares = {}
+    for label, served, rows in (("singles", singles, slice(
+            0, SERVICES_REQUESTS)), ("batch", batched, slice(0, 64))):
+        swapped = served.copy()
+        swapped[[0, 1]] = served[[1, 0]]
+        err, spread, shares[label] = check_replies(
+            numpy, "services forge %s" % label, served, want[rows],
+            [("swapped", swapped), ("fc7_zeroed", zeroed[rows])])
+        shares[label]["err_share"] = err / spread
+    if SERVICES_DEVICE == "cuda" and not (counts["gemm_bias_act"] and
+                                          counts["lrn_fwd"]):
+        raise AssertionError("services forge serving launches %s" % counts)
+    latencies = sorted(latencies)
+    result = {"load_s": load_s, "requests": SERVICES_REQUESTS,
+              "p50_ms": 1e3 * statistics.median(latencies),
+              "p95_ms": 1e3 * latencies[min(len(latencies) - 1, int(
+                  0.95 * len(latencies)))],
+              "singles_wall_s": wall, "batch_s": batch_s,
+              "launches": counts, "checks": shares}
+    del model
+    return result, forms
+
+
+def kohonen_leg(torch):
+    """(e): ``KohonenWorkflow.run()`` (eager, on the card) and its
+    ``make_fused_runner()`` from the same seeds, ``som_run``'s digits and
+    8x8 map, 2 epochs: 0 codebook values differ, the quantization error
+    falls below the untrained codebook's, no kernel of the port runs."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.datasets import golden_digits
+    from veles_tpu_torch.dummy import DummyLauncher
+    from veles_tpu_torch.models.mnist import MnistLoader
+    from veles_tpu_torch.models.mnist_ae import KohonenWorkflow
+    from veles_tpu_torch.nn.kohonen import som_quality
+    digits = golden_digits(*BASELINE_DIGITS)
+    runs = {}
+    reset_counts()
+    for key in ("eager", "fused"):
+        prng.get().seed(BASELINE_SEED)
+        prng.get("loader").seed(BASELINE_SEED + 1)
+        wf = KohonenWorkflow(
+            DummyLauncher(), loader_factory=lambda w: MnistLoader(
+                workflow=w, provider=digits, minibatch_size=SOM_MINIBATCH),
+            sx=SOM_SIDE, sy=SOM_SIDE, epochs=SERVICES_SOM_EPOCHS)
+        wf.initialize(device=SERVICES_DEVICE)
+        initial = wf.trainer.weights.clone()
+        t = time.perf_counter()
+        if key == "eager":
+            wf.run()
+        else:
+            runner = wf.make_fused_runner()
+            if type(runner).__name__ != "SOMFusedRunner":
+                raise AssertionError("kohonen: runner %r" % runner)
+            runner.run()
+        if SERVICES_DEVICE == "cuda":
+            torch.cuda.synchronize()
+        runs[key] = (wf, initial, time.perf_counter() - t)
+    counts = read_counts()[0]
+    eager, fused = runs["eager"][0], runs["fused"][0]
+    differing = int((eager.trainer.weights != fused.trainer.weights).sum())
+    loader = eager.loader
+    train = loader.stage(loader.device_)[0][loader.class_lengths[1]:]
+    before = som_quality(runs["eager"][1], SOM_SIDE, SOM_SIDE, train)
+    after = som_quality(eager.trainer.weights, SOM_SIDE, SOM_SIDE, train)
+    result = {"updates": [eager.trainer.time, fused.trainer.time],
+              "stopped": bool(eager.stopped), "values_differing": differing,
+              "eager_s": runs["eager"][2], "fused_s": runs["fused"][2],
+              "untrained": before, "trained": after, "launches": counts}
+    print("services (e) kohonen: %s" % json.dumps(result))
+    if differing or eager.trainer.time != fused.trainer.time or \
+            not result["stopped"] or any(counts.values()) or \
+            not after["quantization_error"] < before["quantization_error"]:
+        raise AssertionError("services kohonen: %s" % result)
+    return result
+
+
+def services_phase(torch, numpy, kernels, card):
+    """Phase 20 (see the module docstring). Returns (result,
+    [launches_by_form])."""
+    import shutil
+    import tempfile
+    from veles_tpu_torch.interaction import install_stack_dump_handler
+    t0 = time.perf_counter()
+    ipython = importable("IPython")
+    print("services: IPython %s here (the Shell %s)" % (
+        "imports" if ipython else "does not import",
+        "would embed on a terminal" if ipython else "warns and stays off"))
+    previous = install_stack_dump_handler()
+    tmp = tempfile.mkdtemp(prefix="veles-services-")
+    warned = []
+    try:
+        blobs = services_data()
+        runs = services_runs(torch, tmp, blobs, warned)
+        result = {"ipython": ipython, "deterministic_warnings": warned,
+                  "walls_s": {k: v[1] for k, v in runs.items()},
+                  "launches": {k: v[2] for k, v in runs.items()}}
+        result["data"] = services_data_checks(runs, blobs, tmp)
+        del blobs
+        wf = runs["H"][0].workflow
+        result["avatar"] = avatar_checks(wf)
+        result["manhole"] = manhole_reading(wf)
+        for key in ("H", "D"):
+            check_forms("services run " + key, kernels, runs[key][3])
+        result["forge"], serve_forms = forge_leg(torch, numpy, kernels, wf,
+                                                 tmp)
+        forms = [runs["H"][3], runs["D"][3], serve_forms]
+        del runs, wf
+        if SERVICES_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        result["interaction"] = interaction_checks()
+        print("services (d) interaction: manhole %s, %s" % (
+            result["manhole"], json.dumps(result["interaction"])))
+        result["kohonen"] = kohonen_leg(torch)
+        result["phase_s"] = time.perf_counter() - t0
+        print("services: runs %s s, forge upload %.2f s + %.2f s, fetch "
+              "%.2f s, serve load %.2f s, package %.1f MiB, avatar publish "
+              "%.1f ms / %d bytes, requests p50 %.1f ms p95 %.1f ms, phase "
+              "%.1f s" % (
+                  json.dumps(result["walls_s"]), result["forge"]["upload_s"],
+                  result["forge"]["client_upload_s"],
+                  result["forge"]["fetch_s"],
+                  result["forge"]["serving"]["load_s"],
+                  result["forge"]["package_mib"],
+                  result["avatar"]["publish_ms"],
+                  result["avatar"]["published_bytes"],
+                  result["forge"]["serving"]["p50_ms"],
+                  result["forge"]["serving"]["p95_ms"], result["phase_s"]))
+        return result, forms
+    finally:
+        import signal
+        signal.signal(signal.SIGUSR1, previous)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def numpy_load(path):
     import numpy
     with numpy.load(path) as data:
@@ -9957,6 +10736,12 @@ def main():
     with open(os.path.join(out_dir, "observers.json"), "w") as f:
         json.dump(observers, f, default=str)
     lap("observers")
+
+    services, forms = services_phase(torch, numpy, kernels, card)
+    phases.extend(forms)
+    with open(os.path.join(out_dir, "services.json"), "w") as f:
+        json.dump(services, f, default=str)
+    lap("services")
     phase_s.update(("%s (its own wall)" % k, round(v, 1))
                    for k, v in walls.items())
     print("phase seconds (%s): %s, %.1f in all" % (

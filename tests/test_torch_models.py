@@ -59,7 +59,7 @@ from veles_tpu_torch.models.mnist_ae import (AutoencoderLoader,  # noqa
                                              autoencoder_layers)
 from veles_tpu_torch.models.parity import (AE_TRAINING,  # noqa: E402
                                            CONV_LAYERS, CONV_TRAINING)
-from veles_tpu_torch.nn.kohonen import (KohonenTrainer,  # noqa: E402
+from veles_tpu_torch.nn.kohonen import (SOMCodebook,  # noqa: E402
                                         som_quality)
 from veles_tpu_torch.train.som import SOMRunner  # noqa: E402
 
@@ -290,7 +290,7 @@ def test_som_matches_the_jax_runner():
     initial = numpy.array(wf.trainer.weights.map_read())
     prng.get().seed(WEIGHT_SEED)
     prng.get("loader").seed(LOADER_SEED)
-    trainer = KohonenTrainer(784, sx, sy, device="cpu")
+    trainer = SOMCodebook(784, sx, sy, device="cpu")
     numpy.testing.assert_array_equal(trainer.weights.numpy(), initial)
     runner = SOMRunner(trainer, MnistLoader(provider=DIGITS,
                                             minibatch_size=MINIBATCH))
@@ -446,7 +446,7 @@ def test_training_paths_import_neither_jax_nor_the_jax_package():
         "CIFAR_TRAINING, CifarLoader\n"
         "from veles_tpu_torch.models.mnist_ae import AutoencoderLoader, "
         "autoencoder_layers\n"
-        "from veles_tpu_torch.nn.kohonen import KohonenTrainer\n"
+        "from veles_tpu_torch.nn.kohonen import SOMCodebook\n"
         "from veles_tpu_torch.train.som import SOMRunner\n"
         "d, o = golden_digits(24, 8), golden_objects(24, 8)\n"
         "runs = [build_training(MNIST_LAYERS, (784,), MnistLoader("
@@ -460,7 +460,7 @@ def test_training_paths_import_neither_jax_nor_the_jax_package():
         "device='cpu', loss='mse', learning_rate=0.001)]\n"
         "for t in runs:\n"
         "    assert math.isfinite(t.run_epoch(0)['train']['loss'])\n"
-        "SOMRunner(KohonenTrainer(784, 4, 4, device='cpu'), MnistLoader("
+        "SOMRunner(SOMCodebook(784, 4, 4, device='cpu'), MnistLoader("
         "provider=d, minibatch_size=8)).run_epoch()\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k.split('.')[0] == 'veles_tpu' or "

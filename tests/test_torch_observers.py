@@ -522,11 +522,8 @@ def _alexnet_snapshot(directory):
 
 # -- the catalog --------------------------------------------------------------
 
-#: the JAX package's units the catalog leaves out: the next slice's
-#: ``interaction`` (Shell), ``downloader``, ``avatar`` and HDFS loader,
-#: the eager Kohonen units, and the abstract PoolingBase
-NOT_YET = {"Avatar", "Downloader", "HDFSLoader", "KohonenForward",
-           "KohonenTrainer", "PoolingBase", "RemoteAvatar", "Shell"}
+#: the JAX package's units the catalog leaves out: none
+NOT_YET = set()
 
 
 CATALOGS = textwrap.dedent('''

@@ -232,7 +232,7 @@ class Main(Logger):
             "slave_death_probability", "job_timeout", "nodes", "respawn",
             "segment_size", "pipeline", "secret_file", "max_frame_mb",
             "exchange_dtype", "exchange_eps", "straggler_drop_s",
-            "reconnect_s", "graphics", "web_status")}
+            "reconnect_s", "graphics", "web_status", "interactive")}
 
     def _join_world(self, argv):
         """The SPMD world of ``--gspmd`` and the multi-process flags,

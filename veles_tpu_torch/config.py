@@ -173,6 +173,9 @@ def _init_defaults():
         # ensemble's size (0 outside an ensemble) and the share of the
         # train set it trains on (``loader/base.py``)
         "ensemble": {"model_index": 0, "size": 0, "train_ratio": 1.0},
+        # the model repository (``forge/``): the path of its service
+        # endpoint and the file that describes a package
+        "forge": {"service_name": "forge", "manifest": "manifest.json"},
     })
 
 

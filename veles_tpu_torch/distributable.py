@@ -197,3 +197,7 @@ class Distributable(Pickleable):
 
     def apply_data_from_slave_locked(self, data, slave=None):
         return self._locked(self.apply_data_from_slave, data, slave)
+
+
+class TriviallyDistributable(Distributable):
+    """Units with no distributed state at all."""

@@ -31,6 +31,10 @@ class DummyLauncher(Logger):
     def is_slave(self):
         return False
 
+    @property
+    def is_interactive(self):
+        return False
+
     def add_ref(self, workflow):
         self.workflow = workflow
 

@@ -95,7 +95,7 @@ KWARGS = frozenset([
     "heartbeat_timeout", "heartbeat_interval", "nodes", "respawn",
     "segment_size", "pipeline", "secret_file", "max_frame_mb",
     "exchange_dtype", "exchange_eps", "auto_resume", "straggler_drop_s",
-    "reconnect_s", "gspmd", "graphics", "web_status"])
+    "reconnect_s", "gspmd", "graphics", "web_status", "interactive"])
 
 
 def _blob_nbytes(blob):
@@ -290,6 +290,9 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         #: post status, logs and events to the web_status dashboard
         self.graphics = kwargs.get("graphics", True)
         self.web_status = kwargs.get("web_status", False)
+        #: ``-i``: the run is driven from a console (``Shell`` units then
+        #: stay out of the way)
+        self.interactive = kwargs.get("interactive", False)
         self.id = str(uuid.uuid4())
         self.log_id = self.id[:8]
         self.workflow = None
@@ -453,6 +456,10 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
     @property
     def is_slave(self):
         return self.mode == "slave"
+
+    @property
+    def is_interactive(self):
+        return self.interactive
 
     def add_ref(self, workflow):
         self.workflow = workflow

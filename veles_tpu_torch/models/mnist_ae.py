@@ -8,13 +8,19 @@ resolved from the data's features as the JAX workflow resolves it;
 minibatch is 100). :class:`AutoencoderLoader` is an
 MSE loader over a provider whose targets are a copy of the normalized
 (``linear`` by default) flat inputs. The SOM, the config's other half,
-is ``nn/kohonen.py`` with ``train/som.py``.
+is :class:`KohonenWorkflow`, the units of ``nn/kohonen.py`` in a loop,
+or its own runner ``train/som.py`` ``SOMFusedRunner``.
 """
 
 import numpy
 import torch
 
+from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
 from veles_tpu_torch.loader.fullbatch import FullBatchLoaderMSE
+from veles_tpu_torch.mutable import Bool
+from veles_tpu_torch.nn.kohonen import KohonenForward, KohonenTrainer
+from veles_tpu_torch.plumbing import Repeater
+from veles_tpu_torch.units import Unit
 
 #: ``MnistAEWorkflow``'s defaults: MSE loss, SGD with these
 AE_TRAINING = {"learning_rate": 0.05, "loss": "mse"}
@@ -47,3 +53,67 @@ class AutoencoderLoader(FullBatchLoaderMSE):
     def _normalize_data(self):
         super(AutoencoderLoader, self)._normalize_data()
         self.original_targets = self.original_data.clone()
+
+
+class EpochCounter(Unit):
+    """Raises ``complete`` when an epoch ends with the loader's epoch
+    number at ``epochs`` or more."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow, epochs=10, **kwargs):
+        super(EpochCounter, self).__init__(workflow, **kwargs)
+        self.epochs = epochs
+        self.complete = Bool(False)
+        self.demand("epoch_ended", "epoch_number")
+
+    def initialize(self, **kwargs):
+        pass
+
+    def run(self):
+        if bool(self.epoch_ended) and self.epoch_number >= self.epochs:
+            self.complete <<= True
+
+
+class KohonenWorkflow(AcceleratedWorkflow):
+    """The SOM training loop (``veles_tpu/models/mnist_ae.py``):
+    repeater -> loader (``loader_factory(workflow)``) -> trainer ->
+    epoch counter -> repeater, until the counter completes; the forward
+    maps the loader's minibatch to its winners after training, outside
+    the loop. ``run()`` is the eager loop; :meth:`make_fused_runner`
+    gives the runner of ``train/som.py``."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow=None, loader_factory=None, sx=8, sy=8,
+                 epochs=10, **kwargs):
+        super(KohonenWorkflow, self).__init__(workflow, **kwargs)
+        self.repeater = Repeater(self)
+        self.repeater.link_from(self.start_point)
+        self.loader = loader_factory(self)
+        self.loader.link_from(self.repeater)
+        self.trainer = KohonenTrainer(self, sx=sx, sy=sy)
+        self.trainer.link_from(self.loader)
+        self.trainer.link_attrs(self.loader, ("input", "minibatch_data"))
+        self.forward = KohonenForward(self)
+        self.forward.link_attrs(self.loader, ("input", "minibatch_data"))
+        self.forward.link_attrs(self.trainer, "weights")
+        self.counter = EpochCounter(self, epochs=epochs, name="counter")
+        self.counter.link_from(self.trainer)
+        self.counter.link_attrs(self.loader, "epoch_ended", "epoch_number")
+        self.repeater.link_from(self.counter)
+        self.repeater.gate_block = self.counter.complete
+        self.end_point.link_from(self.counter)
+        self.end_point.gate_block = ~self.counter.complete
+
+    def make_fused_runner(self):
+        """The workflow's own runner, or None where only the eager loop
+        continues the run exactly: no data loaded yet, or a snapshot
+        resumed inside an epoch (the runner sweeps whole epochs)."""
+        if self.loader.original_data is None:
+            return None
+        offset = self.loader._global_offset
+        if 0 < offset < self.loader.total_samples:
+            return None
+        from veles_tpu_torch.train.som import SOMFusedRunner
+        return SOMFusedRunner(self)

@@ -4,16 +4,21 @@ A codebook of ``sx * sy`` units over the sample features, trained by
 the batch SOM update: each sample's winner is the unit of least
 ``|c|^2 - 2 x.c`` (:func:`winners`), each unit is pulled towards the
 samples by a Gaussian of its grid distance to their winners, and the
-radius and the rate decay with the step count (:class:`KohonenTrainer`).
-The two products stay ``torch.matmul``: the JAX package computes them
-with plain ``jnp.dot``, outside any Pallas kernel. :func:`som_quality`
-gives the map's quantization and topographic errors.
+radius and the rate decay with the step count. :class:`SOMCodebook`
+holds a codebook and takes the steps; :class:`KohonenTrainer` and
+:class:`KohonenForward` are the JAX package's units over the same
+functions, the trainer updating its codebook each time its minibatch
+arrives, the forward mapping each sample to its winner. The two
+products stay ``torch.matmul``: the JAX package computes them with
+plain ``jnp.dot``, outside any Pallas kernel. :func:`som_quality` gives
+the map's quantization and topographic errors.
 """
 
 import numpy
 import torch
 
 from veles_tpu_torch import prng
+from veles_tpu_torch.accelerated_units import AcceleratedUnit
 from veles_tpu_torch.device import resolve_device
 
 
@@ -72,28 +77,20 @@ def som_quality(weights, sx, sy, data):
             "topographic_error": float(te)}
 
 
-class KohonenTrainer(object):
-    """An ``sx`` x ``sy`` codebook over ``features``, drawn uniform in
-    [-0.1, 0.1) from the ``rand`` stream of ``veles_tpu_torch.prng`` as
-    the JAX trainer draws it, on ``device`` (the card unless the caller
-    asks for the CPU). Schedule at step t: ``sigma = max(sigma0 *
-    exp(-decay t), 0.5)``, ``lr = max(learning_rate * exp(-decay t),
-    0.01)``; ``sigma0`` is half the longer side by default."""
+def draw_codebook(units, features, rand="default"):
+    """(units, features) float32 drawn uniform in [-0.1, 0.1) from the
+    ``rand`` stream, as the JAX trainer draws its codebook."""
+    w = numpy.zeros((int(units), int(features)), numpy.float32)
+    prng.get(rand).fill(w, -0.1, 0.1)
+    return w
 
-    def __init__(self, features, sx=8, sy=8, sigma=None, learning_rate=0.5,
-                 decay=0.005, rand="default", device=None):
-        self.sx, self.sy = int(sx), int(sy)
-        self.sigma0 = max(sx, sy) / 2.0 if sigma is None else sigma
-        self.learning_rate = learning_rate
-        self.decay = decay
-        self.device = resolve_device(device)
-        w = numpy.zeros((self.sx * self.sy, int(features)), numpy.float32)
-        prng.get(rand).fill(w, -0.1, 0.1)
-        self.weights = torch.from_numpy(w).to(self.device)
-        self.grid = torch.from_numpy(make_grid(self.sx, self.sy)).to(
-            self.device)
-        #: update steps taken
-        self.time = 0
+
+class _Schedule(object):
+    """The decaying radius and rate, and one batch update of
+    ``weights`` (the mixin of :class:`SOMCodebook` and
+    :class:`KohonenTrainer`). At step t: ``sigma = max(sigma0 *
+    exp(-decay t), 0.5)``, ``lr = max(learning_rate * exp(-decay t),
+    0.01)``, in float32 on the codebook's device."""
 
     def schedule(self, t):
         """(sigma, lr) at step ``t`` (a float32 tensor), in float32."""
@@ -113,3 +110,102 @@ class KohonenTrainer(object):
                                        lr)
         self.time += 1
         return win
+
+
+class SOMCodebook(_Schedule):
+    """An ``sx`` x ``sy`` codebook over ``features``
+    (:func:`draw_codebook`) on ``device`` (the card unless the caller
+    asks for the CPU); ``sigma0`` is half the longer side by default."""
+
+    def __init__(self, features, sx=8, sy=8, sigma=None, learning_rate=0.5,
+                 decay=0.005, rand="default", device=None):
+        self.sx, self.sy = int(sx), int(sy)
+        self.sigma0 = max(sx, sy) / 2.0 if sigma is None else sigma
+        self.learning_rate = learning_rate
+        self.decay = decay
+        self.device = resolve_device(device)
+        self.weights = torch.from_numpy(draw_codebook(
+            self.sx * self.sy, features, rand)).to(self.device)
+        self.grid = torch.from_numpy(make_grid(self.sx, self.sy)).to(
+            self.device)
+        #: update steps taken
+        self.time = 0
+
+
+def _flat(x):
+    return x.reshape(x.shape[0], -1)
+
+
+class KohonenForward(AcceleratedUnit):
+    """Maps each sample of ``input`` to its best-matching unit of
+    ``weights`` (linked from the trainer): ``output``, int64."""
+
+    SHAPE_ONLY_STATE = ("output",)
+
+    def __init__(self, workflow, **kwargs):
+        super(KohonenForward, self).__init__(workflow, **kwargs)
+        self.input = None
+        self.weights = None
+        self.output = None
+        self.demand("input", "weights")
+
+    def initialize(self, device=None, **kwargs):
+        super(KohonenForward, self).initialize(device=device, **kwargs)
+        self.output = torch.empty((self.input.shape[0],),
+                                  dtype=torch.int64, device="meta")
+
+    def compute(self):
+        self.output = winners(self.weights, _flat(self.input))
+
+
+class KohonenTrainer(_Schedule, AcceleratedUnit):
+    """The SOM codebook trainer over an ``sx`` x ``sy`` grid, with the
+    JAX unit's keywords (``sigma``, ``learning_rate``, ``decay``,
+    ``rand``). Its codebook is drawn at ``initialize()`` from the
+    features of ``input`` (:func:`draw_codebook`) unless it has one (a
+    snapshot's), and put on the unit's device; each run is one batch
+    update by ``input``, its winners in ``winners``."""
+
+    consumes_global_rng_on_init = True  # the codebook advances the stream
+    SHAPE_ONLY_STATE = ("winners",)
+
+    def __init__(self, workflow, sx=8, sy=8, **kwargs):
+        self.sx, self.sy = int(sx), int(sy)
+        self.sigma0 = kwargs.pop("sigma", max(sx, sy) / 2.0)
+        self.learning_rate = kwargs.pop("learning_rate", 0.5)
+        self.decay = kwargs.pop("decay", 0.005)
+        self.rand_name = kwargs.pop("rand", "default")
+        super(KohonenTrainer, self).__init__(workflow, **kwargs)
+        self.input = None
+        self.weights = None
+        self.winners = None
+        #: update steps taken
+        self.time = 0
+        self.demand("input")
+
+    def init_unpickled(self):
+        super(KohonenTrainer, self).init_unpickled()
+        self.grid_ = None
+
+    @property
+    def neurons_number(self):
+        return self.sx * self.sy
+
+    @property
+    def grid(self):
+        return self.grid_
+
+    def initialize(self, device=None, **kwargs):
+        super(KohonenTrainer, self).initialize(device=device, **kwargs)
+        if self.weights is None:
+            self.weights = torch.from_numpy(draw_codebook(
+                self.neurons_number, numpy.prod(self.input.shape[1:]),
+                self.rand_name))
+        self.weights = self.weights.to(self.device)
+        self.grid_ = torch.from_numpy(make_grid(self.sx, self.sy)).to(
+            self.device)
+        self.winners = torch.empty((self.input.shape[0],),
+                                   dtype=torch.int64, device="meta")
+
+    def compute(self):
+        self.winners = self.step(_flat(self.input))

@@ -274,8 +274,9 @@ class ForwardBase(AcceleratedUnit):
         return state
 
 
-def _forward_class(name, layer, include_bias=True, doc=None):
-    return type(name, (ForwardBase,), {
+def _forward_class(name, layer, include_bias=True, doc=None,
+                   base=ForwardBase):
+    return type(name, (base,), {
         "LAYER": layer, "INCLUDE_BIAS": include_bias,
         "hide_from_registry": False, "__module__": __name__,
         "__doc__": doc or "The unit of ``nn.%s.%s``." % (
@@ -317,10 +318,18 @@ ConvRELU = _forward_class("ConvRELU", conv.ConvRELU)
 ConvStrictRELU = _forward_class("ConvStrictRELU", conv.ConvStrictRELU)
 ConvSigmoid = _forward_class("ConvSigmoid", conv.ConvSigmoid)
 Deconv = _forward_class("Deconv", conv.Deconv, include_bias=False)
-MaxPooling = _forward_class("MaxPooling", pooling.MaxPooling)
-MaxAbsPooling = _forward_class("MaxAbsPooling", pooling.MaxAbsPooling)
-AvgPooling = _forward_class("AvgPooling", pooling.AvgPooling)
-Depooling = _forward_class("Depooling", pooling.Depooling)
+#: the poolings' common unit, registered as the JAX package registers it
+PoolingBase = _forward_class("PoolingBase", pooling.PoolingBase,
+                             doc="The poolings' unit: a ``(ky, kx)`` "
+                                 "window moved by ``sliding``.")
+MaxPooling = _forward_class("MaxPooling", pooling.MaxPooling,
+                            base=PoolingBase)
+MaxAbsPooling = _forward_class("MaxAbsPooling", pooling.MaxAbsPooling,
+                               base=PoolingBase)
+AvgPooling = _forward_class("AvgPooling", pooling.AvgPooling,
+                            base=PoolingBase)
+Depooling = _forward_class("Depooling", pooling.Depooling,
+                           base=PoolingBase)
 LRNormalizerForward = _forward_class("LRNormalizerForward",
                                      normalization.LRNormalizerForward)
 ActivationUnit = _forward_class("ActivationUnit",

@@ -16,9 +16,7 @@ import sys
 
 
 #: modules whose import populates the unit registry: the catalog covers
-#: every unit the port ships, not only those imported already. The JAX
-#: package's ``interaction``, ``downloader``, ``avatar`` and ``forge`` are
-#: not ported yet, so they are left out
+#: every unit the port ships, not only those imported already
 _UNIT_MODULES = (
     "veles_tpu_torch.plumbing", "veles_tpu_torch.loader",
     "veles_tpu_torch.loader.fullbatch", "veles_tpu_torch.loader.image",
@@ -27,7 +25,9 @@ _UNIT_MODULES = (
     "veles_tpu_torch.loader.ensemble", "veles_tpu_torch.nn.units",
     "veles_tpu_torch.nn.decision", "veles_tpu_torch.nn.kohonen",
     "veles_tpu_torch.snapshotter", "veles_tpu_torch.plotting_units",
-    "veles_tpu_torch.restful_api", "veles_tpu_torch.input_joiner",
+    "veles_tpu_torch.restful_api", "veles_tpu_torch.interaction",
+    "veles_tpu_torch.downloader", "veles_tpu_torch.avatar",
+    "veles_tpu_torch.loader.hdfs", "veles_tpu_torch.input_joiner",
     "veles_tpu_torch.mean_disp_normalizer", "veles_tpu_torch.zmq_loader",
     "veles_tpu_torch.genetics", "veles_tpu_torch.ensemble",
     "veles_tpu_torch.launcher", "veles_tpu_torch.publishing",

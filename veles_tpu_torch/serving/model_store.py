@@ -17,7 +17,10 @@ A package is served as the JAX loader serves it: the dense units only
 ``ActivationUnit``, ``DropoutForward`` as the identity), rebuilt as the
 port's modules, so ``All2All`` layers run K1 on the card and the
 softmax head its plain product; any other unit raises
-:class:`ModelLoadError` (serve the snapshot instead).
+:class:`ModelLoadError` (serve the snapshot instead). The port's own
+reader goes further when asked (``from_package(..., full=True)``): the
+convolutions, poolings and LRN of a package are rebuilt too, so a
+convolutional package (AlexNet's) serves with K1 and K3 on the card.
 
 :class:`ModelStore` keeps versions per name with pinning and
 keep-last-K retention; the replica pool promotes whatever ``get``
@@ -51,8 +54,47 @@ _DENSE_TYPES = {"All2All": "all2all", "All2AllTanh": "all2all_tanh",
                 "DropoutForward": "dropout"}
 
 
+#: the units ``from_package(..., full=True)`` rebuilds beside the dense
+#: ones, by class -> layer descriptor type
+_FULL_TYPES = {"Conv": "conv", "ConvTanh": "conv_tanh",
+               "ConvRELU": "conv_relu", "ConvStrictRELU": "conv_str",
+               "ConvSigmoid": "conv_sigmoid", "MaxPooling": "max_pooling",
+               "MaxAbsPooling": "maxabs_pooling",
+               "AvgPooling": "avg_pooling", "LRNormalizerForward": "norm"}
+
+
 class ModelLoadError(Exception):
     """The artifact at the given path is not a serveable model."""
+
+
+def _full_layer(entry, resolve):
+    """(descriptor, JAX-layout params) of one package unit, convolutions,
+    poolings and LRN included."""
+    ltype = _FULL_TYPES.get(entry["class"]["name"])
+    if ltype is None:
+        return _dense_layer(entry, resolve)
+    data = entry["data"]
+    if ltype == "norm":
+        return {"type": ltype, "n": data["n"], "alpha": data["alpha"],
+                "beta": data["beta"], "k": data["k"]}, {}
+    descr = {"type": ltype, "kx": data["kx"], "ky": data["ky"],
+             "sliding": tuple(data["sliding"])}
+    if not ltype.startswith("conv"):
+        return descr, {}
+    padding = data["padding"]
+    if not isinstance(padding, str):
+        left, top, right, bottom = padding
+        if (left, top) != (right, bottom):
+            raise ModelLoadError("asymmetric convolution padding %r"
+                                 % (padding,))
+        padding = (top, left)
+    descr.update(n_kernels=data["n_kernels"], padding=padding)
+    params = {"weights": resolve(data["weights"])}
+    if "bias" in data:
+        params["bias"] = resolve(data["bias"])
+    else:
+        descr["include_bias"] = False
+    return descr, params
 
 
 def _dense_layer(entry, resolve):
@@ -126,9 +168,11 @@ class ServeableModel(object):
                    source=source or "workflow")
 
     @classmethod
-    def from_package(cls, path, name=None, version=1, device=None):
+    def from_package(cls, path, name=None, version=1, device=None,
+                     full=False):
         """Serve an export package (a directory or ``.tar``), put on
-        ``device`` (the card by default)."""
+        ``device`` (the card by default): its dense units, or with
+        ``full`` its convolutions, poolings and LRN too."""
         contents, members = _read_package(path)
         info = contents.get("workflow") or {}
 
@@ -138,7 +182,8 @@ class ServeableModel(object):
                 raise ModelLoadError("package member %r missing" % ref)
             return numpy.asarray(array, numpy.float32)
 
-        layers = [_dense_layer(entry, resolve)
+        layer_of = _full_layer if full else _dense_layer
+        layers = [layer_of(entry, resolve)
                   for entry in info.get("units", [])]
         if not layers:
             raise ModelLoadError("package %s has no units" % path)
