@@ -101,9 +101,16 @@
    at N or K = 100 run K1's general form and are recorded so. (4) On
    mnist-fc, an epoch each of AdaGrad, AdaDelta and Adam after the step
    check and a check of one update through the kernels against the plain
-   versions. (5) The 8x8 SOM over the digits, three epochs at minibatch
-   1024: its quantization error falls below the untrained codebook's,
-   ms an update by CUDA events, no kernel of the port launched. (6) The
+   versions; then mnist-fc with a solver a layer (fc1 SGD, the head
+   Adam): one float32 epoch through the fused trainer and one through
+   the eager unit graph from the same weights and shuffle, every
+   parameter and solver state within the mixed bounds
+   (``MIXED_ATOL``...), K1 and K6 launched the step's counts by both,
+   and the fused trainer with SGD on both layers as the control that
+   must fail the bounds. (5) The 8x8 SOM over the digits, three epochs
+   at minibatch 1024: its quantization error falls below the untrained
+   codebook's, ms an update by CUDA events, no kernel of the port
+   launched. (6) The
    samples of ``models/samples.py`` at their workflows' defaults, wine
    (13-10-3, batch 50), lines (a small conv net, 50) and kanji (100
    classes of glyph pairs, 20000 + 2000 samples, 100), run as (1)-(3).
@@ -610,6 +617,19 @@ BASELINE_SEED = 1234
 SOLVER_TRAINING = {"adagrad": {"learning_rate": 0.01},
                    "adadelta": {},
                    "adam": {"learning_rate": 0.001}}
+#: mnist-fc with fc1 on SGD and the head on Adam (one solver a layer),
+#: one float32 epoch fused and eager at the rate and decay of
+#: ``tests/test_torch_solvers_mixed.py``
+MIXED_SOLVERS = ("sgd", "adam")
+MIXED_TRAINING = {"learning_rate": 0.01, "weights_decay": 1e-3}
+#: their agreement, as that test's: the SGD layer's parameters and state
+#: within MIXED_ATOL; the Adam head's with at most MIXED_ADAM_SHARE of
+#: its elements past MIXED_ATOL and the whole within MIXED_ADAM_NORM of
+#: its norm (Adam's step has the size of the rate wherever a gradient
+#: cancels to rounding noise)
+MIXED_ATOL = 1e-6
+MIXED_ADAM_SHARE = 1e-3
+MIXED_ADAM_NORM = 1e-5
 #: the 8x8 SOM over the digits' 784 features, minibatch 1024
 SOM_SIDE = 8
 SOM_MINIBATCH = 1024
@@ -2533,11 +2553,164 @@ def som_run(torch, digits):
     return result
 
 
+def mixed_workflow(torch, digits, solvers):
+    """mnist-fc as a ``StandardWorkflow`` on the card, weights and
+    shuffles from :data:`BASELINE_SEED`, each layer's gradient unit on
+    its solver of ``solvers``, one epoch."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.dummy import DummyLauncher
+    from veles_tpu_torch.models.mnist import MNIST_LAYERS, MnistLoader
+    from veles_tpu_torch.standard_workflow import StandardWorkflow
+    prng.get().seed(BASELINE_SEED)
+    prng.get("loader").seed(BASELINE_SEED + 1)
+    wf = StandardWorkflow(
+        DummyLauncher(), loader=lambda w: MnistLoader(
+            workflow=w, provider=digits, minibatch_size=500),
+        layers=MNIST_LAYERS, loss="softmax", max_epochs=1, **MIXED_TRAINING)
+    gd_of = {id(gd.forward): gd for gd in wf.gds}
+    for fwd, solver in zip(wf.forwards, solvers):
+        gd_of[id(fwd)].solver_name = solver
+    wf.initialize(device="cuda")
+    return wf
+
+
+def mixed_state(wf):
+    """[(solver, {name: tensor})] of each layer: its parameters and its
+    gradient unit's solver state, flattened."""
+    from veles_tpu_torch.convert import layer_params
+    gd_of = {id(gd.forward): gd for gd in wf.gds}
+    out = []
+    for fwd in wf.forwards:
+        gd = gd_of[id(fwd)]
+        flat = {"param." + k: p.detach()
+                for k, p in layer_params(fwd.module).items()}
+
+        def walk(prefix, node):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    walk(prefix + "." + k, v)
+            else:
+                flat[prefix] = node.detach().reshape(-1)
+        walk("state", gd.opt_state or {})
+        out.append((gd.solver_name, flat))
+    return out
+
+
+def mixed_mismatch(torch, got, want, params_only=False):
+    """The worst breach of the mixed bounds (<= 1 passes) of ``got``
+    against ``want`` (:func:`mixed_state`), and the max |difference|;
+    the parameters alone with ``params_only``, else every state too
+    (the two must hold the same)."""
+    worst, max_abs = 0.0, 0.0
+    for (solver, a), (_, b) in zip(got, want):
+        keys = [k for k in b if k.startswith("param.")] if params_only \
+            else sorted(b)
+        if not params_only and sorted(a) != keys:
+            raise AssertionError("mixed solvers: states %s against %s" % (
+                sorted(a), keys))
+        for k in keys:
+            d = (a[k].float() - b[k].float()).abs()
+            max_abs = max(max_abs, float(d.max()))
+            if solver != "adam":
+                worst = max(worst, float(d.max()) / MIXED_ATOL)
+                continue
+            share = float((d > MIXED_ATOL).float().mean())
+            norm = float(torch.linalg.vector_norm(d)) / max(
+                float(torch.linalg.vector_norm(b[k].float())), 1e-30)
+            worst = max(worst, share / MIXED_ADAM_SHARE,
+                        norm / MIXED_ADAM_NORM)
+    return worst, max_abs
+
+
+def mixed_solver_run(torch, digits):
+    """mnist-fc with fc1 on SGD and the head on Adam, one float32 epoch
+    through the fused trainer (one solver a layer) and through the eager
+    unit graph from the same weights and shuffle: every parameter and
+    solver state within the mixed bounds, K1 and K6 launched the same
+    counts by both (the step's: one K1 a forward, one K6 a bias a
+    step); the fused trainer with SGD on both layers is the control that
+    must fail the bounds. Returns (result, the fused run's launches by
+    form)."""
+    from veles_tpu_torch.loader.base import TRAIN, VALIDATION
+    from veles_tpu_torch.train.runner import FusedRunner, fused_compatible
+    t0 = time.perf_counter()
+    runs = {}
+    for mode, solvers in (("fused", MIXED_SOLVERS), ("eager", MIXED_SOLVERS),
+                          ("control", ("sgd", "sgd"))):
+        wf = mixed_workflow(torch, digits, solvers)
+        reset_counts()
+        t = time.perf_counter()
+        if mode == "eager":
+            wf.run()
+        else:
+            reason = fused_compatible(wf)
+            if reason is not None:
+                raise AssertionError("mixed solvers: the fused path refuses "
+                                     "the workflow: %s" % reason)
+            runner = FusedRunner(wf)
+            got = [rule.name for rule in runner.trainer.solvers]
+            if tuple(got) != solvers:
+                raise AssertionError("mixed solvers: the trainer runs %s, "
+                                     "the workflow asks %s" % (got, solvers))
+            runner.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts, by_form = read_counts()
+        runs[mode] = {"seconds": seconds, "launches": counts,
+                      "by_form": by_form, "state": mixed_state(wf),
+                      "history": wf.decision.epoch_history}
+        if mode == "fused":
+            steps = len(runner.trainer._segment_indices(TRAIN))
+            forwards = steps + len(runner.trainer._segment_indices(
+                VALIDATION))
+        del wf
+    expected = dict.fromkeys(kernel_counters(), 0)
+    expected["gemm_bias_act"] = forwards
+    expected["column_reduce"] = 2 * steps
+    for mode in ("fused", "eager"):
+        if runs[mode]["launches"] != expected:
+            raise AssertionError("mixed solvers %s: launches %s, expected %s "
+                                 "over %d steps and %d forwards" % (
+                                     mode, runs[mode]["launches"], expected,
+                                     steps, forwards))
+    worst, max_abs = mixed_mismatch(torch, runs["fused"]["state"],
+                                    runs["eager"]["state"])
+    control, _ = mixed_mismatch(torch, runs["control"]["state"],
+                                runs["eager"]["state"], params_only=True)
+    errors = {m: [{k: e[k]["normalized"] for k in ("train", "validation")}
+                  for e in runs[m]["history"]] for m in ("fused", "eager")}
+    result = {
+        "solvers": list(MIXED_SOLVERS), "steps": steps,
+        "forwards": forwards, "launches": runs["fused"]["launches"],
+        "eager_launches": runs["eager"]["launches"],
+        "fused_s": runs["fused"]["seconds"],
+        "eager_s": runs["eager"]["seconds"],
+        "worst_bound_share": worst, "max_abs_diff": max_abs,
+        "control_bound_share": control, "error_rates": errors,
+        "leg_s": time.perf_counter() - t0}
+    print("mnist-fc mixed solvers %s: fused vs eager epoch, worst %.3g of "
+          "the bounds (max |diff| %.3g), the one-solver control %.3g; "
+          "error rates %s; K1 %d, K6 %d launches each; fused %.3f s, "
+          "eager %.3f s, leg %.3f s" % (
+              "/".join(MIXED_SOLVERS), worst, max_abs, control, errors,
+              expected["gemm_bias_act"], expected["column_reduce"],
+              result["fused_s"], result["eager_s"], result["leg_s"]))
+    if not worst <= 1.0:
+        raise AssertionError("mixed solvers: the fused epoch differs from "
+                             "the eager one by %.3g of the bounds" % worst)
+    if control <= 1.0:
+        raise AssertionError("mixed solvers: the one-solver control passes "
+                             "the bounds (%.3g): the check cannot see a "
+                             "wrong solver" % control)
+    return result, runs["fused"]["by_form"]
+
+
 def baseline_phase(torch, kernels):
     """The BASELINE model family on the card: each training path under
     each policy (float32 first, with the step check), its launches at
     checked forms, an epoch of each adaptive solver on mnist-fc with its
-    step and update checks, and the SOM. Returns (results,
+    step and update checks, mnist-fc with a solver a layer fused against
+    eager (:func:`mixed_solver_run`), and the SOM. Returns (results,
     [launches_by_form of each counted run])."""
     t0 = time.perf_counter()
     paths, digits = baseline_paths()
@@ -2574,6 +2747,10 @@ def baseline_phase(torch, kernels):
         phases.append(by_form)
         results[label] = result
         del trainer
+    results["mnist-fc mixed solvers"], by_form = mixed_solver_run(
+        torch, digits)
+    check_forms("baseline mnist-fc mixed solvers", kernels, by_form)
+    phases.append(by_form)
     results["som"] = som_run(torch, digits)
     results["phase_s"] = time.perf_counter() - t0
     return results, phases

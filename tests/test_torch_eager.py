@@ -18,8 +18,8 @@ port's own fused path, on the CPU.
   evaluator, parameters, velocity), with dropout from the Philox fill's
   plain version, and with a short tail batch.
 * The CLI: ``--eager`` writes the fused run's result file; a graph with
-  a custom unit and a workflow with two solvers fall back to eager
-  (and the two solvers match JAX's eager run); ``publish_output``'s
+  a custom unit falls back to eager, a workflow with two solvers runs
+  fused (and matches JAX's eager run); ``publish_output``'s
   ``Output``/``Labels`` equal JAX's.
 * Snapshots: an eager run snapshotted by ``SnapshotterToFile`` at each
   epoch's end resumes bit for bit, eager and fused (the snapshot holds
@@ -284,8 +284,9 @@ def test_custom_unit_falls_back_to_eager_as_jax_does():
 
 
 def test_two_solvers_fall_back_to_eager_and_match_jax():
-    """AdaGrad on the head and SGD below it: the fused trainer runs one
-    solver, so the launcher runs eager; JAX's eager run agrees."""
+    """AdaGrad on the head and SGD below it: the fused trainer keeps a
+    solver per layer, so the launcher no longer falls back and runs
+    fused; JAX's eager run agrees."""
     from veles_tpu_torch.launcher import Launcher
     _seed_both()
     common = dict(provider=_provider(), layers=(8,), minibatch_size=20,
@@ -299,7 +300,7 @@ def test_two_solvers_fall_back_to_eager_and_match_jax():
     launcher.initialize()
     jax_wf.run()
     launcher.run()
-    assert launcher.run_mode_used == "eager"
+    assert launcher.run_mode_used == "fused"
     assert sorted(port_wf.gds[0].opt_state) == ["accum"]
     _assert_history(port_wf.decision.epoch_history,
                     jax_wf.decision.epoch_history)

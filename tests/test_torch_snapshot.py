@@ -18,7 +18,9 @@ the CPU.
   finished by the port's ``FusedRunner``, against the JAX ``FusedRunner``
   finishing the same bytes (epoch history within that test's 0.02 on
   the normalized metrics, read: equal; parameters within 1e-6, read:
-  3e-8); a
+  3e-8); the same case with two minibatches requeued through the JAX
+  loader's master API, resumed by both eager loops (the same minibatches
+  served in the same order, parameters within 1e-6); a
   finished ``MnistWorkflow`` (weights, velocity and history equal); a
   small ``AlexNetWorkflow`` after one epoch, continued one more epoch by
   both sides (JAX's dropout uniforms handed over; history equal,
@@ -244,8 +246,10 @@ def test_a_snapshot_loads_and_serves_without_a_card(uninterrupted,
 
 # -- the JAX reader ----------------------------------------------------------
 
-def _jax_mid_epoch_blob():
-    """JAX's own mid-epoch snapshot (``tests/test_fused_runner.py``)."""
+def _jax_mid_epoch_blob(requeue=0):
+    """JAX's own mid-epoch snapshot (``tests/test_fused_runner.py``),
+    with the next ``requeue`` minibatches served to a slave that is then
+    dropped (the loader's ``failed_minibatches``)."""
     from veles_tpu.launcher import Launcher
     from veles_tpu.models.mnist import MnistWorkflow as JaxMnist
     from veles_tpu.nn.decision import DecisionGD
@@ -272,6 +276,9 @@ def _jax_mid_epoch_blob():
         DecisionGD.run = orig_run
     assert wf.loader._global_offset == 300
     assert wf.decision.epoch_stats[2]["samples"] == 180
+    for _ in range(requeue):
+        wf.loader.generate_data_for_slave("lost")
+    wf.loader.drop_slave("lost")
     return jax_dump(wf)
 
 
@@ -313,6 +320,60 @@ def test_jax_mid_epoch_snapshot_finishes_under_the_port():
                 g[klass]["normalized"], w[klass]["normalized"], atol=0.02)
     assert bool(got.decision.complete)
     assert got.loader.epoch_number == want.loader.epoch_number
+    for g, w in zip(_port_weights(got), _jax_weights(want)):
+        for k in w:
+            numpy.testing.assert_allclose(g[k], w[k], atol=1e-6, rtol=0)
+
+
+def _served(monkeypatch, loader_cls, log):
+    """Record each minibatch ``loader_cls`` serves: (epoch, class, start,
+    size, indices)."""
+    apply_payload = loader_cls._apply_payload
+
+    def recording(self, data):
+        log.append((int(data["epoch"]), int(data["class"]),
+                    int(data["start"]), int(data["size"]),
+                    [int(i) for i in data["indices"]]))
+        return apply_payload(self, data)
+
+    monkeypatch.setattr(loader_cls, "_apply_payload", recording)
+
+
+def test_jax_snapshot_with_requeued_minibatches_resumes(monkeypatch):
+    """JAX's mid-epoch case with two minibatches requeued through its
+    loader's own master API (served to a slave that is then dropped):
+    resumed by JAX's eager loop and by the port's, the rest of the run
+    serves the same minibatches in the same order (the requeued ones
+    first, the later one of the two first) at the same offsets, and the
+    parameters end within 1e-6."""
+    from veles_tpu.loader.base import Loader as JaxLoader
+    from veles_tpu.snapshotter import load_workflow as jax_load
+    from veles_tpu_torch.loader.base import Loader
+    blob = _jax_mid_epoch_blob(requeue=2)
+    jax_served, port_served = [], []
+    _served(monkeypatch, JaxLoader, jax_served)
+    _served(monkeypatch, Loader, port_served)
+    jax_prng._generators.clear()
+    want = jax_load(blob)
+    want.workflow = JaxDummyLauncher()
+    want.initialize(device=Device(backend="cpu"))
+    assert len(want.loader.failed_minibatches) == 2
+    want.run()
+    prng._generators.clear()
+    got = load_workflow(blob)
+    got.workflow = DummyLauncher()
+    got.initialize(device="cpu")
+    assert [job["start"] for job in got.loader.failed_minibatches] == \
+        [300, 360]
+    assert fused_compatible(got) == "loader has requeued minibatches pending"
+    got.run()
+    assert [entry[:4] for entry in port_served[:3]] == [
+        (1, 2, 360, 60), (1, 2, 300, 60), (1, 2, 420, 60)]
+    assert port_served == jax_served
+    assert got.loader.failed_minibatches == []
+    assert bool(got.decision.complete)
+    assert [h["epoch"] for h in got.decision.epoch_history] == \
+        [h["epoch"] for h in want.decision.epoch_history]
     for g, w in zip(_port_weights(got), _jax_weights(want)):
         for k in w:
             numpy.testing.assert_allclose(g[k], w[k], atol=1e-6, rtol=0)
@@ -413,7 +474,7 @@ def _jax_graph(kind):
 
 
 @pytest.mark.parametrize("kind,needle", [
-    ("another_workflow", "eager compute units"),
+    ("another_workflow", "no counterpart of this workflow class"),
     ("an_extra_unit", "extra")])
 def test_jax_snapshot_the_port_cannot_carry_raises(kind, needle):
     from veles_tpu.snapshotter import dump_workflow as jax_dump

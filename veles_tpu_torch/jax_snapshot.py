@@ -26,11 +26,19 @@ lengths and (normalized) data; and the registry's streams, the JAX key
 counter becoming the Philox seed chain's counter.
 
 Workflow classes read: ``StandardWorkflow`` and its subclasses (the JAX
-package's, and a user's class with the same graph), and
-``MnistWorkflow``, with their ``SnapshotterToFile`` and
-``SnapshotterToDB`` units. Any other
-class, and any other unit in the graph, raises: it needs the eager
-compute units, which the port does not have yet.
+package's, and a user's class with the same graph), ``MnistWorkflow``
+and ``KohonenWorkflow`` (its codebook, its trainer's schedule and
+``time``, its counter's ``complete``), with their ``SnapshotterToFile``
+and ``SnapshotterToDB`` units. Each gradient unit keeps its own solver,
+so a workflow whose layers use different solvers comes over as it is.
+A loader's requeued minibatches (``failed_minibatches``, the payloads of
+a master's lost slaves) come over and are served first, as in JAX. Any
+other class, and any other unit in the graph, raises.
+
+The JAX ``KohonenWorkflow`` keeps its epoch limit in the closure of its
+counter's class, which a pickle does not carry; the reader takes the
+counter record's ``epochs`` where it has one, else the JAX constructor's
+default (:data:`KOHONEN_EPOCHS`).
 """
 
 import io
@@ -67,6 +75,9 @@ STANDARD_CLASSES = {
                                  "ChannelsWorkflow", "SequenceWorkflow",
                                  "LinesWorkflow"},
 }
+
+#: the JAX ``KohonenWorkflow``'s default epoch limit
+KOHONEN_EPOCHS = 10
 
 #: JAX forward unit class -> (descriptor type, {attribute: parameter})
 _SHAPE = {"output_sample_shape": "output_sample_shape",
@@ -280,19 +291,40 @@ def translate(record):
     from veles_tpu_torch.snapshotter import mark_restored
     if not isinstance(record, Record):
         raise pickle.UnpicklingError("the snapshot holds no workflow")
-    forwards = list(record.get("forwards") or ())
-    gds = {id(gd.get("forward")): gd for gd in record.get("gds") or ()}
-    decision = record.get("decision")
-    loader_rec = record.get("loader")
-    evaluator = record.get("evaluator")
-    covered = {id(u) for u in forwards + list(record.get("gds") or ()) + [
-        decision, loader_rec, evaluator, record.get("repeater"),
-        record.get("start_point"), record.get("end_point")]}
+    if record.module == "veles_tpu.models.mnist_ae" and \
+            record.qualname == "KohonenWorkflow":
+        _check_covered(record, ("loader", "trainer", "forward", "counter"))
+        workflow = _kohonen_workflow(record)
+        _copy_loader(workflow.loader, record.get("loader"))
+        _copy_snapshotters(workflow, record, workflow.counter)
+    else:
+        workflow = _trainable_workflow(record)
+        _copy_snapshotters(workflow, record, workflow.decision)
+    mark_restored(workflow)
+    return workflow
+
+
+def _check_covered(record, names, units=()):
+    """Raise on a unit of the record's graph that is none of its
+    attributes ``names``, of ``units``, of its plumbing or a
+    snapshotter."""
+    covered = {id(u) for u in list(units) + [record.get(n) for n in names + (
+        "repeater", "start_point", "end_point")]}
     for unit in record.get("_units") or ():
         if id(unit) not in covered and unit.qualname not in _SNAPSHOTTERS:
             raise NotImplementedError(
                 "unit %s (%s.%s) of the JAX snapshot has no port yet"
                 % (unit.get("name"), unit.module, unit.qualname))
+
+
+def _trainable_workflow(record):
+    forwards = list(record.get("forwards") or ())
+    gds = {id(gd.get("forward")): gd for gd in record.get("gds") or ()}
+    decision = record.get("decision")
+    loader_rec = record.get("loader")
+    evaluator = record.get("evaluator")
+    _check_covered(record, ("decision", "loader", "evaluator"),
+                   forwards + list(record.get("gds") or ()))
     if record.module == "veles_tpu.models.mnist" and \
             record.qualname == "MnistWorkflow":
         workflow = _mnist_workflow(record, forwards, gds, decision,
@@ -303,8 +335,8 @@ def translate(record):
     else:
         raise NotImplementedError(
             "%s.%s: the port reads snapshots of StandardWorkflow, its "
-            "subclasses and MnistWorkflow; other workflows need the "
-            "eager compute units, which the port does not have yet"
+            "subclasses, MnistWorkflow and KohonenWorkflow; it has no "
+            "counterpart of this workflow class"
             % (record.module, record.qualname))
     _copy_loader(workflow.loader, loader_rec)
     _copy_decision(workflow.decision, decision)
@@ -323,11 +355,44 @@ def translate(record):
         if hasattr(fwd, "testing") and fwd_rec.get("testing") is not None:
             fwd.testing = bool(fwd_rec.get("testing"))
         gd_rec = gds.get(id(fwd_rec))
-        state = gd_rec.get("opt_state") if gd_rec is not None else None
+        if gd_rec is None:
+            continue
+        gd = port_gds[id(fwd)]
+        gd.solver_name = gd_rec.get("solver_name", "sgd")
+        gd._solver_hp = dict(gd_rec.get("_solver_hp") or {})
+        state = gd_rec.get("opt_state")
         if state:
-            port_gds[id(fwd)]._solver_state = _tree(state)
-    _copy_snapshotters(workflow, record)
-    mark_restored(workflow)
+            gd._solver_state = _tree(state)
+    return workflow
+
+
+def _kohonen_workflow(record):
+    """The port's ``KohonenWorkflow`` from the JAX one's record: the
+    trainer's grid, schedule, ``time`` and codebook, the counter's limit
+    and ``complete`` (the loader is copied by the caller)."""
+    from veles_tpu_torch.dummy import DummyLauncher
+    from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+    from veles_tpu_torch.models.mnist_ae import KohonenWorkflow
+    trainer, counter = record.get("trainer"), record.get("counter")
+    loader_rec = record.get("loader")
+    workflow = KohonenWorkflow(
+        DummyLauncher(), loader_factory=lambda wf: FullBatchLoader(
+            workflow=wf, minibatch_size=loader_rec.get("max_minibatch_size"),
+            name=loader_rec.get("name")),
+        sx=trainer.get("sx"), sy=trainer.get("sy"),
+        epochs=counter.get("epochs", KOHONEN_EPOCHS),
+        name=record.get("name"))
+    unit = workflow.trainer
+    unit.sigma0 = float(trainer.get("sigma0"))
+    unit.learning_rate = float(trainer.get("learning_rate"))
+    unit.decay = float(trainer.get("decay"))
+    unit.rand_name = trainer.get("rand_name", "default")
+    unit.time = int(trainer.get("time", 0))
+    weights = array_of(trainer.get("weights"))
+    if weights is not None:
+        unit.weights = torch.from_numpy(numpy.array(weights,
+                                                    numpy.float32))
+    workflow.counter.complete.value = _bool(counter.get("complete"))
     return workflow
 
 
@@ -358,27 +423,20 @@ def _standard_workflow(record, forwards, gds, decision, loader_rec,
     from veles_tpu_torch.loader.fullbatch import (FullBatchLoader,
                                                   FullBatchLoaderMSE)
     from veles_tpu_torch.standard_workflow import StandardWorkflow
-    layers, solvers, lr_decay = [], set(), 1.0
+    layers = []
     for fwd_rec in forwards:
         descr = _layer_descriptor(fwd_rec)
         gd_rec = gds.get(id(fwd_rec))
         if gd_rec is not None:
             descr.update(_hypers(gd_rec))
-            solvers.add(gd_rec.get("solver_name", "sgd"))
-            lr_decay = (gd_rec.get("_solver_hp") or {}).get(
-                "lr_decay", lr_decay)
         layers.append(descr)
     mse = evaluator.qualname == "EvaluatorMSE"
     loader_cls = FullBatchLoaderMSE if mse else FullBatchLoader
     loader = loader_cls(minibatch_size=loader_rec.get("max_minibatch_size"),
                         name=loader_rec.get("name"))
-    if len(solvers) > 1:
-        raise NotImplementedError("one solver per workflow, got %s"
-                                  % sorted(solvers))
     return StandardWorkflow(
         DummyLauncher(), loader=loader, layers=layers,
-        loss="mse" if mse else "softmax", lr_decay=lr_decay,
-        solver=solvers.pop() if solvers else "sgd",
+        loss="mse" if mse else "softmax",
         max_epochs=decision.get("max_epochs"),
         fail_iterations=decision.get("fail_iterations", 100),
         name=record.get("name"))
@@ -396,7 +454,6 @@ def _mnist_workflow(record, forwards, gds, decision, loader_rec):
         minibatch_size=loader_rec.get("max_minibatch_size"),
         learning_rate=hyper["learning_rate"],
         weights_decay=hyper["weights_decay"], momentum=hyper["momentum"],
-        lr_decay=(gd_rec.get("_solver_hp") or {}).get("lr_decay", 1.0),
         max_epochs=decision.get("max_epochs"),
         fail_iterations=decision.get("fail_iterations", 100),
         name=record.get("name"))
@@ -428,10 +485,11 @@ def _copy_loader(loader, rec):
     if shuffle_limit is not None:
         loader.shuffle_limit = shuffle_limit
     loader.rand_name = rec.get("rand_name", "loader")
-    if rec.get("failed_minibatches"):
-        raise NotImplementedError(
-            "the JAX snapshot's loader holds requeued minibatches of "
-            "lost slaves; the port has no master/slave runtime yet")
+    loader.failed_minibatches = [
+        dict(job, indices=numpy.array(array_of(job["indices"]), numpy.int32),
+             **{k: _bool(job[k]) for k in ("last", "train_ended",
+                                           "epoch_ended") if k in job})
+        for job in rec.get("failed_minibatches") or ()]
     for key in ("epoch_ended", "last_minibatch", "train_ended"):
         getattr(loader, key).value = _bool(rec.get(key))
 
@@ -450,10 +508,11 @@ def _copy_decision(decision, rec):
 _SNAPSHOTTERS = ("SnapshotterToFile", "SnapshotterToDB")
 
 
-def _copy_snapshotters(workflow, record):
+def _copy_snapshotters(workflow, record, after):
     """The record's ``SnapshotterToFile`` and ``SnapshotterToDB`` units
     with their settings, wired as a training workflow wires one: after
-    the decision, skipped until the epoch ends."""
+    the unit ``after`` (the decision, or a SOM's epoch counter), skipped
+    until the epoch ends."""
     from veles_tpu_torch import snapshotter
     for unit in record.get("_units") or ():
         if unit.qualname not in _SNAPSHOTTERS:
@@ -467,5 +526,5 @@ def _copy_snapshotters(workflow, record):
             time_interval=unit.get("time_interval", 15.0),
             compression=unit.get("compression", "gz"),
             name=unit.get("name"), **target)
-        snap.link_from(workflow.decision)
+        snap.link_from(after)
         snap.gate_skip = ~workflow.loader.epoch_ended

@@ -426,7 +426,8 @@ class StagingRing(object):
                     # allocator only once the consumer is done with it
                     released.synchronize()
                 buffers = None
-                self._buffers[idx] = None
+                with self._cond:
+                    self._buffers[idx] = None
             started = ready = None
             with (torch.cuda.stream(stream) if cuda
                   else contextlib.nullcontext()):

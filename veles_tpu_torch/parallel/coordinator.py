@@ -165,8 +165,17 @@ class Protocol(object):
         self.shm_sends = 0
         self.shm_reads = 0
         self.shm_regrows = 0
-        #: ms spent copying blobs into and out of shared memory
-        self.shm_ms = 0.0
+        #: ms spent copying blobs into shared memory (the sending
+        #: thread's, under ``_wlock``) and out of it (the reading
+        #: thread's): two counters, so neither thread's add loses the
+        #: other's
+        self.shm_send_ms = 0.0
+        self.shm_read_ms = 0.0
+
+    @property
+    def shm_ms(self):
+        """ms spent copying blobs into and out of shared memory."""
+        return self.shm_send_ms + self.shm_read_ms
 
     # -- sharedio ----------------------------------------------------------
 
@@ -286,7 +295,7 @@ class Protocol(object):
                                 "size": size, "kind": kind})
                     offset += size
                     self.shm_sends += 1
-                self.shm_ms += (time.perf_counter() - t0) * 1e3
+                self.shm_send_ms += (time.perf_counter() - t0) * 1e3
             self._file.write((json.dumps(message) + "\n").encode())
             for data in bins:
                 self._file.write(_blob_len(data).to_bytes(8, "big"))
@@ -337,7 +346,7 @@ class Protocol(object):
                 self.shm_reads += 1
                 t0 = time.perf_counter()
                 raw = self._read_shm_ref(value)
-                self.shm_ms += (time.perf_counter() - t0) * 1e3
+                self.shm_read_ms += (time.perf_counter() - t0) * 1e3
                 return raw
             return {k: self._unpack(v, bins) for k, v in value.items()}
         if isinstance(value, list):

@@ -332,7 +332,8 @@ class RendezvousServer(Logger):
         return {"status": "error", "error": "unknown cmd %r" % cmd}
 
     def _join(self, member):
-        """Register or refresh a member (under ``self._lock``)."""
+        """Register or refresh a member. The caller holds
+        ``self._lock``."""
         if self.phase == "done":
             return {"status": "done"}
         state = self._members.get(member)
@@ -420,8 +421,8 @@ class RendezvousServer(Logger):
 
     def _break_generation(self, reason, lost=True):
         """A member of the running generation is gone (or a join is
-        absorbed): the next generation forms from the survivors. Under
-        ``self._lock``."""
+        absorbed): the next generation forms from the survivors. The
+        caller holds ``self._lock``."""
         if self.phase != "running":
             return
         if lost:

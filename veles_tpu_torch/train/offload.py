@@ -394,7 +394,7 @@ class OffloadEngine(object):
         for j, params in enumerate(params_group):
             n = len(params)
             if n:
-                trainer.solver.update(
+                trainer.solvers[lo + j].update(
                     params, dict(zip(params, grads[pos:pos + n])),
                     states_group[j], trainer.hypers[lo + j])
             pos += n

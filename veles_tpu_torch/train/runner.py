@@ -19,9 +19,10 @@ raised. A snapshot taken mid-epoch resumes through the same sweeps,
 serving only the remaining minibatches.
 
 :func:`fused_compatible` says why a graph cannot run this way (a unit
-the trainer does not model, a loader position inside a minibatch, more
-than one solver); the launcher then runs the eager per-unit scheduler
-(``Workflow.run``), as the JAX launcher does.
+the trainer does not model, a loader position inside a minibatch); the
+launcher then runs the eager per-unit scheduler (``Workflow.run``), as
+the JAX launcher does. Each layer trains with its gradient unit's
+solver, so a workflow whose layers use different solvers runs fused.
 
 Each epoch's wall time is split in :attr:`FusedRunner.epoch_times`:
 the evaluation and training sweeps (each ends in a host read of its
@@ -129,10 +130,6 @@ def fused_compatible(workflow):
                     return ("resume offset %d is not minibatch-aligned"
                             % offset)
                 break
-    solvers = sorted({gd.solver_name for gd in getattr(workflow, "gds", ())
-                      if gd.opt_state})
-    if len(solvers) > 1:
-        return "the trainer runs one solver, the workflow has %s" % solvers
     covered = _covered_units(workflow)
     for unit in workflow:
         if unit in covered:
@@ -147,22 +144,18 @@ def fused_compatible(workflow):
 def trainer_for(workflow, cls=FusedTrainer, **kwargs):
     """The port's trainer (``cls``, given ``kwargs`` beside) over an
     initialized workflow: its ``model``, its loader, each layer's
-    hyper-parameters and solver state from the layer's gradient unit
-    (the state dicts themselves: the trainer updates them in place), the
-    loss of its evaluator and its ``uniform_source``."""
+    solver, hyper-parameters and solver state from the layer's gradient
+    unit (the state dicts themselves: the trainer updates them in
+    place), the loss of its evaluator and its ``uniform_source``."""
     gd_for = {id(gd.forward): gd for gd in getattr(workflow, "gds", ())}
     gds = [gd_for.get(id(fwd)) for fwd in workflow.forwards]
-    solvers = {gd.solver_name for gd in gds if gd is not None}
-    if len(solvers) > 1:
-        raise NotImplementedError(
-            "the port's trainer runs one solver, the workflow has %s"
-            % sorted(solvers))
     loss = ("softmax" if isinstance(workflow.evaluator, EvaluatorSoftmax)
             else "mse")
     return cls(
         workflow.model, workflow.loader,
         [gd.hyper if gd is not None else {} for gd in gds],
-        solver=solvers.pop() if solvers else "sgd", loss=loss,
+        solver=[gd.solver_name if gd is not None else "sgd" for gd in gds],
+        loss=loss,
         uniform_source=workflow.uniform_source,
         states=[gd.opt_state if gd is not None and gd.opt_state
                 else {} for gd in gds], **kwargs)

@@ -142,7 +142,9 @@ LOSSES = {"softmax": (softmax_loss_and_metrics, "labels"),
 class FusedTrainer(object):
     """Trains ``model`` (an ``nn.Sequential`` of the port's modules)
     over ``loader`` with ``loss`` (``softmax`` or ``mse``) and
-    ``solver`` (a name or a rule of ``nn/optim.py``).
+    ``solver``: a name or a rule of ``nn/optim.py`` for every module, or
+    a sequence of them, one per module (each layer updated by its own
+    rule, as the JAX trainer keeps one solver per layer).
 
     ``hypers`` holds one solver hyper-parameter dict per module, and
     ``states``, when given, the solver state of each (``{}`` for a
@@ -173,7 +175,13 @@ class FusedTrainer(object):
         if len(self.hypers) != len(self.forwards):
             raise ValueError("%d hyper-parameter dicts for %d layers" % (
                 len(self.hypers), len(self.forwards)))
-        self.solver = get_solver(solver)
+        per_layer = solver if isinstance(solver, (list, tuple)) else \
+            [solver] * len(self.forwards)
+        if len(per_layer) != len(self.forwards):
+            raise ValueError("%d solvers for %d layers" % (
+                len(per_layer), len(self.forwards)))
+        #: each module's update rule
+        self.solvers = [get_solver(name) for name in per_layer]
         self.uniform_source = uniform_source
         self.plain = plain
         #: the last training batch's norm, and the (n_batches,) float32
@@ -218,6 +226,13 @@ class FusedTrainer(object):
         self._setup_data_residency()
         self.params = [layer_params(m) for m in self.forwards]
         self._setup_model_residency(states)
+
+    @property
+    def solver(self):
+        """The rule of every layer with weights when they share one, else
+        None (see ``solvers``)."""
+        rules = {rule for rule, p in zip(self.solvers, self.params) if p}
+        return rules.pop() if len(rules) == 1 else None
 
     # -- residency ---------------------------------------------------------
 
@@ -287,7 +302,8 @@ class FusedTrainer(object):
         (``veles_tpu/train/step.py`` ``_setup_model_residency``; a
         streamed dataset keeps the model in-core)."""
         from veles_tpu_torch.train import offload
-        solvers = [self.solver if p else None for p in self.params]
+        solvers = [rule if p else None
+                   for rule, p in zip(self.solvers, self.params)]
         layer_bytes = offload.model_layer_bytes(self.forwards, solvers)
         decision = offload.plan_offload(sum(layer_bytes), device=self.device,
                                         force=self.offload)
@@ -314,7 +330,8 @@ class FusedTrainer(object):
                              "in-core trainer needs them there"
                              % self.device)
         self.states = list(states) if states is not None else [
-            self.solver.init(p) if p else {} for p in self.params]
+            rule.init(p) if p else {}
+            for rule, p in zip(self.solvers, self.params)]
         if not self.offloaded:
             return
         if states is None:
@@ -465,10 +482,10 @@ class FusedTrainer(object):
             report, metric = self.gradients(indices, batch_index, seed,
                                             data_args)
             self.batch_norm = self.grad_norm()
-            for params, state, hp in zip(self.params, self.states,
-                                         self.hypers):
+            for rule, params, state, hp in zip(self.solvers, self.params,
+                                               self.states, self.hypers):
                 if params:
-                    self.solver.update(
+                    rule.update(
                         params, {k: p.grad for k, p in params.items()},
                         state, hp)
         return report, metric
