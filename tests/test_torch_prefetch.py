@@ -7,7 +7,8 @@
   ``VELES_PREFETCH`` depth, ``shutdown_all``).
 * The planning functions equal the JAX package's on the same inputs and
   knobs: ``gather_rows`` (its -1 padding contract), ``local_indices``,
-  ``plan_residency``, ``shard_batches``.
+  ``plan_residency``, ``shard_batches``; ``take_rows`` (the pinned
+  gather, numpy's take on one thread) bit for bit ``index_select``.
 * ``StagingRing`` and ``HostRing`` on the CPU: slots reused in place, a
   short shard a view of a slot, placements refused after ``clear``.
 * Streamed training of the small AlexNet: bit for bit the resident run
@@ -176,6 +177,24 @@ def test_gather_rows_and_local_indices_equal_jax(dtype):
     numpy.testing.assert_array_equal(out[1].numpy(), want_truth)
     numpy.testing.assert_array_equal(prefetch.local_indices(idx),
                                      jax_prefetch.local_indices(idx))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32",
+                                   "int32", "uint8"])
+@pytest.mark.parametrize("strided", [False, True])
+def test_take_rows_equals_index_select(dtype, strided):
+    rng = numpy.random.RandomState(1)
+    bits = torch.from_numpy(rng.randint(0, 256, (40, 6, 5, 4), numpy.uint8))
+    src = bits.view(getattr(torch, dtype))
+    if strided:
+        src = src[::2, :, 1:]
+    index = torch.from_numpy(rng.randint(0, src.shape[0], 23)).long()
+    want = torch.index_select(src, 0, index)
+    out = torch.full((30,) + tuple(src.shape[1:]), 7, dtype=src.dtype)
+    prefetch.take_rows(src, index, out[:23])
+    assert torch.equal(out[:23].flatten().view(torch.uint8),
+                       want.flatten().view(torch.uint8))
+    assert torch.equal(out[23:], torch.full_like(out[23:], 7))
 
 
 @pytest.mark.parametrize("env", [

@@ -28,6 +28,7 @@
   scheduled ensemble members all train.
 """
 
+import errno
 import json
 import os
 import random
@@ -67,21 +68,40 @@ QUICK = [sys.executable, "-c", "pass"]
 CRASH = [sys.executable, "-c", "import sys; sys.exit(3)"]
 
 
-def _pause(tmp_path):
-    """A stub gang member that blocks reading the FIFO ``tmp_path /
-    release`` until :func:`_release` opens and closes it (then exits 0);
-    the scheduler's SIGKILL ends it too."""
-    fifo = str(tmp_path / "release")
+def _pause(tmp_path, name):
+    """A stub gang member that blocks reading its own FIFO ``tmp_path /
+    release-<name>`` until :func:`_release` releases ``name`` (then
+    exits 0); the scheduler's SIGKILL ends it too."""
+    fifo = str(tmp_path / ("release-" + name))
     if not os.path.exists(fifo):
         os.mkfifo(fifo)
     return [sys.executable, "-c", "open(%r).read()" % fifo]
 
 
-def _release(tmp_path):
-    """End every ``_pause`` member blocked on the FIFO (an open for
-    writing waits for the first reader)."""
-    with open(str(tmp_path / "release"), "w"):
-        pass
+def _release(tmp_path, name, timeout_s=PROC_S):
+    """Release the ``_pause`` member ``name`` whenever its reader opens
+    the FIFO, now or later: a thread retries a non-blocking open for
+    writing (refused until a reader holds the FIFO open, or waits in its
+    open) and closes it at once, so the reader's read ends. Returns the
+    thread."""
+    fifo = str(tmp_path / ("release-" + name))
+
+    def release():
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            try:
+                fd = os.open(fifo, os.O_WRONLY | os.O_NONBLOCK)
+            except OSError as e:
+                if e.errno != errno.ENXIO:   # ENXIO: no reader yet
+                    raise
+                time.sleep(0.01)
+                continue
+            os.close(fd)
+            return
+
+    thread = threading.Thread(target=release, daemon=True)
+    thread.start()
+    return thread
 
 
 def _env(**extra):
@@ -297,8 +317,8 @@ def test_journal_replays_in_the_other_package(tmp_path, writer):
     first = first_cls(1, preempt=False, state_dir=state)
     first.recover()
     t0 = time.time()
-    live = first.submit(spec_cls(argv=_pause(tmp_path), tenant="a"),
-                        now=t0)
+    live = first.submit(spec_cls(argv=_pause(tmp_path, "live"),
+                                 tenant="a"), now=t0)
     queued = first.submit(spec_cls(argv=QUICK, tenant="b"), now=t0)
     first.tick(now=t0)
     assert live.state == RUNNING and queued.state == PENDING
@@ -314,7 +334,7 @@ def test_journal_replays_in_the_other_package(tmp_path, writer):
         assert survivor.procs[0].poll() is None
         assert second.pool.holes() == []
     finally:
-        _release(tmp_path)
+        _release(tmp_path, "live")
     _poll(lambda: second.get(live.id).state == DONE, tick=second)
     _poll(lambda: second.get(queued.id).terminal, tick=second)
     assert second.get(queued.id).state == DONE
@@ -360,11 +380,12 @@ def test_gang_gets_the_elastic_env(tmp_path):
 def test_preempts_an_over_share_victim_then_resumes_it(tmp_path):
     sched = Scheduler(1, min_run_s=1.0)
     t0 = time.time()
-    victim = sched.submit(JobSpec(argv=_pause(tmp_path), tenant="research",
+    victim = sched.submit(JobSpec(argv=_pause(tmp_path, "victim"),
+                                  tenant="research",
                                   snapshot_dir=str(tmp_path)), now=t0)
     sched.tick(now=t0)
-    claimant = sched.submit(JobSpec(argv=_pause(tmp_path), tenant="prod"),
-                            now=t0 + 0.5)
+    claimant = sched.submit(JobSpec(argv=_pause(tmp_path, "claimant"),
+                                    tenant="prod"), now=t0 + 0.5)
     sched.tick(now=t0 + 0.5)
     # the thrash guard: the victim has not run min_run_s yet
     assert victim.state == RUNNING and claimant.state == PENDING
@@ -372,7 +393,8 @@ def test_preempts_an_over_share_victim_then_resumes_it(tmp_path):
     assert victim.state == PREEMPTED and claimant.state == RUNNING
     sched.tick(now=t0 + 3.0)   # a non-preemptible claimant stays
     assert victim.state == PREEMPTED
-    _release(tmp_path)
+    # the restarted victim reads its own FIFO, which stays shut
+    _release(tmp_path, "claimant")
     _poll(lambda: victim.state == RUNNING, tick=sched)
     assert claimant.state == DONE and victim.grants == 2
     assert victim.preempt_resume_s is not None
@@ -380,10 +402,29 @@ def test_preempts_an_over_share_victim_then_resumes_it(tmp_path):
     assert victim.state == FAILED
 
 
+def test_release_reaches_a_reader_that_opens_late(tmp_path):
+    """A member whose interpreter opens its FIFO only after the release
+    was given is still released, within the poll limit."""
+    argv = _pause(tmp_path, "late")
+    releaser = _release(tmp_path, "late")
+    time.sleep(0.2)
+    assert releaser.is_alive()   # no reader yet: the release waits
+    proc = subprocess.Popen(argv)
+    try:
+        _poll(lambda: proc.poll() is not None)
+        assert proc.returncode == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    releaser.join(PROC_S)
+    assert not releaser.is_alive()
+
+
 def test_never_preempts_its_own_tenant(tmp_path):
     sched = Scheduler(1, min_run_s=0.0)
-    first = sched.submit(JobSpec(argv=_pause(tmp_path), tenant="a",
-                                 snapshot_dir=str(tmp_path)))
+    first = sched.submit(JobSpec(argv=_pause(tmp_path, "first"),
+                                 tenant="a", snapshot_dir=str(tmp_path)))
     sched.tick()
     second = sched.submit(JobSpec(argv=QUICK, tenant="a"))
     sched.tick(now=time.time() + 5)
@@ -434,13 +475,16 @@ def test_recovery_adopts_live_gangs_and_routes_dead_ones(tmp_path,
     state = str(tmp_path / "state")
     first = Scheduler(4, preempt=False, state_dir=state)
     first.recover()
-    pause = _pause(tmp_path)
-    alive = first.submit(JobSpec(argv=pause, tenant="a"))
-    dead_pre = first.submit(JobSpec(argv=pause, tenant="b",
+    alive = first.submit(JobSpec(argv=_pause(tmp_path, "alive"),
+                                 tenant="a"))
+    dead_pre = first.submit(JobSpec(argv=_pause(tmp_path, "pre"),
+                                    tenant="b",
                                     snapshot_dir=str(tmp_path / "s")))
-    dead_retry = first.submit(JobSpec(argv=pause, tenant="c",
-                                      max_retries=2, retry_backoff_s=0.0))
-    dead_fail = first.submit(JobSpec(argv=pause, tenant="d"))
+    dead_retry = first.submit(JobSpec(argv=_pause(tmp_path, "retry"),
+                                      tenant="c", max_retries=2,
+                                      retry_backoff_s=0.0))
+    dead_fail = first.submit(JobSpec(argv=_pause(tmp_path, "fail"),
+                                     tenant="d"))
     first.tick()
     for job in (dead_pre, dead_retry, dead_fail):
         _kill(job)
@@ -464,7 +508,8 @@ def test_recovery_adopts_live_gangs_and_routes_dead_ones(tmp_path,
     second.tick()
     assert jobs[dead_pre.id].state == RUNNING
     assert jobs[dead_pre.id].grants == 2
-    _release(tmp_path)
+    # the adopted gang alone: the restarted dead_pre stays blocked
+    _release(tmp_path, "alive")
     _poll(lambda: jobs[alive.id].state == DONE, tick=second)
     second.stop(kill=True)
 
@@ -491,8 +536,10 @@ def test_federates_a_gang_s_telemetry(tmp_path):
     from veles_tpu_torch.telemetry.registry import render_snapshot
     from veles_tpu_torch.telemetry.timeseries import get_history
     sched = Scheduler(2, preempt=False)
-    ours = sched.submit(JobSpec(argv=_pause(tmp_path), tenant="acme"))
-    theirs = sched.submit(JobSpec(argv=_pause(tmp_path), tenant="zeta"))
+    ours = sched.submit(JobSpec(argv=_pause(tmp_path, "ours"),
+                                tenant="acme"))
+    theirs = sched.submit(JobSpec(argv=_pause(tmp_path, "theirs"),
+                                  tenant="zeta"))
     sched.tick()
     assert sched.absorb_telemetry(ours.id, _worker_delta(
         train_loss=0.42, train_samples_per_s=100.0, step_mfu=0.71)) == {}

@@ -26,4 +26,38 @@ attention projection on ``ops.gemm.linear_act``
 ``ops.reduce.column_sum`` (``csrc/column_reduce.cu``). The sequence
 models' attention core and mixture of experts (``parallel/``) run on
 PyTorch's products, as the JAX package leaves them to XLA.
+
+:func:`run` is the programmatic entry, ``veles_tpu.run``'s: a workflow
+class (or any factory of one) built under a ``launcher.Launcher``,
+initialized and run as ``python -m veles_tpu_torch`` runs it.
 """
+
+
+def run(workflow_factory, config_update=None, snapshot=None, **kwargs):
+    """Build, initialize and run a workflow standalone; returns it.
+
+    ``config_update`` (a nested dict) is merged into ``config.root``
+    first. The keywords that ``launcher.KWARGS`` names (``backend``,
+    ``device``, ``eager``, ...) go to the ``Launcher``, the rest to
+    ``workflow_factory(launcher, **rest)``. With ``snapshot`` (a path
+    or URI of ``SnapshotterToFile.import_``) the workflow is the
+    snapshot's, re-parented to the launcher, and the factory is not
+    called. The launcher and the snapshotter are imported here, not
+    with the package."""
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.launcher import KWARGS, Launcher
+
+    if config_update:
+        root.update(config_update)
+    launcher = Launcher(**{k: v for k, v in kwargs.items() if k in KWARGS})
+    wf_kwargs = {k: v for k, v in kwargs.items() if k not in KWARGS}
+    if snapshot is not None:
+        from veles_tpu_torch.snapshotter import SnapshotterToFile
+        workflow = SnapshotterToFile.import_(snapshot)
+        workflow.workflow = launcher
+    else:
+        workflow = workflow_factory(launcher, **wf_kwargs)
+    launcher.initialize()
+    launcher.run()
+    return workflow
+

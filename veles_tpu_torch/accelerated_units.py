@@ -10,13 +10,13 @@ the device once and hands it to every unit.
 precision policy's ``backends()`` (``nn/precision.py``), as the fused
 trainer holds them around a step, so switches the caller turned on
 (TF32, bf16 reductions) cannot reach the unit's products. The policy
-is ``root.common.engine.precision_type``, the one the forward units'
-modules are built under.
+is ``nn.precision.active_policy()`` (the pin of ``set_policy``, else
+``VELES_PRECISION``, else ``root.common.engine.precision_type``), the one
+the forward units' modules are built under.
 """
 
-from veles_tpu_torch.config import root
 from veles_tpu_torch.device import resolve_device
-from veles_tpu_torch.nn.precision import get_policy
+from veles_tpu_torch.nn.precision import active_policy
 from veles_tpu_torch.units import Unit
 from veles_tpu_torch.workflow import Workflow
 
@@ -42,8 +42,7 @@ class AcceleratedUnit(Unit):
     @property
     def policy(self):
         """The precision policy the unit computes under."""
-        return get_policy(root.common.engine.get("precision_type",
-                                                 "float32"))
+        return active_policy()
 
     def run(self):
         with self.policy.backends():

@@ -191,4 +191,27 @@ def apply_config_file(path, context=None):
     return root
 
 
+def apply_overrides(pairs):
+    """Apply ``key=value`` overrides to ``root``: each value read as a
+    Python literal where it is one (else kept as the string), each key a
+    dotted path with an optional leading ``root``; the nodes on the
+    path are made as they are reached."""
+    import ast
+    for pair in pairs:
+        key, sep, expr = pair.partition("=")
+        if not sep:
+            raise ValueError("override %r is not key=value" % pair)
+        try:
+            value = ast.literal_eval(expr)
+        except (ValueError, SyntaxError):
+            value = expr
+        node = root
+        parts = key.strip().split(".")
+        if parts[0] == "root":
+            parts = parts[1:]
+        for part in parts[:-1]:
+            node = getattr(node, part)
+        setattr(node, parts[-1], value)
+
+
 _init_defaults()

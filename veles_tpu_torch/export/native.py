@@ -60,6 +60,13 @@ def runner_path():
     return os.path.join(BUILD_DIR, "veles_native_run")
 
 
+def test_binary_path():
+    """The runtime's own test program (``native/tests/test_native.cc``),
+    built if needed."""
+    build_native()
+    return os.path.join(BUILD_DIR, "veles_native_test")
+
+
 def _load_library():
     global _lib
     if _lib is not None:

@@ -41,7 +41,9 @@ minibatch tensors keep only their shape. The distribution hooks are the
 JAX loader's: a master serves index payloads, requeues what a dropped
 slave held, and rewinds to an epoch's start on a resume
 (:meth:`Loader.reset_to_epoch_start`, which the elastic tier's restore
-uses too).
+uses too). :class:`UserLoaderRegistry`, the loaders' metaclass, maps each
+loader class's ``MAPPING`` name (``hdfs``, ``sound_file``, ``ensemble``)
+to the class, as the JAX package's does.
 """
 
 import numpy
@@ -50,6 +52,7 @@ import torch
 from veles_tpu_torch import prng
 from veles_tpu_torch.config import root
 from veles_tpu_torch.mutable import Bool
+from veles_tpu_torch.unit_registry import UnitRegistry
 from veles_tpu_torch.units import Unit
 
 TEST = 0
@@ -58,7 +61,19 @@ TRAIN = 2
 CLASS_NAMES = ("test", "validation", "train")
 
 
-class Loader(Unit):
+class UserLoaderRegistry(UnitRegistry):
+    """Maps ``MAPPING`` names to loader classes: ``loaders``."""
+
+    loaders = {}
+
+    def __init__(cls, name, bases, namespace):
+        super(UserLoaderRegistry, cls).__init__(name, bases, namespace)
+        mapping = namespace.get("MAPPING")
+        if mapping:
+            UserLoaderRegistry.loaders[mapping] = cls
+
+
+class Loader(Unit, metaclass=UserLoaderRegistry):
     """Base loader; subclasses implement :meth:`load_data` (and
     :meth:`sample_shape`)."""
 

@@ -27,9 +27,10 @@ prefetch.py``).
     back. Staged tensors also ``record_stream`` the consumer's stream.
 
 * :class:`HostRing` -- the pinned host buffers a shard is gathered into
-  (``index_select(..., out=pinned)``), one per slot, each rewritten only
-  after its previous copy to the device completed. On a CUDA device a
-  buffer that cannot be pinned raises; on the CPU nothing is pinned.
+  (:func:`take_rows`, on the worker's thread alone), one per slot,
+  each rewritten only after its previous copy to the device completed.
+  On a CUDA device a buffer that cannot be pinned raises; on the CPU
+  nothing is pinned.
 * residency planning -- :func:`plan_residency` ("resident" when the
   dataset fits the device budget, "streamed" when it does not;
   ``VELES_STREAM``, ``VELES_DEVICE_BUDGET_MB``) and
@@ -633,8 +634,9 @@ def gather_rows(data, truth, indices, out=None):
     The device gather's padding contract: index -1 gives a zero data
     row, and the truth is taken at ``max(idx, 0)`` (the loss masks it).
     ``out`` (``(data_rows, truth_rows)``, pinned buffers of a
-    :class:`HostRing`) receives the rows; else they are fresh tensors.
-    Pure over its inputs: safe from worker threads."""
+    :class:`HostRing`) receives the rows, gathered by :func:`take_rows`;
+    else they are fresh tensors. Pure over its inputs: safe from worker
+    threads."""
     throttle = etl_throttle_s()
     if throttle:
         time.sleep(throttle)
@@ -647,12 +649,40 @@ def gather_rows(data, truth, indices, out=None):
         picked = truth.index_select(0, safe)
     else:
         rows, picked = out
-        torch.index_select(data, 0, safe, out=rows)
-        torch.index_select(truth, 0, safe, out=picked)
+        take_rows(data, safe, rows)
+        take_rows(truth, safe, picked)
     invalid = indices < 0
     if bool(invalid.any()):
         rows[invalid] = 0
     return rows, picked
+
+
+def _host_array(tensor):
+    """A numpy view of the host tensor ``tensor`` (bfloat16 viewed as
+    int16: numpy has no bfloat16)."""
+    if tensor.dtype == torch.bfloat16:
+        tensor = tensor.view(torch.int16)
+    return tensor.numpy()
+
+
+def take_rows(src, index, out):
+    """``out[:] = src[index]`` along dim 0 on the calling thread alone.
+
+    A streamed shard is gathered on a pipeline worker while the step
+    thread launches the shard before it. ``torch.index_select`` would
+    split the copy over every core's intra-op thread, one of which then
+    shares its core with the step thread, and the whole gather waits
+    for it: beside a busy Python thread, a 79 MB gather on the H100's
+    8-core host took 985 ms against 19.4 alone, numpy's take 41.7
+    against 16.9 (``scripts/probe_etl_overlap.py``). numpy's take
+    copies on this thread, without the interpreter lock;
+    ``VELES_PREFETCH_WORKERS`` sets how many gathers run at once. Host
+    tensors only (``index`` in range)."""
+    if src.device.type != "cpu" or out.device.type != "cpu":
+        torch.index_select(src, 0, index, out=out)
+        return
+    numpy.take(_host_array(src), index.numpy(), axis=0,
+               out=_host_array(out), mode="clip")
 
 
 def local_indices(global_idx):

@@ -55,6 +55,8 @@ class SndFileLoader(FullBatchLoader):
     parent directory names. ``samples`` frames a sample (None: the
     first file's length); every file must share the first's rate."""
 
+    MAPPING = "sound_file"
+
     def __init__(self, test_paths=(), validation_paths=(), train_paths=(),
                  samples=None, ignored_dirs=(), filename_re=None,
                  **kwargs):

@@ -8,7 +8,10 @@ training defaults (its minibatch is 100).
 (batches 1-5 train, ``test_batch`` validation), or a provider's arrays
 (``datasets.golden_objects``), or else draws its synthetic data; its
 samples are mean-dispersion normalized on the training samples by
-default, as the reference's loader path is.
+default, as the reference's loader path is. :class:`CifarWorkflow` is
+the JAX package's workflow class: a ``StandardWorkflow`` of
+:data:`CIFAR_LAYERS` (or ``layers``) over a :class:`CifarLoader`, so
+``python -m veles_tpu_torch veles_tpu_torch/models/cifar.py`` trains it.
 """
 
 import os
@@ -18,6 +21,7 @@ import numpy
 import torch
 
 from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+from veles_tpu_torch.standard_workflow import StandardWorkflow
 
 #: per-sample NHWC input
 CIFAR_SAMPLE_SHAPE = (32, 32, 3)
@@ -96,3 +100,29 @@ class CifarLoader(FullBatchLoader):
         self.original_labels = torch.from_numpy(numpy.ascontiguousarray(
             numpy.concatenate([vy, ty]), numpy.int32))
         self.class_lengths = [0, len(vx), len(tx)]
+
+
+class CifarWorkflow(StandardWorkflow):
+    """CIFAR-quick: :data:`CIFAR_LAYERS` (or ``layers``) over a
+    :class:`CifarLoader` of ``directory``, ``provider`` or
+    ``synthetic_samples``, in minibatches of 100 by default, with
+    :data:`CIFAR_TRAINING` and the softmax loss unless the keywords say
+    otherwise."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow=None, directory=None,
+                 synthetic_samples=0, provider=None, layers=None,
+                 **kwargs):
+        kwargs.setdefault("loss", "softmax")
+        for key, value in CIFAR_TRAINING.items():
+            kwargs.setdefault(key, value)
+        minibatch_size = kwargs.pop("minibatch_size", 100)
+        super(CifarWorkflow, self).__init__(
+            workflow,
+            loader=lambda wf: CifarLoader(
+                workflow=wf, directory=directory,
+                synthetic_samples=synthetic_samples, provider=provider,
+                minibatch_size=minibatch_size),
+            layers=layers if layers is not None else CIFAR_LAYERS,
+            **kwargs)

@@ -7,7 +7,10 @@ resolved from the data's features as the JAX workflow resolves it;
 :data:`AE_TRAINING` its training defaults under the MSE loss (its
 minibatch is 100). :class:`AutoencoderLoader` is an
 MSE loader over a provider whose targets are a copy of the normalized
-(``linear`` by default) flat inputs. The SOM, the config's other half,
+(``linear`` by default) flat inputs; :class:`MnistAEWorkflow` is the JAX
+package's workflow class over it (the output width read from the
+provider's data once, before the loader loads it again).
+The SOM, the config's other half,
 is :class:`KohonenWorkflow`, the units of ``nn/kohonen.py`` in a loop,
 or its own runner ``train/som.py`` ``SOMFusedRunner``.
 """
@@ -20,6 +23,7 @@ from veles_tpu_torch.loader.fullbatch import FullBatchLoaderMSE
 from veles_tpu_torch.mutable import Bool
 from veles_tpu_torch.nn.kohonen import KohonenForward, KohonenTrainer
 from veles_tpu_torch.plumbing import Repeater
+from veles_tpu_torch.standard_workflow import StandardWorkflow
 from veles_tpu_torch.units import Unit
 
 #: ``MnistAEWorkflow``'s defaults: MSE loss, SGD with these
@@ -53,6 +57,47 @@ class AutoencoderLoader(FullBatchLoaderMSE):
     def _normalize_data(self):
         super(AutoencoderLoader, self)._normalize_data()
         self.original_targets = self.original_data.clone()
+
+
+class MnistAEWorkflow(StandardWorkflow):
+    """features -> ``bottleneck`` (tanh) -> features autoencoder under
+    the MSE loss on the loader's ``minibatch_targets``: lr 0.05 and
+    minibatches of 100 unless the keywords say otherwise. ``layers``
+    replaces :func:`autoencoder_layers`; a descriptor whose
+    ``output_sample_shape`` is None gets the data's feature count."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow=None, provider=None, bottleneck=100,
+                 **kwargs):
+        for key, value in AE_TRAINING.items():
+            kwargs.setdefault(key, value)
+        minibatch_size = kwargs.pop("minibatch_size", 100)
+        layers = kwargs.pop("layers", None) or [
+            {"type": "all2all_tanh", "output_sample_shape": bottleneck},
+            {"type": "all2all", "output_sample_shape": None}]
+        super(MnistAEWorkflow, self).__init__(
+            workflow,
+            loader=lambda wf: AutoencoderLoader(
+                workflow=wf, provider=provider,
+                minibatch_size=minibatch_size),
+            layers=self._resolve_layers(layers, provider),
+            mse_target_attr="minibatch_targets", **kwargs)
+
+    @staticmethod
+    def _resolve_layers(layers, provider):
+        """``layers`` with each None width set to the feature count of
+        the provider's training samples (the provider called at most
+        once here)."""
+        resolved, features = [], None
+        for descr in layers:
+            descr = dict(descr)
+            if descr.get("output_sample_shape") is None:
+                if features is None:
+                    features = int(numpy.prod(provider()[0].shape[1:]))
+                descr["output_sample_shape"] = features
+            resolved.append(descr)
+        return resolved
 
 
 class EpochCounter(Unit):

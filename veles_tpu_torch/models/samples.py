@@ -20,6 +20,15 @@ and ``moe`` configurations. A provider may be any callable returning
 ``(train_x, train_y, valid_x, valid_y)``; :func:`sequence` reads the
 sample shape from its ``sample_shape``.
 
+The workflow classes are the JAX package's, defined in its order
+(``WineWorkflow``, ``KanjiWorkflow``, ``ChannelsWorkflow``,
+``SequenceWorkflow``, ``LinesWorkflow``), so ``python -m veles_tpu_torch``
+on this file trains the class the JAX CLI picks on the JAX file
+(``WineWorkflow``): each a ``StandardWorkflow`` of the layers above over
+a :class:`~veles_tpu_torch.loader.fullbatch.TabularLoader` of its
+provider (the default one when none is given), with the training
+defaults above unless the keywords say otherwise.
+
 The ``channels`` sample reads image trees from disk:
 :func:`generate_channels_dataset` renders synthetic TV-channel logos
 into per-channel directories (Pillow), the JAX package's bytes from the
@@ -246,6 +255,48 @@ def sequence_bench(moe=False, provider=None):
                     minibatch_size=64, heads=8, moe=moe, n_experts=8)
 
 
+def _tabular(provider, minibatch_size, **kwargs):
+    """A loader factory: a :class:`TabularLoader` of ``provider`` on the
+    workflow it is called with."""
+    return lambda wf: TabularLoader(workflow=wf, provider=provider,
+                                    minibatch_size=minibatch_size, **kwargs)
+
+
+def _with_defaults(kwargs, training):
+    for key, value in training.items():
+        kwargs.setdefault(key, value)
+    return kwargs
+
+
+class WineWorkflow(StandardWorkflow):
+    """13 -> 10 tanh -> 3 softmax over ``mean_disp`` inputs, batches of
+    50."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow=None, provider=None, minibatch_size=50,
+                 **kwargs):
+        super(WineWorkflow, self).__init__(
+            workflow, loader=_tabular(provider or WineProvider(),
+                                      minibatch_size),
+            layers=WINE_LAYERS, **_with_defaults(kwargs, WINE_TRAINING))
+
+
+class KanjiWorkflow(StandardWorkflow):
+    """The conv net over glyph pairs, 100 classes, raw inputs, batches of
+    100; 20000 + 2000 samples by default."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow=None, provider=None, minibatch_size=100,
+                 **kwargs):
+        provider = provider or KanjiProvider(n_train=20000, n_valid=2000)
+        super(KanjiWorkflow, self).__init__(
+            workflow, loader=_tabular(provider, minibatch_size,
+                                      normalization_type="none"),
+            layers=KANJI_LAYERS, **_with_defaults(kwargs, KANJI_TRAINING))
+
+
 def generate_channels_dataset(directory, n_channels=6, per_class=30,
                               side=32, seed=21):
     """Render synthetic TV-channel logos into ``<directory>/{train,
@@ -333,3 +384,37 @@ class ChannelsWorkflow(StandardWorkflow):
             layers=CHANNELS_LAYERS + [
                 {"type": "softmax", "output_sample_shape": n_classes}],
             **kwargs)
+
+
+class SequenceWorkflow(StandardWorkflow):
+    """The attention stack over token sequences (:func:`sequence_layers`:
+    ``heads`` heads, a ``moe`` layer of ``n_experts`` between the two
+    attention layers with ``moe=True``, ``n_classes`` classes), raw
+    (seq, dim) inputs, batches of 80."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow=None, provider=None, minibatch_size=80,
+                 heads=4, n_classes=8, moe=False, n_experts=4, **kwargs):
+        provider = provider or SequenceProvider(n_classes=n_classes)
+        super(SequenceWorkflow, self).__init__(
+            workflow, loader=_tabular(provider, minibatch_size,
+                                      sequence=True,
+                                      normalization_type="none"),
+            layers=sequence_layers(heads, n_classes, moe, n_experts),
+            **_with_defaults(kwargs, SEQUENCE_TRAINING))
+
+
+class LinesWorkflow(StandardWorkflow):
+    """The small conv net over oriented strokes, raw inputs, batches of
+    50."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow=None, provider=None, minibatch_size=50,
+                 **kwargs):
+        super(LinesWorkflow, self).__init__(
+            workflow, loader=_tabular(provider or LinesProvider(),
+                                      minibatch_size,
+                                      normalization_type="none"),
+            layers=LINES_LAYERS, **_with_defaults(kwargs, LINES_TRAINING))

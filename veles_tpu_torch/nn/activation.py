@@ -47,6 +47,10 @@ def sincos(x):
     return torch.where(odd, torch.sin(x), torch.cos(x))
 
 
+def mul_by_const(x, k=1.0):
+    return x * k
+
+
 ACTIVATIONS = {
     "linear": linear,
     "tanh": tanh_scaled,

@@ -25,6 +25,10 @@ override:
 
 ``hp`` may set ``epsilon``, ``rho``, ``beta1`` and ``beta2``.
 
+:class:`Solver` is the base of the four and of a user's rule: a ``name``
+and the static ``init(params)`` and ``update(params, grads, state, hp)``;
+:func:`get_solver` takes any subclass as it is.
+
 Unlike the JAX package's pure functions, ``update`` changes the
 parameters and the state IN PLACE under ``torch.no_grad()``: the
 optimizer state of AlexNet is as large as its weights, and a copy per
@@ -41,7 +45,23 @@ def _lr_for(hp, key):
     return hp["learning_rate"]
 
 
-class SGD(object):
+class Solver(object):
+    """An update rule: ``init(params) -> state`` and ``update(params,
+    grads, state, hp)``, the parameters and the state changed in
+    place."""
+
+    name = None
+
+    @staticmethod
+    def init(params):
+        raise NotImplementedError
+
+    @staticmethod
+    def update(params, grads, state, hp):
+        raise NotImplementedError
+
+
+class SGD(Solver):
     """Classical momentum and L2 weight decay, as the JAX ``SGD``."""
 
     name = "sgd"
@@ -77,7 +97,7 @@ class SGD(object):
             step.add_(1.0)
 
 
-class AdaGrad(object):
+class AdaGrad(Solver):
     """Accumulated squared gradients scale each step."""
 
     name = "adagrad"
@@ -98,7 +118,7 @@ class AdaGrad(object):
                 p.sub_(_lr_for(hp, k) * g / (torch.sqrt(a) + eps))
 
 
-class AdaDelta(object):
+class AdaDelta(Solver):
     """Steps scaled by the ratio of running RMS of steps and gradients."""
 
     name = "adadelta"
@@ -123,7 +143,7 @@ class AdaDelta(object):
                 adx.mul_(rho).add_((1 - rho) * torch.square(dx))
 
 
-class Adam(object):
+class Adam(Solver):
     """Bias-corrected first and second moments."""
 
     name = "adam"
@@ -164,7 +184,7 @@ SOLVERS = {cls.name: cls for cls in (SGD, AdaGrad, AdaDelta, Adam)}
 
 def get_solver(name):
     """The update rule by name, or a rule class itself."""
-    if isinstance(name, type) and name in SOLVERS.values():
+    if isinstance(name, type) and issubclass(name, Solver):
         return name
     try:
         return SOLVERS[name]

@@ -1,7 +1,11 @@
 """Precision policies: which dtype the matmuls and convolutions see.
 
-The port of ``veles_tpu/nn/precision.py``, selected explicitly by name
-(no environment or configuration lookup):
+The port of ``veles_tpu/nn/precision.py``. ``build_model`` and the
+trainers take a policy by name; the workflow's units build and compute
+under :func:`active_policy`, resolved in the JAX package's order: the
+process-wide pin of :func:`set_policy`, then ``VELES_PRECISION``, then
+``root.common.engine.precision_type`` (``--precision``), then
+``float32``. The policies:
 
 * ``float32``        -- everything float32;
 * ``bfloat16_mixed`` -- operands cast to bfloat16 at each matmul and
@@ -34,6 +38,9 @@ import contextlib
 import threading
 
 import torch
+
+from veles_tpu_torch.config import root
+from veles_tpu_torch.envknob import env_knob
 
 
 class SwitchGuard(object):
@@ -153,3 +160,22 @@ def get_policy(policy="float32"):
     except KeyError:
         raise ValueError("unknown precision policy %r (have %s)" %
                          (policy, sorted(POLICIES)))
+
+
+_forced = None
+
+
+def set_policy(name):
+    """Pin the process-wide policy by name; None unpins it (back to the
+    environment and the configuration)."""
+    global _forced
+    _forced = None if name is None else get_policy(name)
+
+
+def active_policy():
+    """The policy the workflow's units use: the pin, else
+    ``VELES_PRECISION``, else ``root.common.engine.precision_type``."""
+    if _forced is not None:
+        return _forced
+    return get_policy(env_knob("VELES_PRECISION") or
+                      root.common.engine.get("precision_type", "float32"))

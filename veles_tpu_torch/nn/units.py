@@ -78,7 +78,6 @@ import torch
 
 from veles_tpu_torch import prng
 from veles_tpu_torch.accelerated_units import AcceleratedUnit
-from veles_tpu_torch.config import root
 from veles_tpu_torch.convert import (layer_params, params_from_jax,
                                      solver_state_from_jax,
                                      solver_state_to_jax, to_jax_layout)
@@ -91,6 +90,7 @@ from veles_tpu_torch.nn.evaluator import (batch_confusion,
                                           mse_loss_and_metrics, mse_rmse,
                                           softmax_loss_and_metrics)
 from veles_tpu_torch.nn.optim import get_solver
+from veles_tpu_torch.nn.precision import active_policy
 from veles_tpu_torch.ops.random import dropout_uniforms
 from veles_tpu_torch.result_provider import IResultProvider
 
@@ -222,8 +222,7 @@ class ForwardBase(AcceleratedUnit):
                             tuple(module.output_shape()))
 
     def _build(self, shape):
-        kwargs = dict(self.layer_kwargs, policy=root.common.engine.get(
-            "precision_type", "float32"))
+        kwargs = dict(self.layer_kwargs, policy=active_policy())
         if self.has_weights:
             kwargs.update(device=self.device, trainable=True,
                           include_bias=self.include_bias)
@@ -377,8 +376,7 @@ class DropoutForward(ForwardBase):
 
     def _build(self, shape):
         return self.LAYER(shape, rand=self.rand_name, **dict(
-            self.layer_kwargs, policy=root.common.engine.get(
-                "precision_type", "float32")))
+            self.layer_kwargs, policy=active_policy()))
 
 
 class GradientDescentBase(AcceleratedUnit):
@@ -562,6 +560,8 @@ GDSoftmax = _gd_class("GDSoftmax", "For the softmax head (its "
 GDConv = _gd_class("GDConv", "For the convolutions.")
 GDPooling = _gd_class("GDPooling", "For the poolings (no parameters).")
 GDActivation = _gd_class("GDActivation", "For ActivationUnit.")
+GDAttention = _gd_class("GDAttention", "For the attention block: autograd "
+                        "through its projections and its attention core.")
 
 
 class DropoutBackward(GradientDescentBase):

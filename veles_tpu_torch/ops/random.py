@@ -20,6 +20,9 @@ through its CPython binding (``csrc/uniform_fill_binding.cpp``), which
 allocates the output and launches in one C call; on the CPU it runs
 :func:`uniform_fill_plain`, the same Philox in integer torch ops, which
 gives the same bits.
+
+:func:`xorshift128plus` and :func:`fill_xorshift` are the reference's
+host-side generator, bit for bit, as the JAX package keeps them.
 """
 
 import collections
@@ -160,3 +163,23 @@ def uniform_fill(shape, seed, offset=0, vmin=0.0, vmax=1.0, device=None):
 
 uniform_fill.launches = 0
 uniform_fill.launches_by_form = collections.Counter()
+
+
+def xorshift128plus(state):
+    """One xorshift128+ step on a 2-element uint64 state (host-side):
+    (new_state, output)."""
+    s0, s1 = int(state[0]), int(state[1])
+    x, y = s0, s1
+    x ^= (x << 23) & _U64
+    x ^= x >> 17
+    x ^= y ^ (y >> 26)
+    return numpy.array([y, x], dtype=numpy.uint64), (x + y) & _U64
+
+
+def fill_xorshift(state, count):
+    """``count`` uint64 outputs of :func:`xorshift128plus` from
+    ``state``: (the evolved state, the outputs)."""
+    out = numpy.empty(count, dtype=numpy.uint64)
+    for i in range(count):
+        state, out[i] = xorshift128plus(state)
+    return state, out

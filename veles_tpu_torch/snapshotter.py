@@ -44,6 +44,9 @@ memory) and from ``sqlite://<db>[#key]``, the store of
 :class:`SnapshotterToDB`: one ``snapshots`` table of the JAX package's
 schema, so one database file holds either package's rows and a JAX row
 restores here (through :mod:`veles_tpu_torch.jax_snapshot`).
+
+:func:`unit_sizes` gives each unit's own pickled bytes, the reference's
+size diagnostics.
 """
 
 import bz2
@@ -794,3 +797,25 @@ def load_sharded_generation(gen_dir):
                     key, slot["covered"], slot["out"].size, gen_dir))
         _apply_record(workflow, slot["spec"], slot["out"])
     return workflow
+
+
+def unit_sizes(workflow):
+    """{unit name: bytes of its pickle} with every unit in stripped mode
+    for the whole measurement, so links to other units pickle as stubs
+    and each number is the unit's own payload; -1 where a unit does not
+    pickle."""
+    sizes = {}
+    units = list(workflow)
+    for unit in units:
+        unit.stripped_pickle = True
+    try:
+        for unit in units:
+            try:
+                sizes[unit.name] = len(pickle.dumps(
+                    unit, protocol=pickle.HIGHEST_PROTOCOL))
+            except Exception:
+                sizes[unit.name] = -1
+    finally:
+        for unit in units:
+            unit.stripped_pickle = False
+    return sizes

@@ -4,7 +4,8 @@ A metaclass records every Unit subclass so the CLI and workflow
 introspection can enumerate the available unit types; it also folds in
 the command-line argument registry so any unit can contribute flags.
 Each class gets a stable ``__id__`` UUID, the one the JAX package gives
-the class of the same name.
+the class of the same name. :class:`MappedUnitRegistry` adds a lookup by
+a class's ``MAPPING`` name.
 """
 
 import uuid
@@ -39,3 +40,19 @@ class UnitRegistry(CommandLineArgumentsRegistry):
             if getattr(cls, "__id__", None) == uid:
                 return cls
         return None
+
+
+class MappedUnitRegistry(UnitRegistry):
+    """A registry with a user-facing key: each class that sets
+    ``MAPPING`` lands in its metaclass's ``mapped`` under that name."""
+
+    mapping = "base"
+    base = object
+
+    def __init__(cls, name, bases, namespace):
+        super(MappedUnitRegistry, cls).__init__(name, bases, namespace)
+        mapping = namespace.get("MAPPING")
+        if mapping:
+            type(cls).mapped[mapping] = cls
+
+    mapped = {}

@@ -45,6 +45,10 @@ def _unit_run_hist():
     return _unit_run_ms
 
 
+class IUnit(object):
+    """Documentation marker: units implement initialize() and run()."""
+
+
 class Unit(Distributable, metaclass=UnitRegistry):
     """Base dataflow node. See module docstring for semantics."""
 
