@@ -422,9 +422,9 @@
    and samples/s, the warm worker's start-up, each generation's wall,
    queue waits, preempt-to-resume s, the adoption latency; the whole
    result to ``chiprun_out/meta.json``.
-   Phases 14, 15, 16 and 17 run beside each other (``beside``: a thread
-   each, waiting on its own processes), so their times are read under
-   each other's load; a line gives every phase's seconds.
+   Phases 14, 15, 16, 17 and 22 run beside each other (``beside``: a
+   thread each, waiting on its own processes), so their times are read
+   under each other's load; a line gives every phase's seconds.
 18. Service phase: queue-fed serving, the URI snapshot stores and the
    autotuner, after 14-17 (serially, so the timing is quiet). At the
    script's start the autotuner is pointed at a fresh empty cache
@@ -559,7 +559,35 @@
    ``train_cifar`` on the same objects and ``train_fc`` on golden digits
    1000 + 500, one epoch each: their best validation errors reported.
    Printed, not gated: each run's wall and launches.
-22. The line before the last is ``{"kernels": [...], "not_ported":
+22. Installed phase: the port as a user on a card host installs it,
+   beside phases 14-17. The package, ``pyproject.toml``, ``README.md``
+   and ``deploy/torch/`` copied out of the tree into a temporary
+   directory; ``deploy/torch/deploy.sh --target PREFIX`` there (pip
+   offline, ``--no-deps``, into a temporary prefix; then ``python -m
+   veles_tpu_torch.ops.build`` from outside the tree). (1) The prefix's
+   ``csrc/`` is the tree's byte for byte, and every library the build
+   lists was built into the prefix's ``csrc/build/`` during the phase
+   (its seconds printed by source). (2) The installed ``veles-tpu-torch``
+   (only the prefix on ``PYTHONPATH``, run from outside the tree) trains
+   phase 9's file as phase 15's standalone run does (``-s 7``, 2
+   epochs, deterministic) with a raw snapshot each epoch: its history
+   and every parameter 0 values differing from that run; the same from
+   ``-s 8`` (no snapshots) must differ; both imported
+   ``veles_tpu_torch`` and ``csrc/`` from the prefix, loaded only the
+   prefix's libraries and no ``jax``, ``ml_dtypes`` or ``veles_tpu``
+   module; the run's K1, K3, K4, K6 and K7 launches by form equal the
+   standalone run's, the control's too at checked and designed forms.
+   (3) The installed ``veles-tpu-torch-serve`` on the run's snapshots:
+   16 concurrent single requests (list codec) and one 64-row base64
+   batch held by the centred-logit check to the plain forward of the
+   run's final weights (the snapshot loaded here equal to the run's
+   parameters), a reply swap and a zeroed fc7 as the controls; p50 / p95
+   and the batch's rows/s printed. (4) The installed
+   ``veles-tpu-torch-web-status`` and ``-forge-server`` each answer a
+   GET; ``veles-tpu-torch-compare-snapshots`` reads 0 for the last
+   snapshot against a copy. The whole result to
+   ``chiprun_out/installed.json``.
+23. The line before the last is ``{"kernels": [...], "not_ported":
    []}``; the last is ``{"ok": true, "device": {...}}``. Any failure
    raises and exits non-zero before them.
 """
@@ -6826,6 +6854,7 @@ report["calls"] = dict(collectives.calls)
 report["sent_bytes"] = dict(collectives.sent_bytes)
 runner = cli.launcher.runner
 report["losses"] = [t["loss"] for t in runner.epoch_times]
+report["history"] = cli.workflow.decision.epoch_history
 report["times"] = [{k: t.get(k) for k in ("eval_s", "train_s", "wall_s")}
                    for t in runner.epoch_times]
 report["counts"], report["forms"] = chip_smoke.read_counts()
@@ -6935,15 +6964,20 @@ def series_summary(reports, name):
             for labels, summary in report["series"][name]}
 
 
-def spmd_phase(kernels):
+def spmd_phase(kernels, standalone=None):
     """Phase 15 (see the module docstring). Returns (result,
-    [launches_by_form of each rank of each run])."""
+    [launches_by_form of each rank of each run]). ``standalone``, a
+    :class:`Standalone`, receives the standalone run's history,
+    parameters and launches (phase 22 holds its installed run to
+    them)."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="veles_spmd_")
     try:
-        return _spmd_phase(kernels, tmp)
+        return _spmd_phase(kernels, tmp, standalone)
     finally:
+        if standalone is not None:
+            standalone.ready.set()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -6958,7 +6992,7 @@ def torch_world():
     return module
 
 
-def _spmd_phase(kernels, tmp):
+def _spmd_phase(kernels, tmp, standalone=None):
     from veles_tpu_torch.ops.gemm_bench import card_line
     run_world = torch_world().run_world
 
@@ -7026,6 +7060,10 @@ def _spmd_phase(kernels, tmp):
         raise
     want, init = ref_run.params(), ref_run.params("init")
     want_losses = ref[0]["losses"]
+    if standalone is not None:
+        standalone.history, standalone.params = ref[0]["history"], want
+        standalone.forms = ref[0]["forms"]
+        standalone.ready.set()
 
     def held(name, run, reports):
         gap = spmd_gap(run.params(), want, init,
@@ -11008,6 +11046,437 @@ def _family_phase(torch, numpy, kernels, tmp):
     return result, phases
 
 
+#: phase 22: the port installed on a card host as a user installs it. The
+#: installable files the phase copies out of the tree (so that
+#: setuptools writes nothing into it); the installed CLI run is phase
+#: 15's standalone run (phase 9's file verbatim, ``-s 7``, SPMD_EPOCHS,
+#: deterministic) with a raw snapshot every epoch, its control the same
+#: from ``-s 8``; the kernels its runs must launch; 16 concurrent single
+#: requests (list codec) and one 64-row base64 batch to the installed
+#: ``serve``; seconds any installed command may take
+INSTALLED_FILES = ("veles_tpu_torch", "pyproject.toml", "README.md",
+                   os.path.join("deploy", "torch"))
+INSTALLED_SEED = "7"
+INSTALLED_CONTROL_SEED = "8"
+INSTALLED_KERNELS = ("gemm_bias_act", "lrn_fwd", "lrn_bwd", "column_reduce",
+                     "uniform_fill")
+INSTALLED_REQUESTS = 16
+INSTALLED_BATCH = 64
+INSTALLED_S = 600
+#: the CPU rehearsal's: ("-a", "cpu") and "cpu"
+INSTALLED_CLI_ARGS = ()
+INSTALLED_DEVICE = "cuda"
+
+#: the installed run's workflow file: the deterministic mode (as phase
+#: 15's ranks set it), then phase 9's file (``root.smoke.base``)
+#: unchanged; after the run it pickles to ``root.smoke.report`` where
+#: ``veles_tpu_torch`` and its ``csrc/`` were imported from, the kernel
+#: libraries the process loaded, the decision's epoch history, every
+#: parameter, its kernel launches (``ops.launch_report()``) and the
+#: modules of jax, ml_dtypes and veles_tpu it holds
+INSTALLED_WORKFLOW_FILE = """
+import importlib.util
+import pickle
+import sys
+
+import torch
+
+from veles_tpu_torch.config import root
+
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.use_deterministic_algorithms(True, warn_only=True)
+
+
+def run(load, main):
+    import veles_tpu_torch
+    from veles_tpu_torch.convert import layer_params
+    from veles_tpu_torch.ops import build, launch_report
+    spec = importlib.util.spec_from_file_location("alexnet_workflow",
+                                                  root.smoke.base)
+    base = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(base)
+    loaded = []
+
+    def loading(*args, **kwargs):
+        loaded.append(load(*args, **kwargs))
+        return loaded[-1]
+
+    base.run(loading, main)
+    wf = loaded[0][0]
+    report = {
+        "file": veles_tpu_torch.__file__, "csrc": build.CSRC,
+        "libraries": build.loaded(), "launches": launch_report(),
+        "history": wf.decision.epoch_history,
+        "params": {"%d.%s" % (i, k): p.detach().cpu().numpy()
+                   for i, f in enumerate(wf.forwards)
+                   for k, p in layer_params(f.module).items()},
+        "modules": sorted(m for m in sys.modules if m.split(".")[0] in (
+            "jax", "ml_dtypes", "veles_tpu"))}
+    with open(root.smoke.report, "wb") as f:
+        pickle.dump(report, f)
+"""
+
+
+class Standalone(object):
+    """Phase 15's deterministic standalone run of phase 9's file, handed
+    to phase 22 beside it: ``history``, ``params`` and ``forms`` (its
+    launches by form) once ``ready`` is set (None if phase 15 failed
+    first)."""
+
+    def __init__(self):
+        self.ready = threading.Event()
+        self.history = self.params = self.forms = None
+
+
+class Installed(object):
+    """The processes of phase 22's installed copy: each started with
+    only the prefix on ``PYTHONPATH`` in a directory outside the tree,
+    its output to a log; :meth:`stop` ends every one."""
+
+    def __init__(self, tmp, prefix):
+        self.tmp, self.prefix, self.procs = tmp, prefix, []
+        self.cwd = os.path.join(tmp, "outside")
+        os.makedirs(self.cwd, exist_ok=True)
+        self.env = dict(os.environ, PYTHONPATH=prefix, PATH=os.pathsep.join(
+            [os.path.join(prefix, "bin"), os.environ.get("PATH", "")]))
+
+    def start(self, label, script, *args):
+        import subprocess
+        log = os.path.join(self.tmp, label + ".log")
+        with open(log, "w") as out:
+            proc = subprocess.Popen(
+                [os.path.join(self.prefix, "bin", script)] + list(args),
+                env=self.env, cwd=self.cwd, stdout=out,
+                stderr=subprocess.STDOUT)
+        proc.label, proc.log = label, log
+        self.procs.append(proc)
+        return proc
+
+    def wait(self, proc, timeout=INSTALLED_S):
+        """``proc``'s exit, which must be 0 within ``timeout`` s; returns
+        its output."""
+        import subprocess
+        try:
+            code = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            code = "overran %d s" % timeout
+        with open(proc.log, errors="replace") as f:
+            output = f.read()
+        if code != 0:
+            raise AssertionError("installed %s exited %s:\n%s" % (
+                proc.label, code, output[-4000:]))
+        return output
+
+    def stop(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def answered(port, path, proc, timeout=INSTALLED_S):
+    """The body of ``GET path`` on 127.0.0.1:``port`` once the server
+    ``proc`` answers (it must stay up)."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            return get_url(port, path)
+        except OSError:
+            if proc.poll() is not None or \
+                    time.perf_counter() - t0 > timeout:
+                raise AssertionError("installed %s never answered %s "
+                                     "(exit %s)" % (proc.label, path,
+                                                    proc.poll()))
+            time.sleep(0.2)
+
+
+def copy_installable(tree):
+    """The tree's installable files under ``tree``, without a built
+    ``csrc/build/`` or byte code."""
+    import shutil
+    ignore = shutil.ignore_patterns("__pycache__", "build", "*.pyc")
+    for name in INSTALLED_FILES:
+        src = os.path.join(REPO, name)
+        if os.path.isdir(src):
+            shutil.copytree(src, os.path.join(tree, name), ignore=ignore)
+        else:
+            shutil.copy(src, tree)
+
+
+def installed_phase(torch, numpy, kernels, standalone):
+    """Phase 22 (see the module docstring). Returns (result,
+    [launches_by_form of each installed run])."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="veles_installed_")
+    procs = Installed(tmp, os.path.join(tmp, "prefix"))
+    try:
+        return _installed_phase(torch, numpy, kernels, standalone, procs)
+    finally:
+        procs.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _installed_phase(torch, numpy, kernels, standalone, procs):
+    import pickle
+    import subprocess
+    from veles_tpu_torch.ops import build
+    from veles_tpu_torch.ops.gemm_bench import card_line
+    from veles_tpu_torch.parallel.elastic import _free_port
+    card = INSTALLED_DEVICE == "cuda"
+    tmp, prefix = procs.tmp, procs.prefix
+    t0 = started = time.time()
+    tree = os.path.join(tmp, "tree")
+    copy_installable(tree)
+    # (1) the bootstrap: pip from the copy into the prefix, offline,
+    # then every kernel built from the prefix's sources
+    env = dict(os.environ, PYTHON=sys.executable)
+    env.pop("PYTHONPATH", None)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        ["sh", os.path.join(tree, "deploy", "torch", "deploy.sh"),
+         "--target", prefix], env=env, cwd=procs.cwd, capture_output=True,
+        text=True, timeout=INSTALLED_S)
+    deploy_s = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError("installed: deploy.sh exited %d:\n%s\n%s" % (
+            proc.returncode, proc.stdout[-4000:], proc.stderr[-4000:]))
+    built = json.loads([line for line in proc.stdout.splitlines()
+                        if line.startswith('{"seconds"')][-1])
+    result = {"deploy_s": deploy_s,
+              "install_s": deploy_s - built["wall_s"],
+              "build_wall_s": built["wall_s"],
+              "build_s": built["seconds"]}
+    print("installed: deploy.sh %.1f s, of it the kernels' build %.1f s "
+          "wall: %s" % (deploy_s, built["wall_s"], ", ".join(
+              "%s %.1f s" % kv for kv in sorted(built["seconds"].items()))))
+    # (2) the prefix's sources are the tree's, each built anew into the
+    # prefix during this phase
+    package = os.path.join(prefix, "veles_tpu_torch")
+    csrc = os.path.join(package, "csrc")
+    names = build.sources() + build.headers()
+    if sorted(n for n in os.listdir(csrc) if n != "build") != sorted(names):
+        raise AssertionError("installed csrc/ holds %s, the tree's %s" % (
+            sorted(os.listdir(csrc)), sorted(names)))
+    for name in names:
+        with open(os.path.join(csrc, name), "rb") as a, \
+                open(os.path.join(build.CSRC, name), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("installed %s differs from the tree's"
+                                     % name)
+    built_dir = os.path.join(csrc, "build")
+    for name, path in built["libraries"].items():
+        if os.path.dirname(path) != built_dir or \
+                built["seconds"][name] <= 0.0 or \
+                os.path.getmtime(path) < started:
+            raise AssertionError("installed: %s's library %s was not built "
+                                 "into the prefix during the phase (%.1f s)"
+                                 % (name, path, built["seconds"][name]))
+    # (3) the installed CLI run and its control, side by side
+    base = os.path.join(tmp, "alexnet_workflow.py")
+    path = os.path.join(tmp, "installed.py")
+    for name, text in ((base, WORKFLOW_FILE),
+                       (path, INSTALLED_WORKFLOW_FILE)):
+        with open(name, "w") as f:
+            f.write(text)
+
+    def cli(label, seed, *overrides):
+        return procs.start(
+            label, "veles-tpu-torch", path, "-s", seed,
+            "root.smoke.epochs=%d" % SPMD_EPOCHS,
+            "root.smoke.base=%r" % base,
+            "root.smoke.report=%r" % os.path.join(tmp, label + ".pickle"),
+            *(tuple(overrides) + tuple(INSTALLED_CLI_ARGS)))
+
+    snaps = os.path.join(tmp, "snaps")
+    t = time.perf_counter()
+    runs = {"run": cli("run", INSTALLED_SEED,
+                       "root.smoke.snapshots=%r" % snaps),
+            "control": cli("control", INSTALLED_CONTROL_SEED,
+                           "root.smoke.snapshots=%r" % os.path.join(
+                               tmp, "control_snaps"),
+                           "root.common.disable.snapshotting=True")}
+    reports = {}
+    for label, run in runs.items():
+        procs.wait(run)
+        result[label + "_s"] = time.perf_counter() - t
+        with open(os.path.join(tmp, label + ".pickle"), "rb") as f:
+            reports[label] = pickle.load(f)
+    run = reports["run"]
+    for label, report in reports.items():
+        if report["file"] != os.path.join(package, "__init__.py") or \
+                report["csrc"] != csrc or report["modules"]:
+            raise AssertionError(
+                "installed %s imported %s (csrc %s), loaded %s" % (
+                    label, report["file"], report["csrc"],
+                    report["modules"]))
+        if card and report["libraries"] != {
+                name: built["libraries"][name]
+                for name in report["libraries"]}:
+            raise AssertionError("installed %s loaded %s, not the prefix's "
+                                 "libraries %s" % (label,
+                                                   report["libraries"],
+                                                   built["libraries"]))
+    result["libraries_loaded"] = sorted(run["libraries"])
+    if not standalone.ready.wait(INSTALLED_S):
+        raise AssertionError("installed: phase 15's standalone run never "
+                             "came")
+    if standalone.params is None:
+        raise AssertionError("installed: phase 15 failed before its "
+                             "standalone run")
+    want = (standalone.history, standalone.params)
+    differing = values_differing_tree((run["history"], run["params"]), want)
+    control = values_differing_tree((reports["control"]["history"],
+                                     reports["control"]["params"]), want)
+    result.update(values_differing=differing, control_differing=control,
+                  epochs=len(run["history"]))
+    print("installed: the installed CLI run vs phase 15's standalone run "
+          "%d values differing (history and parameters), the control (-s "
+          "%s) %d" % (differing, INSTALLED_CONTROL_SEED, control))
+    if differing or not control or len(run["history"]) != SPMD_EPOCHS:
+        raise AssertionError("installed: %d epochs, %d values differing, "
+                             "control %d" % (len(run["history"]),
+                                             differing, control))
+    forms = []
+    if card:
+        for label, report in reports.items():
+            forms.append(reported_forms("installed " + label, kernels,
+                                        report["launches"],
+                                        INSTALLED_KERNELS))
+        want_forms = {name: {k: n for k, n in by_form.items() if n}
+                      for name, by_form in standalone.forms.items()}
+        want_forms = {name: v for name, v in want_forms.items() if v}
+        if forms[0] != want_forms:
+            raise AssertionError("installed run launches %s, the standalone "
+                                 "run's %s" % (forms[0], want_forms))
+    result["launches"] = {label: {k: v["launches"] for k, v in
+                                  report["launches"].items()}
+                          for label, report in reports.items()}
+    # (4) the installed serve on the run's snapshots, (5) the other
+    # console scripts, all started together
+    port, status_port, forge_port = _free_port(), _free_port(), _free_port()
+    t = time.perf_counter()
+    serve = procs.start(
+        "serve", "veles-tpu-torch-serve", "--model", snaps, "--host",
+        "127.0.0.1", "--port", str(port), "--max-batch-size",
+        str(INSTALLED_BATCH), "--response-timeout", "300",
+        *INSTALLED_CLI_ARGS)
+    status = procs.start("web-status", "veles-tpu-torch-web-status",
+                         "--host", "127.0.0.1", "--port", str(status_port))
+    forge = procs.start("forge-server", "veles-tpu-torch-forge-server",
+                        "-r", os.path.join(tmp, "forge"), "--host",
+                        "127.0.0.1", "-p", str(forge_port))
+    compare = installed_compare(procs, snaps)
+    answered(port, "/healthz", serve)
+    result["serve_start_s"] = time.perf_counter() - t
+    result["web_status_bytes"] = len(answered(status_port, "/", status))
+    result["forge_list"] = json.loads(answered(
+        forge_port, "/forge?query=list", forge))
+    if result["forge_list"] != [] or not result["web_status_bytes"]:
+        raise AssertionError("installed web-status / forge-server: %s" %
+                             result)
+    result["compare_snapshots"] = compare()
+    result["serve"] = installed_serving(torch, numpy, port, snaps,
+                                        run["params"])
+    result["phase_s"] = time.time() - t0
+    print("installed (%s): %s" % (card_line() if card else "CPU",
+                                  json.dumps(result, default=str)))
+    return result, forms
+
+
+def installed_compare(procs, snaps):
+    """``veles-tpu-torch-compare-snapshots -q`` of the run's last
+    snapshot against a copy of it, started; the function returned waits
+    for it and requires every row's max diff to be 0."""
+    import shutil
+    from veles_tpu_torch.snapshotter import latest_snapshot
+    last = latest_snapshot(snaps)
+    copy = os.path.join(procs.tmp, "copy.pickle")
+    shutil.copy(last, copy)
+    proc = procs.start("compare-snapshots",
+                       "veles-tpu-torch-compare-snapshots", "-q", last, copy)
+
+    def read():
+        output = procs.wait(proc)
+        rows = [line for line in output.splitlines()
+                if line.startswith("|")]
+        diffs = [float(cells[4]) for cells in
+                 ([c.strip() for c in line.strip("|").split("|")]
+                  for line in rows[2:])]
+        out = {"rows": len(diffs), "max_diff": max(diffs) if diffs else None}
+        if not diffs or out["max_diff"] != 0:
+            raise AssertionError("installed compare-snapshots: %s\n%s" % (
+                out, output[-3000:]))
+        return out
+
+    return read
+
+
+def installed_serving(torch, numpy, port, snaps, params):
+    """The installed ``serve`` on ``snaps``: INSTALLED_REQUESTS concurrent
+    single requests (list codec) and one INSTALLED_BATCH-row base64
+    batch, held by the centred-logit check to the plain forward of the
+    run's final weights (the snapshot loaded here, its parameters the
+    run's to the bit), a reply swap and fc7 zeroed as the controls."""
+    from veles_tpu_torch.convert import layer_params
+    from veles_tpu_torch.nn.all2all import All2AllSoftmax
+    from veles_tpu_torch.serving.model_store import ModelStore
+    model = ModelStore().load(snaps, device=INSTALLED_DEVICE)
+    loaded = {"%d.%s" % (i, k): p.detach().cpu().numpy()
+              for i, m in enumerate(model.module)
+              for k, p in layer_params(m).items()}
+    if values_differing_tree(loaded, params):
+        raise AssertionError("installed serving: the snapshot's weights "
+                             "are not the run's")
+    rng = numpy.random.RandomState(22)
+    inputs = rng.uniform(-1, 1, (INSTALLED_BATCH,) + tuple(
+        model.sample_shape)).astype(numpy.float32)
+    bodies = [json.dumps({"input": x.tolist(), "codec": "list",
+                          "id": i}).encode()
+              for i, x in enumerate(inputs[:INSTALLED_REQUESTS])]
+    replies, latencies, wall = concurrent_posts(port, bodies)
+    t = time.perf_counter()
+    batch = post(port, "/api/batch", b64_body(inputs))
+    batch_s = time.perf_counter() - t
+    k1 = [i for i, m in enumerate(model.module)
+          if type(m).__name__.startswith("All2All") and
+          not isinstance(m, All2AllSoftmax)]
+
+    def plain(zeroed=None):
+        """The plain forward of ``inputs`` on the device, the output of
+        layer ``zeroed`` set to 0."""
+        with torch.inference_mode():
+            x = torch.from_numpy(inputs).to(INSTALLED_DEVICE)
+            for i, module in enumerate(model.module):
+                x = module.plain_forward(x)
+                if i == zeroed:
+                    x = x.new_zeros(x.shape)
+            return x.float().cpu().numpy()
+
+    want, zeroed = plain(), plain(k1[-1])
+    shares = {}
+    for label, served in (("singles", numpy.array(
+            [r["result"] for r in replies])),
+            ("batch", numpy.array(batch["results"]))):
+        rows = slice(0, len(served))
+        swapped = served.copy()
+        swapped[[0, 1]] = served[[1, 0]]
+        err, spread, shares[label] = check_replies(
+            numpy, "installed serve %s" % label, served, want[rows],
+            [("swapped", swapped), ("fc7_zeroed", zeroed[rows])])
+        shares[label]["err_share"] = err / spread
+    latencies = sorted(latencies)
+    del model
+    return {"requests": INSTALLED_REQUESTS,
+            "p50_ms": 1e3 * statistics.median(latencies),
+            "p95_ms": 1e3 * latencies[min(len(latencies) - 1, int(
+                0.95 * len(latencies)))],
+            "singles_wall_s": wall, "batch_s": batch_s,
+            "batch_rows_per_s": INSTALLED_BATCH / batch_s,
+            "checks": shares}
+
+
 def numpy_load(path):
     import numpy
     with numpy.load(path) as data:
@@ -11195,16 +11664,21 @@ def main():
     # on the card's host, P16c), and one after another 14-16 took ~700 s
     # of the script's 1200 (F16z); phase 17 holds its preempted job to
     # phase 16's one-rank run
+    # phase 22 (the installed copy: its install, its build and its
+    # processes, host work mostly) runs beside them too, its CLI run held
+    # to phase 15's standalone run
     walls = {}
-    one_rank = OneRank()
+    one_rank, standalone = OneRank(), Standalone()
     (distributed, forms14), (spmd, forms15), (elastic, forms16), \
-        (meta, forms17) = beside(
+        (meta, forms17), (installed, forms22) = beside(
             walls, ("distributed", lambda: distributed_phase(torch, numpy,
                                                              kernels)),
-            ("spmd", lambda: spmd_phase(kernels)),
+            ("spmd", lambda: spmd_phase(kernels, standalone)),
             ("elastic", lambda: elastic_phase(kernels, one_rank)),
-            ("meta", lambda: meta_phase(kernels, one_rank)))
-    phases.extend(forms14 + forms15 + forms16 + forms17)
+            ("meta", lambda: meta_phase(kernels, one_rank)),
+            ("installed", lambda: installed_phase(torch, numpy, kernels,
+                                                  standalone)))
+    phases.extend(forms14 + forms15 + forms16 + forms17 + forms22)
     print("distributed (%s): %s" % (card, json.dumps(distributed,
                                                      default=str)))
     out_dir = os.path.join(REPO, "chiprun_out")
@@ -11225,9 +11699,11 @@ def main():
     print("meta (%s): %s" % (card, json.dumps({
         k: v.get("checks", "") if isinstance(v, dict) else v
         for k, v in meta.items()}, default=str)))
-    lap("distributed, spmd, elastic and meta beside each other", (
+    with open(os.path.join(out_dir, "installed.json"), "w") as f:
+        json.dump(installed, f, default=str)
+    lap("distributed, spmd, elastic, meta and installed beside each other", (
         ("distributed", forms14), ("spmd", forms15),
-        ("elastic", forms16), ("meta", forms17)))
+        ("elastic", forms16), ("meta", forms17), ("installed", forms22)))
 
     now = split_launches()
     service, forms = service_phase(torch, numpy, kernels, card, {
@@ -11259,10 +11735,16 @@ def main():
     lap("family")
     phase_s.update(("%s (its own wall)" % k, round(v, 1))
                    for k, v in walls.items())
+    total_s = time.perf_counter() - t0
     print("phase seconds (%s): %s, %.1f in all" % (
-        card, json.dumps(phase_s), time.perf_counter() - t0))
+        card, json.dumps(phase_s), total_s))
     print("launches by phase (%s): %s" % (card,
                                           json.dumps(launches_by_phase)))
+    # the kernels line outgrows the tail of the output a caller sees
+    with open(os.path.join(out_dir, "phases.json"), "w") as f:
+        json.dump({"card": card, "phase_s": phase_s, "total_s": total_s,
+                   "build_s": seconds,
+                   "launches_by_phase": launches_by_phase}, f)
 
     for row in kernels:
         form = row.pop("_form")

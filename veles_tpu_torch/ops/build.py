@@ -8,10 +8,19 @@ module that calls ``<name>.cu``'s C function with PyTorch tensors, for a
 wrapper whose host time is the point: the host compiler builds it
 against PyTorch's headers (the paths of
 ``torch.utils.cpp_extension.include_paths()``) and libraries, without
-``ninja``. Libraries land in ``csrc/build/`` under a name that carries a
-hash of the source, of every ``csrc/*.cuh`` header for a kernel, and of
-the command: an edited source or header builds anew, an unchanged one is
-reused.
+``ninja``. A library's name carries a hash of the source, of every
+``csrc/*.cuh`` header for a kernel, and of the command (which names the
+source by its absolute path): an edited source or header builds anew,
+an unchanged one is reused.
+
+The sources are the ``csrc/`` beside this package, wherever it is
+installed (the wheel ships them). A library already built is used
+wherever it lies: in ``csrc/build/`` (a checkout, or an install
+prebuilt by ``python -m veles_tpu_torch.ops.build``, read-only
+included) or in the per-user cache. A new build goes to ``csrc/build/``
+when that directory can be written, else to
+``${XDG_CACHE_HOME:-~/.cache}/veles_tpu_torch/kernels/`` (a service
+user running a package that root installed).
 
 Building happens at first use (:func:`library`, :func:`binding`), or for
 every source at once, in parallel, through :func:`build_all`. Nothing is
@@ -26,10 +35,13 @@ context only when the tensor's card is not the current one.
 import ctypes
 import hashlib
 import importlib.util
+import json
 import os
 import shutil
 import subprocess
+import sys
 import sysconfig
+import tempfile
 import threading
 import time
 
@@ -50,10 +62,20 @@ _bindings = {}
 _functions = {}
 
 
+def _listing():
+    """The names in ``csrc/``; a missing ``csrc/`` raises."""
+    if not os.path.isdir(CSRC):
+        raise RuntimeError(
+            "%s does not exist: this install of veles_tpu_torch lacks the "
+            "kernel sources, so no CUDA kernel can be built (install it "
+            "from a wheel or tree that ships veles_tpu_torch/csrc)" % CSRC)
+    return os.listdir(CSRC)
+
+
 def sources():
     """The source files: every ``csrc/<name>.cu`` and
     ``csrc/<name>_binding.cpp``."""
-    return sorted(f for f in os.listdir(CSRC)
+    return sorted(f for f in _listing()
                   if f.endswith(".cu") or f.endswith("_binding.cpp"))
 
 
@@ -97,33 +119,69 @@ def _command(source, out):
 
 def headers():
     """The headers the kernels include: every ``csrc/*.cuh``."""
-    return sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    return sorted(f for f in _listing() if f.endswith(".cuh"))
+
+
+def cache_dir():
+    """The per-user directory of libraries built where ``csrc/build/``
+    cannot be written."""
+    base = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return os.path.join(base, "veles_tpu_torch", "kernels")
+
+
+def _writable(directory):
+    """Whether a library can be written into ``directory`` (made if
+    missing): a file created there and removed. File modes would not
+    say, since root writes past them."""
+    try:
+        os.makedirs(directory, exist_ok=True)
+        fd, probe = tempfile.mkstemp(dir=directory, prefix=".probe-")
+    except OSError:
+        return False
+    os.close(fd)
+    os.unlink(probe)
+    return True
 
 
 def _target(source):
     """The library's path: the source's stem and a hash of the source,
     of every header for a ``.cu`` source, and of its command (with the
-    placeholder output name)."""
+    placeholder output name); in ``BUILD_DIR`` or the per-user cache,
+    wherever it was built, else where a new build goes (``BUILD_DIR``
+    when it can be written)."""
     digest = hashlib.sha256()
+    _listing()
     for name in [source] + (headers() if source.endswith(".cu") else []):
         with open(os.path.join(CSRC, name), "rb") as f:
             digest.update(name.encode() + b"\0" + f.read())
     digest.update(" ".join(_command(source, "out")).encode())
-    return os.path.join(BUILD_DIR, "%s-%s.so" % (
-        source.rsplit(".", 1)[0], digest.hexdigest()[:16]))
+    name = "%s-%s.so" % (source.rsplit(".", 1)[0], digest.hexdigest()[:16])
+    for directory in (BUILD_DIR, cache_dir()):
+        path = os.path.join(directory, name)
+        if os.path.exists(path):
+            return path
+    return os.path.join(
+        BUILD_DIR if _writable(BUILD_DIR) else cache_dir(), name)
 
 
 def _start(source, target):
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    """The compiler started on ``source`` into a file of this process
+    beside ``target``, its output into another (so that a caller can
+    poll it without reading a pipe)."""
+    os.makedirs(os.path.dirname(target), exist_ok=True)
     tmp = "%s.%d.tmp" % (target, os.getpid())
     cmd = _command(source, tmp)
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    with open(tmp + ".log", "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
     return proc, tmp, cmd
 
 
 def _finish(source, target, proc, tmp, cmd):
-    output, _ = proc.communicate()
+    proc.wait()
+    with open(tmp + ".log", errors="replace") as f:
+        output = f.read()
+    os.unlink(tmp + ".log")
     if proc.returncode != 0:
         raise RuntimeError("%s failed on %s (exit %d):\n%s\n%s" % (
             os.path.basename(cmd[0]), source, proc.returncode,
@@ -142,7 +200,8 @@ def _built(source):
 
 def build_all():
     """Compile every source not built yet, one compiler each, all at
-    once. Returns ``{source: seconds}`` (0.0 for a library reused)."""
+    once. Returns ``{source: seconds}``, each from the start to the end
+    of its compiler (0.0 for a library reused)."""
     with _lock:
         started = {}
         seconds = {}
@@ -154,15 +213,30 @@ def build_all():
                     seconds[name] = 0.0
                 else:
                     started[name] = (target,) + _start(name, target)
-            for name, (target, proc, tmp, cmd) in started.items():
-                _finish(name, target, proc, tmp, cmd)
-                seconds[name] = time.perf_counter() - t0
+            running = dict(started)
+            while running:
+                for name in [n for n, (_, proc, _, _) in running.items()
+                             if proc.poll() is not None]:
+                    seconds[name] = time.perf_counter() - t0
+                    _finish(name, *running.pop(name))
+                time.sleep(0.05)
         finally:
-            for _, proc, _, _ in started.values():
+            for _, proc, tmp, _ in started.values():
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
+                for path in (tmp, tmp + ".log"):
+                    if os.path.exists(path):
+                        os.unlink(path)
         return seconds
+
+
+def loaded():
+    """{source: path} of every library this process has loaded."""
+    out = {name + ".cu": lib._name for name, lib in _libraries.items()}
+    out.update((name + "_binding.cpp", module.__file__)
+               for name, module in _bindings.items())
+    return out
 
 
 def library(name):
@@ -240,3 +314,25 @@ def check(status, kernel):
     if status != 0:
         raise RuntimeError("CUDA kernel %s failed to launch: cudaError %d"
                            % (kernel, status))
+
+
+def main():
+    """Build every source not built yet (``python -m
+    veles_tpu_torch.ops.build``): a line a source with its seconds and
+    its library, then the wall, then the same as one JSON line."""
+    t0 = time.perf_counter()
+    seconds = build_all()
+    wall = time.perf_counter() - t0
+    libraries = {name: _target(name) for name in seconds}
+    for name in sorted(seconds):
+        print("%-28s %7.1f s  %s" % (name, seconds[name], libraries[name]))
+    print("wall %.1f s (all sources at once; 0.0 s: built before)" % wall)
+    print(json.dumps({"seconds": seconds, "wall_s": wall,
+                      "libraries": libraries}))
+    return 0
+
+
+if __name__ == "__main__":
+    # run through the package's module, not this file's second copy
+    from veles_tpu_torch.ops import build as _build
+    sys.exit(_build.main())

@@ -32,6 +32,7 @@ waits for the card, and nothing here synchronizes or launches a kernel.
 ``VELES_COST_ATTRIBUTION=0`` turns the noting of analytic costs off.
 """
 
+import atexit
 import json
 import logging
 import os
@@ -414,8 +415,11 @@ _sampler = None
 
 
 def start_memory_sampler(interval=None):
-    """Process-wide sampler (idempotent). ``VELES_MEMORY_SAMPLE_S``
-    overrides the interval; 0 disables."""
+    """Process-wide sampler (idempotent), joined when the interpreter
+    exits: a daemon thread still inside a card query while the
+    interpreter finalizes aborts the process ("terminate called without
+    an active exception"). ``VELES_MEMORY_SAMPLE_S`` overrides the
+    interval; 0 disables."""
     global _sampler
     if interval is None:
         env = _env_positive("VELES_MEMORY_SAMPLE_S")
@@ -428,6 +432,7 @@ def start_memory_sampler(interval=None):
     with _book_lock:
         if _sampler is None:
             _sampler = MemorySampler(interval=interval).start()
+            atexit.register(stop_memory_sampler)
     return _sampler
 
 
